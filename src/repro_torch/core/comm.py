@@ -1,0 +1,634 @@
+"""Plan-then-execute communicator for the compressed allreduce.
+
+The counterpart of the planning half of ``repro.core.comm`` and of its
+``GZCommunicator.allreduce``: the same frozen, hashable :class:`Plan`
+(algorithm, pipeline depth, per-stage eb, capacity, provisioned wire
+bytes, route table), resolved by the same policy registry (``auto``,
+``paper``, ``throughput``, ``accuracy``) and memoized in the same plan
+cache, so a plan here equals the reference's field for field at the same
+``hw`` point.
+
+What differs from the reference:
+
+  * the default ``hw`` is ``cost_model.A100_SLINGSHOT``, the paper's GPU
+    point (the reference defaults to its TPU point);
+  * ranks are not a traced mesh axis but a rank handle from
+    ``core/transport.py``: ``allreduce`` runs inside
+    ``ThreadGroup.run(..., axis_name=...)`` or a ``DistGroup.bind(...)``,
+    or takes ``group=`` explicitly;
+  * the communicator runs on ``device`` ("cuda" unless the caller asks
+    for "cpu"); asking for CUDA without a card raises;
+  * only ``allreduce`` is planned and executed, with
+    ``on_overflow="flag"``: the other ops raise ``NotImplementedError``
+    (ROADMAP A5), as do the fallback and raise policies (A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import codecs, cost_model, error_budget, schedule, transport
+from repro_torch.core.compressed import capacity_words_for
+from repro_torch.kernels import ops
+
+__all__ = [
+    "Plan",
+    "FallbackPlan",
+    "CollectiveResult",
+    "GZCommunicator",
+    "select_allreduce",
+    "select_allreduce_plan",
+    "register_policy",
+    "policy_names",
+    "plan_cache_stats",
+    "clear_plan_cache",
+]
+
+OPS = (
+    "allreduce",
+    "reduce_scatter",
+    "allgather",
+    "scatter",
+    "broadcast",
+    "all_to_all",
+)
+
+
+# ---------------------------------------------------------------------------
+# Plan & CollectiveResult
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FallbackPlan:
+    """The lossless degradation target of a compressed plan."""
+
+    op: str
+    kind: str          # lossless primitive: psum | psum_scatter | ...
+    axis_size: int
+    wire_bytes: int    # raw uncompressed bytes the fallback moves per rank
+    t_model: float     # modeled seconds of one fallback execution
+
+
+def _fallback_plan(op, n_elems, axis_size, hw) -> FallbackPlan:
+    return FallbackPlan(
+        op=op, kind="psum", axis_size=axis_size,
+        wire_bytes=n_elems * 4,
+        t_model=cost_model.fallback_time(op, n_elems * 4, axis_size, hw),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A frozen, hashable execution plan for one collective call (the
+    fields of ``repro.core.comm.Plan``; see there for each one)."""
+
+    op: str
+    algo: str
+    n_elems: int
+    nbytes: int
+    dtype: str
+    axis_size: int
+    eb: float
+    eb_stage: float
+    pipeline_chunks: int
+    fused: bool
+    fused_hop: bool
+    capacity_factor: float
+    worst_case_budget: bool
+    capacity_words: int
+    wire_bytes: int
+    ratio: float
+    policy: str
+    slab_table: tuple = ()
+    on_overflow: str = "flag"
+    verify_streams: bool = False
+    fallback: Optional[FallbackPlan] = None
+    codec: str = "lorenzo"
+    codec_ratio: float = 1.0
+    notes: tuple = ()
+    route_table: Optional[schedule.Schedule] = None
+
+    def as_config(self):
+        """The concrete GZConfig the execute layer dispatches on."""
+        from repro_torch.core.collectives import GZConfig
+
+        return GZConfig(
+            eb=self.eb,
+            capacity_factor=self.capacity_factor,
+            algo=self.algo,
+            worst_case_budget=self.worst_case_budget,
+            pipeline_chunks=self.pipeline_chunks,
+            fused=self.fused,
+            fused_hop=self.fused_hop,
+            on_overflow=self.on_overflow,
+            verify_streams=self.verify_streams,
+            codec=self.codec,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveResult:
+    """Result-and-stats channel of a communicator call.
+
+    ``overflow`` and ``nonfinite`` are 0-d bool tensors on the result's
+    device, each the OR across all ranks: "did any stream of any hop
+    anywhere exceed its capacity" and "did any rank's input hold NaN/Inf".
+    ``wire_bytes`` is the provisioned payload a rank ships; ``ratio`` the
+    uncompressed equivalent over that.
+    """
+
+    value: torch.Tensor
+    overflow: torch.Tensor
+    nonfinite: torch.Tensor
+    wire_bytes: int
+    ratio: float
+
+
+# ---------------------------------------------------------------------------
+# Provisioned wire accounting (static, from the plan inputs alone)
+# ---------------------------------------------------------------------------
+
+
+def _stream_bytes(n_elems: int, capacity_factor: float,
+                  codec: str = "lorenzo") -> int:
+    """Wire bytes of one provisioned ``Compressed`` stream for n f32."""
+    cap = codecs.codec_capacity_words(codec, n_elems, capacity_factor)
+    n_blocks = ops.n_blocks_for(n_elems)
+    return cap * 4 + 2 * n_blocks * 4 + 8  # packed + bitwidth + anchor + meta
+
+
+def _int_stream_bytes(n_elems_padded: int, capacity_factor: float) -> int:
+    """intring hop payload: packed codes + per-block bitwidth + anchor."""
+    cap = capacity_words_for(n_elems_padded, capacity_factor, ops.BLOCK)
+    rows = n_elems_padded // ops.BLOCK
+    return cap * 4 + 2 * rows * 4
+
+
+_PIECE_QUANTUM = ops.BLOCK * ops.TILE_ROWS
+
+
+def _ring_piece_sizes(n_elems, n, chunks):
+    """(chunk, piece) the ring schedules actually run."""
+    p = max(chunks, 1)
+    if p > 1:
+        quantum = n * p * _PIECE_QUANTUM
+        total = -(-n_elems // quantum) * quantum
+        return total // n, total // (n * p)
+    chunk = -(-n_elems // n)
+    return chunk, chunk
+
+
+def _wire_accounting(op, algo, n_elems, n, capacity_factor, chunks,
+                     codec: str = "lorenzo"):
+    """(capacity_words, wire_bytes, uncompressed_bytes) for one allreduce:
+    the busiest sender's sum over the route table (``schedule.build``),
+    each entry priced at the algorithm's transport granularity."""
+    cap, entry_wire, entry_raw = _entry_pricers(
+        op, algo, n_elems, n, capacity_factor, chunks, codec)
+    if n < 2:
+        if algo == "redoub":
+            return cap, _stream_bytes(n_elems, capacity_factor, codec), \
+                n_elems * 4
+        return cap, 0, 0
+    table = schedule.build(op, algo, n)
+    send = [0] * n
+    send_raw = [0] * n
+    for rnd in table.rounds:
+        for h in rnd:
+            send[h.sender] += entry_wire(h)
+            send_raw[h.sender] += entry_raw(h)
+    return cap, max(send), max(send_raw)
+
+
+def _entry_pricers(op, algo, n_elems, n, capacity_factor, chunks, codec):
+    """``(capacity_words, entry_wire(h), entry_raw(h))`` for the allreduce
+    algorithms, including the execute layer's padding (pipelined rings pad
+    to whole-tile pieces, intring pads chunks to whole code rows)."""
+    chunk_in = -(-n_elems // max(n, 1))
+    if algo == "redoub":
+        cap = codecs.codec_capacity_words(codec, n_elems, capacity_factor)
+        stream = _stream_bytes(n_elems, capacity_factor, codec)
+        return cap, (lambda h: stream), (lambda h: n_elems * 4)
+    if algo == "intring":
+        chunk = ops.n_blocks_for(chunk_in) * ops.BLOCK
+        cap = capacity_words_for(chunk, capacity_factor, ops.BLOCK)
+        stream = _int_stream_bytes(chunk, capacity_factor)
+        return cap, (lambda h: stream), (lambda h: chunk_in * 4)
+    _, piece = _ring_piece_sizes(n_elems, n, chunks)
+    cap = codecs.codec_capacity_words(codec, piece, capacity_factor)
+    stream = max(chunks, 1) * _stream_bytes(piece, capacity_factor, codec)
+    return cap, (lambda h: stream), (lambda h: chunk_in * 4)
+
+
+def _eb_stage(op, algo, eb, n, worst_case):
+    if algo == "intring":
+        return eb  # single quantization grid; n addends share it
+    return error_budget.allocate(eb, f"{op}_{algo}", n, worst_case=worst_case)
+
+
+# ---------------------------------------------------------------------------
+# Algorithm selection (the paper's §3.3.3 design framework)
+# ---------------------------------------------------------------------------
+
+
+def select_allreduce(
+    d_bytes: int,
+    n_ranks: int,
+    ratio: float = 20.0,
+    hw: cost_model.Hardware = cost_model.A100_SLINGSHOT,
+    *,
+    allow_beyond_paper: bool = False,
+) -> str:
+    """The paper's selector: 'ring' | 'redoub' (| 'intring') under the
+    two-kernel multi-stream cost models."""
+    costs = {
+        "ring": cost_model.allreduce_ring_gz(d_bytes, n_ranks, ratio, hw),
+        "redoub": cost_model.allreduce_redoub_gz(
+            d_bytes, n_ranks, ratio, hw, fused_hop=False
+        ),
+    }
+    if allow_beyond_paper:
+        costs["intring"] = cost_model.allreduce_intring_gz(
+            d_bytes, n_ranks, ratio, hw)
+    return min(costs, key=costs.get)
+
+
+def select_allreduce_plan(
+    d_bytes: int,
+    n_ranks: int,
+    ratio: float = 20.0,
+    hw: cost_model.Hardware = cost_model.A100_SLINGSHOT,
+    *,
+    allow_beyond_paper: bool = False,
+    chunk_candidates=cost_model.PIPELINE_CHUNK_CANDIDATES,
+    fused_hop: bool = True,
+) -> tuple:
+    """(algo, pipeline_chunks) from the per-chunk cost model: ring at its
+    best chunk count under the chunked double-buffered schedule vs redoub."""
+    ring_chunks = cost_model.best_pipeline_chunks(
+        d_bytes, n_ranks, ratio, hw, chunk_candidates, fused_hop=fused_hop
+    )
+    costs = {
+        ("ring", ring_chunks): cost_model.allreduce_ring_gz_chunked(
+            d_bytes, n_ranks, ratio, hw, ring_chunks, fused_hop=fused_hop
+        ),
+        ("redoub", 1): cost_model.allreduce_redoub_gz(
+            d_bytes, n_ranks, ratio, hw, fused_hop=fused_hop
+        ),
+    }
+    if allow_beyond_paper:
+        costs[("intring", 1)] = cost_model.allreduce_intring_gz(
+            d_bytes, n_ranks, ratio, hw
+        )
+    return min(costs, key=costs.get)
+
+
+# ---------------------------------------------------------------------------
+# Policy registry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanRequest:
+    """Everything a policy may inspect when choosing (algo, chunks)."""
+
+    op: str
+    n_elems: int
+    nbytes: int
+    axis_size: int
+    requested_algo: Optional[str]  # None == "pick for me"
+    requested_chunks: int          # 0 == "plan the ring depth for me"
+    fused_hop: bool
+    ratio: float
+    hw: cost_model.Hardware
+
+
+PolicyFn = Callable[[PlanRequest], tuple]
+_POLICIES: dict = {}
+
+
+def register_policy(name: str, fn: PolicyFn) -> None:
+    """Add/replace a named plan policy: fn(PlanRequest) -> (algo, chunks)."""
+    _POLICIES[name] = fn
+
+
+def policy_names() -> tuple:
+    return tuple(sorted(_POLICIES))
+
+
+def _ring_depth(req: PlanRequest) -> int:
+    from repro_torch.core.collectives import plan_ring_pipeline_chunks
+
+    return plan_ring_pipeline_chunks(
+        req.n_elems, req.axis_size, ratio=req.ratio, hw=req.hw,
+        fused_hop=req.fused_hop,
+    )
+
+
+def _policy_auto(req: PlanRequest):
+    """Production default: algorithm from the fused-hop chunked cost
+    model, ring depth from ``best_pipeline_chunks`` capped by whole-tile
+    fill; explicit requests are honored."""
+    algo, chunks = req.requested_algo, req.requested_chunks
+    if algo is None:
+        algo, _ = select_allreduce_plan(
+            req.nbytes, req.axis_size, req.ratio, req.hw,
+            fused_hop=req.fused_hop,
+        )
+        if algo == "ring" and chunks in (0, 1):
+            chunks = _ring_depth(req)
+    elif algo == "ring" and chunks == 0:
+        chunks = _ring_depth(req)
+    return algo, max(chunks, 1)
+
+
+def _policy_paper(req: PlanRequest):
+    """The paper's §3.3.3 crossover, sequential schedule."""
+    algo = req.requested_algo
+    if algo is None:
+        algo = select_allreduce(req.nbytes, req.axis_size, req.ratio, req.hw)
+    return algo, max(req.requested_chunks, 1)
+
+
+def _policy_throughput(req: PlanRequest):
+    """Fastest modeled plan, beyond-paper algorithms allowed."""
+    algo, chunks = req.requested_algo, req.requested_chunks
+    if algo is None:
+        algo, _ = select_allreduce_plan(
+            req.nbytes, req.axis_size, req.ratio, req.hw,
+            allow_beyond_paper=True, fused_hop=req.fused_hop,
+        )
+        if algo == "ring" and chunks in (0, 1):
+            chunks = _ring_depth(req)
+    elif algo == "ring" and chunks == 0:
+        chunks = _ring_depth(req)
+    return algo, max(chunks, 1)
+
+
+def _policy_accuracy(req: PlanRequest):
+    """Bitwise rank-consistent integer ring."""
+    return req.requested_algo or "intring", max(req.requested_chunks, 1)
+
+
+register_policy("auto", _policy_auto)
+register_policy("paper", _policy_paper)
+register_policy("throughput", _policy_throughput)
+register_policy("accuracy", _policy_accuracy)
+
+
+# ---------------------------------------------------------------------------
+# Memoized plan resolution
+# ---------------------------------------------------------------------------
+
+_PLAN_CACHE: dict = {}
+_PLAN_STATS = {"hits": 0, "misses": 0}
+_PLAN_STATS_BY_CODEC: dict = {}
+_PLAN_STATS_BY_OP: dict = {}
+
+
+def _stat(table: dict, key: str, field: str) -> None:
+    rec = table.setdefault(key, {"hits": 0, "misses": 0})
+    rec[field] += 1
+
+
+def plan_cache_stats() -> dict:
+    """{'hits', 'misses', 'entries', 'keys', 'by_codec', 'by_op'}."""
+    def breakdown(table, pos):
+        return {
+            k: {"hits": rec["hits"], "misses": rec["misses"],
+                "entries": sum(1 for key in _PLAN_CACHE if key[pos] == k)}
+            for k, rec in table.items()
+        }
+
+    return {
+        "hits": _PLAN_STATS["hits"],
+        "misses": _PLAN_STATS["misses"],
+        "entries": len(_PLAN_CACHE),
+        "keys": tuple(_PLAN_CACHE),
+        "by_codec": breakdown(_PLAN_STATS_BY_CODEC, -1),
+        "by_op": breakdown(_PLAN_STATS_BY_OP, 0),
+    }
+
+
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
+    _PLAN_STATS["hits"] = 0
+    _PLAN_STATS["misses"] = 0
+    _PLAN_STATS_BY_CODEC.clear()
+    _PLAN_STATS_BY_OP.clear()
+
+
+def _codec_adjusted(codec, ratio, hw):
+    """(effective_ratio, adjusted_hw, codec_fused_hop) for pricing a codec;
+    identity terms short-circuit to the caller's own (ratio, hw)."""
+    spec = codecs.get_codec(codec)
+    terms = hw.terms_for(codec) or spec.terms
+    if terms == cost_model.CodecTerms(codec):
+        return ratio, hw, spec.fused_hop
+    return terms.effective_ratio(ratio), terms.apply(hw), spec.fused_hop
+
+
+def _resolve_codec(policy_fn, req, codec):
+    """(algo, chunks, codec_ratio, fused_hop): the policy priced at the
+    codec's adjusted (ratio, hw).  Only explicit codecs exist in the port
+    (``codec="auto"``, which ranks several, raises in ``codecs``)."""
+    codec_ratio, hw_c, codec_fused_hop = _codec_adjusted(codec, req.ratio, req.hw)
+    fused_hop = req.fused_hop and codec_fused_hop
+    algo, chunks = policy_fn(dataclasses.replace(
+        req, fused_hop=fused_hop, ratio=codec_ratio, hw=hw_c))
+    return algo, max(chunks, 1), codec_ratio, fused_hop
+
+
+def _resolve_plan(
+    op, n_elems, dtype, axis_size, eb, *, policy, requested_algo,
+    requested_chunks, capacity_factor, worst_case_budget, fused, fused_hop,
+    ratio, hw, on_overflow="flag", verify_streams=False, codec="lorenzo",
+) -> Plan:
+    key = (
+        op, n_elems * 4, str(dtype), axis_size, eb,
+        policy, requested_algo, requested_chunks, capacity_factor,
+        worst_case_budget, fused, fused_hop, ratio, hw,
+        on_overflow, verify_streams,
+        codec,  # last: plan_cache_stats' by_codec reads key[-1]
+    )
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        _PLAN_STATS["hits"] += 1
+        _stat(_PLAN_STATS_BY_CODEC, codec, "hits")
+        _stat(_PLAN_STATS_BY_OP, op, "hits")
+        return hit
+    _PLAN_STATS["misses"] += 1
+    _stat(_PLAN_STATS_BY_CODEC, codec, "misses")
+    _stat(_PLAN_STATS_BY_OP, op, "misses")
+    if op not in OPS:
+        raise ValueError(f"unknown collective op {op!r}")
+    if op != "allreduce":
+        raise NotImplementedError(
+            f"planning {op!r} is not ported to repro_torch yet (ROADMAP A5)")
+    try:
+        policy_fn = _POLICIES[policy]
+    except KeyError:
+        raise ValueError(
+            f"unknown policy {policy!r}; registered: {policy_names()}"
+        ) from None
+    req = PlanRequest(
+        op=op, n_elems=n_elems, nbytes=n_elems * 4, axis_size=axis_size,
+        requested_algo=requested_algo, requested_chunks=requested_chunks,
+        fused_hop=fused_hop, ratio=ratio, hw=hw,
+    )
+    algo, chunks, codec_ratio, fused_hop = _resolve_codec(policy_fn, req, codec)
+    cap, wire, raw = _wire_accounting(
+        op, algo, n_elems, axis_size, capacity_factor, chunks, codec
+    )
+    plan = Plan(
+        op=op, algo=algo, n_elems=n_elems, nbytes=n_elems * 4,
+        dtype=str(dtype), axis_size=axis_size, eb=eb,
+        eb_stage=_eb_stage(op, algo, eb, axis_size, worst_case_budget),
+        pipeline_chunks=chunks, fused=fused, fused_hop=fused_hop,
+        capacity_factor=capacity_factor, worst_case_budget=worst_case_budget,
+        capacity_words=cap, wire_bytes=wire,
+        ratio=(raw / wire) if wire else 1.0, policy=policy,
+        on_overflow=on_overflow, verify_streams=verify_streams,
+        fallback=_fallback_plan(op, n_elems, axis_size, hw),
+        codec=codec, codec_ratio=codec_ratio,
+        route_table=(schedule.build(op, algo, axis_size)
+                     if axis_size >= 2 else None),
+    )
+    _PLAN_CACHE[key] = plan
+    return plan
+
+
+def _dtype_name(dtype) -> str:
+    """'float32' for torch.float32, np.float32 or 'float32'."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).rsplit(".", 1)[-1]
+    return np.dtype(dtype).name
+
+
+# ---------------------------------------------------------------------------
+# The communicator
+# ---------------------------------------------------------------------------
+
+
+class GZCommunicator:
+    """Resolve-once communicator bound to one axis name.
+
+    ``axis_size`` may be passed explicitly or left None to be read from
+    the rank handle bound to ``axis_name`` at call time.  ``device`` is
+    where the collective runs: "cuda" unless the caller asks for "cpu";
+    CUDA without a card raises here.
+    """
+
+    def __init__(
+        self,
+        axis_name,
+        *,
+        config=None,
+        policy: str = "auto",
+        hw: cost_model.Hardware = cost_model.A100_SLINGSHOT,
+        ratio: float = 20.0,
+        axis_size: Optional[int] = None,
+        device="cuda",
+    ):
+        from repro_torch.core.collectives import GZConfig
+
+        self.axis_name = axis_name
+        self.config = config if config is not None else GZConfig()
+        if policy not in _POLICIES:
+            raise ValueError(
+                f"unknown policy {policy!r}; registered: {policy_names()}"
+            )
+        self.policy = policy
+        self.hw = hw
+        self.ratio = ratio
+        self._axis_size = axis_size
+        self.device = transport.resolve_device(device)
+
+    def _group(self, group):
+        g = group if group is not None else transport.current(self.axis_name)
+        if self._axis_size is not None and g.size != self._axis_size:
+            raise ValueError(
+                f"communicator bound to axis size {self._axis_size}, but the "
+                f"group on {self.axis_name!r} has {g.size} ranks"
+            )
+        return g
+
+    def axis_size(self, group=None) -> int:
+        if self._axis_size is not None:
+            return self._axis_size
+        return self._group(group).size
+
+    def plan(self, op: str, shape, dtype=torch.float32, *, group=None) -> Plan:
+        """Resolve the frozen Plan for ``op`` over a payload of ``shape``
+        (a shape tuple or an element count)."""
+        n_elems = int(np.prod(shape)) if not isinstance(shape, int) else shape
+        cfg = self.config
+        requested_algo = None if cfg.algo == "auto" else cfg.algo
+        return _resolve_plan(
+            op, n_elems, _dtype_name(dtype), self.axis_size(group), cfg.eb,
+            policy=self.policy, requested_algo=requested_algo,
+            requested_chunks=cfg.pipeline_chunks,
+            capacity_factor=cfg.capacity_factor,
+            worst_case_budget=cfg.worst_case_budget, fused=cfg.fused,
+            fused_hop=cfg.fused_hop, ratio=self.ratio, hw=self.hw,
+            on_overflow=cfg.on_overflow, verify_streams=cfg.verify_streams,
+            codec=cfg.codec,
+        )
+
+    def _finish(self, g, x, out, ovf, plan: Plan) -> CollectiveResult:
+        """OR the overflow and non-finite flags across ranks (flag mode)."""
+        if x.dtype.is_floating_point:
+            nf_loc = ~torch.isfinite(x).all()
+        else:
+            nf_loc = torch.zeros((), dtype=torch.bool, device=x.device)
+        overflow, nonfinite = g.flags_across(ovf, nf_loc)
+        return CollectiveResult(out, overflow, nonfinite, plan.wire_bytes,
+                                plan.ratio)
+
+    def allreduce(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
+                  group=None) -> CollectiveResult:
+        """Compressed sum-allreduce of this rank's ``x`` over the group."""
+        if x.device.type != self.device.type:
+            raise ValueError(
+                f"communicator runs on {self.device}, got a tensor on {x.device}"
+            )
+        g = self._group(group)
+        if g.size == 1:
+            zero = torch.zeros((), dtype=torch.bool, device=x.device)
+            return CollectiveResult(x, zero, zero, 0, 1.0)
+        plan = plan or self.plan("allreduce", x.shape, x.dtype, group=g)
+        from repro_torch.core.collectives import _execute_allreduce
+
+        out, ovf = _execute_allreduce(x, g, plan.as_config())
+        return self._finish(g, x, out, ovf, plan)
+
+    def _not_ported(self, op):
+        raise NotImplementedError(
+            f"GZCommunicator.{op} is not ported to repro_torch yet (ROADMAP A5)"
+        )
+
+    def reduce_scatter(self, x, **kw):
+        self._not_ported("reduce_scatter")
+
+    def allgather(self, x, **kw):
+        self._not_ported("allgather")
+
+    def scatter(self, x_full, **kw):
+        self._not_ported("scatter")
+
+    def broadcast(self, x, **kw):
+        self._not_ported("broadcast")
+
+    def all_to_all(self, x, **kw):
+        self._not_ported("all_to_all")
+
+    def __repr__(self):
+        return (
+            f"GZCommunicator(axis={self.axis_name!r}, n={self._axis_size}, "
+            f"policy={self.policy!r}, eb={self.config.eb}, hw={self.hw.name}, "
+            f"device={self.device})"
+        )

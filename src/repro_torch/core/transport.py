@@ -1,0 +1,203 @@
+"""Rank transport: what ``lax.ppermute``/``lax.psum``/``lax.axis_index``
+do for the JAX package.
+
+Rank-centric collective code (``core/collectives.py``) sees one handle per
+rank with three members:
+
+  * ``rank`` and ``size`` (``lax.axis_index`` / the axis size);
+  * ``exchange(tensors, perm)`` — ppermute semantics: every rank passes
+    the same ``perm`` of ``(sender, receiver)`` pairs and its own tuple of
+    tensors, and gets back what its sender passed.  A rank that no pair
+    addresses receives zeros of the same shapes and dtypes (the redoub
+    idle ranks rely on this);
+  * ``flags_across(*flags)`` — the global OR of per-rank bool flags, one
+    combined reduction (the ``psum(...) > 0`` of the reference).
+
+Two groups provide handles:
+
+  * :class:`ThreadGroup` — N ranks as N threads of one process on one
+    device, exchanging through a barrier and a mailbox (no copies: the
+    received tensors are the sender's, which rank code never mutates).
+    Every rank launches on the stream that was current when ``run`` was
+    called, so stream order alone orders one rank's kernels before another
+    rank's reads.
+  * :class:`DistGroup` — one rank per process over ``torch.distributed``:
+    ``batch_isend_irecv`` for the exchange, ``all_reduce(MAX)`` for the
+    flags.  NCCL on GPUs, gloo on the CPU.
+
+A group is bound to an axis name per thread (``bind``); a communicator
+built for that axis name finds its rank handle with ``current``.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["resolve_device", "ThreadGroup", "DistGroup", "bind", "current"]
+
+_BOUND = threading.local()
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; CUDA without a usable card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain versions on the CPU"
+        )
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@contextlib.contextmanager
+def bind(axis_name, handle):
+    """Bind ``handle`` as this thread's rank for ``axis_name``."""
+    stack = getattr(_BOUND, "axes", None)
+    if stack is None:
+        stack = _BOUND.axes = {}
+    prev = stack.get(axis_name)
+    stack[axis_name] = handle
+    try:
+        yield handle
+    finally:
+        if prev is None:
+            stack.pop(axis_name)
+        else:
+            stack[axis_name] = prev
+
+
+def current(axis_name):
+    """This thread's rank handle for ``axis_name``."""
+    handle = getattr(_BOUND, "axes", {}).get(axis_name)
+    if handle is None:
+        raise RuntimeError(
+            f"no rank is bound to axis {axis_name!r} on this thread: call the "
+            "collective inside ThreadGroup.run(..., axis_name=...) or "
+            "DistGroup.bind(...)"
+        )
+    return handle
+
+
+def _zeros_like_all(tensors) -> tuple:
+    return tuple(torch.zeros_like(t) for t in tensors)
+
+
+def _sender_of(rank: int, perm):
+    for snd, rcv in perm:
+        if rcv == rank:
+            return snd
+    return None
+
+
+class _ThreadRank:
+    """One rank of a :class:`ThreadGroup`."""
+
+    def __init__(self, group: "ThreadGroup", rank: int):
+        self.group = group
+        self.rank = rank
+        self.size = group.size
+
+    def exchange(self, tensors, perm) -> tuple:
+        g = self.group
+        g._slots[self.rank] = tuple(tensors)
+        g._barrier.wait()
+        src = _sender_of(self.rank, perm)
+        out = g._slots[src] if src is not None else _zeros_like_all(tensors)
+        g._barrier.wait()  # every read is done before the slots are reused
+        return out
+
+    def flags_across(self, *flags) -> tuple:
+        g = self.group
+        g._slots[self.rank] = torch.stack([f.to(torch.int32) for f in flags])
+        g._barrier.wait()
+        both = torch.stack(list(g._slots)).amax(dim=0) > 0
+        g._barrier.wait()
+        return tuple(both.unbind(0))
+
+
+class ThreadGroup:
+    """N ranks as N threads of this process on one device."""
+
+    def __init__(self, n: int, device="cuda"):
+        if int(n) < 1:
+            raise ValueError(f"ThreadGroup needs n >= 1, got {n}")
+        self.size = int(n)
+        self.device = resolve_device(device)
+        self._slots = [None] * self.size
+        self._barrier = threading.Barrier(self.size)
+
+    def run(self, fn, inputs, *, axis_name="x") -> list:
+        """Call ``fn(inputs[r])`` as rank r on N threads, with the rank bound
+        to ``axis_name``; returns the N results in rank order.  An error on
+        any rank breaks the barrier for all and is re-raised here."""
+        if len(inputs) != self.size:
+            raise ValueError(f"need {self.size} per-rank inputs, got {len(inputs)}")
+        self._barrier.reset()
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        results = [None] * self.size
+        errors = [None] * self.size
+
+        def worker(r):
+            try:
+                ctx = (torch.cuda.stream(stream) if stream is not None
+                       else contextlib.nullcontext())
+                with ctx, bind(axis_name, _ThreadRank(self, r)):
+                    results[r] = fn(inputs[r])
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors[r] = e
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=worker, args=(r,)) for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        # A rank's own error first, before the broken barriers its abort
+        # caused on the other ranks.
+        errors.sort(key=lambda e: e is None or isinstance(e, threading.BrokenBarrierError))
+        if errors[0] is not None:
+            raise errors[0]
+        return results
+
+
+class DistGroup:
+    """This process's rank of the default ``torch.distributed`` group."""
+
+    def __init__(self):
+        if not dist.is_initialized():
+            raise RuntimeError("DistGroup needs torch.distributed.init_process_group first")
+        self.rank = dist.get_rank()
+        self.size = dist.get_world_size()
+        # The first NCCL operation must involve every rank; the redoub
+        # fold round addresses only some of them.
+        dist.barrier()
+
+    def bind(self, axis_name="x"):
+        return bind(axis_name, self)
+
+    def exchange(self, tensors, perm) -> tuple:
+        dst = [r for s, r in perm if s == self.rank]
+        src = _sender_of(self.rank, perm)
+        ops = []
+        if dst:
+            ops += [dist.P2POp(dist.isend, t.contiguous(), dst[0]) for t in tensors]
+        if src is not None:
+            out = tuple(torch.empty_like(t) for t in tensors)
+            ops += [dist.P2POp(dist.irecv, t, src) for t in out]
+        else:
+            out = _zeros_like_all(tensors)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return out
+
+    def flags_across(self, *flags) -> tuple:
+        both = torch.stack([f.to(torch.int32) for f in flags])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        return tuple((both > 0).unbind(0))

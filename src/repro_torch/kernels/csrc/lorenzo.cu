@@ -1,0 +1,298 @@
+// Lorenzo codec kernels for Hopper (sm_90a), bound through a plain C ABI.
+//
+// Four entry points, one per TPU kernel of the compressed-allreduce path
+// (src/repro/kernels/lorenzo.py):
+//
+//   lz_quantize_pack          <- quantize_pack            (lorenzo.py:392)
+//   lz_unpack_dequantize      <- unpack_dequantize        (lorenzo.py:426)
+//   lz_unpack_dequantize_reduce
+//                             <- unpack_dequantize_reduce (lorenzo.py:456)
+//   lz_unpack_reduce_repack   <- unpack_reduce_repack     (lorenzo.py:324)
+//
+// Layout: f32 data is (nb, 256); one CUDA block of 256 threads handles one
+// 256-element Lorenzo block, thread j owning element j.  Wire words are
+// uint32, LSB-first, block i's codes at word offset off_i = sum_{k<i} 8*bw_k
+// (BLOCK % 32 == 0, so every block starts on a word boundary).
+//
+// What changed against the TPU design: the Pallas kernels walk a sequential
+// grid and carry the running word offset in SMEM.  A GPU grid has no order,
+// so each entry point is a short sequence of launches instead:
+//   front (quantize -> per-block bw, anchor) -> scan (exclusive prefix sum of
+//   8*bw over the blocks, hand-written, one CTA) -> pack (every thread owns
+//   one output word and ORs in the codes that overlap it, so no atomics).
+// Receive side: scan of the incoming widths -> unpack.  The hop kernel fuses
+// unpack + reduce + the quantize front, writes the reduced f32 chunk to
+// device memory, and the pack launch reads it back.  Keeping that
+// intermediate on chip is later work.
+//
+// Bound on this card: bytes.  Each element is read and written a few times
+// as 4-byte words and does ~20 integer operations, far below the ~300
+// operations per byte at which an H100 stops being memory-bound.  The design
+// keeps every global access coalesced over the block (thread j touches
+// element j; pack threads write consecutive words) and does the in-block
+// work (Lorenzo delta, max, prefix sum, bit placement) in registers and
+// shared memory.
+//
+// Exactness (bitwise equal to the JAX kernel path and to the plain torch
+// versions): q = __float2int_rn(__fmul_rn(x, recip)) (saturating, NaN -> 0);
+// zigzag on int32; bw = 32 - clz(max code); reconstruction is an int32
+// wrapping prefix sum plus the anchor, qf = __int2float_rn(q); the reduce is
+// __fmaf_rn(qf, twoeb, acc), rounded once.  recip and twoeb arrive as device
+// scalars computed by the wrapper, like the reference's (1, 1) operands.
+// Compile without --use_fast_math.
+//
+// Capacity: words at index >= cap are never stored; the pack launch zeroes
+// [nwords, cap).  On the receive side every word at index >= cap reads as 0.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 256;                 // elements per Lorenzo block
+constexpr int kWarps = kBlock / 32;
+constexpr int kWordsPerBit = kBlock / 32;   // words per unit of bitwidth
+constexpr int kScanThreads = 1024;
+
+__device__ __forceinline__ uint32_t width_mask(int bw) {
+  return bw == 0 ? 0u : (0xFFFFFFFFu >> (32 - bw));
+}
+
+// Lorenzo delta + zigzag for thread j's quantized value q.
+__device__ __forceinline__ uint32_t lorenzo_zig(int32_t q, int32_t* q_s) {
+  const int j = threadIdx.x;
+  q_s[j] = q;
+  __syncthreads();
+  const int32_t prev = j ? q_s[j - 1] : q;
+  const int32_t d = (int32_t)((uint32_t)q - (uint32_t)prev);
+  return ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
+}
+
+__device__ __forceinline__ uint32_t block_max(uint32_t v, uint32_t* red) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  uint32_t r = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) r = max(r, red[w]);
+  return r;
+}
+
+// Inclusive prefix sum over the 256 threads, wrapping like int32.
+__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += n;
+  }
+  if (lane == 31) red[warp] = v;
+  __syncthreads();
+  uint32_t off = 0;
+  for (int w = 0; w < warp; ++w) off += red[w];
+  return v + off;
+}
+
+__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ p,
+                                              long long cap, long long w) {
+  return w < cap ? p[w] : 0u;
+}
+
+// Thread j's value of Lorenzo block b, decoded from the stream and
+// reconstructed to f32 (before the multiply by 2*eb).
+__device__ __forceinline__ float decode_q(const uint32_t* __restrict__ packed,
+                                          long long cap, int bw, int32_t anchor,
+                                          int off, uint32_t* red) {
+  const long long bitpos = (long long)off * 32 + (long long)threadIdx.x * bw;
+  const long long w = bitpos >> 5;
+  const int sh = (int)(bitpos & 31);
+  const uint32_t lo = load_word(packed, cap, w) >> sh;
+  const uint32_t hi = sh ? (load_word(packed, cap, w + 1) << (32 - sh)) : 0u;
+  const uint32_t u = (lo | hi) & width_mask(bw);
+  const int32_t d = (int32_t)(u >> 1) ^ -(int32_t)(u & 1u);
+  const uint32_t qs = block_scan((uint32_t)d, red);
+  return __int2float_rn((int32_t)((uint32_t)anchor + qs));
+}
+
+// Quantize front: per-block bitwidth and anchor of f32 blocks.
+__global__ void __launch_bounds__(kBlock)
+quantize_front_kernel(const float* __restrict__ x, const float* __restrict__ recip_p,
+                      int32_t* __restrict__ bw_out, int32_t* __restrict__ anchor_out) {
+  __shared__ int32_t q_s[kBlock];
+  __shared__ uint32_t red[kWarps];
+  const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
+  const int32_t q = __float2int_rn(__fmul_rn(x[i], *recip_p));
+  const uint32_t umax = block_max(lorenzo_zig(q, q_s), red);
+  if (threadIdx.x == 0) {
+    bw_out[blockIdx.x] = 32 - __clz((int)umax);
+    anchor_out[blockIdx.x] = q;
+  }
+}
+
+// Exclusive prefix sum of 8*bw over nb blocks; offsets[nb] = total words.
+// One CTA: thread t sums a contiguous segment, the CTA scans the partials,
+// then each thread writes its segment's offsets.
+__global__ void __launch_bounds__(kScanThreads)
+word_offsets_kernel(const int32_t* __restrict__ bw, int nb, int32_t* __restrict__ offsets) {
+  __shared__ int32_t part[kScanThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int per = (nb + kScanThreads - 1) / kScanThreads;
+  const int lo = min(t * per, nb), hi = min(lo + per, nb);
+  int32_t s = 0;
+  for (int i = lo; i < hi; ++i) s += bw[i] * kWordsPerBit;
+  int32_t incl = s;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int32_t v = part[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t n = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += n;
+    }
+    part[lane] = v;  // inclusive over warps
+  }
+  __syncthreads();
+  incl += warp ? part[warp - 1] : 0;
+  int32_t run = incl - s;
+  for (int i = lo; i < hi; ++i) {
+    offsets[i] = run;
+    run += bw[i] * kWordsPerBit;
+  }
+  if (t == kScanThreads - 1) offsets[nb] = incl;
+}
+
+// Pack: re-quantize block b from f32, then thread t builds output word t of
+// the block's segment from the codes overlapping it.  Also zeroes the
+// unused tail [total, cap) of the capacity buffer.
+__global__ void __launch_bounds__(kBlock)
+pack_kernel(const float* __restrict__ x, const float* __restrict__ recip_p,
+            const int32_t* __restrict__ bw_in, const int32_t* __restrict__ offsets,
+            int nb, uint32_t* __restrict__ packed, long long cap) {
+  __shared__ int32_t q_s[kBlock];
+  __shared__ uint32_t z_s[kBlock];
+  const int b = blockIdx.x, j = threadIdx.x;
+  const int32_t q = __float2int_rn(__fmul_rn(x[(size_t)b * kBlock + j], *recip_p));
+  const uint32_t zig = lorenzo_zig(q, q_s);
+  const int bw = bw_in[b];
+  z_s[j] = zig & width_mask(bw);
+  __syncthreads();
+  if (j < bw * kWordsPerBit) {
+    const int bit0 = 32 * j;
+    const int e0 = bit0 / bw;
+    const int e1 = min((bit0 + 31) / bw, kBlock - 1);
+    uint32_t w = 0;
+    for (int e = e0; e <= e1; ++e) {
+      const int sh = e * bw - bit0;
+      w |= sh >= 0 ? (z_s[e] << sh) : (z_s[e] >> -sh);
+    }
+    const long long gw = (long long)offsets[b] + j;
+    if (gw < cap) packed[gw] = w;
+  }
+  const long long stride = (long long)nb * kBlock;
+  for (long long i = (long long)offsets[nb] + (long long)b * kBlock + j; i < cap; i += stride)
+    packed[i] = 0u;
+}
+
+template <bool kReduce>
+__global__ void __launch_bounds__(kBlock)
+unpack_kernel(const uint32_t* __restrict__ packed, long long cap,
+              const int32_t* __restrict__ bw_in, const int32_t* __restrict__ anchor_in,
+              const int32_t* __restrict__ offsets, const float* __restrict__ twoeb_p,
+              const float* __restrict__ acc, float* __restrict__ out) {
+  __shared__ uint32_t red[kWarps];
+  const int b = blockIdx.x;
+  const float qf = decode_q(packed, cap, bw_in[b], anchor_in[b], offsets[b], red);
+  const size_t i = (size_t)b * kBlock + threadIdx.x;
+  out[i] = kReduce ? __fmaf_rn(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
+}
+
+// Hop front: decode + reduce (written out as f32), then the quantize front
+// of the sum at the outgoing bound.
+__global__ void __launch_bounds__(kBlock)
+hop_front_kernel(const uint32_t* __restrict__ packed, long long cap,
+                 const int32_t* __restrict__ bw_in, const int32_t* __restrict__ anchor_in,
+                 const int32_t* __restrict__ offsets, const float* __restrict__ twoeb_p,
+                 const float* __restrict__ acc, const float* __restrict__ recip_p,
+                 float* __restrict__ x_out, int32_t* __restrict__ bw_out,
+                 int32_t* __restrict__ anchor_out) {
+  __shared__ uint32_t red[kWarps];
+  __shared__ int32_t q_s[kBlock];
+  const int b = blockIdx.x;
+  const float qf = decode_q(packed, cap, bw_in[b], anchor_in[b], offsets[b], red);
+  const size_t i = (size_t)b * kBlock + threadIdx.x;
+  const float xv = __fmaf_rn(qf, *twoeb_p, acc[i]);
+  x_out[i] = xv;
+  const int32_t q = __float2int_rn(__fmul_rn(xv, *recip_p));
+  __syncthreads();  // red is reused by block_max
+  const uint32_t umax = block_max(lorenzo_zig(q, q_s), red);
+  if (threadIdx.x == 0) {
+    bw_out[b] = 32 - __clz((int)umax);
+    anchor_out[b] = q;
+  }
+}
+
+}  // namespace
+
+#define LZ_CHECK()                                   \
+  do {                                               \
+    const cudaError_t e_ = cudaGetLastError();       \
+    if (e_ != cudaSuccess) return (int)e_;           \
+  } while (0)
+
+extern "C" {
+
+int lz_quantize_pack(const float* x, int nb, const float* recip, uint32_t* packed,
+                     long long cap, int32_t* bw, int32_t* anchor, int32_t* offsets,
+                     cudaStream_t stream) {
+  quantize_front_kernel<<<nb, kBlock, 0, stream>>>(x, recip, bw, anchor);
+  LZ_CHECK();
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw, nb, offsets);
+  LZ_CHECK();
+  pack_kernel<<<nb, kBlock, 0, stream>>>(x, recip, bw, offsets, nb, packed, cap);
+  LZ_CHECK();
+  return 0;
+}
+
+int lz_unpack_dequantize(const uint32_t* packed, long long cap, const int32_t* bw,
+                         const int32_t* anchor, int nb, const float* twoeb,
+                         const float* acc, float* out, int32_t* offsets,
+                         cudaStream_t stream) {
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw, nb, offsets);
+  LZ_CHECK();
+  if (acc)
+    unpack_kernel<true><<<nb, kBlock, 0, stream>>>(packed, cap, bw, anchor, offsets,
+                                                   twoeb, acc, out);
+  else
+    unpack_kernel<false><<<nb, kBlock, 0, stream>>>(packed, cap, bw, anchor, offsets,
+                                                    twoeb, nullptr, out);
+  LZ_CHECK();
+  return 0;
+}
+
+int lz_unpack_reduce_repack(const uint32_t* packed_in, long long cap_in,
+                            const int32_t* bw_in, const int32_t* anchor_in, int nb,
+                            const float* twoeb, const float* acc, const float* recip,
+                            float* x_out, uint32_t* packed_out, long long cap_out,
+                            int32_t* bw_out, int32_t* anchor_out, int32_t* offsets_in,
+                            int32_t* offsets_out, cudaStream_t stream) {
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw_in, nb, offsets_in);
+  LZ_CHECK();
+  hop_front_kernel<<<nb, kBlock, 0, stream>>>(packed_in, cap_in, bw_in, anchor_in,
+                                              offsets_in, twoeb, acc, recip, x_out,
+                                              bw_out, anchor_out);
+  LZ_CHECK();
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw_out, nb, offsets_out);
+  LZ_CHECK();
+  pack_kernel<<<nb, kBlock, 0, stream>>>(x_out, recip, bw_out, offsets_out, nb,
+                                         packed_out, cap_out);
+  LZ_CHECK();
+  return 0;
+}
+
+}  // extern "C"

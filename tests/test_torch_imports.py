@@ -1,0 +1,112 @@
+"""The port stands alone and never runs on the CPU unasked.
+
+* Importing every ``repro_torch`` module and ``chip_smoke`` leaves
+  ``jax`` and the ``repro`` package out of ``sys.modules`` (in a fresh
+  interpreter), and importing ``chip_smoke`` runs nothing.
+* No module of the port, nor ``chip_smoke.py``, imports ``jax`` or
+  ``repro.*`` anywhere in its source (AST scan, function bodies too).
+* On a machine without CUDA, every entry point that defaults to the card
+  raises instead of running on the CPU, and so does ``chip_smoke.py``.
+"""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.core import transport
+from repro_torch.core.comm import GZCommunicator
+from repro_torch.core.compressor import ErrorBoundedLorenzo
+from repro_torch.kernels import build
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    return sorted(
+        ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+
+
+def test_modules_import_without_jax():
+    mods = _module_names()
+    assert "repro_torch.kernels.lorenzo" in mods and "repro_torch.convert" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == ["BAD []"], proc.stdout
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for machines without CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        transport.ThreadGroup(2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GZCommunicator("x")
+    with pytest.raises(RuntimeError, match="cuda"):
+        GZCommunicator("x", device="cuda:0", axis_size=4)
+    d = convert.compressed_to_numpy(
+        ErrorBoundedLorenzo().compress(torch.zeros(300), 1e-3))
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.compressed_from_numpy(d)
+
+
+def test_communicator_refuses_tensors_on_another_device():
+    comm = GZCommunicator("x", axis_size=2, device="cpu")
+    with pytest.raises(ValueError, match="runs on cpu"):
+        comm.allreduce(torch.zeros(4, device="meta"))
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
+
+
+def test_chip_smoke_without_a_card_prints_no_result(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is for machines without CUDA")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    proc = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                          text=True, cwd=tmp_path, env=env, timeout=120)
+    assert proc.returncode != 0 and proc.stdout == ""
