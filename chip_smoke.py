@@ -9,22 +9,39 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` and prints the build
    time and ``ptxas`` resource lines;
-2. holds each of the four Lorenzo kernels against its plain PyTorch
-   version on the card, on ragged small sizes, on the shapes of the main
-   path (one pipelined-ring piece and one sequential-ring chunk of the
-   646 MB run) and on an overflowing stream: words ``[:cap]``, bw, anchor
-   and nwords must be equal and every f32 output bitwise equal; prints
-   the mismatch counts and each kernel's median time against its bound;
-3. runs the main path, ``GZCommunicator("x").allreduce`` over a
+2. holds each of the four fused Lorenzo kernels against its plain
+   PyTorch version on the card, on ragged small sizes, on the shapes of
+   the allreduce (one pipelined-ring piece and one sequential-ring chunk
+   of the 646 MB run) and on an overflowing stream: words ``[:cap]``, bw,
+   anchor and nwords must be equal and every f32 output bitwise equal;
+   prints the mismatch counts and each kernel's median time against its
+   bound;
+3. holds the three unfused kernels (``quantize``, ``dequantize``,
+   ``dequantize_reduce``) against their plain versions the same way, on
+   ragged sizes, on NaN, +-Inf and values past the int32 range of q, on
+   codes whose prefix sum wraps in int32, and at the scatter's shape (8
+   chunks of 20,187,500 elements, 630,912 rows in one ``quantize``);
+4. runs the allreduce, ``GZCommunicator("x").allreduce`` over a
    ``ThreadGroup`` of ranks on the card, at 646 MB per rank with 8 ranks
-   (plan ``ring``, 2 pieces), 16 MB with 8 ranks (``redoub``) and 16 MB
-   with 6 ranks (``redoub`` with the remainder stage); each run starts
-   with the launch counts at 0 and must launch each kernel its schedule
-   uses exactly as often as the schedule says, stay within the error
-   bound against the f64 exact sum, not overflow, and (ring) agree
-   bitwise across ranks;
-4. runs a 4 MB allreduce with 8 ranks through the kernels and through the
-   plain versions on the card; the outputs must be bitwise equal.
+   (plan ``ring``, 2 pieces, profiled), 16 MB with 8 ranks (``redoub``)
+   and 16 MB with 6 ranks (``redoub`` with the remainder stage), then a
+   4 MB allreduce through the kernels and through the plain versions
+   (bitwise equal);
+5. runs this slice's main path, ``GZCommunicator("x").scatter`` of 646 MB
+   at the root over 8 ranks (plan ``binomial``, 343,566,440 wire bytes,
+   7 root chunk streams; non-root inputs are NaN, which must not count),
+   profiled, and a 64 MB scatter over 6 ranks (the trimmed tree);
+6. runs ``broadcast``, ``allgather`` and ``reduce_scatter`` (1 and 2
+   pieces) and ``all_to_all`` at 16 MB per rank over 8 ranks, each once
+   through the kernels and once through the plain versions (bitwise
+   equal);
+7. runs the two-pass paths, 16 MB x 8 allreduces with ``fused=False``
+   (redoub and ring/2) and ``fused_hop=False`` (ring/2), each bitwise
+   equal to the fused run on the same inputs.
+
+Every collective run starts with the launch counts at 0 and must launch
+each kernel exactly as often as its schedule says, stay within its error
+bound, and not overflow.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -50,8 +67,13 @@ REPLACES = {
     "unpack_reduce_repack": "src/repro/kernels/lorenzo.py:324",
     "unpack_dequantize_reduce": "src/repro/kernels/lorenzo.py:456",
     "unpack_dequantize": "src/repro/kernels/lorenzo.py:426",
+    "quantize": "src/repro/kernels/lorenzo.py:110",
+    "dequantize": "src/repro/kernels/lorenzo.py:134",
+    "dequantize_reduce": "src/repro/kernels/lorenzo.py:491",
 }
-MAIN_BYTES = 646_000_000  # per rank: the paper's Fig. 10 message size
+MAIN_BYTES = 646_000_000  # per rank (allreduce) / at the root (scatter): Figs. 10, 12
+SCATTER_WIRE_BYTES = 343_566_440  # benchmarks/BENCH_scatter.json, N = 8
+MOVER_BYTES = 16_000_000  # per rank: the data movers and the two-pass paths
 EB = 1e-4  # GZConfig's default end-to-end bound
 
 
@@ -198,6 +220,109 @@ def check_kernels(device, gen):
     return records
 
 
+def _wild(n, gen, device):
+    """Random-walk data with NaN, +-Inf and values whose q passes the int32
+    range at eb = 1e-4 (the quantizer saturates them)."""
+    import torch
+
+    x = _random_walk(n, gen, device) * 100.0
+    x[::97] = float("nan")
+    x[5::89] = float("inf")
+    x[7::83] = float("-inf")
+    x[11::79] = 5e5
+    x[13::71] = -1e30
+    return x
+
+
+def _wrapping_codes(nb, gen, device):
+    """Full-range random codes and anchors: the in-block prefix sum wraps
+    in int32 in nearly every block."""
+    import torch
+
+    codes = torch.randint(-2**31, 2**31, (nb, 256), generator=gen, device=device,
+                          dtype=torch.int64).to(torch.int32)
+    anchor = torch.randint(-2**31, 2**31, (nb,), generator=gen, device=device,
+                           dtype=torch.int64).to(torch.int32)
+    return codes, anchor
+
+
+def _unfused_bytes(name, nb):
+    """Bytes the unfused kernel must move: inputs once, outputs once."""
+    n = nb * 256
+    if name == "quantize":
+        return 4 * n + 4 * n + 8 * nb  # x in; codes, bw, anchor out
+    if name == "dequantize":
+        return 4 * n + 4 * nb + 4 * n  # codes, anchor in; f32 out
+    return 4 * n + 4 * nb + 8 * n  # + acc in
+
+
+def check_unfused_kernels(device, gen):
+    import torch
+
+    from repro_torch.kernels import lorenzo, ops
+
+    eb = torch.full((), EB, dtype=torch.float32, device=device)
+    chunk_n = MAIN_BYTES // 4 // 8
+    cases = [  # (label, x2d, timed)
+        ("ragged n=37", ops.to_blocks(_random_walk(37, gen, device)), False),
+        ("ragged n=6149", ops.to_blocks(_random_walk(2048 * 3 + 5, gen, device)), False),
+        ("ragged n=2504", ops.to_blocks(_random_walk(256 * 9 + 200, gen, device)), False),
+        ("nan/inf/saturating", ops.to_blocks(_wild(300_000, gen, device)), False),
+    ]
+    x = torch.zeros((8, ops.n_blocks_for(chunk_n) * ops.BLOCK), device=device)
+    x[:, :chunk_n] = _random_walk(8 * chunk_n, gen, device).view(8, chunk_n)
+    cases.append(("scatter shape", x.view(-1, ops.BLOCK), True))
+    del x
+    records = {}
+    for label, x2d, timed in cases:
+        nb = x2d.shape[0]
+        acc = _random_walk(nb * ops.BLOCK, gen, device).view(nb, ops.BLOCK)
+        got = lorenzo.quantize(x2d, eb)
+        want = lorenzo.quantize_plain(x2d, eb)
+        torch.cuda.synchronize()
+        errs = {"quantize": _compare(f"quantize [{label}]", got, want)}
+        codes, _, anchor = got
+        calls = {
+            "quantize": (x2d, eb),
+            "dequantize": (codes, anchor, eb),
+            "dequantize_reduce": (codes, anchor, eb, acc),
+        }
+        for name in ("dequantize", "dequantize_reduce"):
+            errs[name] = _compare(f"{name} [{label}]",
+                                  (getattr(lorenzo, name)(*calls[name]),),
+                                  (getattr(lorenzo, f"{name}_plain")(*calls[name]),))
+        log(f"unfused kernels vs plain [{label}, {nb} rows]: mismatches 0 in "
+            f"codes/bw/anchor and both f32 outputs")
+        if timed:
+            for name, args in calls.items():
+                kern = getattr(lorenzo, name)
+                plain = getattr(lorenzo, f"{name}_plain")
+                nbytes = _unfused_bytes(name, nb)
+                records[name] = {
+                    "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                    "replaces": REPLACES[name], "launches": None,
+                    "max_abs_err": errs[name],
+                    "ms": _median_ms(lambda: kern(*args), 20),
+                    "plain_ms": _median_ms(lambda: plain(*args), 3),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "library_ms": None,
+                    "shape": [nb, ops.BLOCK], "bytes": nbytes,
+                }
+        del calls, got, want, codes, anchor, acc
+    codes, anchor = _wrapping_codes(4096, gen, device)
+    acc = _random_walk(4096 * 256, gen, device).view(4096, 256) * 1e6
+    for name, args in (("dequantize", (codes, anchor, eb)),
+                       ("dequantize_reduce", (codes, anchor, eb, acc))):
+        _compare(f"{name} [int32 wrap]", (getattr(lorenzo, name)(*args),),
+                 (getattr(lorenzo, f"{name}_plain")(*args),))
+    log("unfused kernels vs plain [int32-wrapping prefix sums, 4096 rows]: mismatches 0")
+    for r in records.values():
+        log(f"  {r['name']:<26} {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms  "
+            f"bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB)")
+    torch.cuda.empty_cache()
+    return records
+
+
 def _main_piece_elems():
     from repro_torch.core.collectives import PIECE_QUANTUM
 
@@ -212,20 +337,66 @@ def _main_piece_elems():
 
 
 def _expected_launches(plan, n):
-    """Per-kernel launches of one allreduce over all n ranks, from the
-    schedule: what the fused-hop ring and redoub run per rank."""
-    if plan.algo == "ring":
-        p = plan.pipeline_chunks
-        return {"quantize_pack": 2 * p * n,
-                "unpack_reduce_repack": (n - 2) * p * n,
-                "unpack_dequantize_reduce": p * n,
-                "unpack_dequantize": p * n * n}
-    pw = 1 << (n.bit_length() - 1)
-    rem, steps = n - pw, pw.bit_length() - 1
-    return {"quantize_pack": n,
-            "unpack_reduce_repack": (steps - 1 + (2 if rem else 0)) * n,
-            "unpack_dequantize_reduce": 0 if rem else n,
-            "unpack_dequantize": rem}
+    """Per-kernel launches of one call over all n ranks, from the
+    schedule.  ``compress``, ``decompress`` and ``reduce`` are the
+    fused kernels or, with ``fused=False``, ``quantize``, ``dequantize``
+    and ``dequantize_reduce``; a reduce hop is one ``unpack_reduce_repack``
+    with the fused codec and hop, else a reduce and a compress."""
+    from repro_torch.kernels import lorenzo
+
+    e = dict.fromkeys(lorenzo.KERNELS, 0)
+    comp, dec, red = (("quantize_pack", "unpack_dequantize", "unpack_dequantize_reduce")
+                      if plan.fused else ("quantize", "dequantize", "dequantize_reduce"))
+    single_pass = plan.fused and plan.fused_hop
+    p = plan.pipeline_chunks
+    if plan.op in ("allreduce", "reduce_scatter") and plan.algo == "ring":
+        hops = (n - 2) * p  # intermediate reduce hops per rank
+        if single_pass:
+            e["quantize_pack"] += p * n
+            e["unpack_reduce_repack"] += hops * n
+        else:
+            e[comp] += (hops + p) * n
+            e[red] += hops * n
+        e[red] += p * n
+        if plan.op == "allreduce":  # the allgather stage
+            e[comp] += p * n
+            e[dec] += p * n * n
+    elif plan.op == "allreduce":  # redoub
+        pw = 1 << (n.bit_length() - 1)
+        rem, steps = n - pw, pw.bit_length() - 1
+        hops = steps - 1 + (2 if rem else 0)
+        e[comp] += n
+        if single_pass:
+            e["unpack_reduce_repack"] += hops * n
+        else:
+            e[comp] += hops * n
+            e[red] += hops * n
+        if not rem:
+            e[red] += n
+        e[dec] += rem
+    elif plan.op == "allgather":
+        e[comp] += p * n
+        e[dec] += p * n * n
+    elif plan.op == "broadcast":
+        e[comp] += n
+        e[dec] += n
+    elif plan.op == "scatter":  # one batched quantize at the root
+        e["quantize"] += 1
+        e[dec] += n
+    elif plan.op == "all_to_all":
+        e["quantize"] += n
+        e[dec] += n * n
+    return e
+
+
+def _check_launches(plan, n, launches):
+    expected = _expected_launches(plan, n)
+    if launches != expected:
+        raise AssertionError(f"{plan.op}: launch counts {launches} != schedule's {expected}")
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
 
 
 def run_allreduce(n, nbytes, device, gen, config_kw=None, label="", profile=False):
@@ -263,10 +434,8 @@ def run_allreduce(n, nbytes, device, gen, config_kw=None, label="", profile=Fals
         f"pipeline_chunks={plan.pipeline_chunks} wire_bytes={plan.wire_bytes} "
         f"ratio={plan.ratio:.4f} wall={wall * 1e3:.1f} ms err={err:.3e} "
         f"bound={bound:.3e} overflow={overflow} rank_mismatch={spread} "
-        f"launches={launches}")
-    expected = _expected_launches(plan, n)
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != schedule's {expected}")
+        f"launches={_nonzero(launches)}")
+    _check_launches(plan, n, launches)
     if overflow or nonfinite:
         raise AssertionError(f"overflow={overflow} nonfinite={nonfinite}")
     if not err <= bound:
@@ -275,24 +444,25 @@ def run_allreduce(n, nbytes, device, gen, config_kw=None, label="", profile=Fals
         raise AssertionError(f"ring ranks differ in {spread} elements")
     del exact, res, outs
     if profile:
-        _profile(group, comm, xs, plan)
+        _profile(group, comm.allreduce, xs, plan, intervals=(1e-4,))
     return plan, launches, wall
 
 
-def _profile(group, comm, xs, plan):
-    """Warm wall time of the same allreduce, then one run under
-    torch.profiler (device busy time and the kernels that take it), then
+def _profile(group, fn, xs, plan, intervals=None):
+    """Warm wall time of the same call ``fn`` (a communicator method),
+    then one run under torch.profiler (device busy time, the kernels that
+    take it, and the full names of those launched once per rank), then
     the same schedule at 256 KB per rank, where the device work is
     negligible: the host's floor for this schedule.  The floor and the
     full-size wall are taken at the interpreter's default switch interval
-    and at 0.1 ms."""
+    and at each of ``intervals``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.comm import GZCommunicator
 
     t0 = time.perf_counter()
-    group.run(comm.allreduce, xs, axis_name="x")
+    group.run(fn, xs, axis_name="x")
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     # Host-device syncs inside the collective would serialize the ranks.
@@ -300,15 +470,15 @@ def _profile(group, comm, xs, plan):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            group.run(comm.allreduce, xs, axis_name="x")
+            group.run(fn, xs, axis_name="x")
         finally:
             torch.cuda.set_sync_debug_mode("default")
     syncs = sorted({str(w.message).splitlines()[0] for w in caught
                     if "called a synchronizing" in str(w.message)})
-    log(f"host-device syncs inside the allreduce: {len(syncs)} kinds {syncs[:3]}")
+    log(f"host-device syncs inside the {plan.op}: {len(syncs)} kinds {syncs[:3]}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        group.run(comm.allreduce, xs, axis_name="x")
+        group.run(fn, xs, axis_name="x")
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -318,23 +488,28 @@ def _profile(group, comm, xs, plan):
         f"device busy {busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+    for e in events:
+        if e.count == group.size:
+            log(f"  launched {e.count} times: {e.key} "
+                f"({e.self_device_time_total / 1e3:.2f} ms)")
     small = GZCommunicator("x", config=plan.as_config(), axis_size=group.size,
                            device=xs[0].device)
+    small_fn = getattr(small, plan.op)
     tiny = [x[: 1 << 16].clone() for x in xs]
     default_interval = sys.getswitchinterval()
     try:
         # The rank threads meet at a barrier per exchange; a woken thread
         # waits for the interpreter lock up to one switch interval.
-        for interval in (default_interval, 1e-4):
+        for interval in (default_interval, *(intervals or ())):
             sys.setswitchinterval(interval)
             walls = []
             for _ in range(3):
                 t0 = time.perf_counter()
-                group.run(small.allreduce, tiny, axis_name="x")
+                group.run(small_fn, tiny, axis_name="x")
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
-            group.run(comm.allreduce, xs, axis_name="x")
+            group.run(fn, xs, axis_name="x")
             torch.cuda.synchronize()
             full = time.perf_counter() - t0
             log(f"host floor: {plan.algo}/{plan.pipeline_chunks} at 256 KB/rank, "
@@ -386,6 +561,188 @@ def kernels_vs_plain_allreduce(device):
 
 
 # ---------------------------------------------------------------------------
+# Phases 5-7: the data movers and the two-pass paths
+# ---------------------------------------------------------------------------
+
+
+def _run(group, comm, op, xs):
+    """One call of ``comm.<op>`` on every rank, launch counts from 0.
+    Returns (results, launches, wall seconds)."""
+    import torch
+
+    from repro_torch.kernels import lorenzo
+
+    torch.cuda.synchronize()
+    lorenzo.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = group.run(getattr(comm, op), xs, axis_name="x")
+    torch.cuda.synchronize()
+    return res, dict(lorenzo.LAUNCHES), time.perf_counter() - t0
+
+
+def _check_result(label, res, wants, err_scale):
+    """Error of every rank's output against its f64 reference within
+    1.05 eb + 1e-6 max|reference|, no overflow, no non-finite flag.
+    Returns the largest error."""
+    worst = 0.0
+    for r, (out, want) in enumerate(zip((x.value for x in res), wants)):
+        err = (out.double() - want).abs().max().item()
+        bound = EB * 1.05 + want.abs().max().item() * err_scale
+        if not err <= bound:
+            raise AssertionError(f"{label}: rank {r} error {err} exceeds the bound {bound}")
+        worst = max(worst, err)
+    if any(bool(x.overflow) or bool(x.nonfinite) for x in res):
+        raise AssertionError(f"{label}: overflow or non-finite flag set")
+    return worst
+
+
+def _bitwise_mismatches(a, b):
+    """Elements of two runs' per-rank results whose f32 bits differ."""
+    import torch
+
+    return sum(int((x.value.view(torch.int32) != y.value.view(torch.int32)).sum())
+               for x, y in zip(a, b))
+
+
+def run_scatter(n, nbytes, device, gen, label, profile=False):
+    """``scatter`` of ``nbytes`` at the root over n ranks.  Non-root
+    inputs are NaN: only the root's payload is significant."""
+    import torch
+
+    from repro_torch.core import bitpack, transport
+    from repro_torch.core.comm import GZCommunicator
+    from repro_torch.kernels import lorenzo, ops
+
+    n_elems = nbytes // 4 // n * n  # whole chunks
+    x_full = _random_walk(n_elems, gen, device)
+    junk = torch.full_like(x_full, float("nan"))
+    xs = [x_full] + [junk] * (n - 1)
+    comm = GZCommunicator("x", axis_size=n, device=device)
+    plan = comm.plan("scatter", (n_elems,))
+    streams = sum(h.chunk_slab[1] for rnd in plan.route_table.rounds for h in rnd
+                  if h.sender == 0)
+    group = transport.ThreadGroup(n, device)
+    res, launches, wall = _run(group, comm, "scatter", xs)
+    chunk = n_elems // n
+    err = _check_result(f"scatter {label}", res,
+                        [x_full[r * chunk:(r + 1) * chunk].double() for r in range(n)],
+                        1e-6)
+    log(f"scatter {label} N={n} {nbytes / 1e6:.0f} MB at the root: algo={plan.algo} "
+        f"pipeline_chunks={plan.pipeline_chunks} wire_bytes={plan.wire_bytes} "
+        f"root_chunk_streams={streams} ratio={plan.ratio:.4f} cold wall "
+        f"{wall * 1e3:.1f} ms err={err:.3e} launches={_nonzero(launches)}")
+    if (plan.algo, plan.pipeline_chunks, streams) != ("binomial", 1, n - 1):
+        raise AssertionError(f"scatter plan {plan.algo}/{plan.pipeline_chunks} with "
+                             f"{streams} root streams")
+    _check_launches(plan, n, launches)
+    del res
+    if profile:
+        _profile(group, comm.scatter, xs, plan)
+        rows = ops.n_blocks_for(chunk)
+        x2d = ops.to_blocks(x_full[:chunk])
+        codes, bw, _ = lorenzo.quantize(x2d, ops.as_eb(EB, device))
+        cap = plan.capacity_words
+        ms = _median_ms(lambda: bitpack.pack(codes, bw, cap), 5)
+        log(f"bitpack.pack (torch ops) at one chunk ({rows} rows, cap {cap}): {ms:.3f} ms "
+            f"median; x {n} chunks = {n * ms:.2f} ms per scatter")
+    del xs, x_full, junk
+    torch.cuda.empty_cache()
+    return plan, launches, wall
+
+
+def _movement_references(op, xs, n):
+    """Per-rank f64 reference outputs of a data-movement op."""
+    import torch
+
+    chunk = xs[0].shape[0] // n
+    if op == "broadcast":
+        return [xs[0].double()] * n
+    if op == "allgather":
+        return [torch.cat(xs).double()] * n
+    if op == "reduce_scatter":
+        exact = sum(x.double() for x in xs)
+        return [exact[r * chunk:(r + 1) * chunk] for r in range(n)]
+    return [torch.cat([x[r * chunk:(r + 1) * chunk] for x in xs]).double()
+            for r in range(n)]
+
+
+def run_movers(device, gen):
+    """broadcast, allgather (P = 1, 2), reduce_scatter (P = 1, 2) and
+    all_to_all at 16 MB per rank over 8 ranks: error bound and launch
+    counts, then bitwise equal to the same call through the plain
+    versions."""
+    import torch
+
+    from repro_torch.core import transport
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.comm import GZCommunicator
+
+    n, n_elems = 8, MOVER_BYTES // 4
+    xs = [_random_walk(n_elems, gen, device) for _ in range(n)]
+    group = transport.ThreadGroup(n, device)
+    for op, chunks in (("broadcast", 1), ("allgather", 1), ("allgather", 2),
+                       ("reduce_scatter", 1), ("reduce_scatter", 2), ("all_to_all", 1)):
+        comm = GZCommunicator("x", config=GZConfig(pipeline_chunks=chunks), axis_size=n,
+                              device=device)
+        plan = comm.plan(op, (n_elems,))
+        res, launches, wall = _run(group, comm, op, xs)
+        err = _check_result(op, res, _movement_references(op, xs, n), 1e-6)
+        _check_launches(plan, n, launches)
+        with _plain_kernels():
+            plain = group.run(getattr(comm, op), xs, axis_name="x")
+        torch.cuda.synchronize()
+        mism = _bitwise_mismatches(res, plain)
+        log(f"{op} {MOVER_BYTES / 1e6:.0f} MB/rank N={n} P={plan.pipeline_chunks}: algo={plan.algo} "
+            f"wire_bytes={plan.wire_bytes} cold wall {wall * 1e3:.1f} ms err={err:.3e} "
+            f"launches={_nonzero(launches)} kernels vs plain mismatches={mism}")
+        if mism:
+            raise AssertionError(f"{op}: kernel path differs from the plain path in {mism}")
+        del res, plain
+    torch.cuda.empty_cache()
+
+
+def run_two_pass(device, gen):
+    """16 MB x 8 allreduces with the two-pass codec (redoub, ring/2) and
+    the two-kernel hop (ring/2): launch counts, and bitwise equal to the
+    fused run on the same inputs.  Returns each variant's launches."""
+    import torch
+
+    from repro_torch.core import transport
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.comm import GZCommunicator
+
+    n, n_elems = 8, MOVER_BYTES // 4
+    xs = [_random_walk(n_elems, gen, device) for _ in range(n)]
+    exact = sum(x.double() for x in xs)
+    group = transport.ThreadGroup(n, device)
+    out = {}
+    for base, variants in (({"algo": "redoub"}, ({"fused": False},)),
+                           ({"algo": "ring", "pipeline_chunks": 2},
+                            ({"fused": False}, {"fused_hop": False}))):
+        fused = group.run(GZCommunicator("x", config=GZConfig(**base), axis_size=n,
+                                         device=device).allreduce, xs, axis_name="x")
+        for v in variants:
+            comm = GZCommunicator("x", config=GZConfig(**base, **v), axis_size=n,
+                                  device=device)
+            plan = comm.plan("allreduce", (n_elems,))
+            res, launches, wall = _run(group, comm, "allreduce", xs)
+            label = f"{plan.algo}/{plan.pipeline_chunks} {v}"
+            err = _check_result(label, res, [exact] * n, 1e-6)
+            _check_launches(plan, n, launches)
+            mism = _bitwise_mismatches(res, fused)
+            log(f"two-pass allreduce {MOVER_BYTES / 1e6:.0f} MB/rank N={n} {label}: cold wall "
+                f"{wall * 1e3:.1f} ms err={err:.3e} launches={_nonzero(launches)} "
+                f"vs fused run mismatches={mism}")
+            if mism:
+                raise AssertionError(f"{label}: differs from the fused run in {mism}")
+            out[(plan.algo, tuple(sorted(v)))] = launches
+            del res
+        del fused
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -417,17 +774,35 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     records = check_kernels(device, gen)
+    records.update(check_unfused_kernels(device, gen))
 
     plan, launches, _ = run_allreduce(8, MAIN_BYTES, device, gen, label="main",
                                       profile=True)
     if (plan.algo, plan.pipeline_chunks) != ("ring", 2):
         raise AssertionError(f"646 MB plan is {plan.algo}/{plan.pipeline_chunks}, "
                              "expected ring/2")
-    for name, r in records.items():
-        r["launches"] = launches[name]
+    for name in ("quantize_pack", "unpack_reduce_repack", "unpack_dequantize_reduce",
+                 "unpack_dequantize"):
+        records[name]["launches"] = launches[name]
     run_allreduce(8, 16_000_000, device, gen, label="16MB")
     run_allreduce(6, 16_000_000, device, gen, {"algo": "redoub"}, label="16MB")
     kernels_vs_plain_allreduce(device)
+    torch.cuda.empty_cache()
+
+    # This slice's main path: the paper's Fig. 12 scatter.
+    plan, launches, _ = run_scatter(8, MAIN_BYTES, device, gen, "main", profile=True)
+    if plan.wire_bytes != SCATTER_WIRE_BYTES:
+        raise AssertionError(f"scatter wire bytes {plan.wire_bytes} != {SCATTER_WIRE_BYTES}")
+    records["quantize"]["launches"] = launches["quantize"]
+    run_scatter(6, 64_000_000, device, gen, "trimmed")
+    run_movers(device, gen)
+    two_pass = run_two_pass(device, gen)
+    records["dequantize_reduce"]["launches"] = \
+        two_pass[("redoub", ("fused",))]["dequantize_reduce"]
+    records["dequantize"]["launches"] = two_pass[("ring", ("fused",))]["dequantize"]
+    for r in records.values():
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']}: not launched on its path")
 
     print(smi)
     print(json.dumps({"kernels": [

@@ -7,10 +7,10 @@ stream of 32-bit words.  Block *i*'s element *j* occupies bits
 LSB first.  Words past the provisioned capacity are dropped; the true
 size travels alongside as ``nwords``.
 
-Codes are int64 tensors holding values in [0, 2**32); the packed stream
-is an int32 tensor carrying the uint32 bit pattern.  The bit work runs in
-int64 with a 32-bit mask, because torch has no uint32 shifts or
-scatter-add on the CPU.
+Codes and the packed stream are int32 tensors carrying uint32 bit
+patterns (``pack`` also takes codes as int64 values in [0, 2**32)).  The
+bit work runs in int64 with a 32-bit mask, because torch has no uint32
+shifts or scatter-add on the CPU.
 
 ``unpack`` clips out-of-range word indices like the JAX oracle does;
 ``unpack_padded`` reads every word at or past the end of the buffer as 0,
@@ -56,7 +56,7 @@ def pack(codes: torch.Tensor, bitwidth: torch.Tensor, capacity_words: int):
     """
     n_blocks, block = codes.shape
     word, shift, bw = _positions(bitwidth, block)
-    u = codes.to(torch.int64) & _width_mask(bw)
+    u = codes.to(torch.int64) & _width_mask(bw)  # int32 bits: sign-extended, masked
     lo = (u << shift) & MASK32
     hi = u >> (32 - shift)  # u < 2**32: shift 0 gives 0, as the reference
     # Disjoint bit ranges: add == or.  The buffer spans every word the
@@ -76,12 +76,12 @@ def _gather_codes(words: torch.Tensor, word: torch.Tensor, shift: torch.Tensor,
     w1 = words[(word + 1).clamp(0, n_words - 1)]
     lo = w0 >> shift
     hi = torch.where(shift == 0, torch.zeros_like(w1), (w1 << (32 - shift)) & MASK32)
-    return (lo | hi) & _width_mask(bw)
+    return wrap_i32((lo | hi) & _width_mask(bw))
 
 
 def unpack(packed: torch.Tensor, bitwidth: torch.Tensor, block: int) -> torch.Tensor:
     """Inverse of :func:`pack` with the oracle's clipped word indices.
-    Returns int64 codes (n_blocks, block)."""
+    Returns int32 codes (n_blocks, block) carrying uint32 bits."""
     word, shift, bw = _positions(bitwidth, block)
     return _gather_codes(as_u32(packed), word, shift, bw, packed.shape[0])
 
@@ -89,7 +89,8 @@ def unpack(packed: torch.Tensor, bitwidth: torch.Tensor, block: int) -> torch.Te
 def unpack_padded(packed: torch.Tensor, bitwidth: torch.Tensor,
                   block: int) -> torch.Tensor:
     """Inverse of :func:`pack` where every word at or past the end of
-    ``packed`` reads as 0 (the kernel path's semantics)."""
+    ``packed`` reads as 0 (the kernel path's semantics).  Returns int32
+    codes like :func:`unpack`."""
     word, shift, bw = _positions(bitwidth, block)
     n_blocks = bitwidth.shape[0]
     words = torch.cat([

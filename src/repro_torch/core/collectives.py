@@ -1,8 +1,11 @@
-"""gZCCL compressed allreduce, rank-centric, over a rank transport.
+"""gZCCL compressed collectives, rank-centric, over a rank transport.
 
-The counterpart of the allreduce half of ``repro.core.collectives``: the
-same schedules, hop for hop and piece for piece, so every rank's result
-is bitwise the JAX package's.  What changed:
+The counterpart of ``repro.core.collectives``: the allreduce (recursive
+doubling, sequential and pipelined ring, with the single-pass or the
+two-kernel hop) and the data movers (ring reduce-scatter and allgather,
+the trimmed-slab binomial scatter and broadcast, the direct all-to-all),
+with the same schedules, hop for hop and piece for piece, so every
+rank's result is bitwise the JAX package's.  What changed:
 
   * ``lax.ppermute``/``lax.psum``/``lax.axis_index`` become the rank
     handle of ``core/transport.py`` (``g.exchange``, ``g.flags_across``,
@@ -14,12 +17,18 @@ is bitwise the JAX package's.  What changed:
     booleans: the idle ranks still run every exchange and doubling kernel,
     as the SPMD reference does, and only the ranks that keep the unfold
     payload decompress it;
-  * ``acc`` is a private padded copy updated in place.
+  * ``acc`` is a private padded copy updated in place;
+  * the scatter's non-root ranks skip compressing their local payload
+    (the reference compresses it SPMD and masks its overflow flag away:
+    only the root's streams travel), and tree installs copy the received
+    slab into the receiver's own held buffers;
+  * ``lax.all_to_all`` becomes the transport's ``all_to_all``.
 
-Only the allreduce execute layer is here.  Outside this slice, and
-raising ``NotImplementedError`` that names the ROADMAP item:
-``algo="intring"`` (A9), ``fused=False`` (B2), ``on_overflow`` other than
-``"flag"`` and ``verify_streams=True`` (A8).  The data-movement ops are A5.
+Outside this slice, and raising ``NotImplementedError`` that names the
+ROADMAP item: ``algo="intring"`` (A9), ``on_overflow`` other than
+``"flag"`` and ``verify_streams=True`` (A8).  Only the ``lorenzo`` codec
+exists in the port (A7), so the reference's per-chunk branches for the
+other codecs are not here.
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ import math
 
 import torch
 
-from repro_torch.core import codecs, cost_model, error_budget, schedule
-from repro_torch.core.compressed import validate_capacity_factor
+from repro_torch.core import bitpack, codecs, cost_model, error_budget, schedule
+from repro_torch.core.compressed import (
+    Compressed, capacity_words_for, validate_capacity_factor,
+)
 from repro_torch.kernels import ops
 
 __all__ = ["GZConfig", "PIECE_QUANTUM", "plan_ring_pipeline_chunks"]
@@ -42,8 +53,12 @@ class GZConfig:
 
     ``eb`` is the end-to-end absolute error bound; per-stage budgets come
     from ``core.error_budget``.  ``pipeline_chunks`` (a power of two)
-    splits every ring chunk into that many whole-tile pieces; ``fused_hop``
-    runs every intermediate reduce hop as one ``unpack_reduce_repack``.
+    splits every ring chunk into that many whole-tile pieces (and every
+    full scatter slab into that many piece exchanges); ``fused`` picks the
+    single-pass codec kernels over the two-pass ``quantize``/``bitpack``
+    composition; ``fused_hop`` runs every intermediate reduce hop as one
+    ``unpack_reduce_repack`` instead of ``decompress_reduce`` then
+    ``compress``.  Results are bitwise the same under all four settings.
     """
 
     eb: float = 1e-4
@@ -90,10 +105,6 @@ def _require_slice(cfg: GZConfig) -> None:
     """Raise for the knobs this port does not execute yet."""
     if cfg.algo == "intring":
         raise NotImplementedError("algo='intring' is not ported yet (ROADMAP A9)")
-    if not cfg.fused or not cfg.fused_hop:
-        raise NotImplementedError(
-            "fused=False / fused_hop=False (the two-pass composition) is not "
-            "ported yet (ROADMAP B2)")
     if cfg.on_overflow != "flag":
         raise NotImplementedError(
             f"on_overflow={cfg.on_overflow!r} is not ported yet (ROADMAP A8)")
@@ -116,14 +127,16 @@ def _false(device) -> torch.Tensor:
 
 
 def _allreduce_redoub(x, g, cfg: GZConfig):
-    """Recursive-doubling gZ-Allreduce with the fused hop.
+    """Recursive-doubling gZ-Allreduce.
 
     Non-power-of-two axes fold each surplus even rank ``2i < 2*rem`` into
     ``2i + 1`` in a compressed pre-hop, run the doubling over the
     power-of-two participants (idle ranks ride along and receive zero
-    streams), and unfold the result in a compressed post-hop whose payload
-    the last doubling step's fused kernel emits directly.  Overflow flags
-    are masked to streams that actually travel.
+    streams), and unfold the result in a compressed post-hop.  With the
+    fused hop the last doubling step's kernel emits the unfold payload
+    directly; ``fused_hop=False`` compresses before every exchange and
+    reduces after it.  Overflow flags are masked to streams that actually
+    travel.
     """
     n = g.size
     comp = cfg.compressor()
@@ -142,6 +155,26 @@ def _allreduce_redoub(x, g, cfg: GZConfig):
     step_perms = [sched.perm(base + k) for k in range(steps)]
     acc = x
     overflow = _false(x.device)
+
+    if not cfg.fused_hop:
+        if rem:
+            c = comp.compress(acc, eb_stage)
+            if is_fold_src:
+                overflow = overflow | c.overflowed()
+            acc = comp.decompress_reduce(_exchange(g, c, sched.perm(0)), acc)
+        for k in range(steps):
+            c = comp.compress(acc, eb_stage)
+            if is_participant:
+                overflow = overflow | c.overflowed()
+            acc = comp.decompress_reduce(_exchange(g, c, step_perms[k]), acc)
+        if rem:
+            c = comp.compress(acc, eb_stage)
+            if is_fold_dst:
+                overflow = overflow | c.overflowed()
+            c_back = _exchange(g, c, sched.perm(base + steps))
+            if is_fold_src:
+                acc = comp.decompress(c_back)
+        return acc, overflow
 
     c = comp.compress(acc, eb_stage)
     if is_fold_src or not rem:
@@ -194,28 +227,42 @@ def _pad_to_chunks(x, n):
     return padded, total // n
 
 
-def _reduce_scatter_ring(x, g, cfg: GZConfig, eb_stage):
-    """Ring reduce-scatter with the fused hop: each intermediate hop turns
-    the received stream + the local chunk into the next outgoing stream
-    in one kernel; the last hop emits the f32 sum.  Returns (acc, chunk_n,
-    overflow); rank r's reduced chunk is at index (r + 1) % N.
+def _reduce_scatter_ring(x, g, cfg: GZConfig, eb_stage, *, owner_offset=0):
+    """Ring reduce-scatter.  With the fused hop each intermediate hop
+    turns the received stream + the local chunk into the next outgoing
+    stream in one kernel and the last hop emits the f32 sum;
+    ``fused_hop=False`` compresses the send chunk, exchanges, and reduces
+    into the receive chunk every step.  Returns (acc, chunk_n, overflow);
+    rank r's reduced chunk is at index (r + 1 + owner_offset) % N.
     """
     n = g.size
     comp = cfg.compressor()
     r = g.rank
+    t = owner_offset
     acc, chunk_n = _pad_to_chunks(x, n)
     perm = schedule.ring_perm(n)
 
-    c = comp.compress(_chunk(acc, r, chunk_n), eb_stage)
+    if not cfg.fused_hop:
+        overflow = _false(x.device)
+        for s in range(n - 1):
+            c = comp.compress(_chunk(acc, (r - s + t) % n, chunk_n), eb_stage)
+            overflow = overflow | c.overflowed()
+            recv_idx = (r - s - 1 + t) % n
+            updated = comp.decompress_reduce(
+                _exchange(g, c, perm), _chunk(acc, recv_idx, chunk_n))
+            _set_chunk(acc, updated, recv_idx, chunk_n)
+        return acc, chunk_n, overflow
+
+    c = comp.compress(_chunk(acc, (r + t) % n, chunk_n), eb_stage)
     overflow = c.overflowed()
     for s in range(n - 2):
         c_recv = _exchange(g, c, perm)
-        recv_idx = (r - s - 1) % n
+        recv_idx = (r - s - 1 + t) % n
         c, _ = comp.decompress_reduce_compress(
             c_recv, _chunk(acc, recv_idx, chunk_n), eb_stage)
         overflow = overflow | c.overflowed()
     c_recv = _exchange(g, c, perm)
-    recv_idx = (r - (n - 2) - 1) % n
+    recv_idx = (r - (n - 2) - 1 + t) % n
     updated = comp.decompress_reduce(c_recv, _chunk(acc, recv_idx, chunk_n))
     return _set_chunk(acc, updated, recv_idx, chunk_n), chunk_n, overflow
 
@@ -260,13 +307,17 @@ def plan_ring_pipeline_chunks(n_elems: int, n_ranks: int, *, ratio: float = 20.0
     return chunks
 
 
-def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage):
-    """Chunked double-buffered ring reduce-scatter with the fused hop.
+def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage, *,
+                                   owner_offset=0):
+    """Chunked double-buffered ring reduce-scatter.
 
-    Same hops as :func:`_reduce_scatter_ring`, per piece: the pending
-    streams (one per piece) are a list; each iteration ships the next
-    piece's stream, produced P-1 hops earlier, then runs this hop's fused
-    kernel.  The last step's P hops drain to the f32 accumulator.
+    Same hops as :func:`_reduce_scatter_ring`, per piece, with the same
+    ownership convention.  With the fused hop the pending streams (one
+    per piece) are a list; each iteration ships the next piece's stream,
+    produced P-1 hops earlier, then runs this hop's fused kernel, and the
+    last step's P hops drain to the f32 accumulator.  ``fused_hop=False``
+    compresses piece t+1 from the pre-update accumulator, ships piece t
+    and reduces it, one piece per iteration.
     """
     n = g.size
     p_chunks = cfg.pipeline_chunks
@@ -274,14 +325,36 @@ def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage):
         raise ValueError("pipelined schedule needs >= 2 pieces per chunk")
     comp = cfg.compressor()
     r = g.rank
+    t0 = owner_offset
     acc, chunk_n, piece_n = _pad_for_pipeline(x, n, p_chunks)
     perm = schedule.ring_perm(n)
     T = (n - 1) * p_chunks
 
+    if not cfg.fused_hop:
+        def send_piece(t):
+            s, p = divmod(t, p_chunks)
+            return comp.compress(
+                _piece(acc, (r - s + t0) % n, p, chunk_n, piece_n), eb_stage)
+
+        c_in = send_piece(0)
+        overflow = c_in.overflowed()
+        for t in range(T):
+            if t + 1 < T:
+                c_next = send_piece(t + 1)
+                overflow = overflow | c_next.overflowed()
+            s, p = divmod(t, p_chunks)
+            recv_idx = (r - s - 1 + t0) % n
+            updated = comp.decompress_reduce(
+                _exchange(g, c_in, perm), _piece(acc, recv_idx, p, chunk_n, piece_n))
+            _set_piece(acc, updated, recv_idx, p, chunk_n, piece_n)
+            if t + 1 < T:
+                c_in = c_next
+        return acc, chunk_n, overflow
+
     overflow = _false(x.device)
     pend = []
     for p in range(p_chunks):
-        c = comp.compress(_piece(acc, r, p, chunk_n, piece_n), eb_stage)
+        c = comp.compress(_piece(acc, (r + t0) % n, p, chunk_n, piece_n), eb_stage)
         overflow = overflow | c.overflowed()
         pend.append(c)
     c_fly = _exchange(g, pend[0], perm)
@@ -289,14 +362,14 @@ def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage):
     for u in range(T - p_chunks):
         c_fly_next = _exchange(g, pend[(u + 1) % p_chunks], perm)
         s, p = u // p_chunks, u % p_chunks
-        recv_idx = (r - s - 1) % n
+        recv_idx = (r - s - 1 + t0) % n
         c_next, _ = comp.decompress_reduce_compress(
             c_fly, _piece(acc, recv_idx, p, chunk_n, piece_n), eb_stage)
         pend[p] = c_next
         overflow = overflow | c_next.overflowed()
         c_fly = c_fly_next
 
-    recv_last = (r - (n - 2) - 1) % n
+    recv_last = (r - (n - 2) - 1 + t0) % n
     for p in range(p_chunks):
         if p + 1 < p_chunks:
             c_fly_next = _exchange(g, pend[p + 1], perm)
@@ -397,3 +470,294 @@ def _execute_allreduce(x, g, cfg: GZConfig):
             "layer — resolve a Plan via GZCommunicator.plan first"
         )
     return out.reshape(shape).to(dtype), ovf
+
+
+# ---------------------------------------------------------------------------
+# Reduce_scatter / Allgather — the ring stages standalone
+# ---------------------------------------------------------------------------
+
+
+def _execute_reduce_scatter(x, g, cfg: GZConfig):
+    """EXECUTE layer for the ring reduce-scatter: rank r returns the summed
+    chunk r of the flat payload (``owner_offset=-1``)."""
+    _require_slice(cfg)
+    n, r = g.size, g.rank
+    if x.dim() != 1 or x.shape[0] % n != 0:
+        raise ValueError(
+            f"reduce_scatter over {n} ranks: the payload must be flat with "
+            "length divisible by the axis size (rank r returns summed chunk "
+            f"r); got shape {tuple(x.shape)}"
+        )
+    eb_stage = error_budget.allocate(
+        cfg.eb, "reduce_scatter_ring", n, worst_case=cfg.worst_case_budget
+    )
+    flat = x.to(torch.float32)
+    chunk_in = x.shape[0] // n
+    if cfg.pipeline_chunks > 1:
+        # Chunk boundaries are caller semantics: pad each chunk (not the
+        # flat tail) so every chunk is pipeline_chunks whole-tile pieces.
+        quantum = cfg.pipeline_chunks * PIECE_QUANTUM
+        chunk_pad = -(-chunk_in // quantum) * quantum
+        padded = torch.zeros((n, chunk_pad), dtype=torch.float32, device=x.device)
+        padded[:, :chunk_in] = flat.view(n, chunk_in)
+        acc, chunk_n, ovf = _reduce_scatter_ring_pipelined(
+            padded.view(-1), g, cfg, eb_stage, owner_offset=-1)
+    else:
+        acc, chunk_n, ovf = _reduce_scatter_ring(
+            flat, g, cfg, eb_stage, owner_offset=-1)
+    return _chunk(acc, r, chunk_n)[:chunk_in].to(x.dtype), ovf
+
+
+def _execute_allgather(x, g, cfg: GZConfig):
+    """EXECUTE layer for the ring allgather: compress the own chunk once,
+    forward the compressed stream N-1 times; slot j of the result holds
+    decompress(compress(x_j)) on every rank."""
+    _require_slice(cfg)
+    n, r = g.size, g.rank
+    comp = cfg.compressor()
+    flat = x.reshape(-1).to(torch.float32)
+    n_orig = flat.shape[0]
+    dev = x.device
+
+    if cfg.pipeline_chunks > 1:
+        quantum = cfg.pipeline_chunks * PIECE_QUANTUM
+        chunk_n = -(-n_orig // quantum) * quantum
+        piece_n = chunk_n // cfg.pipeline_chunks
+        out = torch.zeros(n * chunk_n, dtype=torch.float32, device=dev)
+        out[r * chunk_n:r * chunk_n + n_orig] = flat
+        out, pieces, ovf = _compress_own_pieces(
+            out, r, cfg.eb, cfg, chunk_n, piece_n, _false(dev))
+        out = _forward_pieces_ring(out, pieces, g, cfg,
+                                   lambda s: (r - s - 1) % n, chunk_n, piece_n)
+        out = out.view(n, chunk_n)[:, :n_orig].reshape(-1)
+    else:
+        out = torch.zeros(n * n_orig, dtype=torch.float32, device=dev)
+        c_cur = comp.compress(flat, cfg.eb)
+        ovf = c_cur.overflowed()
+        _set_chunk(out, comp.decompress(c_cur), r, n_orig)
+        perm = schedule.ring_perm(n)
+        for s in range(n - 1):
+            c_cur = _exchange(g, c_cur, perm)
+            _set_chunk(out, comp.decompress(c_cur), (r - s - 1) % n, n_orig)
+    if x.dim():
+        out = out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
+    return out.to(x.dtype), ovf
+
+
+# ---------------------------------------------------------------------------
+# Scatter / Broadcast — the binomial tree (paper §3.3.4)
+# ---------------------------------------------------------------------------
+
+
+def _wire_container(comp, packed, bitwidth, anchor, eb, n) -> Compressed:
+    """Rebuild a ``Compressed`` from bare wire parts on the receive side
+    (the batched scatter/all-to-all paths ship the parts, not the
+    container); the true stream size is recomputed from the metadata."""
+    return Compressed(
+        packed=packed, bitwidth=bitwidth, anchor=anchor,
+        nwords=comp.stream_nwords(bitwidth, n), eb=ops.as_eb(eb, packed.device),
+        n=n, block=ops.BLOCK,
+    )
+
+
+def _quantize_chunks(x2d_chunks, n, chunk_n, cfg: GZConfig):
+    """Every chunk of ``x2d_chunks`` (n, chunk_n) compressed on its own, in
+    ONE batched ``quantize`` (what N CUDA streams did in the paper) and n
+    ``bitpack.pack`` calls.  Chunks are padded to whole row-tiles so chunk
+    boundaries are block boundaries.  Returns ``(packed (n, cap),
+    bw (n, rows), anchor (n, rows), overflow)``."""
+    B = ops.BLOCK
+    rows = ops.n_blocks_for(chunk_n)
+    dev = x2d_chunks.device
+    x2d = torch.zeros((n, rows * B), dtype=torch.float32, device=dev)
+    x2d[:, :chunk_n] = x2d_chunks
+    codes, bw, anchor = ops.quantize(x2d.view(n * rows, B), cfg.eb)
+    cap = capacity_words_for(chunk_n, cfg.capacity_factor, B)
+    packed = torch.empty((n, cap), dtype=torch.int32, device=dev)
+    ovf = _false(dev)
+    for i in range(n):
+        pk, nw = bitpack.pack(codes[i * rows:(i + 1) * rows],
+                              bw[i * rows:(i + 1) * rows], cap)
+        packed[i] = pk
+        ovf = ovf | (nw > cap)
+    return packed, bw.view(n, rows), anchor.view(n, rows), ovf
+
+
+def _scatter_held_buffers(x_full, n, cfg: GZConfig, *, compress: bool):
+    """The tree's held buffers ``(packed, bw, anchor)`` over a virtual
+    ``2**ceil(log2 n)``-rank space: slot i holds chunk i's stream, the
+    padding slots zero streams (they keep slab indexing uniform and never
+    travel under the trimmed schedule).  Only the root compresses
+    (``compress``); the other ranks start from zero streams, which every
+    install overwrites before anything reads them.  Returns
+    ``(held, chunk_n, n_virt, ovf)``."""
+    chunk_n = x_full.shape[0] // n
+    rows = ops.n_blocks_for(chunk_n)
+    n_virt = 1 << cost_model.steps_for("binomial", n)
+    cap = capacity_words_for(chunk_n, cfg.capacity_factor, ops.BLOCK)
+    dev = x_full.device
+    held = (torch.zeros((n_virt, cap), dtype=torch.int32, device=dev),
+            torch.zeros((n_virt, rows), dtype=torch.int32, device=dev),
+            torch.zeros((n_virt, rows), dtype=torch.int32, device=dev))
+    if not compress:
+        return held, chunk_n, n_virt, _false(dev)
+    chunks = x_full.reshape(n, chunk_n).to(torch.float32)
+    *parts, ovf = _quantize_chunks(chunks, n, chunk_n, cfg)
+    for h, part in zip(held, parts):
+        h[:n] = part
+    return held, chunk_n, n_virt, ovf
+
+
+def _slab_exchange(held, g, install_at, perm, start, slab, n_virt, is_recv):
+    """Ship a ``slab``-chunk window of the held buffers along ``perm`` and,
+    on a receiver, copy it into its own buffers at ``install_at``.  Window
+    starts are clamped into the buffer like ``lax.dynamic_slice``'s."""
+    lo = min(start % n_virt, n_virt - slab)
+    recv = g.exchange(tuple(h[lo:lo + slab] for h in held), perm)
+    if is_recv:
+        at = min(install_at, n_virt - slab)
+        for h, rv in zip(held, recv):
+            h[at:at + slab] = rv
+    return held
+
+
+def _scatter_tree_trimmed(held, g, n, n_virt, cfg: GZConfig):
+    """Trimmed-slab binomial tree: each round ships only the real ranks of
+    the receiver's subtree.  Per round (``schedule.tree_plan``, perms
+    verbatim from the route table): the full-span exchanges, split into
+    ``cfg.pipeline_chunks`` piece exchanges, then the at most one
+    boundary exchange of ``n - receiver`` chunks as one exchange.  The
+    root ships exactly n-1 chunk streams at any axis size."""
+    r = g.rank
+    for span, full_senders, trim, perm in schedule.tree_plan(n):
+        start = r + span  # a sender's outgoing slab: its subtree's right half
+        if full_senders:
+            perm_full = perm[: len(full_senders)]
+            is_recv = r % (span * 2) == span and r + span <= n
+            groups = min(max(cfg.pipeline_chunks, 1), span)
+            sub = span // groups
+            for k in range(groups):
+                held = _slab_exchange(held, g, r + k * sub, perm_full,
+                                      start + k * sub, sub, n_virt, is_recv)
+        if trim is not None:
+            _snd, rcv, slab = trim
+            held = _slab_exchange(held, g, r, perm[len(full_senders):], start,
+                                  slab, n_virt, r == rcv)
+    return held
+
+
+def _scatter_tree_padded_reference(held, g, n, n_virt, cfg: GZConfig):
+    """The padded virtual-tree walk, kept as the byte-parity oracle for
+    the trimmed schedule (tests only: every real rank must decode the
+    same bytes from both walks).  Round k ships a full 2**k-chunk slab,
+    padding chunks included, from each sender ``i % 2**(k+1) == 0`` to
+    ``i + 2**k``."""
+    r = g.rank
+    steps = n_virt.bit_length() - 1
+    for k in reversed(range(steps)):
+        span = 1 << k
+        # schedule-authority: allow — padded-tree byte-parity oracle
+        perm = [(i, i + span) for i in range(0, n_virt, span * 2)
+                if i + span < n]
+        is_recv = r % (span * 2) == span
+        groups = min(max(cfg.pipeline_chunks, 1), span)
+        sub = span // groups
+        for j in range(groups):
+            held = _slab_exchange(held, g, r + j * sub, perm,
+                                  r + span + j * sub, sub, n_virt, is_recv)
+    return held
+
+
+def _execute_scatter(x_full, g, cfg: GZConfig, *, root: int = 0,
+                     _padded_reference: bool = False):
+    """EXECUTE layer for the binomial-tree scatter from rank 0.
+
+    ``x_full`` (n*chunk,) is significant on the root only.  The root
+    compresses each chunk on its own in one batched ``quantize``; the
+    streams travel down the trimmed-slab tree and each rank decompresses
+    its own chunk once.  Non-root ranks do not compress: their streams
+    would never travel and the reference masks their overflow away, so
+    the result and the root-masked flag are bitwise the reference's.
+    One ``quantize`` per call (root) and one decode per rank.
+    ``_padded_reference=True`` walks the padded virtual tree instead
+    (test oracle; the same bytes at every real rank).
+    """
+    _require_slice(cfg)
+    n, r = g.size, g.rank
+    if root != 0:
+        raise ValueError(
+            f"scatter over {n} ranks: only root 0 is supported (the binomial "
+            f"tree is rooted at rank 0); got root={root}.  Roll the payload "
+            "so the source rank is 0."
+        )
+    if x_full.shape[0] % n != 0:
+        raise ValueError(
+            f"scatter over {n} ranks: the full payload's leading dim must be "
+            "divisible by the axis size (each rank receives one chunk); got "
+            f"shape {tuple(x_full.shape)}"
+        )
+    held, chunk_n, n_virt, ovf = _scatter_held_buffers(
+        x_full, n, cfg, compress=r == 0)
+    tree = (_scatter_tree_padded_reference if _padded_reference
+            else _scatter_tree_trimmed)
+    packed, bw, anchor = tree(held, g, n, n_virt, cfg)
+    comp = cfg.compressor()
+    out = comp.decompress(
+        _wire_container(comp, packed[r], bw[r], anchor[r], cfg.eb, chunk_n))
+    return out.to(x_full.dtype), ovf
+
+
+def _execute_broadcast(x, g, cfg: GZConfig, *, root: int = 0):
+    """EXECUTE layer for the binomial-tree broadcast from rank 0: compress
+    once, forward the stream down the trimmed tree (``schedule.tree_plan``
+    pairs), decompress once per rank.  Every rank compresses its local
+    ``x`` as the reference does; only the root's stream travels, so only
+    its overflow flag counts."""
+    _require_slice(cfg)
+    n, r = g.size, g.rank
+    if root != 0:
+        raise ValueError(
+            f"broadcast over {n} ranks: only root 0 is supported (the binomial "
+            f"tree is rooted at rank 0); got root={root}."
+        )
+    comp = cfg.compressor()
+    c = comp.compress(x.reshape(-1).to(torch.float32), cfg.eb)
+    ovf = c.overflowed() if r == 0 else _false(x.device)
+    for span, _full, _trim, perm in schedule.tree_plan(n):
+        c_recv = _exchange(g, c, perm)
+        if r % (span * 2) == span:
+            c = c_recv
+    return comp.decompress(c).reshape(x.shape).to(x.dtype), ovf
+
+
+# ---------------------------------------------------------------------------
+# All-to-all — the direct compressed rank exchange
+# ---------------------------------------------------------------------------
+
+
+def _execute_all_to_all(x, g, cfg: GZConfig):
+    """EXECUTE layer for the compressed rank exchange (one lossy hop).
+
+    ``x`` (n*chunk, ...) holds slot buffers grouped by destination rank
+    along the leading dim.  Each destination chunk is compressed on its
+    own (one batched ``quantize``), the streams travel through the
+    transport's ``all_to_all``, and each rank decompresses what it
+    received, stacked in sender order."""
+    _require_slice(cfg)
+    n = g.size
+    if x.shape[0] % n != 0:
+        raise ValueError(
+            f"all_to_all over {n} ranks: the leading dim must be divisible by "
+            "the axis size (slot buffers grouped by destination rank); got "
+            f"shape {tuple(x.shape)}"
+        )
+    chunk_n = x.numel() // n
+    packed, bw, anchor, ovf = _quantize_chunks(
+        x.reshape(n, chunk_n).to(torch.float32), n, chunk_n, cfg)
+    rp, rb, ra = g.all_to_all((packed, bw, anchor))
+    comp = cfg.compressor()
+    out = torch.stack([
+        comp.decompress(_wire_container(comp, rp[i], rb[i], ra[i], cfg.eb, chunk_n))
+        for i in range(n)
+    ])
+    return out.reshape(x.shape).to(x.dtype), ovf

@@ -1,26 +1,28 @@
-"""Plan-then-execute communicator for the compressed allreduce.
+"""Plan-then-execute communicator for the compressed collectives.
 
 The counterpart of the planning half of ``repro.core.comm`` and of its
-``GZCommunicator.allreduce``: the same frozen, hashable :class:`Plan`
-(algorithm, pipeline depth, per-stage eb, capacity, provisioned wire
-bytes, route table), resolved by the same policy registry (``auto``,
+``GZCommunicator``: the same frozen, hashable :class:`Plan` (algorithm,
+pipeline depth, per-stage eb, capacity, provisioned wire bytes, slab
+table, route table), resolved by the same policy registry (``auto``,
 ``paper``, ``throughput``, ``accuracy``) and memoized in the same plan
 cache, so a plan here equals the reference's field for field at the same
-``hw`` point.
+``hw`` point, for all six ops.
 
 What differs from the reference:
 
   * the default ``hw`` is ``cost_model.A100_SLINGSHOT``, the paper's GPU
     point (the reference defaults to its TPU point);
   * ranks are not a traced mesh axis but a rank handle from
-    ``core/transport.py``: ``allreduce`` runs inside
+    ``core/transport.py``: every op runs inside
     ``ThreadGroup.run(..., axis_name=...)`` or a ``DistGroup.bind(...)``,
     or takes ``group=`` explicitly;
   * the communicator runs on ``device`` ("cuda" unless the caller asks
     for "cpu"); asking for CUDA without a card raises;
-  * only ``allreduce`` is planned and executed, with
-    ``on_overflow="flag"``: the other ops raise ``NotImplementedError``
-    (ROADMAP A5), as do the fallback and raise policies (A8).
+  * the ``all_to_all`` gradient is a ``torch.autograd.Function`` instead
+    of a ``custom_vjp``;
+  * only ``on_overflow="flag"`` is executed: the fallback and raise
+    policies, ``verify_streams`` and the health counters raise or are
+    absent (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import codecs, cost_model, error_budget, schedule, transport
+from repro_torch.core import (
+    codecs, collectives, cost_model, error_budget, schedule, transport,
+)
 from repro_torch.core.compressed import capacity_words_for
 from repro_torch.kernels import ops
 
@@ -56,6 +60,15 @@ OPS = (
     "all_to_all",
 )
 
+# Fixed algorithm per data-movement op (only allreduce has a real choice).
+_OP_ALGO = {
+    "reduce_scatter": "ring",
+    "allgather": "ring",
+    "scatter": "binomial",
+    "broadcast": "binomial",
+    "all_to_all": "direct",
+}
+
 
 # ---------------------------------------------------------------------------
 # Plan & CollectiveResult
@@ -73,9 +86,20 @@ class FallbackPlan:
     t_model: float     # modeled seconds of one fallback execution
 
 
+# Lossless primitive each op degrades to (FallbackPlan.kind).
+_FALLBACK_KIND = {
+    "allreduce": "psum",
+    "reduce_scatter": "psum_scatter",
+    "allgather": "all_gather",
+    "scatter": "raw_slab_tree",
+    "broadcast": "raw_tree_forward",
+    "all_to_all": "all_to_all",
+}
+
+
 def _fallback_plan(op, n_elems, axis_size, hw) -> FallbackPlan:
     return FallbackPlan(
-        op=op, kind="psum", axis_size=axis_size,
+        op=op, kind=_FALLBACK_KIND[op], axis_size=axis_size,
         wire_bytes=n_elems * 4,
         t_model=cost_model.fallback_time(op, n_elems * 4, axis_size, hw),
     )
@@ -114,9 +138,7 @@ class Plan:
 
     def as_config(self):
         """The concrete GZConfig the execute layer dispatches on."""
-        from repro_torch.core.collectives import GZConfig
-
-        return GZConfig(
+        return collectives.GZConfig(
             eb=self.eb,
             capacity_factor=self.capacity_factor,
             algo=self.algo,
@@ -184,15 +206,21 @@ def _ring_piece_sizes(n_elems, n, chunks):
 
 def _wire_accounting(op, algo, n_elems, n, capacity_factor, chunks,
                      codec: str = "lorenzo"):
-    """(capacity_words, wire_bytes, uncompressed_bytes) for one allreduce:
-    the busiest sender's sum over the route table (``schedule.build``),
-    each entry priced at the algorithm's transport granularity."""
+    """(capacity_words, wire_bytes, uncompressed_bytes) for one call: the
+    busiest sender's sum over the route table (``schedule.build``), each
+    entry priced at the op's transport granularity."""
     cap, entry_wire, entry_raw = _entry_pricers(
         op, algo, n_elems, n, capacity_factor, chunks, codec)
     if n < 2:
-        if algo == "redoub":
+        # Degenerate axis: no wire rounds.  One full stream for the
+        # log-depth ops, one exchange lane for the all-to-all, zero for
+        # the rings (the reference's historic provisioning).
+        if (op == "allreduce" and algo == "redoub") or op == "broadcast":
             return cap, _stream_bytes(n_elems, capacity_factor, codec), \
                 n_elems * 4
+        if op == "all_to_all":
+            h = schedule.Hop(0, 0, (0, 1), "lossy", "compressed")
+            return cap, entry_wire(h), entry_raw(h)
         return cap, 0, 0
     table = schedule.build(op, algo, n)
     send = [0] * n
@@ -205,29 +233,60 @@ def _wire_accounting(op, algo, n_elems, n, capacity_factor, chunks,
 
 
 def _entry_pricers(op, algo, n_elems, n, capacity_factor, chunks, codec):
-    """``(capacity_words, entry_wire(h), entry_raw(h))`` for the allreduce
-    algorithms, including the execute layer's padding (pipelined rings pad
-    to whole-tile pieces, intring pads chunks to whole code rows)."""
+    """``(capacity_words, entry_wire(h), entry_raw(h))``: the provisioned
+    capacity of one wire stream and the compressed / uncompressed bytes
+    one route-table entry ships, including the execute layer's padding
+    (pipelined rings pad to whole-tile pieces, intring pads chunks to
+    whole code rows, the scatter ships one stream per real chunk)."""
+    p = max(chunks, 1)
     chunk_in = -(-n_elems // max(n, 1))
-    if algo == "redoub":
+    if op == "allreduce" and algo == "redoub" or op == "broadcast":
         cap = codecs.codec_capacity_words(codec, n_elems, capacity_factor)
         stream = _stream_bytes(n_elems, capacity_factor, codec)
         return cap, (lambda h: stream), (lambda h: n_elems * 4)
-    if algo == "intring":
+    if op == "allreduce" and algo == "intring":
         chunk = ops.n_blocks_for(chunk_in) * ops.BLOCK
         cap = capacity_words_for(chunk, capacity_factor, ops.BLOCK)
         stream = _int_stream_bytes(chunk, capacity_factor)
         return cap, (lambda h: stream), (lambda h: chunk_in * 4)
-    _, piece = _ring_piece_sizes(n_elems, n, chunks)
-    cap = codecs.codec_capacity_words(codec, piece, capacity_factor)
-    stream = max(chunks, 1) * _stream_bytes(piece, capacity_factor, codec)
-    return cap, (lambda h: stream), (lambda h: chunk_in * 4)
+    if op == "allreduce":  # float ring
+        _, piece = _ring_piece_sizes(n_elems, n, chunks)
+        cap = codecs.codec_capacity_words(codec, piece, capacity_factor)
+        stream = p * _stream_bytes(piece, capacity_factor, codec)
+        return cap, (lambda h: stream), (lambda h: chunk_in * 4)
+    if op in ("reduce_scatter", "allgather"):
+        # a reduce-scatter pads each chunk, an allgather the own chunk,
+        # to p whole-tile pieces
+        own = chunk_in if op == "reduce_scatter" else n_elems
+        quantum = p * _PIECE_QUANTUM
+        piece = (-(-own // quantum) * quantum) // p if p > 1 else own
+        cap = codecs.codec_capacity_words(codec, piece, capacity_factor)
+        stream = p * _stream_bytes(piece, capacity_factor, codec)
+        return cap, (lambda h: stream), (lambda h: own * 4)
+    if op == "scatter":
+        # one stream per REAL chunk of each entry's slab: the root's
+        # entries sum to n-1 chunk streams at any axis size
+        cap = codecs.codec_capacity_words(codec, chunk_in, capacity_factor)
+        stream = _stream_bytes(chunk_in, capacity_factor, codec)
+        return cap, (lambda h: h.chunk_slab[1] * stream), \
+            (lambda h: h.chunk_slab[1] * chunk_in * 4)
+    if op == "all_to_all":
+        cap = codecs.codec_capacity_words(codec, chunk_in, capacity_factor)
+        stream = _stream_bytes(chunk_in, capacity_factor, codec)
+        return cap, (lambda h: stream), (lambda h: chunk_in * 4)
+    raise ValueError(f"unknown op {op!r}")
 
 
 def _eb_stage(op, algo, eb, n, worst_case):
-    if algo == "intring":
-        return eb  # single quantization grid; n addends share it
-    return error_budget.allocate(eb, f"{op}_{algo}", n, worst_case=worst_case)
+    if op == "allreduce":
+        if algo == "intring":
+            return eb  # single quantization grid; n addends share it
+        return error_budget.allocate(eb, f"allreduce_{algo}", n,
+                                     worst_case=worst_case)
+    if op == "reduce_scatter":
+        return error_budget.allocate(eb, "reduce_scatter_ring", n,
+                                     worst_case=worst_case)
+    return eb  # data-movement ops: exactly one lossy hop
 
 
 # ---------------------------------------------------------------------------
@@ -321,18 +380,32 @@ def policy_names() -> tuple:
 
 
 def _ring_depth(req: PlanRequest) -> int:
-    from repro_torch.core.collectives import plan_ring_pipeline_chunks
-
-    return plan_ring_pipeline_chunks(
+    return collectives.plan_ring_pipeline_chunks(
         req.n_elems, req.axis_size, ratio=req.ratio, hw=req.hw,
         fused_hop=req.fused_hop,
     )
+
+
+def _data_movement_plan(req: PlanRequest):
+    """(algo, chunks) for the fixed-algorithm data-movement ops, shared by
+    every policy but ``paper``.  ``requested_chunks == 0`` asks for a
+    planned depth: the scatter's from
+    ``cost_model.best_scatter_pipeline_chunks``; the other data movers
+    stay sequential."""
+    chunks = req.requested_chunks
+    if req.op == "scatter" and chunks == 0:
+        chunks = cost_model.best_scatter_pipeline_chunks(
+            req.nbytes, req.axis_size, req.ratio, req.hw
+        )
+    return _OP_ALGO[req.op], max(chunks, 1)
 
 
 def _policy_auto(req: PlanRequest):
     """Production default: algorithm from the fused-hop chunked cost
     model, ring depth from ``best_pipeline_chunks`` capped by whole-tile
     fill; explicit requests are honored."""
+    if req.op != "allreduce":
+        return _data_movement_plan(req)
     algo, chunks = req.requested_algo, req.requested_chunks
     if algo is None:
         algo, _ = select_allreduce_plan(
@@ -347,7 +420,10 @@ def _policy_auto(req: PlanRequest):
 
 
 def _policy_paper(req: PlanRequest):
-    """The paper's §3.3.3 crossover, sequential schedule."""
+    """The paper's §3.3.3 crossover, sequential schedule (for every op: a
+    depth request of 0 does not pipeline the scatter here)."""
+    if req.op != "allreduce":
+        return _OP_ALGO[req.op], max(req.requested_chunks, 1)
     algo = req.requested_algo
     if algo is None:
         algo = select_allreduce(req.nbytes, req.axis_size, req.ratio, req.hw)
@@ -356,6 +432,8 @@ def _policy_paper(req: PlanRequest):
 
 def _policy_throughput(req: PlanRequest):
     """Fastest modeled plan, beyond-paper algorithms allowed."""
+    if req.op != "allreduce":
+        return _data_movement_plan(req)
     algo, chunks = req.requested_algo, req.requested_chunks
     if algo is None:
         algo, _ = select_allreduce_plan(
@@ -371,6 +449,8 @@ def _policy_throughput(req: PlanRequest):
 
 def _policy_accuracy(req: PlanRequest):
     """Bitwise rank-consistent integer ring."""
+    if req.op != "allreduce":
+        return _data_movement_plan(req)
     return req.requested_algo or "intring", max(req.requested_chunks, 1)
 
 
@@ -466,9 +546,6 @@ def _resolve_plan(
     _stat(_PLAN_STATS_BY_OP, op, "misses")
     if op not in OPS:
         raise ValueError(f"unknown collective op {op!r}")
-    if op != "allreduce":
-        raise NotImplementedError(
-            f"planning {op!r} is not ported to repro_torch yet (ROADMAP A5)")
     try:
         policy_fn = _POLICIES[policy]
     except KeyError:
@@ -492,6 +569,8 @@ def _resolve_plan(
         capacity_factor=capacity_factor, worst_case_budget=worst_case_budget,
         capacity_words=cap, wire_bytes=wire,
         ratio=(raw / wire) if wire else 1.0, policy=policy,
+        slab_table=(cost_model.binomial_slab_table(axis_size)
+                    if algo == "binomial" else ()),
         on_overflow=on_overflow, verify_streams=verify_streams,
         fallback=_fallback_plan(op, n_elems, axis_size, hw),
         codec=codec, codec_ratio=codec_ratio,
@@ -507,6 +586,34 @@ def _dtype_name(dtype) -> str:
     if isinstance(dtype, torch.dtype):
         return str(dtype).rsplit(".", 1)[-1]
     return np.dtype(dtype).name
+
+
+# ---------------------------------------------------------------------------
+# Differentiable all-to-all
+# ---------------------------------------------------------------------------
+
+
+class _AllToAll(torch.autograd.Function):
+    """The compressed all-to-all with its gradient (the reference's
+    ``custom_vjp`` on ``_a2a_planned``).  The rank-exchange layout is
+    self-inverse (chunk r of rank p lands at rank r, slot p), so the
+    backward is the same compressed exchange applied to the cotangent,
+    straight through the quantizer.  Every rank must call backward, as
+    every rank called forward.  The autograd engine runs CUDA backward
+    nodes on one thread per card, so on a one-card ``ThreadGroup`` the
+    ranks' backward exchanges would wait on each other: take gradients
+    through ``DistGroup`` (one process per rank) on the card."""
+
+    @staticmethod
+    def forward(ctx, x, g, cfg):
+        ctx.g, ctx.cfg = g, cfg
+        out, ovf = collectives._execute_all_to_all(x, g, cfg)
+        ctx.mark_non_differentiable(ovf)
+        return out, ovf
+
+    @staticmethod
+    def backward(ctx, g_out, _g_ovf):
+        return collectives._execute_all_to_all(g_out, ctx.g, ctx.cfg)[0], None, None
 
 
 # ---------------------------------------------------------------------------
@@ -534,10 +641,8 @@ class GZCommunicator:
         axis_size: Optional[int] = None,
         device="cuda",
     ):
-        from repro_torch.core.collectives import GZConfig
-
         self.axis_name = axis_name
-        self.config = config if config is not None else GZConfig()
+        self.config = config if config is not None else collectives.GZConfig()
         if policy not in _POLICIES:
             raise ValueError(
                 f"unknown policy {policy!r}; registered: {policy_names()}"
@@ -579,9 +684,13 @@ class GZCommunicator:
             codec=cfg.codec,
         )
 
-    def _finish(self, g, x, out, ovf, plan: Plan) -> CollectiveResult:
-        """OR the overflow and non-finite flags across ranks (flag mode)."""
-        if x.dtype.is_floating_point:
+    def _finish(self, op, g, x, out, ovf, plan: Plan, *,
+                root: int = 0) -> CollectiveResult:
+        """OR the overflow and non-finite flags across ranks (flag mode).
+        For scatter and broadcast only the root's payload is significant,
+        so only the root's non-finite bit counts."""
+        if x.dtype.is_floating_point and (
+                op not in ("scatter", "broadcast") or g.rank == root):
             nf_loc = ~torch.isfinite(x).all()
         else:
             nf_loc = torch.zeros((), dtype=torch.bool, device=x.device)
@@ -589,9 +698,9 @@ class GZCommunicator:
         return CollectiveResult(out, overflow, nonfinite, plan.wire_bytes,
                                 plan.ratio)
 
-    def allreduce(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
-                  group=None) -> CollectiveResult:
-        """Compressed sum-allreduce of this rank's ``x`` over the group."""
+    def _run(self, op, x, plan, group, execute, **kw) -> CollectiveResult:
+        """The shared call path: device check, trivial axis, plan,
+        ``execute(x, g, config, **kw)``, flags."""
         if x.device.type != self.device.type:
             raise ValueError(
                 f"communicator runs on {self.device}, got a tensor on {x.device}"
@@ -600,31 +709,46 @@ class GZCommunicator:
         if g.size == 1:
             zero = torch.zeros((), dtype=torch.bool, device=x.device)
             return CollectiveResult(x, zero, zero, 0, 1.0)
-        plan = plan or self.plan("allreduce", x.shape, x.dtype, group=g)
-        from repro_torch.core.collectives import _execute_allreduce
+        plan = plan or self.plan(op, x.shape, x.dtype, group=g)
+        out, ovf = execute(x, g, plan.as_config(), **kw)
+        return self._finish(op, g, x, out, ovf, plan, **kw)
 
-        out, ovf = _execute_allreduce(x, g, plan.as_config())
-        return self._finish(g, x, out, ovf, plan)
+    def allreduce(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
+                  group=None) -> CollectiveResult:
+        """Compressed sum-allreduce of this rank's ``x`` over the group."""
+        return self._run("allreduce", x, plan, group, collectives._execute_allreduce)
 
-    def _not_ported(self, op):
-        raise NotImplementedError(
-            f"GZCommunicator.{op} is not ported to repro_torch yet (ROADMAP A5)"
-        )
+    def reduce_scatter(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
+                       group=None) -> CollectiveResult:
+        """Ring reduce-scatter: rank r returns summed chunk r (flat view)."""
+        return self._run("reduce_scatter", x, plan, group,
+                         collectives._execute_reduce_scatter)
 
-    def reduce_scatter(self, x, **kw):
-        self._not_ported("reduce_scatter")
+    def allgather(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
+                  group=None) -> CollectiveResult:
+        """Ring allgather: compress once, forward compressed N-1 times."""
+        return self._run("allgather", x, plan, group, collectives._execute_allgather)
 
-    def allgather(self, x, **kw):
-        self._not_ported("allgather")
+    def scatter(self, x_full: torch.Tensor, *, root: int = 0,
+                plan: Optional[Plan] = None, group=None) -> CollectiveResult:
+        """Binomial-tree compressed scatter from ``root`` (root 0 only):
+        ``x_full`` (n*chunk,) is significant on the root; rank r returns
+        chunk r."""
+        return self._run("scatter", x_full, plan, group,
+                         collectives._execute_scatter, root=root)
 
-    def scatter(self, x_full, **kw):
-        self._not_ported("scatter")
+    def broadcast(self, x: torch.Tensor, *, root: int = 0,
+                  plan: Optional[Plan] = None, group=None) -> CollectiveResult:
+        """Binomial-tree broadcast from ``root`` (root 0 only): compress
+        once at the root."""
+        return self._run("broadcast", x, plan, group,
+                         collectives._execute_broadcast, root=root)
 
-    def broadcast(self, x, **kw):
-        self._not_ported("broadcast")
-
-    def all_to_all(self, x, **kw):
-        self._not_ported("all_to_all")
+    def all_to_all(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
+                   group=None) -> CollectiveResult:
+        """Compressed rank exchange; differentiable (straight through the
+        quantizer, compressed cotangent: see :class:`_AllToAll`)."""
+        return self._run("all_to_all", x, plan, group, _AllToAll.apply)
 
     def __repr__(self):
         return (

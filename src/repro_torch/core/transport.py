@@ -2,7 +2,7 @@
 do for the JAX package.
 
 Rank-centric collective code (``core/collectives.py``) sees one handle per
-rank with three members:
+rank with four members:
 
   * ``rank`` and ``size`` (``lax.axis_index`` / the axis size);
   * ``exchange(tensors, perm)`` — ppermute semantics: every rank passes
@@ -10,20 +10,25 @@ rank with three members:
     tensors, and gets back what its sender passed.  A rank that no pair
     addresses receives zeros of the same shapes and dtypes (the redoub
     idle ranks rely on this);
+  * ``all_to_all(tensors)`` — ``lax.all_to_all`` semantics (untiled, split
+    and concat on dim 0): each tensor's leading dim has one slot per rank;
+    rank r gets back, in slot i, what rank i passed in its slot r;
   * ``flags_across(*flags)`` — the global OR of per-rank bool flags, one
     combined reduction (the ``psum(...) > 0`` of the reference).
 
 Two groups provide handles:
 
   * :class:`ThreadGroup` — N ranks as N threads of one process on one
-    device, exchanging through a barrier and a mailbox (no copies: the
-    received tensors are the sender's, which rank code never mutates).
+    device, exchanging through a barrier and a mailbox (``exchange`` makes
+    no copies: the received tensors are the sender's, so rank code never
+    writes into a tensor it sent or received; ``all_to_all`` stacks the
+    slots it receives into new tensors).
     Every rank launches on the stream that was current when ``run`` was
     called, so stream order alone orders one rank's kernels before another
     rank's reads.
   * :class:`DistGroup` — one rank per process over ``torch.distributed``:
-    ``batch_isend_irecv`` for the exchange, ``all_reduce(MAX)`` for the
-    flags.  NCCL on GPUs, gloo on the CPU.
+    ``batch_isend_irecv`` for the exchange and the all-to-all,
+    ``all_reduce(MAX)`` for the flags.  NCCL on GPUs, gloo on the CPU.
 
 A group is bound to an axis name per thread (``bind``); a communicator
 built for that axis name finds its rank handle with ``current``.
@@ -111,6 +116,15 @@ class _ThreadRank:
         g._barrier.wait()  # every read is done before the slots are reused
         return out
 
+    def all_to_all(self, tensors) -> tuple:
+        g = self.group
+        g._slots[self.rank] = tuple(tensors)
+        g._barrier.wait()
+        out = tuple(torch.stack([g._slots[src][k][self.rank] for src in range(self.size)])
+                    for k in range(len(tensors)))
+        g._barrier.wait()
+        return out
+
     def flags_across(self, *flags) -> tuple:
         g = self.group
         g._slots[self.rank] = torch.stack([f.to(torch.int32) for f in flags])
@@ -196,6 +210,20 @@ class DistGroup:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return out
+
+    def all_to_all(self, tensors) -> tuple:
+        outs = tuple(torch.empty_like(t) for t in tensors)
+        ops = []
+        for t, out in zip(tensors, outs):
+            out[self.rank] = t[self.rank]
+            for peer in range(self.size):
+                if peer != self.rank:
+                    ops.append(dist.P2POp(dist.isend, t[peer].contiguous(), peer))
+                    ops.append(dist.P2POp(dist.irecv, out[peer], peer))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return outs
 
     def flags_across(self, *flags) -> tuple:
         both = torch.stack([f.to(torch.int32) for f in flags])

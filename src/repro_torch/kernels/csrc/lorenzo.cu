@@ -1,13 +1,22 @@
 // Lorenzo codec kernels for Hopper (sm_90a), bound through a plain C ABI.
 //
-// Four entry points, one per TPU kernel of the compressed-allreduce path
+// Six entry points for the seven Lorenzo TPU kernels
 // (src/repro/kernels/lorenzo.py):
 //
 //   lz_quantize_pack          <- quantize_pack            (lorenzo.py:392)
 //   lz_unpack_dequantize      <- unpack_dequantize        (lorenzo.py:426)
-//   lz_unpack_dequantize_reduce
-//                             <- unpack_dequantize_reduce (lorenzo.py:456)
+//                                and, with acc,
+//                                unpack_dequantize_reduce (lorenzo.py:456)
 //   lz_unpack_reduce_repack   <- unpack_reduce_repack     (lorenzo.py:324)
+//   lz_quantize               <- quantize                 (lorenzo.py:110)
+//   lz_dequantize             <- dequantize               (lorenzo.py:134)
+//                                and, with acc,
+//                                dequantize_reduce        (lorenzo.py:491)
+//
+// The last two are the unfused codec: zigzag codes travel through device
+// memory as uint32 (nb, 256) and the bit packing is separate torch code
+// (core/bitpack.py).  Each is a single launch: the work is block-local,
+// so no scan across blocks is needed.
 //
 // Layout: f32 data is (nb, 256); one CUDA block of 256 threads handles one
 // 256-element Lorenzo block, thread j owning element j.  Wire words are
@@ -98,6 +107,15 @@ __device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ p,
   return w < cap ? p[w] : 0u;
 }
 
+// Zigzag code u of thread j -> its quantized value as f32 (before the
+// multiply by 2*eb): unzigzag, int32-wrapping prefix sum, plus the anchor.
+__device__ __forceinline__ float reconstruct_q(uint32_t u, int32_t anchor,
+                                               uint32_t* red) {
+  const int32_t d = (int32_t)(u >> 1) ^ -(int32_t)(u & 1u);
+  const uint32_t qs = block_scan((uint32_t)d, red);
+  return __int2float_rn((int32_t)((uint32_t)anchor + qs));
+}
+
 // Thread j's value of Lorenzo block b, decoded from the stream and
 // reconstructed to f32 (before the multiply by 2*eb).
 __device__ __forceinline__ float decode_q(const uint32_t* __restrict__ packed,
@@ -108,21 +126,23 @@ __device__ __forceinline__ float decode_q(const uint32_t* __restrict__ packed,
   const int sh = (int)(bitpos & 31);
   const uint32_t lo = load_word(packed, cap, w) >> sh;
   const uint32_t hi = sh ? (load_word(packed, cap, w + 1) << (32 - sh)) : 0u;
-  const uint32_t u = (lo | hi) & width_mask(bw);
-  const int32_t d = (int32_t)(u >> 1) ^ -(int32_t)(u & 1u);
-  const uint32_t qs = block_scan((uint32_t)d, red);
-  return __int2float_rn((int32_t)((uint32_t)anchor + qs));
+  return reconstruct_q((lo | hi) & width_mask(bw), anchor, red);
 }
 
-// Quantize front: per-block bitwidth and anchor of f32 blocks.
+// Quantize front: per-block bitwidth and anchor of f32 blocks; with
+// kCodes also the zigzag codes themselves (the unfused quantize).
+template <bool kCodes>
 __global__ void __launch_bounds__(kBlock)
 quantize_front_kernel(const float* __restrict__ x, const float* __restrict__ recip_p,
-                      int32_t* __restrict__ bw_out, int32_t* __restrict__ anchor_out) {
+                      uint32_t* __restrict__ codes, int32_t* __restrict__ bw_out,
+                      int32_t* __restrict__ anchor_out) {
   __shared__ int32_t q_s[kBlock];
   __shared__ uint32_t red[kWarps];
   const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
   const int32_t q = __float2int_rn(__fmul_rn(x[i], *recip_p));
-  const uint32_t umax = block_max(lorenzo_zig(q, q_s), red);
+  const uint32_t zig = lorenzo_zig(q, q_s);
+  if constexpr (kCodes) codes[i] = zig;
+  const uint32_t umax = block_max(zig, red);
   if (threadIdx.x == 0) {
     bw_out[blockIdx.x] = 32 - __clz((int)umax);
     anchor_out[blockIdx.x] = q;
@@ -212,6 +232,19 @@ unpack_kernel(const uint32_t* __restrict__ packed, long long cap,
   out[i] = kReduce ? __fmaf_rn(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
 }
 
+// Unfused decode: codes (nb, 256) + anchor -> f32, optionally + acc with
+// one rounding.
+template <bool kReduce>
+__global__ void __launch_bounds__(kBlock)
+dequantize_kernel(const uint32_t* __restrict__ codes, const int32_t* __restrict__ anchor_in,
+                  const float* __restrict__ twoeb_p, const float* __restrict__ acc,
+                  float* __restrict__ out) {
+  __shared__ uint32_t red[kWarps];
+  const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
+  const float qf = reconstruct_q(codes[i], anchor_in[blockIdx.x], red);
+  out[i] = kReduce ? __fmaf_rn(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
+}
+
 // Hop front: decode + reduce (written out as f32), then the quantize front
 // of the sum at the outgoing bound.
 __global__ void __launch_bounds__(kBlock)
@@ -250,7 +283,7 @@ extern "C" {
 int lz_quantize_pack(const float* x, int nb, const float* recip, uint32_t* packed,
                      long long cap, int32_t* bw, int32_t* anchor, int32_t* offsets,
                      cudaStream_t stream) {
-  quantize_front_kernel<<<nb, kBlock, 0, stream>>>(x, recip, bw, anchor);
+  quantize_front_kernel<false><<<nb, kBlock, 0, stream>>>(x, recip, nullptr, bw, anchor);
   LZ_CHECK();
   word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw, nb, offsets);
   LZ_CHECK();
@@ -291,6 +324,24 @@ int lz_unpack_reduce_repack(const uint32_t* packed_in, long long cap_in,
   LZ_CHECK();
   pack_kernel<<<nb, kBlock, 0, stream>>>(x_out, recip, bw_out, offsets_out, nb,
                                          packed_out, cap_out);
+  LZ_CHECK();
+  return 0;
+}
+
+int lz_quantize(const float* x, int nb, const float* recip, uint32_t* codes,
+                int32_t* bw, int32_t* anchor, cudaStream_t stream) {
+  quantize_front_kernel<true><<<nb, kBlock, 0, stream>>>(x, recip, codes, bw, anchor);
+  LZ_CHECK();
+  return 0;
+}
+
+int lz_dequantize(const uint32_t* codes, const int32_t* anchor, int nb,
+                  const float* twoeb, const float* acc, float* out,
+                  cudaStream_t stream) {
+  if (acc)
+    dequantize_kernel<true><<<nb, kBlock, 0, stream>>>(codes, anchor, twoeb, acc, out);
+  else
+    dequantize_kernel<false><<<nb, kBlock, 0, stream>>>(codes, anchor, twoeb, nullptr, out);
   LZ_CHECK();
   return 0;
 }

@@ -1,8 +1,9 @@
-"""The Lorenzo codec kernels of the compressed-allreduce path.
+"""The Lorenzo codec kernels.
 
-Four kernels, each the counterpart of a Pallas kernel in
+Seven kernels, each the counterpart of a Pallas kernel in
 ``src/repro/kernels/lorenzo.py`` and each written by hand in CUDA C++
-(``csrc/lorenzo.cu``, bound through a C ABI with ``ctypes``):
+(``csrc/lorenzo.cu``, bound through a C ABI with ``ctypes``).  The fused
+codec:
 
   * ``quantize_pack``             f32 blocks -> packed wire words, bw, anchor
   * ``unpack_dequantize``         wire words -> f32 blocks
@@ -10,6 +11,14 @@ Four kernels, each the counterpart of a Pallas kernel in
   * ``unpack_reduce_repack``      the single-pass ring hop: received words +
                                   local f32 -> the next hop's words (and,
                                   with ``emit_f32``, the updated f32)
+
+and the unfused codec, whose zigzag codes are packed by
+``core/bitpack.py`` (the scatter and all-to-all batch every chunk into
+one ``quantize``; ``fused=False`` runs all three):
+
+  * ``quantize``                  f32 blocks -> codes, bw, anchor
+  * ``dequantize``                codes + anchor -> f32 blocks
+  * ``dequantize_reduce``         acc + dequantize(codes), rounded once
 
 Beside each kernel wrapper sits its plain PyTorch version (``*_plain``),
 which computes the same function bitwise; ``kernels/ops.py`` sends a CPU
@@ -19,8 +28,9 @@ short fixed sequence of CUDA launches, see the source note in
 ``lorenzo.cu``), so a run can show that the main path went through it.
 
 Shapes and types: f32 data is (nb, 256) with nb a multiple of 8; wire
-words are int32 tensors carrying uint32 bits; ``bw`` and ``anchor`` are
-int32 (nb,); ``eb`` is a 0-d f32 tensor on the data's device.
+words and zigzag codes are int32 tensors carrying uint32 bits (codes are
+(nb, 256)); ``bw`` and ``anchor`` are int32 (nb,); ``eb`` is a 0-d f32
+tensor on the data's device.
 """
 from __future__ import annotations
 
@@ -46,13 +56,19 @@ __all__ = [
     "unpack_dequantize_reduce_plain",
     "unpack_reduce_repack",
     "unpack_reduce_repack_plain",
+    "quantize",
+    "quantize_plain",
+    "dequantize",
+    "dequantize_plain",
+    "dequantize_reduce",
+    "dequantize_reduce_plain",
 ]
 
 BLOCK = 256
 TILE_ROWS = 8
 
 KERNELS = ("quantize_pack", "unpack_reduce_repack", "unpack_dequantize_reduce",
-           "unpack_dequantize")
+           "unpack_dequantize", "quantize", "dequantize", "dequantize_reduce")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 _COUNT_LOCK = threading.Lock()
 
@@ -80,13 +96,12 @@ def quantize_pack_plain(x2d, eb, capacity_words: int):
 
 
 def unpack_dequantize_plain(packed, bitwidth, anchor, eb):
-    codes = bitpack.unpack_padded(packed, bitwidth, BLOCK)
-    return ref.dequantize_ref(codes, anchor, eb)
+    return dequantize_plain(bitpack.unpack_padded(packed, bitwidth, BLOCK), anchor, eb)
 
 
 def unpack_dequantize_reduce_plain(packed, bitwidth, anchor, eb, acc):
     codes = bitpack.unpack_padded(packed, bitwidth, BLOCK)
-    return ref.dequantize_reduce_ref(codes, anchor, eb, acc)
+    return dequantize_reduce_plain(codes, anchor, eb, acc)
 
 
 def unpack_reduce_repack_plain(packed, bitwidth, anchor, eb_in, acc, eb_out,
@@ -94,6 +109,19 @@ def unpack_reduce_repack_plain(packed, bitwidth, anchor, eb_in, acc, eb_out,
     x = unpack_dequantize_reduce_plain(packed, bitwidth, anchor, eb_in, acc)
     out = quantize_pack_plain(x, eb_out, capacity_words)
     return (*out, x) if emit_f32 else out
+
+
+def quantize_plain(x2d, eb):
+    codes, bw, anchor = ref.quantize_ref(x2d, eb)
+    return ref.wrap_i32(codes), bw, anchor
+
+
+def dequantize_plain(codes, anchor, eb):
+    return ref.dequantize_ref(ref.as_u32(codes), anchor, eb)
+
+
+def dequantize_reduce_plain(codes, anchor, eb, acc):
+    return ref.dequantize_reduce_ref(ref.as_u32(codes), anchor, eb, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +134,8 @@ _SIGNATURES = {
     "lz_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P),
     "lz_unpack_reduce_repack": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _L, _P,
                                 _P, _P, _P, _P),
+    "lz_quantize": (_P, _I, _P, _P, _P, _P, _P),
+    "lz_dequantize": (_P, _P, _I, _P, _P, _P, _P),
 }
 
 
@@ -227,3 +257,40 @@ def unpack_reduce_repack(packed, bitwidth, anchor, eb_in, acc, eb_out,
     _count("unpack_reduce_repack")
     return (packed_out, bw_out, anchor_out, x) if emit_f32 else \
         (packed_out, bw_out, anchor_out)
+
+
+def quantize(x2d, eb):
+    """f32 (nb, 256) -> (codes int32 (nb, 256), bw int32 (nb,), anchor int32 (nb,))."""
+    nb = _check_blocks(x2d, "x2d")
+    _, recip = _scalars(eb)
+    codes = torch.empty((nb, BLOCK), dtype=torch.int32, device=x2d.device)
+    bw = torch.empty(nb, dtype=torch.int32, device=x2d.device)
+    anchor = torch.empty_like(bw)
+    _launch("lz_quantize", x2d.data_ptr(), nb, recip.data_ptr(), codes.data_ptr(),
+            bw.data_ptr(), anchor.data_ptr())
+    _count("quantize")
+    return codes, bw, anchor
+
+
+def _dequantize(name, codes, anchor, eb, acc):
+    nb = codes.shape[0]
+    _check(codes, "codes", torch.int32, (nb, BLOCK))
+    _check(anchor, "anchor", torch.int32, (nb,))
+    if acc is not None:
+        _check(acc, "acc", torch.float32, (nb, BLOCK))
+    twoeb, _ = _scalars(eb)
+    out = torch.empty((nb, BLOCK), dtype=torch.float32, device=codes.device)
+    _launch("lz_dequantize", codes.data_ptr(), anchor.data_ptr(), nb, twoeb.data_ptr(),
+            acc.data_ptr() if acc is not None else None, out.data_ptr())
+    _count(name)
+    return out
+
+
+def dequantize(codes, anchor, eb):
+    """Zigzag codes (nb, 256) + anchor -> f32 (nb, 256)."""
+    return _dequantize("dequantize", codes, anchor, eb, None)
+
+
+def dequantize_reduce(codes, anchor, eb, acc):
+    """acc + dequantize(codes), each element rounded once."""
+    return _dequantize("dequantize_reduce", codes, anchor, eb, acc)

@@ -24,6 +24,9 @@ __all__ = [
     "unpack_dequantize",
     "unpack_dequantize_reduce",
     "unpack_reduce_repack",
+    "quantize",
+    "dequantize",
+    "dequantize_reduce",
 ]
 
 BLOCK = lorenzo.BLOCK
@@ -92,3 +95,19 @@ def unpack_reduce_repack(packed, bitwidth, anchor, eb_in, acc2d, eb_out,
     return _route(acc2d, "unpack_reduce_repack")(
         packed, bitwidth, anchor, as_eb(eb_in, acc2d.device), acc2d,
         as_eb(eb_out, acc2d.device), int(capacity_words), emit_f32=emit_f32)
+
+
+def quantize(x2d, eb):
+    """f32 blocks -> (zigzag codes int32 (nb, BLOCK), bw, anchor)."""
+    return _route(x2d, "quantize")(x2d, as_eb(eb, x2d.device))
+
+
+def dequantize(codes, anchor, eb):
+    """Zigzag codes + anchor -> f32 (nb, BLOCK)."""
+    return _route(codes, "dequantize")(codes, anchor, as_eb(eb, codes.device))
+
+
+def dequantize_reduce(codes, anchor, eb, acc2d):
+    """acc + dequantize(codes), each element rounded once."""
+    return _route(acc2d, "dequantize_reduce")(
+        codes, anchor, as_eb(eb, acc2d.device), acc2d)

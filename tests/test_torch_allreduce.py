@@ -6,7 +6,9 @@ host devices (the reference) and through ``repro_torch``'s communicator
 over a ``ThreadGroup`` of N CPU ranks.  Outputs and the global overflow
 flags must be bitwise equal, at N in {2, 3, 6, 8}, for recursive
 doubling (with the remainder stage at N = 3, 6), the sequential ring,
-the pipelined ring and the ``auto`` policy, with and without overflow.
+the pipelined ring and the ``auto`` policy, with and without overflow,
+and for the two-pass codec (``fused=False``: redoub and the pipelined
+ring) and the two-kernel hop (``fused_hop=False``: the pipelined ring).
 One gloo ``DistGroup`` run at N = 3 must equal the ``ThreadGroup`` run.
 
 The JAX side needs its device count set before jax is imported, so it
@@ -43,6 +45,15 @@ CASES = {
     "auto": ("auto", 1, "smooth", 1e-4, 0.6),
     "redoub_overflow": ("redoub", 1, "rough", 1e-6, 0.05),
     "ring_p2_overflow": ("ring", 2, "rough", 1e-6, 0.05),
+    "redoub_unfused": ("redoub", 1, "smooth", 1e-4, 0.6),
+    "ring_p2_unfused": ("ring", 2, "smooth", 1e-4, 0.6),
+    "ring_p2_two_kernel_hop": ("ring", 2, "smooth", 1e-4, 0.6),
+}
+# The two-pass knobs of the cases that set them.
+TWO_PASS = {
+    "redoub_unfused": dict(fused=False),
+    "ring_p2_unfused": dict(fused=False),
+    "ring_p2_two_kernel_hop": dict(fused_hop=False),
 }
 
 
@@ -62,7 +73,8 @@ def inputs(n: int, case: str) -> np.ndarray:
 
 def config_kwargs(case: str) -> dict:
     algo, chunks, _, eb, cf = CASES[case]
-    return dict(eb=eb, algo=algo, pipeline_chunks=chunks, capacity_factor=cf)
+    return dict(eb=eb, algo=algo, pipeline_chunks=chunks, capacity_factor=cf,
+                **TWO_PASS.get(case, {}))
 
 
 # ---------------------------------------------------------------------------

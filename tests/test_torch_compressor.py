@@ -1,9 +1,11 @@
 """The port's compressor, codec registry and state conversion against the
-JAX package's ``ErrorBoundedLorenzo(fused=True)``, bitwise.
+JAX package's ``ErrorBoundedLorenzo``, bitwise, fused and two-pass
+(``fused=False``).
 
 Lengths are not multiples of 2048 (the row-tile), so every path pads.
 Streams cross between the packages through ``repro_torch.convert`` and
-decode bitwise on the other side.
+decode bitwise on the other side.  The port's two-pass streams are
+byte-identical to its fused ones.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,9 +29,9 @@ def _data(n, seed, kind="smooth"):
     return rng.normal(0, 3.0, n).astype(np.float32)
 
 
-def _pair(cf):
-    return (ErrorBoundedLorenzo(capacity_factor=cf),
-            jcompressor.ErrorBoundedLorenzo(capacity_factor=cf, fused=True))
+def _pair(cf, fused=True):
+    return (ErrorBoundedLorenzo(capacity_factor=cf, fused=fused),
+            jcompressor.ErrorBoundedLorenzo(capacity_factor=cf, fused=fused))
 
 
 def _assert_same_stream(c, jc):
@@ -116,5 +118,48 @@ def test_codec_registry():
             codecs.get_codec(name)
     with pytest.raises(ValueError, match="unknown codec"):
         codecs.get_codec("zstd")
-    with pytest.raises(NotImplementedError, match="B2"):
-        ErrorBoundedLorenzo(fused=False)
+    two_pass = codecs.build_compressor("lorenzo", capacity_factor=0.6, fused=False)
+    assert two_pass == ErrorBoundedLorenzo(capacity_factor=0.6, fused=False)
+    assert two_pass.stream_nwords(torch.tensor([3, 0, 32], dtype=torch.int32), 768) == 280
+
+
+@pytest.mark.parametrize("cf", FACTORS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_two_pass_compressor_equals_jax(n, cf):
+    """``fused=False`` against the JAX two-pass compressor: stream, round
+    trip and reduce bitwise."""
+    x = _data(n, 5 * n, "rough" if cf == 0.05 else "smooth")
+    comp, jcomp = _pair(cf, fused=False)
+    c, jc = comp.compress(torch.from_numpy(x), 1e-4), jcomp.compress(jnp.asarray(x), 1e-4)
+    _assert_same_stream(c, jc)
+    _f32_equal(comp.decompress(c).numpy(), jcomp.decompress(jc))
+    acc = _data(n, 5 * n + 1, "rough")
+    _f32_equal(comp.decompress_reduce(c, torch.from_numpy(acc)).numpy(),
+               jcomp.decompress_reduce(jc, jnp.asarray(acc)))
+
+
+@pytest.mark.parametrize("return_updated", [False, True])
+@pytest.mark.parametrize("n", LENGTHS)
+def test_two_pass_decompress_reduce_compress_equals_jax(n, return_updated):
+    x, acc = _data(n, 6 * n), _data(n, 6 * n + 1)
+    comp, jcomp = _pair(0.6, fused=False)
+    c, jc = comp.compress(torch.from_numpy(x), 1e-4), jcomp.compress(jnp.asarray(x), 1e-4)
+    out, upd = comp.decompress_reduce_compress(
+        c, torch.from_numpy(acc), 3e-5, return_updated=return_updated)
+    jout, jupd = jcomp.decompress_reduce_compress(
+        jc, jnp.asarray(acc), 3e-5, return_updated=return_updated)
+    _assert_same_stream(out, jout)
+    assert (upd is None) == (jupd is None) == (not return_updated)
+    if return_updated:
+        _f32_equal(upd.numpy(), jupd)
+
+
+@pytest.mark.parametrize("cf", FACTORS)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_two_pass_streams_equal_fused_streams(n, cf):
+    x = torch.from_numpy(_data(n, 7 * n, "rough" if cf == 0.05 else "smooth"))
+    fused, two_pass = ErrorBoundedLorenzo(cf), ErrorBoundedLorenzo(cf, fused=False)
+    _assert_same_stream(two_pass.compress(x, 1e-4), fused.compress(x, 1e-4))
+    if cf != 0.05:  # an overflowed stream decodes by each path's own rule
+        c = fused.compress(x, 1e-4)
+        _f32_equal(two_pass.decompress(c).numpy(), fused.decompress(c).numpy())

@@ -1,8 +1,10 @@
 """The port stands alone and never runs on the CPU unasked.
 
-* Importing every ``repro_torch`` module and ``chip_smoke`` leaves
-  ``jax`` and the ``repro`` package out of ``sys.modules`` (in a fresh
-  interpreter), and importing ``chip_smoke`` runs nothing.
+* Importing every ``repro_torch`` module and ``chip_smoke``, and running
+  every collective of the port on the CPU (the data movers, the two-pass
+  codec and the two-kernel hop included), leaves ``jax`` and the
+  ``repro`` package out of ``sys.modules`` (in a fresh interpreter), and
+  importing ``chip_smoke`` runs nothing.
 * No module of the port, nor ``chip_smoke.py``, imports ``jax`` or
   ``repro.*`` anywhere in its source (AST scan, function bodies too).
 * On a machine without CUDA, every entry point that defaults to the card
@@ -43,6 +45,16 @@ def test_modules_import_without_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import torch\n"
+        "from repro_torch.core import transport\n"
+        "from repro_torch.core.collectives import GZConfig\n"
+        "from repro_torch.core.comm import GZCommunicator\n"
+        "xs = [torch.linspace(0, 1, 2400) * (r + 1) for r in range(3)]\n"
+        "for cfg in (GZConfig(), GZConfig(fused=False, fused_hop=False, pipeline_chunks=2)):\n"
+        "    c = GZCommunicator('x', config=cfg, axis_size=3, device='cpu')\n"
+        "    for op in ('allreduce', 'reduce_scatter', 'allgather', 'scatter',\n"
+        "               'broadcast', 'all_to_all'):\n"
+        "        transport.ThreadGroup(3, 'cpu').run(getattr(c, op), xs)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"

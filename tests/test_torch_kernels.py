@@ -3,11 +3,13 @@ against the JAX package's kernel path, bitwise.
 
 The reference is ``repro.kernels.ops`` (the Pallas kernels, in interpret
 mode on the CPU).  For every case the same seeded inputs go through both
-sides; packed words, per-block bitwidths and anchors, and every f32
-output must be bitwise equal.  Cases cover raw block counts that are and
-are not a multiple of 8, eb in {1e-2, 1e-4}, smooth and rough data,
-capacity factors 0.6, 2.0 and an overflowing 0.05, and ``emit_f32`` both
-ways.  Two tests pin the single FMA rounding of the reduce.
+sides; packed words, zigzag codes, per-block bitwidths and anchors, and
+every f32 output must be bitwise equal.  Cases cover raw block counts
+that are and are not a multiple of 8, eb in {1e-2, 1e-4}, smooth and
+rough data, capacity factors 0.6, 2.0 and an overflowing 0.05, and
+``emit_f32`` both ways; the unfused kernels also NaN, +-Inf, values past
+the int32 range of q, and codes whose prefix sum wraps in int32.  Two
+tests pin the single FMA rounding of the reduce.
 """
 import functools
 
@@ -203,7 +205,8 @@ def test_bitpack_equals_jax_bitpack(n_blocks, kind, cap_factor):
     assert int(tn) == int(jn)
     ju = jbitpack.unpack(jp, bw, 256)
     tu = bitpack.unpack(tp, torch.from_numpy(np.array(bw)), 256)
-    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju).astype(np.int64))
+    assert tu.dtype == torch.int32  # uint32 bits, the codes convention
+    _assert_bitwise(tu.numpy(), np.asarray(ju), "unpack")
 
 
 def test_block_helpers_equal_jax():
@@ -226,6 +229,72 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lorenzo.unpack_dequantize(torch.zeros(64, dtype=torch.int32),
                                   torch.zeros(8, dtype=torch.int32),
                                   torch.zeros(8, dtype=torch.int32), eb)
+    with pytest.raises(ValueError, match="CUDA"):
+        lorenzo.quantize(x2d, eb)
+    with pytest.raises(ValueError, match="CUDA"):
+        lorenzo.dequantize_reduce(torch.zeros((8, 256), dtype=torch.int32),
+                                  torch.zeros(8, dtype=torch.int32), eb, x2d)
     assert lorenzo.LAUNCHES == dict.fromkeys(lorenzo.KERNELS, 0)
     with pytest.raises(ValueError, match="no kernel"):
         ops.quantize_pack(torch.zeros((8, 256), device="meta"), 1e-3, 64)
+
+
+# ---------------------------------------------------------------------------
+# The unfused kernels: quantize, dequantize, dequantize_reduce
+# ---------------------------------------------------------------------------
+
+
+def _wild(n, seed):
+    """Rough data with NaN, +-Inf, and values whose q passes the int32
+    range (saturating) at eb = 1e-4."""
+    x = _data(n, "rough", seed)
+    x[::97] = np.nan
+    x[5::89] = np.inf
+    x[7::83] = -np.inf
+    x[11::79] = 5e5  # > 2**31 * 2eb
+    x[13::71] = -1e30
+    return x
+
+
+UNFUSED = [(n, eb, kind) for n in SIZES for eb in EBS for kind in KINDS] + \
+    [(n, 1e-4, "wild") for n in SIZES]
+
+
+@pytest.mark.parametrize("n,eb,kind", UNFUSED)
+def test_unfused_plain_kernels_bitwise_equal_jax(n, eb, kind):
+    seed = UNFUSED.index((n, eb, kind))
+    x = _wild(n, seed) if kind == "wild" else _data(n, kind, seed)
+    acc = _data(n, "rough", seed + 50)
+    x2d_j, acc_j = jops.to_blocks(jnp.asarray(x)), jops.to_blocks(jnp.asarray(acc))
+    jc, jbw, jan = jops.quantize(x2d_j, eb)
+    codes, bw, an = ops.quantize(ops.to_blocks(torch.from_numpy(x)), eb)
+    assert codes.dtype == torch.int32
+    _assert_bitwise(codes.numpy(), np.asarray(jc), "quantize codes")
+    _assert_bitwise(bw.numpy(), np.asarray(jbw), "quantize bw")
+    _assert_bitwise(an.numpy(), np.asarray(jan), "quantize anchor")
+    acc2d = ops.to_blocks(torch.from_numpy(acc))
+    _assert_bitwise(ops.dequantize(codes, an, eb).numpy(),
+                    np.asarray(jops.dequantize(jc, jan, eb)), "dequantize")
+    _assert_bitwise(ops.dequantize_reduce(codes, an, eb, acc2d).numpy(),
+                    np.asarray(jops.dequantize_reduce(jc, jan, eb, acc_j)),
+                    "dequantize_reduce")
+
+
+@pytest.mark.parametrize("eb", EBS)
+def test_unfused_dequantize_wraps_like_int32(eb):
+    """Random full-range codes and anchors: the prefix sum wraps in int32
+    in nearly every block, on both sides the same way."""
+    rng = np.random.default_rng(3)
+    codes = rng.integers(0, 2**32, (16, 256), dtype=np.uint64).astype(np.uint32)
+    anchor = rng.integers(-2**31, 2**31, 16, dtype=np.int64).astype(np.int32)
+    acc = rng.normal(0, 1e6, (16, 256)).astype(np.float32)
+    tc = torch.from_numpy(codes.view(np.int32).copy())
+    ta = torch.from_numpy(anchor)
+    _assert_bitwise(ops.dequantize(tc, ta, eb).numpy(),
+                    np.asarray(jops.dequantize(jnp.asarray(codes), jnp.asarray(anchor), eb)),
+                    "dequantize (wrap)")
+    _assert_bitwise(
+        ops.dequantize_reduce(tc, ta, eb, torch.from_numpy(acc)).numpy(),
+        np.asarray(jops.dequantize_reduce(jnp.asarray(codes), jnp.asarray(anchor), eb,
+                                          jnp.asarray(acc))),
+        "dequantize_reduce (wrap)")

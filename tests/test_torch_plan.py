@@ -5,10 +5,15 @@
   on both sides of the ring/redoub crossovers, the ``auto``, ``paper``,
   ``throughput`` and ``accuracy`` policies, and both hardware points
   passed explicitly (the two packages default to different points).
+* The same holds for all six ops at N in 2..13 (slab table included),
+  and the 646 MB scatter plan provisions exactly the wire bytes and root
+  chunk streams recorded in ``benchmarks/BENCH_scatter.json``.
 * The port's copies of ``schedule``, ``error_budget`` and ``cost_model``
   give the reference's outputs on a sweep, so the copies cannot drift.
 """
 import dataclasses
+import json
+import pathlib
 
 import pytest
 import torch
@@ -28,14 +33,14 @@ HW = {"a100": (cost_model.A100_SLINGSHOT, jcm.A100_SLINGSHOT),
       "tpu": (cost_model.TPU_V5E, jcm.TPU_V5E)}
 
 
-def _plans(n, n_elems, policy, hw, **cfg):
+def _plans(n, n_elems, policy, hw, op="allreduce", **cfg):
     port_hw, ref_hw = HW[hw]
     ours = comm.GZCommunicator("x", config=GZConfig(**cfg), policy=policy,
                                hw=port_hw, axis_size=n, device="cpu")
     ref = jcomm.GZCommunicator("x", config=JGZConfig(**cfg), policy=policy,
                                hw=ref_hw, axis_size=n)
-    return (ours.plan("allreduce", (n_elems,), torch.float32),
-            ref.plan("allreduce", (n_elems,)))
+    return (ours.plan(op, (n_elems,), torch.float32),
+            ref.plan(op, (n_elems,)))
 
 
 def _assert_plans_equal(ours, ref):
@@ -70,6 +75,38 @@ def test_plan_fields_equal_reference(n, policy, hw):
 def test_explicit_config_plans_equal_reference(n, cfg):
     for n_elems in (5000, 1 << 20):
         _assert_plans_equal(*_plans(n, n_elems, "auto", "a100", **cfg))
+
+
+@pytest.mark.parametrize("hw", sorted(HW))
+@pytest.mark.parametrize("policy", ["auto", "paper", "throughput", "accuracy"])
+@pytest.mark.parametrize("op", comm.OPS)
+def test_every_op_plan_equals_reference(op, policy, hw):
+    for n in range(2, 14):
+        for n_elems in (1000, 5000 * n + 37, 1 << 20, 646_000_000 // 4):
+            for cfg in ({}, dict(pipeline_chunks=2),
+                        dict(fused=False, fused_hop=False, capacity_factor=1.2)):
+                ours, ref = _plans(n, n_elems, policy, hw, op, **cfg)
+                _assert_plans_equal(ours, ref)
+                assert (ours.slab_table != ()) == (op in ("scatter", "broadcast"))
+
+
+def test_scatter_plan_equals_bench_scatter():
+    """The Fig. 12 scatter (646 MB at the root) provisions the recorded
+    wire bytes and n-1 root chunk streams for every N in the file."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "benchmarks" / "BENCH_scatter.json"
+    records = json.loads(path.read_text())["scatter"]
+    assert records
+    for n_str, rec in records.items():
+        n = int(n_str)
+        plan = comm.GZCommunicator("x", axis_size=n, device="cpu").plan(
+            "scatter", (646_000_000 // 4,))
+        assert (plan.algo, plan.pipeline_chunks) == ("binomial", 1)
+        assert plan.wire_bytes == rec["wire_bytes"], n
+        assert round(plan.ratio, 4) == rec["provisioned_ratio"], n
+        root_streams = sum(h.chunk_slab[1] for rnd in plan.route_table.rounds
+                           for h in rnd if h.sender == 0)
+        assert root_streams == rec["chunk_streams"] == \
+            cost_model.scatter_root_chunk_streams(n), n
 
 
 def test_default_planning_point_is_the_papers_gpu():
@@ -107,17 +144,31 @@ def test_config_validation_matches_reference():
 
 @pytest.mark.parametrize("cfg,item", [
     (dict(algo="intring"), "A9"),
-    (dict(fused=False), "B2"),
+    (dict(fused=False), None),
     (dict(on_overflow="fallback"), "A8"),
     (dict(verify_streams=True), "A8"),
 ])
 def test_outside_the_slice_raises(cfg, item):
+    """Knobs outside the port raise naming their ROADMAP item; the
+    two-pass codec (``fused=False``) and the data movers run.  A
+    reduce-scatter plan is always ``ring``, so only the A8 knobs stop it."""
     c = comm.GZCommunicator("x", config=GZConfig(**cfg), axis_size=2, device="cpu")
-    xs = [torch.zeros(300), torch.zeros(300)]
-    with pytest.raises(NotImplementedError, match=item):
-        transport.ThreadGroup(2, "cpu").run(c.allreduce, xs)
-    with pytest.raises(NotImplementedError, match="A5"):
-        c.reduce_scatter(xs[0])
+    xs = [torch.linspace(0, 1, 300), torch.ones(300)]
+    group = transport.ThreadGroup(2, "cpu")
+    if item is None:
+        res = group.run(c.allreduce, xs)
+        assert (res[0].value - (xs[0] + 1)).abs().max() <= 1.05e-4
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            group.run(c.allreduce, xs)
+    if item == "A8":
+        with pytest.raises(NotImplementedError, match=item):
+            group.run(c.reduce_scatter, xs)
+    else:
+        res = group.run(c.reduce_scatter, xs)
+        for r in range(2):
+            want = (xs[0] + 1)[r * 150:(r + 1) * 150]
+            assert (res[r].value - want).abs().max() <= 1.05e-4
 
 
 # ---------------------------------------------------------------------------
