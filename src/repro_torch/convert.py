@@ -13,6 +13,9 @@ field by field:
   * ``plan_fields(plan)`` — every field of a ``Plan`` (either package's)
     as plain Python, with the route table and the fallback plan as
     nested tuples.
+  * ``tree_from_numpy(tree, device)`` / ``tree_to_numpy(tree)`` — a
+    gradient tree (nested dicts, lists and tuples of arrays) with numpy
+    leaves as the same tree with tensor leaves on ``device``, and back.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from repro_torch.core.compressed import Compressed
 from repro_torch.core.transport import resolve_device
 
-__all__ = ["compressed_to_numpy", "compressed_from_numpy", "plan_fields"]
+__all__ = ["compressed_to_numpy", "compressed_from_numpy", "plan_fields",
+           "tree_from_numpy", "tree_to_numpy"]
 
 
 def _np(a) -> np.ndarray:
@@ -89,3 +93,24 @@ def plan_fields(plan) -> dict:
             v = tuple(getattr(v, g.name) for g in dataclasses.fields(v))
         out[f.name] = v
     return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_from_numpy(tree, device="cuda"):
+    """A tree of numpy arrays (or anything ``np.asarray`` takes) -> the same
+    tree of tensors on ``device``; CUDA without a card raises."""
+    device = resolve_device(device)
+    return _tree_map(
+        lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(device), tree)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (or arrays of either package) -> numpy leaves."""
+    return _tree_map(_np, tree)

@@ -24,11 +24,14 @@ rank's result is bitwise the JAX package's.  What changed:
     slab into the receiver's own held buffers;
   * ``lax.all_to_all`` becomes the transport's ``all_to_all``.
 
+Every codec of ``core/codecs.py`` runs on every schedule: the scatter
+and the all-to-all batch the ``lorenzo`` chunks into one ``quantize`` and
+send the other codecs' chunks through their compressor one by one, as
+the reference does.
+
 Outside this slice, and raising ``NotImplementedError`` that names the
 ROADMAP item: ``algo="intring"`` (A9), ``on_overflow`` other than
-``"flag"`` and ``verify_streams=True`` (A8).  Only the ``lorenzo`` codec
-exists in the port (A7), so the reference's per-chunk branches for the
-other codecs are not here.
+``"flag"`` and ``verify_streams=True`` (A8).
 """
 from __future__ import annotations
 
@@ -560,21 +563,31 @@ def _wire_container(comp, packed, bitwidth, anchor, eb, n) -> Compressed:
     )
 
 
-def _quantize_chunks(x2d_chunks, n, chunk_n, cfg: GZConfig):
-    """Every chunk of ``x2d_chunks`` (n, chunk_n) compressed on its own, in
-    ONE batched ``quantize`` (what N CUDA streams did in the paper) and n
-    ``bitpack.pack`` calls.  Chunks are padded to whole row-tiles so chunk
-    boundaries are block boundaries.  Returns ``(packed (n, cap),
-    bw (n, rows), anchor (n, rows), overflow)``."""
+def _compress_chunks(chunks, n, chunk_n, cfg: GZConfig):
+    """Every chunk of ``chunks`` (n, chunk_n) compressed on its own.  Under
+    ``lorenzo``: ONE batched ``quantize`` (what N CUDA streams did in the
+    paper) and n ``bitpack.pack`` calls, chunks padded to whole row-tiles
+    so chunk boundaries are block boundaries.  Other codecs: one
+    ``compress`` per chunk (their pack kernels are not batched across
+    chunk boundaries), the same stacked layout.  Returns ``(packed (n,
+    cap), bw (n, rows), anchor (n, rows), overflow)``."""
+    dev = chunks.device
+    ovf = _false(dev)
+    if cfg.codec != "lorenzo":
+        comp = cfg.compressor()
+        cs = []
+        for i in range(n):
+            cs.append(comp.compress(chunks[i], cfg.eb))
+            ovf = ovf | cs[-1].overflowed()
+        return (torch.stack([c.packed for c in cs]), torch.stack([c.bitwidth for c in cs]),
+                torch.stack([c.anchor for c in cs]), ovf)
     B = ops.BLOCK
     rows = ops.n_blocks_for(chunk_n)
-    dev = x2d_chunks.device
     x2d = torch.zeros((n, rows * B), dtype=torch.float32, device=dev)
-    x2d[:, :chunk_n] = x2d_chunks
+    x2d[:, :chunk_n] = chunks
     codes, bw, anchor = ops.quantize(x2d.view(n * rows, B), cfg.eb)
     cap = capacity_words_for(chunk_n, cfg.capacity_factor, B)
     packed = torch.empty((n, cap), dtype=torch.int32, device=dev)
-    ovf = _false(dev)
     for i in range(n):
         pk, nw = bitpack.pack(codes[i * rows:(i + 1) * rows],
                               bw[i * rows:(i + 1) * rows], cap)
@@ -594,7 +607,7 @@ def _scatter_held_buffers(x_full, n, cfg: GZConfig, *, compress: bool):
     chunk_n = x_full.shape[0] // n
     rows = ops.n_blocks_for(chunk_n)
     n_virt = 1 << cost_model.steps_for("binomial", n)
-    cap = capacity_words_for(chunk_n, cfg.capacity_factor, ops.BLOCK)
+    cap = codecs.codec_capacity_words(cfg.codec, chunk_n, cfg.capacity_factor)
     dev = x_full.device
     held = (torch.zeros((n_virt, cap), dtype=torch.int32, device=dev),
             torch.zeros((n_virt, rows), dtype=torch.int32, device=dev),
@@ -602,7 +615,7 @@ def _scatter_held_buffers(x_full, n, cfg: GZConfig, *, compress: bool):
     if not compress:
         return held, chunk_n, n_virt, _false(dev)
     chunks = x_full.reshape(n, chunk_n).to(torch.float32)
-    *parts, ovf = _quantize_chunks(chunks, n, chunk_n, cfg)
+    *parts, ovf = _compress_chunks(chunks, n, chunk_n, cfg)
     for h, part in zip(held, parts):
         h[:n] = part
     return held, chunk_n, n_virt, ovf
@@ -673,12 +686,13 @@ def _execute_scatter(x_full, g, cfg: GZConfig, *, root: int = 0,
     """EXECUTE layer for the binomial-tree scatter from rank 0.
 
     ``x_full`` (n*chunk,) is significant on the root only.  The root
-    compresses each chunk on its own in one batched ``quantize``; the
+    compresses each chunk on its own (``_compress_chunks``); the
     streams travel down the trimmed-slab tree and each rank decompresses
     its own chunk once.  Non-root ranks do not compress: their streams
     would never travel and the reference masks their overflow away, so
     the result and the root-masked flag are bitwise the reference's.
-    One ``quantize`` per call (root) and one decode per rank.
+    Under ``lorenzo``: one ``quantize`` per call (root) and one decode
+    per rank.
     ``_padded_reference=True`` walks the padded virtual tree instead
     (test oracle; the same bytes at every real rank).
     """
@@ -740,7 +754,7 @@ def _execute_all_to_all(x, g, cfg: GZConfig):
 
     ``x`` (n*chunk, ...) holds slot buffers grouped by destination rank
     along the leading dim.  Each destination chunk is compressed on its
-    own (one batched ``quantize``), the streams travel through the
+    own (``_compress_chunks``), the streams travel through the
     transport's ``all_to_all``, and each rank decompresses what it
     received, stacked in sender order."""
     _require_slice(cfg)
@@ -752,7 +766,7 @@ def _execute_all_to_all(x, g, cfg: GZConfig):
             f"shape {tuple(x.shape)}"
         )
     chunk_n = x.numel() // n
-    packed, bw, anchor, ovf = _quantize_chunks(
+    packed, bw, anchor, ovf = _compress_chunks(
         x.reshape(n, chunk_n).to(torch.float32), n, chunk_n, cfg)
     rp, rb, ra = g.all_to_all((packed, bw, anchor))
     comp = cfg.compressor()

@@ -20,6 +20,9 @@ What differs from the reference:
     for "cpu"); asking for CUDA without a card raises;
   * the ``all_to_all`` gradient is a ``torch.autograd.Function`` instead
     of a ``custom_vjp``;
+  * on a ``ThreadGroup`` the ``all_to_all`` backward must run on the
+    rank's own thread (CUDA backward runs on the autograd device thread,
+    where it raises: take gradients through ``DistGroup``);
   * only ``on_overflow="flag"`` is executed: the fallback and raise
     policies, ``verify_streams`` and the health counters raise or are
     absent (ROADMAP A8).
@@ -27,6 +30,7 @@ What differs from the reference:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -465,6 +469,7 @@ register_policy("accuracy", _policy_accuracy)
 # ---------------------------------------------------------------------------
 
 _PLAN_CACHE: dict = {}
+_COMM_CACHE: dict = {}  # GZCommunicator.for_config
 _PLAN_STATS = {"hits": 0, "misses": 0}
 _PLAN_STATS_BY_CODEC: dict = {}
 _PLAN_STATS_BY_OP: dict = {}
@@ -496,6 +501,7 @@ def plan_cache_stats() -> dict:
 
 def clear_plan_cache() -> None:
     _PLAN_CACHE.clear()
+    _COMM_CACHE.clear()
     _PLAN_STATS["hits"] = 0
     _PLAN_STATS["misses"] = 0
     _PLAN_STATS_BY_CODEC.clear()
@@ -512,15 +518,102 @@ def _codec_adjusted(codec, ratio, hw):
     return terms.effective_ratio(ratio), terms.apply(hw), spec.fused_hop
 
 
-def _resolve_codec(policy_fn, req, codec):
-    """(algo, chunks, codec_ratio, fused_hop): the policy priced at the
-    codec's adjusted (ratio, hw).  Only explicit codecs exist in the port
-    (``codec="auto"``, which ranks several, raises in ``codecs``)."""
+def _allreduce_model_time(algo, nbytes, n, ratio, hw, chunks, fused_hop):
+    """Modeled seconds of one single-axis compressed allreduce."""
+    if n <= 1:
+        return 0.0
+    if algo == "redoub":
+        return cost_model.allreduce_redoub_gz(nbytes, n, ratio, hw, fused_hop=fused_hop)
+    if algo == "intring":
+        return cost_model.allreduce_intring_gz(nbytes, n, ratio, hw)
+    return cost_model.allreduce_ring_gz_chunked(nbytes, n, ratio, hw, chunks,
+                                                fused_hop=fused_hop)
+
+
+def _op_model_time(op, algo, nbytes, n, ratio, hw, chunks, fused_hop):
+    """Modeled seconds of one collective under (algo, ratio, hw): the
+    per-op comparator ``codec='auto'`` ranks candidates with (the
+    reference's formulas, term for term)."""
+    if n <= 1:
+        return 0.0
+    if op == "allreduce":
+        return _allreduce_model_time(algo, nbytes, n, ratio, hw, chunks, fused_hop)
+    if op == "scatter":
+        return cost_model.scatter_binomial_gz_chunked(nbytes, n, ratio, hw, max(chunks, 1))
+    if op == "allgather":
+        return cost_model.allgather_ring_gz(nbytes, n, ratio, hw)
+    if op == "broadcast":
+        steps = cost_model.steps_for("binomial", n)
+        return (cost_model.t_compress(nbytes, hw)
+                + steps * cost_model.t_net(nbytes / ratio, hw)
+                + cost_model.t_decompress(nbytes, hw))
+    chunk = nbytes / n
+    if op == "reduce_scatter":
+        return (n - 1) * (cost_model.t_compress(chunk, hw)
+                          + cost_model.t_net(chunk / ratio, hw)
+                          + cost_model.t_decompress(chunk, hw))
+    # all_to_all: compress/decompress the whole payload, n exchange lanes
+    return (cost_model.t_compress(nbytes, hw)
+            + n * cost_model.t_net(chunk / ratio, hw)
+            + cost_model.t_decompress(nbytes, hw))
+
+
+# Policies that rank algorithms by modeled time: the only ones where
+# ranking codecs by the same model is meaningful.
+_CODEC_AUTO_POLICIES = ("auto", "throughput")
+
+
+def _policy_for_codec(policy_fn, req, codec):
+    """(algo, chunks, codec_ratio, fused_hop, hw) of the policy priced at
+    the codec's adjusted (ratio, hw)."""
     codec_ratio, hw_c, codec_fused_hop = _codec_adjusted(codec, req.ratio, req.hw)
     fused_hop = req.fused_hop and codec_fused_hop
     algo, chunks = policy_fn(dataclasses.replace(
         req, fused_hop=fused_hop, ratio=codec_ratio, hw=hw_c))
-    return algo, max(chunks, 1), codec_ratio, fused_hop
+    return algo, chunks, codec_ratio, fused_hop, hw_c
+
+
+def _resolve_codec(op, policy, policy_fn, req, codec):
+    """(codec, algo, chunks, codec_ratio, fused_hop, notes): every codec
+    rule in one place, with the reference's notes word for word.
+
+      * an explicit codec prices the policy at its adjusted (ratio, hw);
+      * ``auto`` under an auto/throughput policy runs the policy per
+        candidate and takes the least modeled time of the op;
+      * ``auto`` under other policies is ``lorenzo``, with a note;
+      * ``intring`` ships its own integer wire: codec back to ``lorenzo``;
+      * a codec without a fused hop kernel turns ``fused_hop`` off (noted).
+    """
+    notes = []
+    if codec == codecs.AUTO and policy in _CODEC_AUTO_POLICIES:
+        best = None
+        for cand in codecs.auto_codecs():
+            algo_c, chunks_c, ratio_c, fh, hw_c = _policy_for_codec(policy_fn, req, cand)
+            t = _op_model_time(op, algo_c, req.nbytes, req.axis_size, ratio_c, hw_c,
+                               chunks_c, fh)
+            if best is None or t < best[0]:
+                best = (t, cand, algo_c, chunks_c, ratio_c)
+        _, codec, algo, chunks, codec_ratio = best
+        notes.append(f"codec auto->{codec!r} (fastest modeled {op} of "
+                     f"{codecs.auto_codecs()})")
+    else:
+        if codec == codecs.AUTO:
+            codec = "lorenzo"
+            notes.append(f"codec auto->'lorenzo' (policy {policy!r} does not rank "
+                         "codecs by modeled time)")
+        algo, chunks, codec_ratio, _, _ = _policy_for_codec(policy_fn, req, codec)
+    if algo == "intring" and codec != "lorenzo":
+        notes.append(f"codec {codec!r}->'lorenzo' (intring ships its own integer "
+                     "wire format)")
+        codec = "lorenzo"
+        codec_ratio, _, _ = _codec_adjusted(codec, req.ratio, req.hw)
+    spec = codecs.get_codec(codec)
+    fused_hop = req.fused_hop and spec.fused_hop
+    if req.fused_hop and not spec.fused_hop:
+        notes.append(f"fused_hop off (codec {codec!r} has no fused "
+                     "unpack+reduce+repack kernel; hops run the two-pass "
+                     "composition)")
+    return codec, algo, max(chunks, 1), codec_ratio, fused_hop, tuple(notes)
 
 
 def _resolve_plan(
@@ -557,7 +650,8 @@ def _resolve_plan(
         requested_algo=requested_algo, requested_chunks=requested_chunks,
         fused_hop=fused_hop, ratio=ratio, hw=hw,
     )
-    algo, chunks, codec_ratio, fused_hop = _resolve_codec(policy_fn, req, codec)
+    codec, algo, chunks, codec_ratio, fused_hop, notes = _resolve_codec(
+        op, policy, policy_fn, req, codec)
     cap, wire, raw = _wire_accounting(
         op, algo, n_elems, axis_size, capacity_factor, chunks, codec
     )
@@ -573,7 +667,7 @@ def _resolve_plan(
                     if algo == "binomial" else ()),
         on_overflow=on_overflow, verify_streams=verify_streams,
         fallback=_fallback_plan(op, n_elems, axis_size, hw),
-        codec=codec, codec_ratio=codec_ratio,
+        codec=codec, codec_ratio=codec_ratio, notes=notes,
         route_table=(schedule.build(op, algo, axis_size)
                      if axis_size >= 2 else None),
     )
@@ -599,10 +693,13 @@ class _AllToAll(torch.autograd.Function):
     self-inverse (chunk r of rank p lands at rank r, slot p), so the
     backward is the same compressed exchange applied to the cotangent,
     straight through the quantizer.  Every rank must call backward, as
-    every rank called forward.  The autograd engine runs CUDA backward
-    nodes on one thread per card, so on a one-card ``ThreadGroup`` the
-    ranks' backward exchanges would wait on each other: take gradients
-    through ``DistGroup`` (one process per rank) on the card."""
+    every rank called forward.
+
+    The autograd engine runs the backward nodes of CUDA tensors on its
+    own device thread, not on the rank threads of a ``ThreadGroup``, so
+    there the ranks' backward exchanges could never meet: backward raises
+    instead of waiting forever.  Take gradients through ``DistGroup`` (one
+    process per rank)."""
 
     @staticmethod
     def forward(ctx, x, g, cfg):
@@ -613,6 +710,15 @@ class _AllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, _g_ovf):
+        thread = getattr(ctx.g, "thread", None)
+        if thread is not None and thread is not threading.current_thread():
+            raise RuntimeError(
+                f"all_to_all backward of ThreadGroup rank {ctx.g.rank} runs on "
+                f"thread {threading.current_thread().name!r}, not on the rank's "
+                "own thread (the autograd engine runs CUDA backward nodes on a "
+                "device thread), so the ranks' exchanges cannot meet; take "
+                "gradients through DistGroup (one process per rank)"
+            )
         return collectives._execute_all_to_all(g_out, ctx.g, ctx.cfg)[0], None, None
 
 
@@ -627,7 +733,9 @@ class GZCommunicator:
     ``axis_size`` may be passed explicitly or left None to be read from
     the rank handle bound to ``axis_name`` at call time.  ``device`` is
     where the collective runs: "cuda" unless the caller asks for "cpu";
-    CUDA without a card raises here.
+    CUDA without a card raises here.  ``auto_depth`` plans the ring depth
+    even when the algorithm was requested explicitly (the grad-sync
+    routing rule: a requested depth of 1 becomes 0, "plan it").
     """
 
     def __init__(
@@ -640,6 +748,7 @@ class GZCommunicator:
         ratio: float = 20.0,
         axis_size: Optional[int] = None,
         device="cuda",
+        auto_depth: bool = False,
     ):
         self.axis_name = axis_name
         self.config = config if config is not None else collectives.GZConfig()
@@ -652,6 +761,22 @@ class GZCommunicator:
         self.ratio = ratio
         self._axis_size = axis_size
         self.device = transport.resolve_device(device)
+        self._auto_depth = auto_depth
+
+    @classmethod
+    def for_config(cls, axis_name, config, *, policy: str = "auto",
+                   hw: cost_model.Hardware = cost_model.A100_SLINGSHOT,
+                   ratio: float = 20.0, axis_size: Optional[int] = None,
+                   device="cuda", auto_depth: bool = False) -> "GZCommunicator":
+        """Memoized communicator: one instance per distinct (axis, knobs)."""
+        key = (axis_name, config, policy, hw, ratio, axis_size,
+               str(transport.resolve_device(device)), auto_depth)
+        comm = _COMM_CACHE.get(key)
+        if comm is None:
+            comm = _COMM_CACHE[key] = cls(
+                axis_name, config=config, policy=policy, hw=hw, ratio=ratio,
+                axis_size=axis_size, device=device, auto_depth=auto_depth)
+        return comm
 
     def _group(self, group):
         g = group if group is not None else transport.current(self.axis_name)
@@ -673,10 +798,13 @@ class GZCommunicator:
         n_elems = int(np.prod(shape)) if not isinstance(shape, int) else shape
         cfg = self.config
         requested_algo = None if cfg.algo == "auto" else cfg.algo
+        requested_chunks = cfg.pipeline_chunks
+        if self._auto_depth and requested_chunks == 1:
+            requested_chunks = 0
         return _resolve_plan(
             op, n_elems, _dtype_name(dtype), self.axis_size(group), cfg.eb,
             policy=self.policy, requested_algo=requested_algo,
-            requested_chunks=cfg.pipeline_chunks,
+            requested_chunks=requested_chunks,
             capacity_factor=cfg.capacity_factor,
             worst_case_budget=cfg.worst_case_budget, fused=cfg.fused,
             fused_hop=cfg.fused_hop, ratio=self.ratio, hw=self.hw,

@@ -49,6 +49,13 @@ class Compressed:
         """True iff the stream did not fit the provisioned capacity."""
         return self.nwords > self.packed.shape[0]
 
+    def payload_bytes(self) -> torch.Tensor:
+        """True compressed bytes (what a ragged transport would move): the
+        valid stream words plus the per-block metadata and 8 bytes of
+        header, as an int32 0-d tensor."""
+        meta = self.bitwidth.numel() * 4 + self.anchor.numel() * 4 + 8
+        return self.nwords.to(torch.int32) * 4 + meta
+
     def tensors(self) -> tuple:
         """The wire tensors, in the order the transport ships them."""
         return (self.packed, self.bitwidth, self.anchor, self.nwords, self.eb)

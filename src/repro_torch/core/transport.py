@@ -14,7 +14,12 @@ rank with four members:
     and concat on dim 0): each tensor's leading dim has one slot per rank;
     rank r gets back, in slot i, what rank i passed in its slot r;
   * ``flags_across(*flags)`` — the global OR of per-rank bool flags, one
-    combined reduction (the ``psum(...) > 0`` of the reference).
+    combined reduction (the ``psum(...) > 0`` of the reference);
+  * ``sum_across(x)`` — the sum of every rank's f32 tensor ``x`` (the
+    ``psum`` of the reference), folded in rank order,
+    ``((x_0 + x_1) + x_2) + ...``: every rank gets the same bits, the
+    reference's CPU ``psum`` gives them too, and no library reduction
+    order plays a part.
 
 Two groups provide handles:
 
@@ -28,7 +33,7 @@ Two groups provide handles:
     rank's reads.
   * :class:`DistGroup` — one rank per process over ``torch.distributed``:
     ``batch_isend_irecv`` for the exchange and the all-to-all,
-    ``all_reduce(MAX)`` for the flags.  NCCL on GPUs, gloo on the CPU.
+    ``all_reduce(MAX)`` for the flags, ``all_gather`` for the sum.  NCCL on GPUs, gloo on the CPU.
 
 A group is bound to an axis name per thread (``bind``); a communicator
 built for that axis name finds its rank handle with ``current``.
@@ -92,6 +97,14 @@ def _zeros_like_all(tensors) -> tuple:
     return tuple(torch.zeros_like(t) for t in tensors)
 
 
+def _fold(parts) -> torch.Tensor:
+    """Rank-order sum of the per-rank tensors."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
 def _sender_of(rank: int, perm):
     for snd, rcv in perm:
         if rcv == rank:
@@ -106,6 +119,7 @@ class _ThreadRank:
         self.group = group
         self.rank = rank
         self.size = group.size
+        self.thread = threading.current_thread()  # the rank's own thread
 
     def exchange(self, tensors, perm) -> tuple:
         g = self.group
@@ -132,6 +146,14 @@ class _ThreadRank:
         both = torch.stack(list(g._slots)).amax(dim=0) > 0
         g._barrier.wait()
         return tuple(both.unbind(0))
+
+    def sum_across(self, x) -> torch.Tensor:
+        g = self.group
+        g._slots[self.rank] = x
+        g._barrier.wait()
+        out = _fold(list(g._slots))
+        g._barrier.wait()
+        return out
 
 
 class ThreadGroup:
@@ -229,3 +251,9 @@ class DistGroup:
         both = torch.stack([f.to(torch.int32) for f in flags])
         dist.all_reduce(both, op=dist.ReduceOp.MAX)
         return tuple((both > 0).unbind(0))
+
+    def sum_across(self, x) -> torch.Tensor:
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x)
+        return _fold(parts)

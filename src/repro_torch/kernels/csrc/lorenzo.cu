@@ -48,73 +48,24 @@
 // wrapping prefix sum plus the anchor, qf = __int2float_rn(q); the reduce is
 // __fmaf_rn(qf, twoeb, acc), rounded once.  recip and twoeb arrive as device
 // scalars computed by the wrapper, like the reference's (1, 1) operands.
-// Compile without --use_fast_math.
+// Compile without --use_fast_math.  The quantizer front, the
+// reconstruction and the word-offset scan live in lorenzo_common.cuh,
+// shared with the entropy-coded wire kernels (entropy.cu).
 //
 // Capacity: words at index >= cap are never stored; the pack launch zeroes
 // [nwords, cap).  On the receive side every word at index >= cap reads as 0.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "lorenzo_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;                 // elements per Lorenzo block
-constexpr int kWarps = kBlock / 32;
 constexpr int kWordsPerBit = kBlock / 32;   // words per unit of bitwidth
-constexpr int kScanThreads = 1024;
 
-__device__ __forceinline__ uint32_t width_mask(int bw) {
-  return bw == 0 ? 0u : (0xFFFFFFFFu >> (32 - bw));
-}
-
-// Lorenzo delta + zigzag for thread j's quantized value q.
-__device__ __forceinline__ uint32_t lorenzo_zig(int32_t q, int32_t* q_s) {
-  const int j = threadIdx.x;
-  q_s[j] = q;
-  __syncthreads();
-  const int32_t prev = j ? q_s[j - 1] : q;
-  const int32_t d = (int32_t)((uint32_t)q - (uint32_t)prev);
-  return ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
-}
-
-__device__ __forceinline__ uint32_t block_max(uint32_t v, uint32_t* red) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  uint32_t r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = max(r, red[w]);
-  return r;
-}
-
-// Inclusive prefix sum over the 256 threads, wrapping like int32.
-__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t n = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += n;
-  }
-  if (lane == 31) red[warp] = v;
-  __syncthreads();
-  uint32_t off = 0;
-  for (int w = 0; w < warp; ++w) off += red[w];
-  return v + off;
-}
-
-__device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ p,
-                                              long long cap, long long w) {
-  return w < cap ? p[w] : 0u;
-}
-
-// Zigzag code u of thread j -> its quantized value as f32 (before the
-// multiply by 2*eb): unzigzag, int32-wrapping prefix sum, plus the anchor.
-__device__ __forceinline__ float reconstruct_q(uint32_t u, int32_t anchor,
-                                               uint32_t* red) {
-  const int32_t d = (int32_t)(u >> 1) ^ -(int32_t)(u & 1u);
-  const uint32_t qs = block_scan((uint32_t)d, red);
-  return __int2float_rn((int32_t)((uint32_t)anchor + qs));
-}
+// Dense layout: block i's payload is 8 * bw_i words.
+struct DenseWords {
+  const int32_t* bw;
+  __device__ __forceinline__ int32_t operator()(int i) const { return bw[i] * kWordsPerBit; }
+};
 
 // Thread j's value of Lorenzo block b, decoded from the stream and
 // reconstructed to f32 (before the multiply by 2*eb).
@@ -147,44 +98,6 @@ quantize_front_kernel(const float* __restrict__ x, const float* __restrict__ rec
     bw_out[blockIdx.x] = 32 - __clz((int)umax);
     anchor_out[blockIdx.x] = q;
   }
-}
-
-// Exclusive prefix sum of 8*bw over nb blocks; offsets[nb] = total words.
-// One CTA: thread t sums a contiguous segment, the CTA scans the partials,
-// then each thread writes its segment's offsets.
-__global__ void __launch_bounds__(kScanThreads)
-word_offsets_kernel(const int32_t* __restrict__ bw, int nb, int32_t* __restrict__ offsets) {
-  __shared__ int32_t part[kScanThreads / 32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (nb + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * per, nb), hi = min(lo + per, nb);
-  int32_t s = 0;
-  for (int i = lo; i < hi; ++i) s += bw[i] * kWordsPerBit;
-  int32_t incl = s;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t n = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += n;
-  }
-  if (lane == 31) part[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t v = part[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t n = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += n;
-    }
-    part[lane] = v;  // inclusive over warps
-  }
-  __syncthreads();
-  incl += warp ? part[warp - 1] : 0;
-  int32_t run = incl - s;
-  for (int i = lo; i < hi; ++i) {
-    offsets[i] = run;
-    run += bw[i] * kWordsPerBit;
-  }
-  if (t == kScanThreads - 1) offsets[nb] = incl;
 }
 
 // Pack: re-quantize block b from f32, then thread t builds output word t of
@@ -272,12 +185,6 @@ hop_front_kernel(const uint32_t* __restrict__ packed, long long cap,
 
 }  // namespace
 
-#define LZ_CHECK()                                   \
-  do {                                               \
-    const cudaError_t e_ = cudaGetLastError();       \
-    if (e_ != cudaSuccess) return (int)e_;           \
-  } while (0)
-
 extern "C" {
 
 int lz_quantize_pack(const float* x, int nb, const float* recip, uint32_t* packed,
@@ -285,7 +192,7 @@ int lz_quantize_pack(const float* x, int nb, const float* recip, uint32_t* packe
                      cudaStream_t stream) {
   quantize_front_kernel<false><<<nb, kBlock, 0, stream>>>(x, recip, nullptr, bw, anchor);
   LZ_CHECK();
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw, nb, offsets);
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw}, nb, offsets);
   LZ_CHECK();
   pack_kernel<<<nb, kBlock, 0, stream>>>(x, recip, bw, offsets, nb, packed, cap);
   LZ_CHECK();
@@ -296,7 +203,7 @@ int lz_unpack_dequantize(const uint32_t* packed, long long cap, const int32_t* b
                          const int32_t* anchor, int nb, const float* twoeb,
                          const float* acc, float* out, int32_t* offsets,
                          cudaStream_t stream) {
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw, nb, offsets);
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw}, nb, offsets);
   LZ_CHECK();
   if (acc)
     unpack_kernel<true><<<nb, kBlock, 0, stream>>>(packed, cap, bw, anchor, offsets,
@@ -314,13 +221,13 @@ int lz_unpack_reduce_repack(const uint32_t* packed_in, long long cap_in,
                             float* x_out, uint32_t* packed_out, long long cap_out,
                             int32_t* bw_out, int32_t* anchor_out, int32_t* offsets_in,
                             int32_t* offsets_out, cudaStream_t stream) {
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw_in, nb, offsets_in);
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw_in}, nb, offsets_in);
   LZ_CHECK();
   hop_front_kernel<<<nb, kBlock, 0, stream>>>(packed_in, cap_in, bw_in, anchor_in,
                                               offsets_in, twoeb, acc, recip, x_out,
                                               bw_out, anchor_out);
   LZ_CHECK();
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(bw_out, nb, offsets_out);
+  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw_out}, nb, offsets_out);
   LZ_CHECK();
   pack_kernel<<<nb, kBlock, 0, stream>>>(x_out, recip, bw_out, offsets_out, nb,
                                          packed_out, cap_out);

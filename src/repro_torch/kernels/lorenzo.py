@@ -139,19 +139,6 @@ _SIGNATURES = {
 }
 
 
-_LIB = []
-
-
-def _lib():
-    if not _LIB:
-        lib = build.load("lorenzo")
-        for fn, args in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB.append(lib)
-    return _LIB[0]
-
-
 def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -181,14 +168,7 @@ def _scalars(eb: torch.Tensor):
 
 
 def _launch(fn: str, *args) -> None:
-    """Launch on the current stream.  The caller allocates outputs and
-    scratch on that stream; scratch freed on return is safe, because the
-    caching allocator hands its memory only to work queued later on the
-    same stream."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(_lib(), fn)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")
+    build.launch(build.load("lorenzo", _SIGNATURES), fn, *args)
 
 
 def quantize_pack(x2d, eb, capacity_words: int):

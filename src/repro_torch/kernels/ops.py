@@ -1,4 +1,4 @@
-"""Flat-array entry points around the Lorenzo kernels.
+"""Flat-array entry points around the Lorenzo and entropy kernels.
 
 The counterpart of ``repro.kernels.ops``: block padding (``BLOCK``=256
 elements per Lorenzo block, ``TILE_ROWS``=8 blocks per row-tile, so the
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import lorenzo
+from repro_torch.kernels import entropy, lorenzo
 
 __all__ = [
     "BLOCK",
@@ -27,6 +27,9 @@ __all__ = [
     "quantize",
     "dequantize",
     "dequantize_reduce",
+    "entropy_quantize_pack",
+    "entropy_unpack_dequantize",
+    "entropy_unpack_dequantize_reduce",
 ]
 
 BLOCK = lorenzo.BLOCK
@@ -62,11 +65,11 @@ def as_eb(eb, device) -> torch.Tensor:
     return torch.full((), float(eb), dtype=torch.float32, device=device)
 
 
-def _route(t: torch.Tensor, name: str):
+def _route(t: torch.Tensor, name: str, module=lorenzo):
     if t.device.type == "cpu":
-        return getattr(lorenzo, f"{name}_plain")
+        return getattr(module, f"{name}_plain")
     if t.device.type == "cuda":
-        return getattr(lorenzo, name)
+        return getattr(module, name)
     raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
@@ -111,3 +114,23 @@ def dequantize_reduce(codes, anchor, eb, acc2d):
     """acc + dequantize(codes), each element rounded once."""
     return _route(acc2d, "dequantize_reduce")(
         codes, anchor, as_eb(eb, acc2d.device), acc2d)
+
+
+def entropy_quantize_pack(x2d, eb, capacity_words: int, *, lossless: bool = False):
+    """f32 blocks -> entropy-coded (packed int32 (capacity_words,), desc,
+    anchor); ``desc`` packs the four per-sub-block widths."""
+    return _route(x2d, "quantize_pack", entropy)(
+        x2d, as_eb(eb, x2d.device), int(capacity_words), lossless=lossless)
+
+
+def entropy_unpack_dequantize(packed, desc, anchor, eb, *, lossless: bool = False):
+    """Entropy-coded words -> decompressed f32 (nb, BLOCK)."""
+    return _route(packed, "unpack_dequantize", entropy)(
+        packed, desc, anchor, as_eb(eb, packed.device), lossless=lossless)
+
+
+def entropy_unpack_dequantize_reduce(packed, desc, anchor, eb, acc2d, *,
+                                     lossless: bool = False):
+    """Entropy-coded words + acc -> acc + decompressed f32 (nb, BLOCK)."""
+    return _route(acc2d, "unpack_dequantize_reduce", entropy)(
+        packed, desc, anchor, as_eb(eb, acc2d.device), acc2d, lossless=lossless)

@@ -7,8 +7,10 @@ over a ``ThreadGroup`` of N CPU ranks.  Outputs and the global overflow
 flags must be bitwise equal, at N in {2, 3, 6, 8}, for recursive
 doubling (with the remainder stage at N = 3, 6), the sequential ring,
 the pipelined ring and the ``auto`` policy, with and without overflow,
-and for the two-pass codec (``fused=False``: redoub and the pipelined
-ring) and the two-kernel hop (``fused_hop=False``: the pipelined ring).
+for the two-pass codec (``fused=False``: redoub and the pipelined ring)
+and the two-kernel hop (``fused_hop=False``: the pipelined ring), and
+for the ``lorenzo+entropy``, ``lossless`` and ``passthrough`` codecs
+(redoub and the pipelined ring; entropy also overflowing and two-pass).
 One gloo ``DistGroup`` run at N = 3 must equal the ``ThreadGroup`` run.
 
 The JAX side needs its device count set before jax is imported, so it
@@ -48,13 +50,26 @@ CASES = {
     "redoub_unfused": ("redoub", 1, "smooth", 1e-4, 0.6),
     "ring_p2_unfused": ("ring", 2, "smooth", 1e-4, 0.6),
     "ring_p2_two_kernel_hop": ("ring", 2, "smooth", 1e-4, 0.6),
+    "redoub_entropy": ("redoub", 1, "smooth", 1e-4, 0.6),
+    "ring_p2_entropy": ("ring", 2, "smooth", 1e-4, 0.6),
+    "redoub_entropy_unfused": ("redoub", 1, "smooth", 1e-4, 0.6),
+    "ring_p2_entropy_overflow": ("ring", 2, "rough", 1e-6, 0.05),
+    "redoub_lossless": ("redoub", 1, "rough", 1e-4, 0.6),
+    "ring_p2_lossless": ("ring", 2, "smooth", 1e-4, 0.6),
+    "redoub_passthrough": ("redoub", 1, "smooth", 1e-4, 0.6),
+    "ring_p2_passthrough": ("ring", 2, "rough", 1e-4, 0.6),
 }
 # The two-pass knobs of the cases that set them.
 TWO_PASS = {
     "redoub_unfused": dict(fused=False),
     "ring_p2_unfused": dict(fused=False),
     "ring_p2_two_kernel_hop": dict(fused_hop=False),
+    "redoub_entropy_unfused": dict(fused=False),
 }
+# The wire codec of the cases that are not ``lorenzo``.
+CODEC = {case: codec for case in CASES
+         for key, codec in (("entropy", "lorenzo+entropy"), ("lossless", "lossless"),
+                            ("passthrough", "passthrough")) if key in case}
 
 
 def per_rank_elems(n: int) -> int:
@@ -74,7 +89,7 @@ def inputs(n: int, case: str) -> np.ndarray:
 def config_kwargs(case: str) -> dict:
     algo, chunks, _, eb, cf = CASES[case]
     return dict(eb=eb, algo=algo, pipeline_chunks=chunks, capacity_factor=cf,
-                **TWO_PASS.get(case, {}))
+                codec=CODEC.get(case, "lorenzo"), **TWO_PASS.get(case, {}))
 
 
 # ---------------------------------------------------------------------------

@@ -109,13 +109,13 @@ def test_error_bound_holds(eb):
 
 
 def test_codec_registry():
-    assert codecs.codec_names() == ("lorenzo",)
+    assert codecs.codec_names() == ("lorenzo", "lorenzo+entropy", "lossless",
+                                    "passthrough")
     comp = codecs.build_compressor("lorenzo", capacity_factor=0.6, fused=True)
     assert comp == ErrorBoundedLorenzo(capacity_factor=0.6)
     assert codecs.codec_capacity_words("lorenzo", 5000, 0.6) == 3000
-    for name in ("lorenzo+entropy", "lossless", "passthrough", "auto"):
-        with pytest.raises(NotImplementedError, match="A7"):
-            codecs.get_codec(name)
+    with pytest.raises(ValueError, match="plan layer"):
+        codecs.build_compressor("auto", capacity_factor=0.6, fused=True)
     with pytest.raises(ValueError, match="unknown codec"):
         codecs.get_codec("zstd")
     two_pass = codecs.build_compressor("lorenzo", capacity_factor=0.6, fused=False)

@@ -2,9 +2,10 @@
 
 * Importing every ``repro_torch`` module and ``chip_smoke``, and running
   every collective of the port on the CPU (the data movers, the two-pass
-  codec and the two-kernel hop included), leaves ``jax`` and the
-  ``repro`` package out of ``sys.modules`` (in a fresh interpreter), and
-  importing ``chip_smoke`` runs nothing.
+  codec, the two-kernel hop, every codec and ``codec="auto"`` included)
+  and the gradient sync, leaves ``jax`` and the ``repro`` package out of
+  ``sys.modules`` (in a fresh interpreter), and importing ``chip_smoke``
+  runs nothing.
 * No module of the port, nor ``chip_smoke.py``, imports ``jax`` or
   ``repro.*`` anywhere in its source (AST scan, function bodies too).
 * On a machine without CUDA, every entry point that defaults to the card
@@ -17,11 +18,12 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.core import transport
+from repro_torch.core import grad_sync, transport
 from repro_torch.core.comm import GZCommunicator
 from repro_torch.core.compressor import ErrorBoundedLorenzo
 from repro_torch.kernels import build
@@ -41,6 +43,8 @@ def _module_names():
 def test_modules_import_without_jax():
     mods = _module_names()
     assert "repro_torch.kernels.lorenzo" in mods and "repro_torch.convert" in mods
+    for new in ("core.entropy", "kernels.entropy", "core.buckets", "core.grad_sync"):
+        assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -50,11 +54,18 @@ def test_modules_import_without_jax():
         "from repro_torch.core.collectives import GZConfig\n"
         "from repro_torch.core.comm import GZCommunicator\n"
         "xs = [torch.linspace(0, 1, 2400) * (r + 1) for r in range(3)]\n"
-        "for cfg in (GZConfig(), GZConfig(fused=False, fused_hop=False, pipeline_chunks=2)):\n"
+        "cfgs = [GZConfig(), GZConfig(fused=False, fused_hop=False, pipeline_chunks=2)]\n"
+        "cfgs += [GZConfig(codec=k) for k in ('lorenzo+entropy', 'lossless',\n"
+        "                                      'passthrough', 'auto')]\n"
+        "for cfg in cfgs:\n"
         "    c = GZCommunicator('x', config=cfg, axis_size=3, device='cpu')\n"
         "    for op in ('allreduce', 'reduce_scatter', 'allgather', 'scatter',\n"
         "               'broadcast', 'all_to_all'):\n"
         "        transport.ThreadGroup(3, 'cpu').run(getattr(c, op), xs)\n"
+        "from repro_torch.core import grad_sync\n"
+        "for sync in (grad_sync.SyncConfig(), grad_sync.SyncConfig(gz=None)):\n"
+        "    transport.ThreadGroup(3, 'cpu').run(lambda x: grad_sync.dp_allreduce_grads(\n"
+        "        {'w': x, 'b': [x[:7]]}, ('x',), sync, device='cpu'), xs)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -94,6 +105,12 @@ def test_cuda_entry_points_raise_without_a_card():
         ErrorBoundedLorenzo().compress(torch.zeros(300), 1e-3))
     with pytest.raises(RuntimeError, match="cuda"):
         convert.compressed_from_numpy(d)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.tree_from_numpy({"w": [np.zeros(3, np.float32)]})
+    group = transport.ThreadGroup(1, "cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        group.run(lambda x: grad_sync.dp_allreduce_grads({"w": x}, ("x",)),
+                  [torch.zeros(8)])
 
 
 def test_communicator_refuses_tensors_on_another_device():

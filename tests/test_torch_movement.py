@@ -13,13 +13,17 @@ non-finite flags must be bitwise equal:
 * ``allgather`` and ``reduce_scatter`` at N in {3, 6, 8}, sequential and
   pipelined (P = 2);
 * ``all_to_all`` at N in {3, 8};
-* each op once with ``fused=False`` and once overflowing.
+* each op once with ``fused=False`` and once overflowing;
+* scatter, broadcast, allgather and all_to_all at N in {2, 3, 6, 8}
+  under ``lorenzo+entropy`` (also overflowing and two-pass), and under
+  ``lossless`` and ``passthrough``, the per-chunk compressor path.
 
 Non-root scatter and broadcast inputs hold a NaN: only the root's payload
 is significant, so neither package may raise the non-finite flag.  Also
 here: the port's trimmed scatter equals its padded virtual-tree walk on
 every real rank, the ``all_to_all`` gradient equals the JAX
-``custom_vjp`` gradient, and one gloo ``DistGroup`` run of scatter and
+``custom_vjp`` gradient (and a ThreadGroup rank's backward run on a
+foreign thread raises instead of hanging, ROADMAP C6), and one gloo ``DistGroup`` run of scatter and
 ``all_to_all`` at N = 3 equals the ``ThreadGroup`` run.
 
 The JAX side needs its device count set before jax is imported, so it
@@ -32,6 +36,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 
 import numpy as np
 import pytest
@@ -67,7 +72,27 @@ CASES = {
     "all_to_all": ("all_to_all", (3, 8), 1, True, SMOOTH),
     "all_to_all_unfused": ("all_to_all", (3,), 1, False, SMOOTH),
     "all_to_all_overflow": ("all_to_all", (8,), 1, True, ROUGH),
+    "scatter_entropy": ("scatter", (2, 3, 6, 8), 1, True, SMOOTH),
+    "scatter_entropy_unfused": ("scatter", (3,), 2, False, SMOOTH),
+    "scatter_entropy_overflow": ("scatter", (6,), 1, True, ROUGH),
+    "scatter_lossless": ("scatter", (3, 8), 2, True, ROUGH),
+    "scatter_passthrough": ("scatter", (6,), 1, True, SMOOTH),
+    "broadcast_entropy": ("broadcast", (2, 3, 6, 8), 1, True, SMOOTH),
+    "broadcast_lossless": ("broadcast", (3,), 1, True, SMOOTH),
+    "broadcast_passthrough": ("broadcast", (8,), 1, True, ROUGH),
+    "allgather_entropy": ("allgather", (2, 3, 6, 8), 2, True, SMOOTH),
+    "allgather_lossless": ("allgather", (6,), 1, False, ROUGH),
+    "allgather_passthrough": ("allgather", (3,), 2, True, SMOOTH),
+    "reduce_scatter_entropy": ("reduce_scatter", (3, 8), 2, True, SMOOTH),
+    "all_to_all_entropy": ("all_to_all", (2, 3, 6, 8), 1, True, SMOOTH),
+    "all_to_all_entropy_overflow": ("all_to_all", (3,), 1, True, ROUGH),
+    "all_to_all_lossless": ("all_to_all", (2, 8), 1, True, ROUGH),
+    "all_to_all_passthrough": ("all_to_all", (6,), 1, True, SMOOTH),
 }
+# The wire codec of the cases that are not ``lorenzo``.
+CODEC = {case: codec for case in CASES
+         for key, codec in (("entropy", "lorenzo+entropy"), ("lossless", "lossless"),
+                            ("passthrough", "passthrough")) if key in case}
 ROOTED = ("scatter", "broadcast")
 NS = sorted({n for _, ns, *_ in CASES.values() for n in ns})
 PARAMS = [(n, case) for case, (_, ns, *_) in CASES.items() for n in ns]
@@ -83,7 +108,8 @@ def per_rank_elems(op: str, n: int) -> int:
 
 def config_kwargs(case: str) -> dict:
     _, _, chunks, fused, (_, eb, cf) = CASES[case]
-    return dict(eb=eb, pipeline_chunks=chunks, fused=fused, capacity_factor=cf)
+    return dict(eb=eb, pipeline_chunks=chunks, fused=fused, capacity_factor=cf,
+                codec=CODEC.get(case, "lorenzo"))
 
 
 def inputs(n: int, case: str) -> np.ndarray:
@@ -272,6 +298,36 @@ def test_all_to_all_gradient_equals_jax(jax_results):
         body, [(torch.from_numpy(x[r]), torch.from_numpy(w[r])) for r in range(n)])
     _assert_bitwise(np.stack([gr.numpy() for gr in grads]),
                     jax_results[n]["a2a_grad"], "a2a gradient")
+
+
+def test_all_to_all_backward_on_a_foreign_thread_raises():
+    """ROADMAP C6: a ThreadGroup rank's all_to_all backward that runs on
+    another thread than the rank's own (what the autograd engine does with
+    CUDA tensors) raises naming DistGroup instead of waiting forever."""
+    n = 2
+    comm = GZCommunicator("x", config=GZConfig(), axis_size=n, device="cpu")
+    xs = [torch.linspace(0, 1, 512) + r for r in range(n)]
+    outs = []
+
+    def fwd(x):
+        x = x.clone().requires_grad_(True)
+        outs.append(comm.all_to_all(x).value.sum())
+        return True
+
+    assert transport.ThreadGroup(n, "cpu").run(fwd, xs) == [True, True]
+    errors = []
+
+    def foreign():
+        try:
+            outs[0].backward()
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    t = threading.Thread(target=foreign)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive(), "backward hung"
+    assert errors and "DistGroup" in errors[0]
 
 
 def _free_port() -> int:

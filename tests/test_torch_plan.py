@@ -8,6 +8,9 @@
 * The same holds for all six ops at N in 2..13 (slab table included),
   and the 646 MB scatter plan provisions exactly the wire bytes and root
   chunk streams recorded in ``benchmarks/BENCH_scatter.json``.
+* The same holds for every codec of the registry and for
+  ``codec="auto"`` under every policy (the resolved codec, the
+  ``fused_hop`` downgrade and the plan's notes included).
 * The port's copies of ``schedule``, ``error_budget`` and ``cost_model``
   give the reference's outputs on a sweep, so the copies cannot drift.
 """
@@ -90,6 +93,49 @@ def test_every_op_plan_equals_reference(op, policy, hw):
                 assert (ours.slab_table != ()) == (op in ("scatter", "broadcast"))
 
 
+@pytest.mark.parametrize("hw", sorted(HW))
+@pytest.mark.parametrize("policy", ["auto", "paper", "throughput", "accuracy"])
+@pytest.mark.parametrize("codec", ["lorenzo", "lorenzo+entropy", "lossless",
+                                   "passthrough", "auto"])
+def test_codec_plans_equal_reference(codec, policy, hw):
+    resolved = set()
+    for op in comm.OPS:
+        for n in range(2, 14):
+            for n_elems in (1000, 5000 * n + 37, 1 << 20, 646_000_000 // 4):
+                for cfg in ({}, dict(pipeline_chunks=2),
+                            dict(fused=False, fused_hop=False, capacity_factor=1.2)):
+                    ours, ref = _plans(n, n_elems, policy, hw, op, codec=codec, **cfg)
+                    _assert_plans_equal(ours, ref)
+                    resolved.add(ours.codec)
+                    if ours.codec != "lorenzo" and cfg.get("fused_hop", True):
+                        assert not ours.fused_hop and any(
+                            "fused_hop off" in note for note in ours.notes)
+                    if codec not in ("auto", ours.codec):  # intring's own wire
+                        assert ours.algo == "intring" and any(
+                            "intring ships" in note for note in ours.notes)
+    if codec != "auto":
+        assert codec in resolved
+    elif policy in ("auto", "throughput"):
+        assert resolved <= {"lorenzo", "lorenzo+entropy", "lossless"}
+    else:
+        assert resolved == {"lorenzo"}
+
+
+def test_codec_auto_picks_like_reference_at_every_size():
+    """``codec="auto"`` ranks the candidates by the op's modeled time; the
+    pick and its note equal the reference's, and the sweep reaches more
+    than one codec."""
+    picks = set()
+    for hw in sorted(HW):
+        for n in (2, 3, 8):
+            for n_elems in (256, 4096, 1 << 16, 1 << 20, 1 << 24):
+                ours, ref = _plans(n, n_elems, "auto", hw, codec="auto")
+                _assert_plans_equal(ours, ref)
+                assert ours.notes[0].startswith(f"codec auto->{ours.codec!r}")
+                picks.add(ours.codec)
+    assert len(picks) > 1, picks
+
+
 def test_scatter_plan_equals_bench_scatter():
     """The Fig. 12 scatter (646 MB at the root) provisions the recorded
     wire bytes and n-1 root chunk streams for every N in the file."""
@@ -138,8 +184,13 @@ def test_config_validation_matches_reference():
             JGZConfig(**bad)
         with pytest.raises(ValueError):
             GZConfig(**bad)
-    with pytest.raises(NotImplementedError, match="A7"):
-        GZConfig(codec="lossless")
+    for bad in ("zstd", "AUTO"):
+        with pytest.raises(ValueError, match="unknown codec"):
+            JGZConfig(codec=bad)
+        with pytest.raises(ValueError, match="unknown codec"):
+            GZConfig(codec=bad)
+    for ok in ("lossless", "lorenzo+entropy", "passthrough", "auto"):
+        assert GZConfig(codec=ok).codec == JGZConfig(codec=ok).codec == ok
 
 
 @pytest.mark.parametrize("cfg,item", [
