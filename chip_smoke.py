@@ -37,11 +37,43 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    equal);
 7. runs the two-pass paths, 16 MB x 8 allreduces with ``fused=False``
    (redoub and ring/2) and ``fused_hop=False`` (ring/2), each bitwise
-   equal to the fused run on the same inputs.
+   equal to the fused run on the same inputs;
+8. holds the three entropy kernels (``entropy_quantize_pack``,
+   ``entropy_unpack_dequantize``, ``entropy_unpack_dequantize_reduce``)
+   against their plain versions, lossy and lossless, at one 16 MiB
+   gradient bucket and at the 646 MB payload;
+9. runs the 646 MB x 8 allreduce and the 646 MB scatter under
+   ``lorenzo+entropy`` (phase ``codecs``);
+10. runs the gradient sync of one minitron-8b decoder layer (973 MB per
+    rank, 8 ranks, 59 buckets of 16 MiB) under ``lorenzo+entropy``,
+    profiled, with its host floor at 1/256 size (phase ``grad-sync``);
+11. the same sync under ``lorenzo``, ``lossless``, ``passthrough`` and
+    ``codec="auto"``, and at N = 6;
+12. checks that the all-to-all's backward on a one-card ``ThreadGroup``
+    raises instead of hanging (phase ``c6``);
+13. holds the flash-attention kernel (kernel 11) against its plain
+    version at D = 32, 64 and 128, f32 and bf16, causal, causal with
+    windows 64, 128 and 1000, non-causal with Sq != Sk, ragged lengths and
+    rows that see no key, and at the main path's shape (B=2, S=2048,
+    H=32, D=128, bf16), timed there beside the plain version, SDPA and the
+    bound (phase ``model``, as are 14-16);
+14. runs this slice's main path, ``Model.loss_fn`` of minitron-8b at full
+    width and depth (19.76 GB of bf16 weights from seed 0) on a B=2,
+    S=2048 batch, through kernel 11 (32 launches) and through the chunked
+    path (none), within 2e-3 of each other, profiled;
+15. compares the full-sequence logits through kernel 11 at S=128 with 128
+    ``decode_fn`` steps (rel <= 0.05);
+16. runs ``repro_torch.launch.serve.serve`` at full size (batch 4, 16
+    prompt and 32 generated tokens, cache 128) and prints its tokens per
+    second.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
 bound, and not overflow.
+
+``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
+``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``c6`` (12) and
+``model`` (13-16); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -80,7 +112,10 @@ REPLACES = {
     "entropy_quantize_pack": "src/repro/kernels/entropy.py:230",
     "entropy_unpack_dequantize": "src/repro/kernels/entropy.py:263",
     "entropy_unpack_dequantize_reduce": "src/repro/kernels/entropy.py:289",
+    "flash_attention": "src/repro/kernels/flash_attn.py:82",
 }
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+BF16_FLOPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor-core peak, data sheet
 MAIN_BYTES = 646_000_000  # per rank (allreduce) / at the root (scatter): Figs. 10, 12
 SCATTER_WIRE_BYTES = 343_566_440  # benchmarks/BENCH_scatter.json, N = 8
 MOVER_BYTES = 16_000_000  # per rank: the data movers and the two-pass paths
@@ -92,18 +127,31 @@ def log(*a):
 
 
 def _reset_launches():
-    from repro_torch.kernels import entropy, lorenzo
+    from repro_torch.kernels import entropy, flash_attn, lorenzo
 
     lorenzo.reset_launch_counts()
     entropy.reset_launch_counts()
+    flash_attn.reset_launch_counts()
 
 
 def _launches():
     """Every kernel's launch count since the last reset (the entropy
     kernels under their ``entropy_`` names)."""
-    from repro_torch.kernels import entropy, lorenzo
+    from repro_torch.kernels import entropy, flash_attn, lorenzo
 
-    return {**lorenzo.LAUNCHES, **{f"entropy_{k}": v for k, v in entropy.LAUNCHES.items()}}
+    return {**lorenzo.LAUNCHES, **{f"entropy_{k}": v for k, v in entropy.LAUNCHES.items()},
+            **flash_attn.LAUNCHES}
+
+
+def _device_events(prof):
+    """The profile's device-side rows (kernels, copies, fills) with their
+    device time.  A host op's row (``aten::mm``) also carries the device
+    time of the kernels it launched, so summing every row counts those
+    kernels twice; only the device rows are summed."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
 def _median_ms(fn, reps):
@@ -514,8 +562,7 @@ def _profile(group, fn, xs, plan, intervals=None):
         group.run(fn, xs, axis_name="x")
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
+    events = _device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     log(f"profile: warm wall {warm * 1e3:.1f} ms; traced wall {traced * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %)")
@@ -1071,7 +1118,7 @@ def run_grad_sync(device, gen):
         group.run(body, trees, axis_name="x")
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0) > 0]
+    events = _device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     log(f"grad sync profile: warm wall {warm * 1e3:.1f} ms; traced wall "
         f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms "
@@ -1164,9 +1211,246 @@ def check_a2a_backward_on_threadgroup(device):
 
 
 # ---------------------------------------------------------------------------
+# Phases 13-16: the dense model's forward and serving path, kernel 11
+# ---------------------------------------------------------------------------
+
+MODEL_ARCH = "minitron-8b"  # src/repro/configs/minitron_8b.py, full width and depth
+MODEL_SMOKE = False
+MODEL_PARAMS = 9_882_046_464
+MODEL_BATCH, MODEL_SEQ = 2, 2048
+PREFILL_SEQ = 128
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_flash_kernel.py
+SERVE_ARGV = ["--arch", "minitron-8b", "--batch", "4", "--prompt-len", "16", "--gen",
+              "32", "--cache-len", "128"]
 
 
-PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "c6")
+def check_flash_kernel(device, gen):
+    """Phase 13: kernel 11 against its plain version on the card, at every
+    head dim, both dtypes, causal, causal with windows 64, 128 and 1000,
+    non-causal with Sq != Sk, ragged lengths, rows that see no key, and
+    the main path's shape (B=2, S=2048, H=32, D=128, bf16, causal), timed
+    there beside the plain version, SDPA and the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, b, sq, sk, h, d, dtype, causal, window, timed)
+        *[("causal", 2, 300, 300, 2, d, dt, True, 0, False)
+          for d in (32, 64, 128) for dt in (f32, bf16)],
+        *[("window", 1, 700, 700, 2, d, dt, True, w, False)
+          for w in (64, 128, 1000) for d, dt in ((64, f32), (128, bf16))],
+        ("non-causal", 2, 100, 300, 2, 64, f32, False, 0, False),
+        ("non-causal", 2, 100, 300, 2, 128, bf16, False, 0, False),
+        ("ragged", 3, 1000, 1000, 4, 32, bf16, True, 0, False),
+        ("ragged", 1, 77, 77, 3, 64, f32, True, 0, False),
+        ("no-key rows", 1, 300, 100, 2, 32, f32, True, 64, False),
+        ("main", MODEL_BATCH, MODEL_SEQ, MODEL_SEQ, 32, 128, bf16, True, 0, True),
+    ]
+    record = None
+    for label, b, sq, sk, h, d, dt, causal, window, timed in cases:
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device).to(dt)
+                   for s in (sq, sk, sk))
+        got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attn.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dt).removeprefix("torch.")]
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        log(f"flash_attention vs plain [{label} B={b} Sq={sq} Sk={sk} H={h} D={d} "
+            f"{str(dt).removeprefix('torch.')} causal={causal} window={window}]: max |err| "
+            f"{err:.3e} (atol = rtol = {tol:g}); {bad} of {got.numel()} outside")
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention [{label}] disagrees with its plain version")
+        if timed:
+            # causal, Sq = Sk: 4*D FLOPs (QK^T and PV) per unmasked (q, k) pair;
+            # q, k, v read once and o written once
+            flops = 4 * b * h * d * sq * (sq + 1) // 2
+            nbytes = 4 * q.numel() * q.element_size()
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+            lib_err = float((lib.float() - want.float()).abs().max())
+            record = {
+                "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+                "replaces": REPLACES["flash_attention"], "launches": None,
+                "max_abs_err": err,
+                "ms": _median_ms(lambda: flash_attn.flash_attention(q, k, v), 20),
+                "plain_ms": _median_ms(lambda: flash_attn.flash_attention_plain(q, k, v), 5),
+                "bound_ms": max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": ("operations" if flops / BF16_FLOPS_PER_S
+                             >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                "library_ms": _median_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20),
+                "shape": [b, sq, h, d], "bytes": nbytes,
+            }
+            log(f"  flash_attention {record['ms']:.4f} ms  plain {record['plain_ms']:.3f} ms  "
+                f"SDPA {record['library_ms']:.4f} ms (max |SDPA - plain| {lib_err:.3e})  "
+                f"bound {record['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP at "
+                f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s; {nbytes / 1e6:.1f} MB at "
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s)")
+            del qt, kt, vt, lib
+        del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+    return {"flash_attention": record}
+
+
+def _forward_logits(model, params, tokens):
+    """Full-sequence logits at every position (the prefill reference of
+    tests/test_prefill_decode_consistency.py)."""
+    import torch
+
+    from repro_torch.models.layers import embed_lookup, rms_norm, vocab_parallel_logits
+
+    h = embed_lookup(tokens, params["embed"], model.ctx)
+    h, _ = model._backbone(h, params, positions=torch.arange(h.shape[1], device=h.device))
+    h = rms_norm(h, params["final_norm"], model.cfg.norm_eps)
+    return vocab_parallel_logits(h, params["unembed"], model.ctx)
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_model(device):
+    """Phases 14-16, this slice's main path.  14: ``Model.loss_fn`` of
+    minitron-8b at full width and depth (32 layers, 19.76 GB of bf16
+    weights drawn from seed 0 on the card) on one ``SyntheticStream`` batch
+    of B=2, S=2048, with ``use_flash_kernel`` True (kernel 11 launched once
+    per layer, counted) and False (the chunked path, no launch): both
+    finite, within 2e-3 relative of each other; walls, and the device busy
+    share and kernel 11's share of device time from one profiled call.  15:
+    the full-sequence logits through kernel 11 at S=128 against 128 steps
+    of ``decode_fn``, rel <= 0.05.  16: ``serve`` at full size (batch 4,
+    16 + 32 tokens, cache 128).  Returns kernel 11's launches in the loss
+    run."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.attention import KVCacheSpec
+    from repro_torch.models.model import Model
+
+    cfg = registry.get(MODEL_ARCH, smoke=MODEL_SMOKE)
+    kcfg = dataclasses.replace(cfg, use_flash_kernel=True)
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _timed(lambda: Model(cfg, device=device, seed=SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != MODEL_PARAMS:
+        raise AssertionError(f"{cfg.arch_id}: {n_params} parameters, expected {MODEL_PARAMS}")
+    params = model.params()
+    kmodel = Model(kcfg, params=params, device=device)  # the same tensors
+    log(f"model {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv), head dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB "
+        f"bf16) drawn from seed {SEED} in {init_s:.2f} s")
+    batch = next(SyntheticStream(cfg, MODEL_BATCH, MODEL_SEQ, seed=SEED))
+
+    with torch.inference_mode():
+        # 14: the loss forward, through kernel 11 and through the chunked path
+        _reset_launches()
+        l1, cold1 = _timed(lambda: kmodel.loss_fn(params, batch))
+        launches = _launches()
+        _reset_launches()
+        l0, cold0 = _timed(lambda: model.loss_fn(params, batch))
+        chunked_launches = _launches()
+        l1, l0 = float(l1), float(l0)
+        if _nonzero(launches) != {"flash_attention": cfg.n_layers}:
+            raise AssertionError(f"loss forward with the kernel launched {_nonzero(launches)},"
+                                 f" expected flash_attention x {cfg.n_layers}")
+        if _nonzero(chunked_launches):
+            raise AssertionError(f"chunked loss forward launched {_nonzero(chunked_launches)}")
+        if not (math.isfinite(l0) and math.isfinite(l1)):
+            raise AssertionError(f"non-finite loss: kernel {l1}, chunked {l0}")
+        if abs(l1 - l0) > 2e-3 * max(abs(l0), 1.0):
+            raise AssertionError(f"loss with kernel 11 {l1} vs chunked {l0}")
+        _, warm1 = _timed(lambda: kmodel.loss_fn(params, batch))
+        _, warm0 = _timed(lambda: model.loss_fn(params, batch))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, traced = _timed(lambda: kmodel.loss_fn(params, batch))
+        events = _device_events(prof)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        flash_ms = sum(e.self_device_time_total for e in events
+                       if "flash_fwd_kernel" in e.key) / 1e3
+        log(f"loss forward {cfg.arch_id} B={batch['tokens'].shape[0]} "
+            f"S={batch['tokens'].shape[1]}: loss with kernel 11 {l1:.6f}, chunked {l0:.6f} "
+            f"(|diff| {abs(l1 - l0):.3e}, bound {2e-3 * max(abs(l0), 1.0):.3e}; "
+            f"ln(vocab) {math.log(cfg.vocab):.4f}); launches {_nonzero(launches)}; wall "
+            f"kernel path cold {cold1 * 1e3:.1f} ms warm {warm1 * 1e3:.1f} ms, chunked "
+            f"path cold {cold0 * 1e3:.1f} ms warm {warm0 * 1e3:.1f} ms; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"profile (kernel path): traced wall {traced * 1e3:.1f} ms, device busy "
+            f"{busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %); kernel 11 {flash_ms:.1f} ms "
+            f"({100 * flash_ms / max(busy, 1e-9):.1f} % of device time)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+        del prof, events, batch
+        torch.cuda.empty_cache()
+
+        # 15: decode against prefill
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, PREFILL_SEQ)).astype(np.int32)).to(device)
+        _reset_launches()
+        want, prefill_s = _timed(lambda: _forward_logits(kmodel, params, tokens))
+        if _launches()["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"prefill launched {_nonzero(_launches())}")
+        spec = KVCacheSpec(s_total=PREFILL_SEQ, cp_axis=None, cp_size=1)
+        cache = {k: torch.zeros(v, dtype=torch.float32, device=device)
+                 for k, v in model.cache_defs(2, spec).items()}
+
+        def decode_all():
+            c = cache
+            out = []
+            for i in range(PREFILL_SEQ):
+                logits, c = model.decode_fn(params, c, tokens[:, i:i + 1], i, spec)
+                out.append(logits[:, 0])
+            return torch.stack(out, dim=1)
+
+        got, decode_s = _timed(decode_all)
+        rel = float((got - want).abs().max() / want.abs().max())
+        log(f"decode vs prefill {cfg.arch_id} B=2 S={PREFILL_SEQ}: max rel err {rel:.4e} "
+            f"(bound 0.05); prefill through kernel 11 {prefill_s * 1e3:.1f} ms, "
+            f"{PREFILL_SEQ} decode steps {decode_s * 1e3:.1f} ms "
+            f"({decode_s * 1e3 / PREFILL_SEQ:.2f} ms/step)")
+        if not rel <= 0.05 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"decode/prefill mismatch: rel {rel}")
+        del want, got, cache, model, kmodel, params
+        torch.cuda.empty_cache()
+
+    # 16: serving at full size
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen, serve_s = _timed(lambda: serve(SERVE_ARGV + (["--smoke"] if MODEL_SMOKE else [])
+                                            + ["--device", str(device)]))
+    for line in out.getvalue().splitlines():
+        log(f"serve: {line}")
+    n_batch, n_gen = int(SERVE_ARGV[3]), int(SERVE_ARGV[7])
+    if gen.shape != (n_batch, n_gen + 1):
+        raise AssertionError(f"serve returned tokens of shape {gen.shape}")
+    log(f"serve: {n_batch} x {int(SERVE_ARGV[5]) + n_gen} decode steps; wall with model "
+        f"init {serve_s:.2f} s")
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+# ---------------------------------------------------------------------------
+
+
+PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "c6", "model")
 
 
 def _record(records, name):
@@ -1257,6 +1541,11 @@ def main(argv=()) -> int:
 
     if "c6" in phases:
         check_a2a_backward_on_threadgroup(device)
+
+    if "model" in phases:
+        # This slice's main path: the dense model's forward and serving.
+        records.update(check_flash_kernel(device, gen))
+        _record(records, "flash_attention")["launches"] = run_model(device)
 
     if phases != set(PHASES):
         log(f"partial run ({sorted(phases)}): every check passed; no result printed")

@@ -16,6 +16,11 @@ field by field:
   * ``tree_from_numpy(tree, device)`` / ``tree_to_numpy(tree)`` — a
     gradient tree (nested dicts, lists and tuples of arrays) with numpy
     leaves as the same tree with tensor leaves on ``device``, and back.
+  * ``params_from_jax(tree, device)`` / ``params_to_numpy(tree)`` — a
+    model's parameter tree.  JAX's bf16 leaves arrive as numpy arrays of
+    ``ml_dtypes``' bfloat16, which ``torch.from_numpy`` refuses: they cross
+    as their 16-bit patterns (``.view(np.int16)`` then
+    ``.view(torch.bfloat16)``), bit for bit; f32 leaves cross as they are.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from repro_torch.core.compressed import Compressed
 from repro_torch.core.transport import resolve_device
 
 __all__ = ["compressed_to_numpy", "compressed_from_numpy", "plan_fields",
-           "tree_from_numpy", "tree_to_numpy"]
+           "tree_map", "tree_from_numpy", "tree_to_numpy", "params_from_jax",
+           "params_to_numpy"]
 
 
 def _np(a) -> np.ndarray:
@@ -95,11 +101,12 @@ def plan_fields(plan) -> dict:
     return out
 
 
-def _tree_map(fn, tree):
+def tree_map(fn, tree):
+    """``fn`` on every leaf of a tree of dicts, lists and tuples."""
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -107,10 +114,44 @@ def tree_from_numpy(tree, device="cuda"):
     """A tree of numpy arrays (or anything ``np.asarray`` takes) -> the same
     tree of tensors on ``device``; CUDA without a card raises."""
     device = resolve_device(device)
-    return _tree_map(
+    return tree_map(
         lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(device), tree)
 
 
 def tree_to_numpy(tree):
     """A tree of tensors (or arrays of either package) -> numpy leaves."""
-    return _tree_map(_np, tree)
+    return tree_map(_np, tree)
+
+
+def _param_tensor(a, device) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:  # JAX's buffers are read-only; torch wants its own
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree, device="cuda"):
+    """A parameter tree with numpy leaves (JAX's arrays through
+    ``np.asarray``; bf16 as ``ml_dtypes.bfloat16``) -> the same tree of
+    tensors on ``device``, bf16 bit for bit; CUDA without a card raises."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _param_tensor(a, device), tree)
+
+
+def _param_array(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16:
+        bits = t.detach().cpu().contiguous().view(torch.int16).numpy()
+        try:
+            return bits.view(np.dtype("bfloat16"))
+        except TypeError:  # no bfloat16 registered with numpy: widen exactly
+            return t.detach().cpu().to(torch.float32).numpy()
+    return _np(t)
+
+
+def params_to_numpy(tree):
+    """A tree of tensors -> numpy leaves.  bf16 leaves become numpy
+    bfloat16 arrays with the same bits where that dtype is registered with
+    numpy (``ml_dtypes``, which JAX imports), else exact f32."""
+    return tree_map(_param_array, tree)

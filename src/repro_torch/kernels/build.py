@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("lorenzo", "entropy")
+SOURCES = ("lorenzo", "entropy", "flash_attn")
 
 _LOCK = threading.Lock()
 _LOADED: dict = {}

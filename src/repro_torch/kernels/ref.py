@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the Lorenzo codec arithmetic.
+"""Plain PyTorch versions of the Lorenzo codec arithmetic, and the dense
+attention oracle (``attention_ref``) of the flash kernel.
 
 These are the counterparts of ``repro.kernels.ref`` and the ground truth
 every CUDA kernel in ``kernels/lorenzo.py`` is held against: the CPU
@@ -42,6 +43,7 @@ __all__ = [
     "dequantize_reduce_ref",
     "recip_of",
     "twoeb_of",
+    "attention_ref",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -145,3 +147,25 @@ def dequantize_reduce_ref(codes: torch.Tensor, anchor: torch.Tensor,
                           eb: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     """acc + dequantize(codes), rounded once (the kernel path's FMA)."""
     return fma_f32(_reconstruct_q(codes, anchor), twoeb_of(eb), acc)
+
+
+def attention_ref(q, k, v, *, causal=True, window=0):
+    """Dense softmax-attention oracle for the flash kernel.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, H, D).  f32 math throughout; the
+    masked logits are -1e30, the causal mask from positions 0..Sq-1 and
+    0..Sk-1, as ``repro.kernels.ref.attention_ref``.
+    """
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / (d ** 0.5)
+    if causal:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(sk, device=q.device)[None, :]
+        mask = kp <= qp
+        if window:
+            mask &= kp > (qp - window)
+        s = torch.where(mask[None, None], s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)

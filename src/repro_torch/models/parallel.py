@@ -1,0 +1,105 @@
+"""Parallelism context + parameter-definition machinery.
+
+The counterpart of ``repro.models.parallel``.  This slice of the port runs
+the model on one card: ``ParallelCtx`` keeps the reference's fields, and
+``tp_size > 1`` or ``fsdp_size > 1`` raises (tensor parallelism and the
+FSDP gather are ROADMAP A11's training and model-parallel items), so
+``gather`` and ``tp_reduce`` are the identity.
+
+``ParamDef`` carries the GLOBAL shape, the reference's partition spec (a
+tuple of mesh axis names, ``None`` for a replicated dim) and an init.
+``init_params`` draws the same distributions from a ``torch.Generator``;
+it does not reproduce JAX's random bits (tests carry weights across with
+``convert.params_from_jax`` instead).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.convert import tree_map
+from repro_torch.core.transport import resolve_device
+
+__all__ = ["ParallelCtx", "ParamDef", "init_params", "param_shapes", "torch_dtype"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """Static description of how the mesh axes are used (one card here)."""
+
+    tp_axis: str = "model"
+    fsdp_axis: str = "data"
+    dp_axes: tuple = ("data",)
+    tp_size: int = 1
+    fsdp_size: int = 1
+    fsdp_sync: Optional[object] = None
+    # kept for the reference's signature; without autograd it has no effect
+    remat: str = "full"
+    scan_unroll: int = 1
+
+    def __post_init__(self):
+        if self.tp_size > 1:
+            raise NotImplementedError(
+                "tensor parallelism (tp_size > 1) is not ported yet: ROADMAP A11, "
+                "model-parallel item")
+        if self.fsdp_size > 1:
+            raise NotImplementedError(
+                "the FSDP parameter gather (fsdp_size > 1) is not ported yet: "
+                "ROADMAP A11, training slice")
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """FSDP all-gather of a parameter along ``dim``: the identity at 1."""
+        return x
+
+    def tp_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Row-parallel output reduction: the identity at 1."""
+        return x
+
+    def tp_index(self) -> int:
+        return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Global-view definition of one parameter tensor."""
+
+    shape: tuple
+    spec: tuple
+    init: str = "normal"  # normal | zeros | ones | scaled
+    scale: float = 0.02
+    dtype: str = "bfloat16"
+
+    def initializer(self, generator: torch.Generator, device) -> torch.Tensor:
+        dt = torch_dtype(self.dtype)
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dt, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dt, device=device)
+        x = torch.randn(self.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        if self.init == "scaled":
+            fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+            return x.mul_(float(np.float32(1.0 / np.sqrt(fan_in)))).to(dt)
+        return x.mul_(self.scale).to(dt)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def init_params(defs, generator: torch.Generator, device="cuda"):
+    """Materialize a ParamDef tree into (global) tensors on ``device``,
+    each leaf drawn in turn (the tree's order) from ``generator``, which
+    must live on that device.  CUDA without a card raises."""
+    device = resolve_device(device)
+    return tree_map(lambda d: d.initializer(generator, device), defs)
+
+
+def param_shapes(defs):
+    """Meta tensors with each parameter's shape and dtype (no allocation)."""
+    return tree_map(
+        lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype), device="meta"), defs)

@@ -2,10 +2,11 @@
 
 * Importing every ``repro_torch`` module and ``chip_smoke``, and running
   every collective of the port on the CPU (the data movers, the two-pass
-  codec, the two-kernel hop, every codec and ``codec="auto"`` included)
-  and the gradient sync, leaves ``jax`` and the ``repro`` package out of
-  ``sys.modules`` (in a fresh interpreter), and importing ``chip_smoke``
-  runs nothing.
+  codec, the two-kernel hop, every codec and ``codec="auto"`` included),
+  the gradient sync, the dense model's loss forward (both attention paths)
+  and decode, the serve loop, and ``convert.params_from_jax`` on numpy
+  input, leaves ``jax`` and the ``repro`` package out of ``sys.modules``
+  (in a fresh interpreter), and importing ``chip_smoke`` runs nothing.
 * No module of the port, nor ``chip_smoke.py``, imports ``jax`` or
   ``repro.*`` anywhere in its source (AST scan, function bodies too).
 * On a machine without CUDA, every entry point that defaults to the card
@@ -26,7 +27,11 @@ from repro_torch import convert
 from repro_torch.core import grad_sync, transport
 from repro_torch.core.comm import GZCommunicator
 from repro_torch.core.compressor import ErrorBoundedLorenzo
+from repro_torch.configs import registry
 from repro_torch.kernels import build
+from repro_torch.launch import serve
+from repro_torch.models import parallel
+from repro_torch.models.model import Model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
@@ -43,7 +48,9 @@ def _module_names():
 def test_modules_import_without_jax():
     mods = _module_names()
     assert "repro_torch.kernels.lorenzo" in mods and "repro_torch.convert" in mods
-    for new in ("core.entropy", "kernels.entropy", "core.buckets", "core.grad_sync"):
+    for new in ("core.entropy", "kernels.entropy", "core.buckets", "core.grad_sync",
+                "kernels.flash_attn", "models.model", "launch.serve", "configs.registry",
+                "data.pipeline"):
         assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -66,6 +73,26 @@ def test_modules_import_without_jax():
         "for sync in (grad_sync.SyncConfig(), grad_sync.SyncConfig(gz=None)):\n"
         "    transport.ThreadGroup(3, 'cpu').run(lambda x: grad_sync.dp_allreduce_grads(\n"
         "        {'w': x, 'b': [x[:7]]}, ('x',), sync, device='cpu'), xs)\n"
+        "import dataclasses, io, contextlib\n"
+        "import numpy as np\n"
+        "from repro_torch import convert\n"
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.data.pipeline import SyntheticStream\n"
+        "from repro_torch.launch.serve import serve\n"
+        "from repro_torch.models.attention import KVCacheSpec\n"
+        "from repro_torch.models.model import Model\n"
+        "cfg = registry.get('minitron-8b', smoke=True)\n"
+        "m = Model(cfg, device='cpu')\n"
+        "tree = convert.params_to_numpy(m.params())\n"
+        "p = convert.params_from_jax(tree, 'cpu')\n"
+        "batch = next(SyntheticStream(cfg, 2, 64))\n"
+        "for c in (cfg, dataclasses.replace(cfg, use_flash_kernel=True)):\n"
+        "    assert np.isfinite(float(Model(c, params=p, device='cpu').loss_fn(p, batch)))\n"
+        "spec = KVCacheSpec(s_total=8, cp_axis=None, cp_size=1)\n"
+        "cache = {k: torch.zeros(v) for k, v in m.cache_defs(2, spec).items()}\n"
+        "m.decode_fn(p, cache, batch['tokens'][:, :1], 0, spec)\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    serve(['--smoke', '--device', 'cpu', '--gen', '2'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print('BAD', bad)\n"
@@ -111,6 +138,15 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         group.run(lambda x: grad_sync.dp_allreduce_grads({"w": x}, ("x",)),
                   [torch.zeros(8)])
+    cfg = registry.get("minitron-8b", smoke=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        parallel.init_params(Model(cfg, device="cpu").param_defs(), torch.Generator())
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.params_from_jax({"w": np.zeros(3, np.float32)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.serve(["--smoke"])
 
 
 def test_communicator_refuses_tensors_on_another_device():
