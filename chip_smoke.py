@@ -8,7 +8,9 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` and prints the build
-   time and ``ptxas`` resource lines;
+   time and ``ptxas`` resource lines, and counts the ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions of kernel 11's bf16 kernel in
+   ``cuobjdump -sass`` of its library (it fails if either is 0);
 2. holds each of the four fused Lorenzo kernels against its plain
    PyTorch version on the card, on ragged small sizes, on the shapes of
    the allreduce (one pipelined-ring piece and one sequential-ring chunk
@@ -51,16 +53,21 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     ``codec="auto"``, and at N = 6;
 12. checks that the all-to-all's backward on a one-card ``ThreadGroup``
     raises instead of hanging (phase ``c6``);
-13. holds the flash-attention kernel (kernel 11) against its plain
+13. holds the flash-attention kernel (kernel 11; bf16 on the tensor-core
+    route, f32 on the CUDA-core route, each counted) against its plain
     version at D = 32, 64 and 128, f32 and bf16, causal, causal with
-    windows 64, 128 and 1000, non-causal with Sq != Sk, ragged lengths and
-    rows that see no key, and at the main path's shape (B=2, S=2048,
-    H=32, D=128, bf16), timed there beside the plain version, SDPA and the
-    bound (phase ``model``, as are 14-16);
+    windows 64, 100, 128 and 1000, non-causal with Sq != Sk, ragged lengths
+    and rows that see no key, the TMA edges in bf16 (Sq, Sk in {1, 127,
+    129, 2049} at D = 64 and 128; H = 1 through ``flash_attention_bhsd``),
+    and at the main path's shape (B=2, S=2048, H=32, D=128, bf16), timed
+    there beside the plain version, SDPA and the bound, then checked and
+    timed beside SDPA at B=8 S=2048 and B=2 S=8192 causal and S=4096
+    non-causal (phase ``model``, as are 14-16);
 14. runs this slice's main path, ``Model.loss_fn`` of minitron-8b at full
     width and depth (19.76 GB of bf16 weights from seed 0) on a B=2,
-    S=2048 batch, through kernel 11 (32 launches) and through the chunked
-    path (none), within 2e-3 of each other, profiled;
+    S=2048 batch, through kernel 11 (32 launches, all on the tensor-core
+    route) and through the chunked path (none), within 2e-3 of each other,
+    profiled;
 15. compares the full-sequence logits through kernel 11 at S=128 with 128
     ``decode_fn`` steps (rel <= 0.05);
 16. runs ``repro_torch.launch.serve.serve`` at full size (batch 4, 16
@@ -114,7 +121,8 @@ REPLACES = {
     "entropy_unpack_dequantize_reduce": "src/repro/kernels/entropy.py:289",
     "flash_attention": "src/repro/kernels/flash_attn.py:82",
 }
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_sm90.cu"  # the bf16 route
+FLASH_BF16_KERNEL = "flash_fwd_wgmma_kernel"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor-core peak, data sheet
 MAIN_BYTES = 646_000_000  # per rank (allreduce) / at the root (scatter): Figs. 10, 12
 SCATTER_WIRE_BYTES = 343_566_440  # benchmarks/BENCH_scatter.json, N = 8
@@ -154,7 +162,10 @@ def _device_events(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def _median_ms(fn, reps):
+def _median_ms(fn, reps, calls=1):
+    """Median over ``reps`` event pairs of the time per call, with ``calls``
+    back-to-back calls between the two events (more than one keeps the
+    device queue full, so the host's launch time stays out of the figure)."""
     import torch
 
     for _ in range(2):
@@ -163,10 +174,11 @@ def _median_ms(fn, reps):
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return sorted(times)[len(times) // 2]
 
 
@@ -1224,12 +1236,43 @@ SERVE_ARGV = ["--arch", "minitron-8b", "--batch", "4", "--prompt-len", "16", "--
               "32", "--cache-len", "128"]
 
 
+def check_flash_sass():
+    """Kernel 11's bf16 kernel runs on Hopper's tensor cores and TMA: count
+    the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
+    SASS of its functions (``cuobjdump -sass`` of the built library) and
+    fail if either is 0."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cuobjdump = pathlib.Path(build.nvcc_path()).parent / "cuobjdump"
+    lib = build.build("flash_attn_sm90")["path"]
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {"HGMMA": 0, "UTMALDG": 0}
+    funcs = 0
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        if FLASH_BF16_KERNEL not in part.split("\n", 1)[0]:
+            continue
+        funcs += 1
+        for op in counts:
+            counts[op] += len(re.findall(rf"\b{op}\b", part))
+    log(f"flash_attn_sm90 SASS: {funcs} {FLASH_BF16_KERNEL} functions, "
+        f"{counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG")
+    if not funcs or not all(counts.values()):
+        raise AssertionError(f"kernel 11's bf16 kernel lacks wgmma or TMA in SASS: {counts}")
+
+
 def check_flash_kernel(device, gen):
     """Phase 13: kernel 11 against its plain version on the card, at every
-    head dim, both dtypes, causal, causal with windows 64, 128 and 1000,
-    non-causal with Sq != Sk, ragged lengths, rows that see no key, and
+    head dim, both dtypes (bf16 on the tensor-core route, f32 on the
+    CUDA-core route, counted), causal, causal with windows 64, 100, 128 and
+    1000, non-causal with Sq != Sk, ragged lengths, rows that see no key,
+    the bf16 edges that only TMA can get wrong (Sq, Sk in {1, 127, 129,
+    2049} at D = 64 and 128, H = 1 through ``flash_attention_bhsd``), and
     the main path's shape (B=2, S=2048, H=32, D=128, bf16, causal), timed
-    there beside the plain version, SDPA and the bound."""
+    there beside the plain version, SDPA and the bound; then larger shapes
+    checked and timed beside SDPA."""
     import torch
 
     from repro_torch.kernels import flash_attn
@@ -1239,19 +1282,34 @@ def check_flash_kernel(device, gen):
         *[("causal", 2, 300, 300, 2, d, dt, True, 0, False)
           for d in (32, 64, 128) for dt in (f32, bf16)],
         *[("window", 1, 700, 700, 2, d, dt, True, w, False)
-          for w in (64, 128, 1000) for d, dt in ((64, f32), (128, bf16))],
+          for w in (64, 100, 128, 1000) for d, dt in ((64, f32), (128, bf16), (64, bf16))],
         ("non-causal", 2, 100, 300, 2, 64, f32, False, 0, False),
         ("non-causal", 2, 100, 300, 2, 128, bf16, False, 0, False),
+        ("non-causal", 1, 2049, 129, 2, 64, bf16, False, 0, False),
         ("ragged", 3, 1000, 1000, 4, 32, bf16, True, 0, False),
         ("ragged", 1, 77, 77, 3, 64, f32, True, 0, False),
         ("no-key rows", 1, 300, 100, 2, 32, f32, True, 64, False),
+        ("no-key rows", 1, 300, 100, 2, 128, bf16, True, 64, False),
+        *[("TMA edges", 1, sq, sk, 2, d, bf16, True, 0, False)
+          for d in (64, 128) for sq in (1, 127, 129, 2049) for sk in (1, 127, 129, 2049)],
+        *[("H=1 bhsd", 6, 300, 300, 1, d, bf16, True, 0, False) for d in (32, 64, 128)],
+        ("H=1 bhsd", 4, 129, 2049, 1, 128, bf16, False, 0, False),
         ("main", MODEL_BATCH, MODEL_SEQ, MODEL_SEQ, 32, 128, bf16, True, 0, True),
     ]
     record = None
+    flash_attn.reset_launch_counts()
+    calls = {"tensor_core_bf16": 0, "cuda_core_f32": 0}
     for label, b, sq, sk, h, d, dt, causal, window, timed in cases:
         q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device).to(dt)
                    for s in (sq, sk, sk))
-        got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+        if label == "H=1 bhsd":  # the reference's (BH, S, D) call, H = 1 in the maps
+            got = flash_attn.flash_attention_bhsd(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                                  causal=causal, window=window)[:, :, None]
+        else:
+            got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+        calls["tensor_core_bf16" if dt == bf16 else "cuda_core_f32"] += 1
+        if flash_attn.ROUTES != calls:
+            raise AssertionError(f"kernel 11 routes {flash_attn.ROUTES}, expected {calls}")
         want = flash_attn.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         tol = FLASH_TOL[str(dt).removeprefix("torch.")]
@@ -1276,21 +1334,48 @@ def check_flash_kernel(device, gen):
                 "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
                 "replaces": REPLACES["flash_attention"], "launches": None,
                 "max_abs_err": err,
-                "ms": _median_ms(lambda: flash_attn.flash_attention(q, k, v), 20),
+                "ms": _median_ms(lambda: flash_attn.flash_attention(q, k, v), 20, 10),
                 "plain_ms": _median_ms(lambda: flash_attn.flash_attention_plain(q, k, v), 5),
                 "bound_ms": max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
                 "bound_by": ("operations" if flops / BF16_FLOPS_PER_S
                              >= nbytes / HBM_BYTES_PER_S else "bytes"),
-                "library_ms": _median_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20),
+                "library_ms": _median_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20, 10),
                 "shape": [b, sq, h, d], "bytes": nbytes,
             }
+            one_call = (_median_ms(lambda: flash_attn.flash_attention(q, k, v), 20),
+                        _median_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20))
             log(f"  flash_attention {record['ms']:.4f} ms  plain {record['plain_ms']:.3f} ms  "
-                f"SDPA {record['library_ms']:.4f} ms (max |SDPA - plain| {lib_err:.3e})  "
+                f"SDPA {record['library_ms']:.4f} ms (10 calls per event pair; one call per "
+                f"pair, the host's launch included: kernel {one_call[0]:.4f} ms, SDPA "
+                f"{one_call[1]:.4f} ms; max |SDPA - plain| {lib_err:.3e})  "
                 f"bound {record['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP at "
                 f"{BF16_FLOPS_PER_S / 1e12:g} TFLOP/s; {nbytes / 1e6:.1f} MB at "
                 f"{HBM_BYTES_PER_S / 1e12:g} TB/s)")
             del qt, kt, vt, lib
         del q, k, v, got, want, diff
+    log(f"kernel 11 routes over phase 13: {calls}")
+    # How the bf16 kernel scales against SDPA beyond the model's shape:
+    # checked against the plain version, then timed (median of 10).
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, s, h, causal in ((8, 2048, 32, True), (2, 8192, 32, True), (2, 4096, 16, False)):
+        q, k, v = (torch.randn((b, s, h, 128), generator=gen, device=device).to(bf16)
+                   for _ in range(3))
+        got = flash_attn.flash_attention(q, k, v, causal=causal)
+        want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+        tol = FLASH_TOL["bfloat16"]
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention [B={b} S={s}] disagrees with its plain version")
+        del got, want, diff
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        flops = 4 * b * h * 128 * (s * (s + 1) // 2 if causal else s * s)
+        ms = _median_ms(lambda: flash_attn.flash_attention(q, k, v, causal=causal), 10, 5)
+        lib_ms = _median_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), 10, 5)
+        log(f"  scaling B={b} S={s} H={h} D=128 causal={causal}: kernel {ms:.4f} ms "
+            f"({flops / ms / 1e9:.0f} TFLOP/s), SDPA {lib_ms:.4f} ms "
+            f"({flops / lib_ms / 1e9:.0f} TFLOP/s); {bad} outside the bf16 tolerance")
+        del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return {"flash_attention": record}
 
@@ -1339,6 +1424,7 @@ def run_model(device):
 
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.kernels import flash_attn
     from repro_torch.launch.serve import serve
     from repro_torch.models.attention import KVCacheSpec
     from repro_torch.models.model import Model
@@ -1363,7 +1449,7 @@ def run_model(device):
         # 14: the loss forward, through kernel 11 and through the chunked path
         _reset_launches()
         l1, cold1 = _timed(lambda: kmodel.loss_fn(params, batch))
-        launches = _launches()
+        launches, routes = _launches(), dict(flash_attn.ROUTES)
         _reset_launches()
         l0, cold0 = _timed(lambda: model.loss_fn(params, batch))
         chunked_launches = _launches()
@@ -1371,6 +1457,9 @@ def run_model(device):
         if _nonzero(launches) != {"flash_attention": cfg.n_layers}:
             raise AssertionError(f"loss forward with the kernel launched {_nonzero(launches)},"
                                  f" expected flash_attention x {cfg.n_layers}")
+        if routes != {"tensor_core_bf16": cfg.n_layers, "cuda_core_f32": 0}:
+            raise AssertionError(f"kernel 11 routes in the loss forward: {routes}, expected "
+                                 f"tensor_core_bf16 x {cfg.n_layers}")
         if _nonzero(chunked_launches):
             raise AssertionError(f"chunked loss forward launched {_nonzero(chunked_launches)}")
         if not (math.isfinite(l0) and math.isfinite(l1)):
@@ -1383,18 +1472,23 @@ def run_model(device):
             _, traced = _timed(lambda: kmodel.loss_fn(params, batch))
         events = _device_events(prof)
         busy = sum(e.self_device_time_total for e in events) / 1e3
-        flash_ms = sum(e.self_device_time_total for e in events
-                       if "flash_fwd_kernel" in e.key) / 1e3
+        flash_events = [e for e in events if FLASH_BF16_KERNEL in e.key]
+        flash_ms = sum(e.self_device_time_total for e in flash_events) / 1e3
+        if sum(e.count for e in flash_events) != cfg.n_layers:
+            raise AssertionError(f"profile shows {sum(e.count for e in flash_events)} "
+                                 f"{FLASH_BF16_KERNEL} launches, expected {cfg.n_layers}")
         log(f"loss forward {cfg.arch_id} B={batch['tokens'].shape[0]} "
             f"S={batch['tokens'].shape[1]}: loss with kernel 11 {l1:.6f}, chunked {l0:.6f} "
             f"(|diff| {abs(l1 - l0):.3e}, bound {2e-3 * max(abs(l0), 1.0):.3e}; "
             f"ln(vocab) {math.log(cfg.vocab):.4f}); launches {_nonzero(launches)}; wall "
             f"kernel path cold {cold1 * 1e3:.1f} ms warm {warm1 * 1e3:.1f} ms, chunked "
-            f"path cold {cold0 * 1e3:.1f} ms warm {warm0 * 1e3:.1f} ms; peak memory "
+            f"path cold {cold0 * 1e3:.1f} ms warm {warm0 * 1e3:.1f} ms; kernel 11 routes "
+            f"{routes}; peak memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         log(f"profile (kernel path): traced wall {traced * 1e3:.1f} ms, device busy "
             f"{busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %); kernel 11 {flash_ms:.1f} ms "
-            f"({100 * flash_ms / max(busy, 1e-9):.1f} % of device time)")
+            f"({100 * flash_ms / max(busy, 1e-9):.1f} % of device time, "
+            f"{flash_ms / cfg.n_layers:.4f} ms per launch)")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
             log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
         del prof, events, batch
@@ -1490,6 +1584,7 @@ def main(argv=()) -> int:
         ptxas = [ln for ln in rec["ptxas"].splitlines() if "registers" in ln]
         log(f"built {name}.cu in {rec['seconds']:.1f} s; " + "; ".join(ptxas))
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    check_flash_sass()
     gen = torch.Generator(device=device).manual_seed(SEED)
     records = {}
     if "kernels" in phases:

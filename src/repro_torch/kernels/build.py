@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("lorenzo", "entropy", "flash_attn")
+SOURCES = ("lorenzo", "entropy", "flash_attn", "flash_attn_sm90")
 
 _LOCK = threading.Lock()
 _LOADED: dict = {}

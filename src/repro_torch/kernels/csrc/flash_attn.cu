@@ -1,16 +1,20 @@
-// Flash-attention forward for Hopper (sm_90a), bound through a plain C ABI.
+// Flash-attention forward in f32 on the CUDA cores (sm_90a), bound through a
+// plain C ABI.
 //
 // Replaces the Pallas TPU kernel flash_attention_bhsd
-// (src/repro/kernels/flash_attn.py:82): online-softmax attention, causal,
-// causal with a sliding window, or non-causal, f32 math, the output in the
-// input's dtype.
+// (src/repro/kernels/flash_attn.py:82) for f32 inputs: online-softmax
+// attention, causal, causal with a sliding window, or non-causal, f32 math,
+// the output in f32.  bf16 inputs go to the tensor-core kernel of
+// flash_attn_sm90.cu (wgmma fed by a TMA K/V ring).  f32 stays here: the
+// tensor cores take f32 only as TF32, with a 10-bit mantissa, which would
+// break the f32 tolerance of 2e-5 against the f32 reference.
 //
-//   fa_forward  <- flash_attention_bhsd  (flash_attn.py:82, pallas_call :102)
+//   fa_forward_cuda_core_f32  <- flash_attention_bhsd  (flash_attn.py:82, pallas_call :102)
 //
 // Layout: q (B, Sq, H, D), k and v (B, Sk, H, D), o (B, Sq, H, D), all
-// contiguous, f32 or bf16 (one type for all four), D in {32, 64, 128} (a
-// template parameter).  The reference's (BH, S, D) call is the same with
-// H = 1, so no transposed copies are made.
+// contiguous f32, D in {32, 64, 128} (a template parameter).  The
+// reference's (BH, S, D) call is the same with H = 1, so no transposed
+// copies are made.
 //
 // What changed against the TPU design: the Pallas grid is (bh, q tile, kv
 // tile) with the kv axis innermost and sequential, the running (max, sum,
@@ -25,27 +29,24 @@
 //   * For P.V the warp's probabilities go through shared memory and lane l
 //     owns output columns l, l + 32, ...: the accumulator is spread over the
 //     warp's lanes (D / 32 floats per row and lane), not held by one thread.
-//   * K and V tiles (64 rows) are staged in shared memory as f32: at D = 128
-//     that is 2 x 33 KB, plus the scaled q tile (16 KB) and the
-//     probabilities (8 KB), 90 KB in all: dynamic shared memory, above the
-//     48 KB default (cudaFuncSetAttribute), two blocks per SM.
+//   * K and V tiles (64 rows) are staged in shared memory: at D = 128 that
+//     is 2 x 33 KB, plus the scaled q tile (16 KB) and the probabilities
+//     (8 KB), 90 KB in all: dynamic shared memory, above the 48 KB default
+//     (cudaFuncSetAttribute), two blocks per SM.
 //
-// Bound on this card: operations.  At the model's shape (B = 2, S = 2048,
-// H = 32, D = 128, causal) the work is 4*B*H*D*S(S+1)/2 = 68.8 GFLOP
-// against 134 MB of q, k, v and o, some 500 operations per byte.  This
-// first kernel runs its products on the f32 CUDA cores (FMA, no tensor
-// cores) and so cannot reach the bf16 tensor-core bound; mma/wgmma, TMA and
-// a pipelined K/V ring are the later redesign.  What it does about the
-// bound now: it skips every kv tile that the causal and window masks hide
-// from all rows of its q tile, which halves the causal work.
+// Bound on this card: operations.  At the model's shape in f32 the work is
+// 4*B*H*D*S(S+1)/2 = 68.8 GFLOP against 268 MB of q, k, v and o; the f32
+// CUDA cores (67 TFLOP/s) bound it at about 1 ms.  The products are f32
+// FMAs; what the kernel does about the bound is to skip every kv tile that
+// the causal and window masks hide from all rows of its q tile, which
+// halves the causal work.
 //
 // Semantics kept from the reference, for exactness against it and against
 // the plain version (kernels/flash_attn.py::flash_attention_bhsd_plain):
 //   * q is scaled by the f32 value of 1/sqrt(D) before the product;
 //   * masked logits are -1e30, not -inf, from absolute positions:
 //     k < Sk, q < Sq, causal k <= q, window k > q - window;
-//   * expf (no --use_fast_math), the true division acc / max(l, 1e-30),
-//     and the cast to bf16 rounds to nearest even (__float2bfloat16_rn).
+//   * expf (no --use_fast_math) and the true division acc / max(l, 1e-30).
 // Skipping fully masked kv tiles is exact.  A skipped tile after a row's
 // first real key would add p = exp(-1e30 - m) = 0 and multiply the state by
 // corr = exp(m - m) = 1; a skipped tile before it would add garbage (p = 1
@@ -57,7 +58,6 @@
 // row therefore walks every tile of the padded key range, masked keys and
 // zero v included, and returns the same.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,15 +71,6 @@ constexpr int kBK = 64;                // keys per staged tile
 constexpr int kThreads = kWarps * 32;
 constexpr int kRefBK = 128;            // the reference's kv tile (padding)
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -98,10 +89,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kBK * (D + 4) + kBQ * D + kBQ * kBK);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int heads, int sq,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int heads, int sq,
                  int sk, int causal, int window, float scale) {
   constexpr int LD = D + 4;      // padded k/v row, in floats
   constexpr int DPL = D / 32;    // output columns per lane
@@ -115,14 +106,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
   const int q0 = blockIdx.x * kBQ;
   const long long row = (long long)heads * D;  // elements between positions
-  const T* qb = q + ((long long)b * sq * heads + h) * D;
-  const T* kb = k + ((long long)b * sk * heads + h) * D;
-  const T* vb = v + ((long long)b * sk * heads + h) * D;
-  T* ob = o + ((long long)b * sq * heads + h) * D;
+  const float* qb = q + ((long long)b * sq * heads + h) * D;
+  const float* kb = k + ((long long)b * sk * heads + h) * D;
+  const float* vb = v + ((long long)b * sk * heads + h) * D;
+  float* ob = o + ((long long)b * sq * heads + h) * D;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, qp = q0 + r;
-    qs[i] = qp < sq ? to_f32(qb[qp * row + d]) * scale : 0.f;
+    qs[i] = qp < sq ? qb[qp * row + d] * scale : 0.f;
   }
 
   // The kv range this q tile can see (see the note on skipping above).
@@ -153,8 +144,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the q tile is staged; the last tile's readers are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, d = i % D, kp = k0 + r;
-      ks[r * LD + d] = kp < sk ? to_f32(kb[kp * row + d]) : 0.f;
-      vs[r * LD + d] = kp < sk ? to_f32(vb[kp * row + d]) : 0.f;
+      ks[r * LD + d] = kp < sk ? kb[kp * row + d] : 0.f;
+      vs[r * LD + d] = kp < sk ? vb[kp * row + d] : 0.f;
     }
     __syncthreads();
 
@@ -234,53 +225,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      ob[qp * row + lane + 32 * i] = from_f32<T>(acc[r][i] / den);
+      ob[qp * row + lane + 32 * i] = acc[r][i] / den;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* o, int batch, int heads,
            int sq, int sk, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((sq + kBQ - 1) / kBQ, batch * heads);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), heads, sq, sk, causal, window, scale);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, heads, sq, sk, causal,
+                                                        window, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* o, int batch,
-               int heads, int sq, int sk, int d, int causal, int window, float scale,
-               cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, batch, heads, sq, sk, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, batch, heads, sq, sk, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, batch, heads, sq, sk, causal, window, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: device pointers, (batch, sq|sk, heads, d) contiguous; is_bf16
-// selects bf16 (else f32); scale = f32(1 / sqrt(d)).  Returns the launch's
-// cudaError_t.
-int fa_forward(const void* q, const void* k, const void* v, void* o, int batch,
-               int heads, int sq, int sk, int d, int is_bf16, int causal, int window,
-               float scale, cudaStream_t stream) {
+// q, k, v, o: device pointers to f32 (batch, sq|sk, heads, d), contiguous;
+// scale = f32(1 / sqrt(d)).  Returns the launch's cudaError_t.
+int fa_forward_cuda_core_f32(const void* q, const void* k, const void* v, void* o,
+                             int batch, int heads, int sq, int sk, int d, int causal,
+                             int window, float scale, cudaStream_t stream) {
   if (batch * heads > 65535 || sq <= 0 || sk <= 0) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, batch, heads, sq, sk, d, causal, window,
-                                     scale, stream);
-  return dispatch_d<float>(q, k, v, o, batch, heads, sq, sk, d, causal, window, scale,
-                           stream);
+  const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v);
+  float* fo = static_cast<float*>(o);
+  switch (d) {
+    case 32: return launch<32>(fq, fk, fv, fo, batch, heads, sq, sk, causal, window, scale, stream);
+    case 64: return launch<64>(fq, fk, fv, fo, batch, heads, sq, sk, causal, window, scale, stream);
+    case 128: return launch<128>(fq, fk, fv, fo, batch, heads, sq, sk, causal, window, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

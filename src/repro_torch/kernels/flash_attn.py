@@ -1,11 +1,19 @@
 """The flash-attention forward kernel.
 
 The counterpart of ``src/repro/kernels/flash_attn.py``: the Pallas TPU
-kernel ``flash_attention_bhsd`` (``:82``) written by hand in CUDA C++
-(``csrc/flash_attn.cu``, bound through a C ABI with ``ctypes``).  It
-computes online-softmax attention, causal, causal with a sliding window,
-or non-causal, with f32 math and the output in the input's dtype; masked
-logits are -1e30, not -inf.
+kernel ``flash_attention_bhsd`` (``:82``) written by hand in CUDA C++ and
+bound through a C ABI with ``ctypes``.  It computes online-softmax
+attention, causal, causal with a sliding window, or non-causal, with f32
+softmax state and the output in the input's dtype; masked logits are
+-1e30, not -inf.  Two routes, chosen by dtype:
+
+  * bf16 -> ``csrc/flash_attn_sm90.cu`` (``fa_forward_tensor_core_bf16``):
+    both products on Hopper's ``wgmma`` tensor cores, bf16 in and f32
+    accumulate, fed by TMA through a K/V ring; P is rounded to bf16 for
+    P.V.  The model's path.
+  * f32 -> ``csrc/flash_attn.cu`` (``fa_forward_cuda_core_f32``): f32 FMAs
+    on the CUDA cores.  The tensor cores take f32 only as TF32 (a 10-bit
+    mantissa), which would break the f32 tolerance of 2e-5.
 
   * ``flash_attention(q, k, v)``: q (B, Sq, H, D), k and v (B, Sk, H, D)
     (kv already head-repeated), JAX's public layout, read as it lies;
@@ -14,8 +22,10 @@ logits are -1e30, not -inf.
 Beside them sits the plain PyTorch version ``flash_attention_bhsd_plain``
 (``flash_attention_plain`` on (B, S, H, D)): the same online softmax over
 128-key blocks in f32 torch, with the same masks, padding and cast.  A CPU
-tensor takes the plain version, a CUDA tensor the kernel, which raises if
-it cannot build or launch (there is no fallback).  Launches are counted in ``LAUNCHES["flash_attention"]``.
+tensor takes the plain version, a CUDA tensor the kernel of its dtype's
+route, which raises if it cannot build or launch (there is no fallback,
+and no route sends a call to the other).  Launches are counted in
+``LAUNCHES["flash_attention"]`` and by route in ``ROUTES``.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ __all__ = [
     "HEAD_DIMS",
     "KERNELS",
     "LAUNCHES",
+    "ROUTES",
     "reset_launch_counts",
     "flash_attention",
     "flash_attention_bhsd",
@@ -48,18 +59,31 @@ BK = 128  # the reference's kv tile: the plain version's block
 HEAD_DIMS = (32, 64, 128)
 KERNELS = ("flash_attention",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# dtype -> (route, library in csrc/, C entry point)
+_ROUTE_OF = {
+    torch.bfloat16: ("tensor_core_bf16", "flash_attn_sm90", "fa_forward_tensor_core_bf16"),
+    torch.float32: ("cuda_core_f32", "flash_attn", "fa_forward_cuda_core_f32"),
+}
+ROUTES = {route: 0 for route, _, _ in _ROUTE_OF.values()}
 _COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, ROUTES):
+            for k in counts:
+                counts[k] = 0
 
 
 def _scale(d: int) -> float:
     """The f32 value of 1/sqrt(D), as the reference scales q."""
     return float(np.float32(1.0 / d ** 0.5))
+
+
+def _scale_log2(d: int) -> float:
+    """The bf16 kernel's folded scale, f32(f32(1/sqrt(D)) * f32(log2 e)):
+    it applies this to S after the product and takes exp2."""
+    return float(np.float32(_scale(d)) * np.float32(np.log2(np.e)))
 
 
 # ---------------------------------------------------------------------------
@@ -121,9 +145,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "fa_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P),
-}
+# q, k, v, o, batch, heads, sq, sk, d, causal, window, scale, stream
+_SIGNATURE = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
 
 
 def _check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
@@ -139,8 +162,9 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     """The CUDA kernel on (B, S, H, D) tensors: q (B, Sq, H, D), k and v
-    (B, Sk, H, D), all f32 or all bf16, D in ``HEAD_DIMS``.  Raises on
-    anything it does not take and on a failed build or launch."""
+    (B, Sk, H, D), all f32 or all bf16, D in ``HEAD_DIMS``; bf16 runs on
+    the tensor-core kernel, f32 on the CUDA-core one.  Raises on anything
+    it does not take and on a failed build or launch."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -153,13 +177,15 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     _check(q, "q", q.dtype, (b, sq, h, d))
     _check(k, "k", q.dtype, (b, sk, h, d))
     _check(v, "v", q.dtype, (b, sk, h, d))
+    route, lib, entry = _ROUTE_OF[q.dtype]
+    scale = _scale_log2(d) if route == "tensor_core_bf16" else _scale(d)
     o = torch.empty_like(q)
-    build.launch(build.load("flash_attn", _SIGNATURES), "fa_forward",
+    build.launch(build.load(lib, {entry: _SIGNATURE}), entry,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, sq, sk,
-                 d, int(q.dtype == torch.bfloat16), int(causal), int(window),
-                 _scale(d))
+                 d, int(causal), int(window), scale)
     with _COUNT_LOCK:
         LAUNCHES["flash_attention"] += 1
+        ROUTES[route] += 1
     return o
 
 

@@ -8,13 +8,20 @@ JAX package, on the CPU.
   2e-2 in bf16 (the two sum in other orders; bf16 adds an output rounding).
 * The port's chunked ``models.attention.flash_attention`` and
   ``kernels.ref.attention_ref`` against JAX's.
-* Tile skipping: the CUDA kernel walks only the kv tiles its q tile can
-  see (``csrc/flash_attn.cu``).  ``_kernel_walk`` below replays that walk
-  (32-row q tiles, 64-key tiles, the same range rule) in torch, and is held
+* Tile skipping: the CUDA kernels walk only the kv tiles their q tile can
+  see.  ``_kernel_walk`` below replays that walk in torch at both kernels'
+  tiles (32-row q tiles and 64-key tiles in ``csrc/flash_attn.cu``, 128 x
+  128 in ``csrc/flash_attn_sm90.cu``, the same range rule), and is held
   against the reference where whole tiles are masked: windows that cross
   tile boundaries, and rows that see no key at all.
+* The bf16 tensor-core kernel's arithmetic (``csrc/flash_attn_sm90.cu``):
+  ``_tensor_core_emulation`` repeats it in torch (bf16 inputs, f32
+  products, the scale applied to S after the product in log2 units, exp2,
+  l from f32 P, P rounded to bf16 before P.V) and is held against the
+  Pallas kernel in interpret mode at the bf16 tolerance.
 * Dispatch: a CPU tensor takes the plain version and launches nothing;
-  other devices raise.
+  other devices raise; on a CUDA tensor bf16 takes the tensor-core entry
+  point and f32 the CUDA-core one, counted in ``ROUTES``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -113,39 +120,50 @@ def test_attention_ref_matches_jax(causal, window):
 # The kernel's tile walk
 # ---------------------------------------------------------------------------
 
-KERNEL_BQ, KERNEL_BK = 32, 64  # csrc/flash_attn.cu: kBQ, kBK
+# (q rows, keys) per tile: csrc/flash_attn.cu's kBQ, kBK (f32) and
+# csrc/flash_attn_sm90.cu's (bf16)
+TILES = {"cuda_core_f32": (32, 64), "tensor_core_bf16": (128, 128)}
 
 
-def _kernel_walk(q, k, v, *, causal, window):
-    """csrc/flash_attn.cu's walk in torch, (BH, S, D) f32: per 32-row q tile
-    only the 64-key tiles in [k_begin, k_end), with the kernel's range rule.
-    Returns (output, number of tiles walked, number the reference visits)."""
+def _kv_range(q0, bq, sq, sk, causal, window):
+    """The kernels' range rule: [k_begin, k_end) of the keys that some row of
+    the q tile at q0 can see, or the whole 128-padded range when a row of
+    it sees none."""
+    q_last = min(q0 + bq, sq) - 1
+    k_begin, k_end = 0, sk
+    if causal:
+        k_end = min(sk, q_last + 1)
+        if window > 0:
+            k_begin = max(0, q0 - window + 1)
+            if q_last >= sk - 1 + window:
+                k_begin, k_end = 0, -(-sk // 128) * 128
+    return k_begin, k_end
+
+
+def _kernel_walk(q, k, v, *, causal, window, tiles=TILES["cuda_core_f32"]):
+    """The CUDA kernels' walk in torch, (BH, S, D) f32: per q tile only the
+    key tiles in [k_begin, k_end), with the kernels' range rule.  Returns
+    (output, number of tiles walked, number the reference visits)."""
+    kernel_bq, kernel_bk = tiles
     bh, sq, d = q.shape
     sk = k.shape[1]
     scale = flash_attn._scale(d)
     out = torch.zeros_like(q)
     walked, full = 0, 0
-    for q0 in range(0, sq, KERNEL_BQ):
-        q_last = min(q0 + KERNEL_BQ, sq) - 1
-        k_begin, k_end = 0, sk
-        if causal:
-            k_end = min(sk, q_last + 1)
-            if window > 0:
-                k_begin = max(0, q0 - window + 1)
-                if q_last >= sk - 1 + window:
-                    k_begin, k_end = 0, -(-sk // 128) * 128
-        qs = q[:, q0:q0 + KERNEL_BQ] * scale
+    for q0 in range(0, sq, kernel_bq):
+        k_begin, k_end = _kv_range(q0, kernel_bq, sq, sk, causal, window)
+        qs = q[:, q0:q0 + kernel_bq] * scale
         qp = torch.arange(q0, q0 + qs.shape[1])[:, None]
         m = torch.full((bh, qs.shape[1], 1), -1e30)
         l = torch.zeros((bh, qs.shape[1], 1))
         acc = torch.zeros((bh, qs.shape[1], d))
-        for k0 in range(k_begin // KERNEL_BK * KERNEL_BK, k_end, KERNEL_BK):
+        for k0 in range(k_begin // kernel_bk * kernel_bk, k_end, kernel_bk):
             walked += 1
-            kt = torch.zeros((bh, KERNEL_BK, d))
-            vt = torch.zeros((bh, KERNEL_BK, d))
-            n = max(0, min(sk - k0, KERNEL_BK))
+            kt = torch.zeros((bh, kernel_bk, d))
+            vt = torch.zeros((bh, kernel_bk, d))
+            n = max(0, min(sk - k0, kernel_bk))
             kt[:, :n], vt[:, :n] = k[:, k0:k0 + n], v[:, k0:k0 + n]
-            kp = torch.arange(k0, k0 + KERNEL_BK)[None, :]
+            kp = torch.arange(k0, k0 + kernel_bk)[None, :]
             ok = (kp < sk) & (qp < sq)
             if causal:
                 ok &= kp <= qp
@@ -158,11 +176,12 @@ def _kernel_walk(q, k, v, *, causal, window):
             l = l * corr + p.sum(-1, keepdim=True)
             acc = acc * corr + p @ vt
             m = m_new
-        full += -(-sk // 128) * 2
-        out[:, q0:q0 + KERNEL_BQ] = acc / torch.clamp(l, min=1e-30)
+        full += -(-sk // 128) * 128 // kernel_bk
+        out[:, q0:q0 + kernel_bq] = acc / torch.clamp(l, min=1e-30)
     return out, walked, full
 
 
+@pytest.mark.parametrize("route", sorted(TILES))
 @pytest.mark.parametrize("sq,sk,causal,window", [
     (384, 384, True, 64),     # q tiles whose first kv tiles are fully masked
     (384, 384, True, 100),    # a window that crosses 64- and 128-key tiles
@@ -171,17 +190,103 @@ def _kernel_walk(q, k, v, *, causal, window):
     (300, 100, True, 64),     # rows that see no key: the padded average
     (100, 300, False, 0),
 ])
-def test_kernel_tile_walk_is_exact(sq, sk, causal, window):
+def test_kernel_tile_walk_is_exact(sq, sk, causal, window, route):
     (jq, jk, jv), (q, k, v) = _inputs(8, 2, sq, sk, 1, 32, "float32")
     want = jflash.flash_attention_bhsd(jq[:, :, 0], jk[:, :, 0], jv[:, :, 0],
                                        causal=causal, window=window)
     got, walked, full = _kernel_walk(q[:, :, 0], k[:, :, 0], v[:, :, 0], causal=causal,
-                                     window=window)
+                                     window=window, tiles=TILES[route])
     _check(got, want, "float32")
     _check(flash_attn.flash_attention_bhsd(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                                            causal=causal, window=window), want, "float32")
     if causal and sq == sk:
         assert walked < full  # masked tiles were skipped
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core kernel's arithmetic
+# ---------------------------------------------------------------------------
+
+NEG_LOG2 = float(np.float32(-1e30) * np.float32(np.log2(np.e)))  # kNegLog2
+
+
+def _tensor_core_emulation(q, k, v, *, causal, window):
+    """csrc/flash_attn_sm90.cu's arithmetic in torch on (BH, S, D) bf16:
+    128-row q tiles and 128-key tiles walked by the range rule; S = q.k^T
+    of the bf16 values in f32, then times the folded scale f32(1/sqrt(D))
+    * log2(e) (masked: -1e30 * log2(e)); the running max and l in f32, p =
+    exp2(t - max), l summed from the f32 p; P rounded to bf16 for P.V with
+    f32 accumulation; O / max(l, 1e-30) rounded to bf16."""
+    bq, bk = TILES["tensor_core_bf16"]
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    c = torch.tensor(flash_attn._scale_log2(d), dtype=torch.float32)
+    neg = torch.tensor(NEG_LOG2, dtype=torch.float32)
+    qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, bq):
+        k_begin, k_end = _kv_range(q0, bq, sq, sk, causal, window)
+        qt = qf[:, q0:q0 + bq]
+        qp = torch.arange(q0, q0 + qt.shape[1])[:, None]
+        m = torch.full((bh, qt.shape[1], 1), NEG_LOG2)
+        l = torch.zeros((bh, qt.shape[1], 1))
+        acc = torch.zeros((bh, qt.shape[1], d))
+        for k0 in range(k_begin // bk * bk, k_end, bk):
+            kt = torch.zeros((bh, bk, d))
+            vt = torch.zeros((bh, bk, d))
+            n = min(sk - k0, bk)
+            kt[:, :n], vt[:, :n] = kf[:, k0:k0 + n], vf[:, k0:k0 + n]
+            kp = torch.arange(k0, k0 + bk)[None, :]
+            ok = kp < sk
+            if causal:
+                ok = ok & (kp <= qp)
+                if window:
+                    ok = ok & (kp > qp - window)
+            t = torch.where(ok, (qt @ kt.transpose(1, 2)) * c, neg)
+            m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+            p = torch.exp2(t - m_new)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(torch.bfloat16).to(torch.float32) @ vt
+            m = m_new
+        out[:, q0:q0 + bq] = (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+    return out
+
+
+# (b, sq, sk, h, d, causal, window).  The largest |emulation - Pallas| over
+# these cases is 2^-7 = 7.8125e-3, one bf16 ulp of an output in [1, 2)
+# (1.95e-3 non-causal; 0 at Sk = 1 and Sq = 1), inside atol = rtol = 2e-2.
+EMULATION_CASES = [
+    (2, 300, 300, 2, 32, True, 0),
+    (2, 300, 300, 2, 64, True, 0),
+    (2, 300, 300, 2, 128, True, 0),
+    (1, 384, 384, 2, 64, True, 64),
+    (1, 384, 384, 2, 128, True, 100),   # a window crossing a 128-key tile
+    (1, 300, 300, 2, 32, True, 1000),   # a window wider than the sequence
+    (2, 100, 300, 2, 64, False, 0),     # non-causal, Sq < Sk
+    (1, 260, 130, 2, 128, False, 0),    # non-causal, Sq > Sk, ragged
+    (3, 77, 77, 3, 64, True, 0),        # ragged, one partial q tile
+    (1, 300, 100, 2, 32, True, 64),     # rows that see no key
+    (1, 129, 1, 1, 128, True, 0),
+    (1, 1, 129, 1, 64, True, 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,window", EMULATION_CASES)
+def test_tensor_core_emulation_matches_pallas(b, sq, sk, h, d, causal, window):
+    (jq, jk, jv), (q, k, v) = _inputs(11, b, sq, sk, h, d, "bfloat16")
+    to_bhsd = lambda x: x.transpose(1, 2).reshape(b * h, x.shape[1], d)  # noqa: E731
+    want = jflash.flash_attention(jq, jk, jv, causal=causal, window=window)
+    got = _tensor_core_emulation(to_bhsd(q), to_bhsd(k), to_bhsd(v), causal=causal,
+                                 window=window)
+    got = got.reshape(b, h, sq, d).transpose(1, 2)
+    _check(got, want, "bfloat16")
+
+
+def test_tensor_core_scale_is_folded_in_f32():
+    for d in flash_attn.HEAD_DIMS:
+        want = np.float32(np.float32(1.0 / np.sqrt(d)) * np.float32(np.log2(np.e)))
+        assert np.float32(flash_attn._scale_log2(d)) == want
 
 
 def test_fully_masked_first_tile_pinned():
@@ -216,6 +321,47 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     flash_attn.flash_attention_bhsd(q[:, :, 0], k[:, :, 0], v[:, :, 0])
     assert flash_attn.LAUNCHES == {"flash_attention": 0}
+    assert flash_attn.ROUTES == {"tensor_core_bf16": 0, "cuda_core_f32": 0}
+
+
+def test_kernel_routes_by_dtype(monkeypatch):
+    """bf16 goes to the tensor-core entry point, f32 to the CUDA-core one;
+    each call is counted once in LAUNCHES and once under its route.  The
+    device check and the build are faked: there is no card here."""
+    calls = []
+
+    class FakeLib:
+        def __init__(self, name):
+            self.name = name
+
+    monkeypatch.setattr(flash_attn, "_check", lambda *a: None)
+    monkeypatch.setattr(flash_attn.build, "load", lambda name, sigs: FakeLib(name))
+    monkeypatch.setattr(flash_attn.build, "launch",
+                        lambda lib, fn, *args: calls.append((lib.name, fn, args[-1])))
+    flash_attn.reset_launch_counts()
+    for dt in (torch.bfloat16, torch.float32, torch.bfloat16):
+        x = torch.zeros(1, 8, 2, 64, dtype=dt)
+        assert flash_attn.flash_attention_kernel(x, x, x).dtype == dt
+    assert calls == [
+        ("flash_attn_sm90", "fa_forward_tensor_core_bf16", flash_attn._scale_log2(64)),
+        ("flash_attn", "fa_forward_cuda_core_f32", flash_attn._scale(64)),
+        ("flash_attn_sm90", "fa_forward_tensor_core_bf16", flash_attn._scale_log2(64)),
+    ]
+    assert flash_attn.LAUNCHES == {"flash_attention": 3}
+    assert flash_attn.ROUTES == {"tensor_core_bf16": 2, "cuda_core_f32": 1}
+    flash_attn.reset_launch_counts()
+    assert flash_attn.ROUTES == {"tensor_core_bf16": 0, "cuda_core_f32": 0}
+
+
+def test_route_entry_points_exist_in_their_sources():
+    """Each route's C entry point is defined, with the wrapper's arity, in
+    the source that ``build`` compiles for it."""
+    for route, lib, entry in flash_attn._ROUTE_OF.values():
+        assert lib in flash_attn.build.SOURCES
+        src = (flash_attn.build.CSRC / f"{lib}.cu").read_text()
+        head = src[src.index(f"int {entry}("):]
+        args = head[:head.index(")")].count(",") + 1
+        assert args == len(flash_attn._SIGNATURE), (route, args)
 
 
 def test_other_devices_and_cpu_kernel_calls_raise():
