@@ -14,10 +14,12 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 2. holds each of the four fused Lorenzo kernels against its plain
    PyTorch version on the card, on ragged small sizes, on the shapes of
    the allreduce (one pipelined-ring piece and one sequential-ring chunk
-   of the 646 MB run) and on an overflowing stream: words ``[:cap]``, bw,
+   of the 646 MB run), on an overflowing stream and at the default
+   ``lorenzo`` gradient sync's 16 MiB bucket: words ``[:cap]``, bw,
    anchor and nwords must be equal and every f32 output bitwise equal;
-   prints the mismatch counts and each kernel's median time against its
-   bound;
+   prints the mismatch counts and, for rows 1-10, each kernel's median
+   time over 10 back-to-back calls, over one call, and its kernels' device
+   time (profiler) against its bound;
 3. holds the three unfused kernels (``quantize``, ``dequantize``,
    ``dequantize_reduce``) against their plain versions the same way, on
    ragged sizes, on NaN, +-Inf and values past the int32 range of q, on
@@ -42,13 +44,20 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    equal to the fused run on the same inputs;
 8. holds the three entropy kernels (``entropy_quantize_pack``,
    ``entropy_unpack_dequantize``, ``entropy_unpack_dequantize_reduce``)
-   against their plain versions, lossy and lossless, at one 16 MiB
-   gradient bucket and at the 646 MB payload;
+   against their plain versions, lossy and lossless (stream, desc, anchor,
+   total and both f32 outputs bitwise), at one 16 MiB gradient bucket and
+   at the 646 MB payload, and on the single-pass look-back's edges: one
+   tile, part-full last tiles, an all-zero stream, capacities on and
+   inside a tile, full-width random bits at 646 MB, 50 back-to-back calls
+   on one scratch; checks from the profiler that kernel 8 is two launches
+   per call, kernels 9 and 10 one, and that no word-offset scan runs;
 9. runs the 646 MB x 8 allreduce and the 646 MB scatter under
    ``lorenzo+entropy`` (phase ``codecs``);
 10. runs the gradient sync of one minitron-8b decoder layer (973 MB per
     rank, 8 ranks, 59 buckets of 16 MiB) under ``lorenzo+entropy``,
-    profiled, with its host floor at 1/256 size (phase ``grad-sync``);
+    profiled (each entropy sub-kernel's launches and device time, the
+    launch structure checked again), with its host floor at 1/256 size
+    (phase ``grad-sync``);
 11. the same sync under ``lorenzo``, ``lossless``, ``passthrough`` and
     ``codec="auto"``, and at N = 6;
 12. checks that the all-to-all's backward on a one-card ``ThreadGroup``
@@ -93,6 +102,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import threading
@@ -182,6 +192,28 @@ def _median_ms(fn, reps, calls=1):
     return sorted(times)[len(times) // 2]
 
 
+# The port's own kernels (csrc/lorenzo.cu, csrc/entropy.cu) by symbol.
+OWN_KERNEL = re.compile(r"\(anonymous namespace\)::(ent_\w+_kernel|quantize_front_kernel|"
+                        r"hop_front_kernel|pack_kernel|unpack_kernel|dequantize_kernel|"
+                        r"word_offsets_kernel)\b")
+
+
+def _device_ms(fn, calls=10):
+    """Device time per call of the port's kernels that ``fn`` launches,
+    from the profiler over ``calls`` calls (no host time, no torch ops)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in _device_events(prof)
+               if OWN_KERNEL.search(e.key)) / 1e3 / calls
+
+
 def _random_walk(n, gen, device):
     """Seeded random-walk field: cumsum of N(0, 0.01) steps (f64 -> f32)."""
     import torch
@@ -235,6 +267,13 @@ def _bytes(name, n, nb, cap_in, words_in, cap_out, emit):
     return read + 4 * n + 4 * cap_out + meta + (4 * n if emit else 0)
 
 
+def _log_time(r, tag):
+    log(f"  {r['name']:<34} [{tag}] {r['ms']:.4f} ms back-to-back, "
+        f"{r['one_call_ms']:.4f} ms one call, {r['device_ms']:.4f} ms of kernel time "
+        f"(profiler); plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+        f"({r['bytes'] / 1e6:.1f} MB)")
+
+
 def check_kernels(device, gen):
     import torch
 
@@ -252,8 +291,10 @@ def check_kernels(device, gen):
         ("overflow", 300_000, 0.05, False),
         ("ring-chunk", chunk_n, 0.6, False),
         ("ring-piece", piece_n, 0.6, True),
+        # the default ``lorenzo`` grad sync's shape: one 16 MiB bucket
+        ("16 MiB bucket", BUCKET_BYTES // 4, 0.6, True),
     ]
-    records = {}
+    records, timings = {}, []
     for label, n, cf, timed in cases:
         x2d = ops.to_blocks(_random_walk(n, gen, device) * 8.0)
         acc = ops.to_blocks(_random_walk(n, gen, device))
@@ -287,21 +328,25 @@ def check_kernels(device, gen):
             if timed:
                 emit = kw.get("emit_f32", False)
                 nbytes = _bytes(name, nb * ops.BLOCK, nb, cap, words_in, cap, emit)
-                records[name] = {
+                rec = {
                     "name": name, "route": "cuda", "source": KERNEL_SOURCE,
                     "replaces": REPLACES[name], "launches": None,
                     "max_abs_err": err,
-                    "ms": _median_ms(lambda: kern(*args, **kw), 20),
+                    "ms": _median_ms(lambda: kern(*args, **kw), 20, 10),
+                    "one_call_ms": _median_ms(lambda: kern(*args, **kw), 20),
+                    "device_ms": _device_ms(lambda: kern(*args, **kw)),
                     "plain_ms": _median_ms(lambda: plain(*args, **kw), 5),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                     "bound_by": "bytes", "library_ms": None,
                     "shape": [nb, ops.BLOCK], "bytes": nbytes,
                 }
+                timings.append((label, rec))
+                if label == "ring-piece":  # the allreduce's shape
+                    records[name] = rec
         log(f"kernels vs plain [{label} n={n} cap={cap} nwords_in={words_in}]: "
             f"mismatches {' '.join(line)}")
-    for r in records.values():
-        log(f"  {r['name']:<26} {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms  "
-            f"bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB)")
+    for label, r in timings:
+        _log_time(r, label)
     return records
 
 
@@ -387,7 +432,9 @@ def check_unfused_kernels(device, gen):
                     "name": name, "route": "cuda", "source": KERNEL_SOURCE,
                     "replaces": REPLACES[name], "launches": None,
                     "max_abs_err": errs[name],
-                    "ms": _median_ms(lambda: kern(*args), 20),
+                    "ms": _median_ms(lambda: kern(*args), 20, 10),
+                    "one_call_ms": _median_ms(lambda: kern(*args), 20),
+                    "device_ms": _device_ms(lambda: kern(*args)),
                     "plain_ms": _median_ms(lambda: plain(*args), 3),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                     "bound_by": "bytes", "library_ms": None,
@@ -402,8 +449,7 @@ def check_unfused_kernels(device, gen):
                  (getattr(lorenzo, f"{name}_plain")(*args),))
     log("unfused kernels vs plain [int32-wrapping prefix sums, 4096 rows]: mismatches 0")
     for r in records.values():
-        log(f"  {r['name']:<26} {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms  "
-            f"bound {r['bound_ms']:.4f} ms ({r['bytes'] / 1e6:.1f} MB)")
+        _log_time(r, "scatter shape")
     torch.cuda.empty_cache()
     return records
 
@@ -860,23 +906,191 @@ def _random_bits(n, gen, device):
                          dtype=torch.int64).to(torch.int32).view(torch.float32)
 
 
-def _entropy_bytes(name, nb, words):
-    """Bytes an entropy kernel must move: inputs once, outputs once, the
-    stream only to its true length."""
+def _entropy_bytes(name, nb, words, cap):
+    """Bytes an entropy kernel must move: inputs once, outputs once; a
+    received stream only to its true length, a packed one to its capacity
+    (the words past the total are zeroed)."""
     n, meta = nb * 256, 8 * nb  # desc + anchor
     if name == "entropy_quantize_pack":
-        return 4 * n + 4 * words + meta
+        return 4 * n + 4 * cap + meta + 4
     if name == "entropy_unpack_dequantize":
         return 4 * words + meta + 4 * n
     return 4 * words + meta + 8 * n  # + acc in
 
 
-def check_entropy_kernels(device, gen):
-    """Kernels 8-10 against their plain versions, bitwise, lossy and
-    lossless; median ms at the 16 MiB bucket and the 646 MB payload."""
+def _entropy_calls(stream, x2d, acc, eb, cap):
+    """Kernels 8-10's (wrapper name, arguments) on one input and stream."""
+    return {ENTROPY_KERNELS[0]: ("quantize_pack", (x2d, eb, cap)),
+            ENTROPY_KERNELS[1]: ("unpack_dequantize", (*stream, eb)),
+            ENTROPY_KERNELS[2]: ("unpack_dequantize_reduce", (*stream, eb, acc))}
+
+
+def _time_entropy(tag, stream, x2d, acc, eb, cap, words, errs, lossless):
+    """Kernels 8-10's records at one shape: median ms of 10 back-to-back
+    calls per event pair (``ms``) and of one call per pair
+    (``one_call_ms``, the host's launch included), the plain version's,
+    and the bytes bound."""
+    from repro_torch.kernels import entropy
+
+    records, nb = {}, x2d.shape[0]
+    for name, (fn, args) in _entropy_calls(stream, x2d, acc, eb, cap).items():
+        kern, plain = getattr(entropy, fn), getattr(entropy, f"{fn}_plain")
+        nbytes = _entropy_bytes(name, nb, words, cap)
+        rec = records[name] = {
+            "name": name, "route": "cuda", "source": ENTROPY_SOURCE,
+            "replaces": REPLACES[name], "launches": None, "max_abs_err": errs[name],
+            "ms": _median_ms(lambda: kern(*args, lossless=lossless), 20, 10),
+            "one_call_ms": _median_ms(lambda: kern(*args, lossless=lossless), 20),
+            "device_ms": _device_ms(lambda: kern(*args, lossless=lossless)),
+            "plain_ms": _median_ms(lambda: plain(*args, lossless=lossless),
+                                   1 if nb > 100_000 else 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "shape": [nb, 256], "bytes": nbytes,
+        }
+        _log_time(rec, tag)
+    return records
+
+
+def _tile_caps(desc):
+    """Capacities that end a stream exactly at the end of look-back tile 3
+    and inside it (in its first non-empty block segment)."""
+    from repro_torch.core import entropy as ent
+    from repro_torch.kernels import entropy
+
+    words = (ent.split_desc(desc).long().sum(dim=1) * ent.SUB_WORDS_PER_BIT).tolist()
+    edge = sum(words[: 4 * entropy.TILE_BLOCKS])
+    first = next(w for w in words[3 * entropy.TILE_BLOCKS:] if w)
+    return {"cap on a tile boundary": edge,
+            "cap inside a tile": sum(words[: 3 * entropy.TILE_BLOCKS]) + first // 2 + 1}
+
+
+def _entropy_case(label, x2d, acc, eb, cap, lossless):
+    """Kernels 8-10 against their plain versions on one input: stream
+    words [:cap], desc, anchor, the total and both f32 outputs bitwise.
+    Returns (each kernel's max |err|, the kernel's stream, total words)."""
     import torch
 
     from repro_torch.core import entropy as ent
+    from repro_torch.kernels import entropy
+
+    mode = "lossless" if lossless else "lossy"
+    got = entropy.quantize_pack(x2d, eb, cap, lossless=lossless)
+    want = entropy.quantize_pack_plain(x2d, eb, cap, lossless=lossless)
+    torch.cuda.synchronize()
+    errs = {ENTROPY_KERNELS[0]: _compare(f"entropy quantize_pack [{label} {mode}]", got, want)}
+    words = int(got[3])
+    if words != int(ent.packed_words(got[1])):
+        raise AssertionError(f"{label} {mode}: total {words} != packed_words(desc)")
+    calls = _entropy_calls(got[:3], x2d, acc, eb, cap)
+    for name in ENTROPY_KERNELS[1:]:
+        fn, args = calls[name]
+        out = getattr(entropy, fn)(*args, lossless=lossless)
+        errs[name] = _compare(f"entropy {fn} [{label} {mode}]", (out,),
+                              (getattr(entropy, f"{fn}_plain")(*args, lossless=lossless),))
+        if lossless and fn == "unpack_dequantize" and words <= cap:
+            if not torch.equal(out.view(torch.int32), x2d.view(torch.int32)):
+                raise AssertionError(f"{label}: lossless round trip is not exact")
+        del out
+    log(f"entropy kernels vs plain [{label} {mode}, {x2d.shape[0]} rows, cap {cap}, "
+        f"{words} words]: mismatches 0 in stream/desc/anchor/total and both f32 outputs")
+    return errs, got[:3], words
+
+
+def _check_entropy_edges(device, gen, eb):
+    """The look-back's edges beyond the data cases: capacities on and
+    inside a tile, a part-full last tile (the unpack kernels take any
+    block count; quantize_pack's is a multiple of the tile), and 50
+    back-to-back calls of each kernel on one scratch, each compared."""
+    import torch
+
+    from repro_torch.core.compressed import capacity_words_for
+    from repro_torch.kernels import entropy, ops
+
+    nb5 = 5 * entropy.TILE_BLOCKS
+    x2d = ops.to_blocks(_random_walk(nb5 * 256, gen, device))
+    acc = _random_walk(nb5 * 256, gen, device).view(nb5, 256)
+    for lossless in (False, True):
+        packed, desc, anchor, _ = entropy.quantize_pack_plain(x2d, eb, nb5 * 256,
+                                                              lossless=lossless)
+        for label, cap in _tile_caps(desc).items():
+            if not _entropy_case(label, x2d, acc, eb, cap, lossless)[2] > cap:
+                raise AssertionError(f"{label}: the stream does not overflow")
+        for nb in (45, 13, 1):
+            for fn, extra in (("unpack_dequantize", ()),
+                              ("unpack_dequantize_reduce", (acc[:nb],))):
+                args = (packed, desc[:nb], anchor[:nb], eb, *extra)
+                _compare(f"entropy {fn} [{nb} rows, part-full tile]",
+                         (getattr(entropy, fn)(*args, lossless=lossless),),
+                         (getattr(entropy, f"{fn}_plain")(*args, lossless=lossless),))
+        log(f"entropy unpack kernels vs plain [45, 13 and 1 rows: a part-full last tile, "
+            f"{'lossless' if lossless else 'lossy'}]: mismatches 0")
+
+    n = BUCKET_BYTES // 4
+    x2d = ops.to_blocks(_random_walk(n, gen, device))
+    acc = _random_walk(n, gen, device).view(-1, 256)
+    cap = capacity_words_for(n, 0.6, 256)
+    want = entropy.quantize_pack_plain(x2d, eb, cap)
+    calls = _entropy_calls(want[:3], x2d, acc, eb, cap)
+    wants = {name: want if name == ENTROPY_KERNELS[0] else
+             (getattr(entropy, f"{fn}_plain")(*args),) for name, (fn, args) in calls.items()}
+    outs = [{name: getattr(entropy, fn)(*args) for name, (fn, args) in calls.items()}
+            for _ in range(50)]
+    for i, out in enumerate(outs):
+        for name, got in out.items():
+            _compare(f"{name} [back-to-back call {i}]",
+                     got if isinstance(got, tuple) else (got,), wants[name])
+    log("entropy kernels vs plain [50 back-to-back calls of each at the 16 MiB bucket, "
+        "one scratch]: mismatches 0")
+    del outs, wants
+    torch.cuda.empty_cache()
+
+
+def _entropy_kernel_launches(events):
+    """{kernel symbol: [device launches, device ms]} over a profile's
+    device rows of the entropy kernels and of any word-offset scan."""
+    rows = {}
+    for e in events:
+        m = re.search(r"\b(ent_\w+_kernel|word_offsets_kernel)(<[^>]*>)?", e.key)
+        if m:
+            row = rows.setdefault(m.group(0), [0, 0.0])
+            row[0] += e.count
+            row[1] += e.self_device_time_total / 1e3
+    return rows
+
+
+def _check_entropy_launch_structure(rows, calls, label, dropped=0.0):
+    """Kernel 8 is one look-back launch and one tail launch per call,
+    kernels 9 and 10 one launch each, and no word-offset scan runs.  Over
+    a long traced window the profiler can lose a few device events (it
+    kept 1,392 of 1,416 in a traced gradient sync on the H100), never add
+    any: ``dropped`` is the share of launches it may miss."""
+    want = {"ent_pack_lookback_kernel": calls["quantize_pack"],
+            "ent_zero_tail_kernel": calls["quantize_pack"],
+            "ent_unpack_lookback_kernel": calls["unpack_dequantize"]
+            + calls["unpack_dequantize_reduce"]}
+    got = dict.fromkeys(want, 0)
+    for sym, (count, _) in rows.items():
+        if sym.startswith("word_offsets_kernel"):
+            raise AssertionError(f"{label}: {sym} launched {count} times")
+        base = sym.split("<")[0]
+        got[base] = got.get(base, 0) + count
+    if set(got) != set(want) or any(
+            not (1 - dropped) * want[k] <= got[k] <= want[k] for k in want):
+        raise AssertionError(f"{label}: entropy kernel launches {got} for wrapper "
+                             f"calls {want}")
+
+
+def check_entropy_kernels(device, gen):
+    """Kernels 8-10 against their plain versions, bitwise, lossy and
+    lossless, on ragged, zero-width, non-finite and overflowing inputs and
+    the look-back's edges (one tile, an all-zero stream, full-width random
+    bits at 646 MB, then ``_check_entropy_edges``); the launches each call
+    makes, from the profiler; median ms at the 16 MiB bucket and the 646 MB
+    payload."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.core.compressed import capacity_words_for
     from repro_torch.core.compressor import lossless_capacity_words
     from repro_torch.kernels import entropy, ops
@@ -891,16 +1105,20 @@ def check_entropy_kernels(device, gen):
 
     cases = [  # (label, x, capacity factor or None = lossless structural, timed)
         ("ragged n=37", _random_walk(37, gen, device), 0.6, False),
+        ("one part-full tile n=2048", _random_walk(2048, gen, device), 0.6, False),
+        ("one tile n=8192", _random_walk(8192, gen, device), 0.6, False),
         ("ragged n=6149", _random_walk(2048 * 3 + 5, gen, device), 0.6, False),
         ("ragged n=2504", _random_walk(256 * 9 + 200, gen, device), 2.0, False),
         ("zero blocks", zero_blocks(4096), 0.6, False),
+        ("all zero", torch.zeros(64 * 256, device=device), 0.6, False),
         ("nan/inf/saturating", _wild(300_000, gen, device), 2.0, False),
         ("random bits", _random_bits(300_000, gen, device), 2.0, False),
         ("overflow", _random_bits(300_000, gen, device), 0.05, False),
         ("16 MiB bucket", _random_walk(BUCKET_BYTES // 4, gen, device), 0.6, True),
         ("646 MB", _random_walk(MAIN_BYTES // 4, gen, device), 0.6, True),
+        ("646 MB random bits", _random_bits(MAIN_BYTES // 4, gen, device), 2.0, False),
     ]
-    records, names = {}, ENTROPY_KERNELS
+    records = {}
     for label, x, cf, timed in cases:
         n = x.numel()
         x2d = ops.to_blocks(x)
@@ -909,53 +1127,34 @@ def check_entropy_kernels(device, gen):
         for lossless in (False, True):
             cap = (lossless_capacity_words(n) if lossless and cf != 0.05
                    else capacity_words_for(n, cf, 256))
-            calls = {"entropy_quantize_pack": ((x2d, eb, cap), "quantize_pack")}
-            got = entropy.quantize_pack(x2d, eb, cap, lossless=lossless)
-            want = entropy.quantize_pack_plain(x2d, eb, cap, lossless=lossless)
-            torch.cuda.synchronize()
-            mode = "lossless" if lossless else "lossy"
-            errs = {names[0]: _compare(f"entropy quantize_pack [{label} {mode}]", got, want)}
-            words = int(ent.packed_words(got[1]))
+            errs, stream, words = _entropy_case(label, x2d, acc, eb, cap, lossless)
             if (words > cap) != (cf == 0.05):
-                raise AssertionError(f"{label} {mode}: {words} words for capacity {cap}")
-            calls["entropy_unpack_dequantize"] = ((*got, eb), "unpack_dequantize")
-            calls["entropy_unpack_dequantize_reduce"] = ((*got, eb, acc),
-                                                         "unpack_dequantize_reduce")
-            for name in names[1:]:
-                args, fn = calls[name]
-                out = getattr(entropy, fn)(*args, lossless=lossless)
-                errs[name] = _compare(f"entropy {fn} [{label} {mode}]", (out,),
-                                      (getattr(entropy, f"{fn}_plain")(*args, lossless=lossless),))
-                if lossless and fn == "unpack_dequantize" and words <= cap:
-                    if not torch.equal(out.view(torch.int32), x2d.view(torch.int32)):
-                        raise AssertionError(f"{label}: lossless round trip is not exact")
-                del out
-            log(f"entropy kernels vs plain [{label} {mode}, {nb} rows, cap {cap}, "
-                f"{words} words]: mismatches 0 in stream/desc/anchor and both f32 outputs")
+                raise AssertionError(f"{label}: {words} words for capacity {cap}")
+            if label == "all zero" and words:
+                raise AssertionError(f"all-zero input packed to {words} words")
+            if label == "646 MB random bits" and lossless and not cap - 256 < words <= cap:
+                raise AssertionError(f"full-width stream: {words} words, capacity {cap}")
+            if label == "16 MiB bucket":  # launches per call, from the profiler
+                calls = _entropy_calls(stream, x2d, acc, eb, cap)
+                entropy.reset_launch_counts()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for fn, args in calls.values():
+                        for _ in range(3):
+                            getattr(entropy, fn)(*args, lossless=lossless)
+                    torch.cuda.synchronize()
+                rows = _entropy_kernel_launches(_device_events(prof))
+                _check_entropy_launch_structure(rows, entropy.LAUNCHES, label)
+                log(f"entropy kernel launches for 3 calls of each ({label}): {rows}")
+                del prof
             if timed:
-                tag = f"{label} {mode}"
-                for name, (args, fn) in calls.items():
-                    kern, plain = getattr(entropy, fn), getattr(entropy, f"{fn}_plain")
-                    nbytes = _entropy_bytes(name, nb, words)
-                    rec = {
-                        "name": name, "route": "cuda", "source": ENTROPY_SOURCE,
-                        "replaces": REPLACES[name], "launches": None,
-                        "max_abs_err": errs[name],
-                        "ms": _median_ms(lambda: kern(*args, lossless=lossless), 20),
-                        "plain_ms": _median_ms(lambda: plain(*args, lossless=lossless),
-                                               1 if nb > 100_000 else 5),
-                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                        "bound_by": "bytes", "library_ms": None,
-                        "shape": [nb, 256], "bytes": nbytes,
-                    }
-                    log(f"  {name:<34} [{tag}] {rec['ms']:.4f} ms  plain "
-                        f"{rec['plain_ms']:.3f} ms  bound {rec['bound_ms']:.4f} ms "
-                        f"({nbytes / 1e6:.1f} MB)")
-                    if label == "16 MiB bucket" and not lossless:
-                        records[name] = rec  # the main path's shape and mode
-            del got, want, calls
+                recs = _time_entropy(f"{label} {'lossless' if lossless else 'lossy'}",
+                                     stream, x2d, acc, eb, cap, words, errs, lossless)
+                if label == "16 MiB bucket" and not lossless:
+                    records.update(recs)  # the main path's shape and mode
+            del stream
         del x, x2d, acc
         torch.cuda.empty_cache()
+    _check_entropy_edges(device, gen, eb)
     return records
 
 
@@ -1125,11 +1324,13 @@ def run_grad_sync(device, gen):
         from repro_torch.core import grad_sync
         return grad_sync.dp_allreduce_grads_stats(tree, ("x",), sync, device=device)
 
+    _reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         group.run(body, trees, axis_name="x")
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
+    calls = {k[len("entropy_"):]: v for k, v in _launches().items() if k in ENTROPY_KERNELS}
     events = _device_events(prof)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     log(f"grad sync profile: warm wall {warm * 1e3:.1f} ms; traced wall "
@@ -1137,6 +1338,12 @@ def run_grad_sync(device, gen):
         f"({100 * busy / (traced * 1e3):.1f} %)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         log(f"  {e.count:>6} x {e.self_device_time_total / 1e3:8.2f} ms  {e.key[:160]}")
+    rows = _entropy_kernel_launches(events)
+    for sym, (count, ms) in sorted(rows.items()):
+        log(f"  entropy sub-kernel {sym}: {count} launches, {ms:.2f} ms of device time "
+            f"({1e3 * ms / max(count, 1):.2f} us each)")
+    log(f"  wrapper calls in the profiled sync: {calls}")
+    _check_entropy_launch_structure(rows, calls, "grad sync", dropped=0.05)
     del prof, events
     small = _layer_grads(n, gen, device, shrink=256)
     small_sync = sync_for("lorenzo+entropy", BUCKET_BYTES // 256)
@@ -1642,6 +1849,8 @@ def main(argv=()) -> int:
         records.update(check_flash_kernel(device, gen))
         _record(records, "flash_attention")["launches"] = run_model(device)
 
+    log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
+        f"(the kernel build included)")
     if phases != set(PHASES):
         log(f"partial run ({sorted(phases)}): every check passed; no result printed")
         return 0
@@ -1650,7 +1859,7 @@ def main(argv=()) -> int:
             raise AssertionError(f"{r['name']}: not launched on its path")
     print(smi)
     print(json.dumps({"kernels": [
-        {k: v for k, v in r.items() if k not in ("shape", "bytes")}
+        {k: v for k, v in r.items() if k not in ("shape", "bytes", "one_call_ms", "device_ms")}
         for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

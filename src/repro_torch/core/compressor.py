@@ -208,9 +208,8 @@ class EntropyLorenzo:
         else:
             cap = capacity_words_for(n, self.capacity_factor, self.block)
         if self.fused:
-            packed, desc, anchor = ops.entropy_quantize_pack(
+            packed, desc, anchor, nwords = ops.entropy_quantize_pack(
                 x2d, eb, cap, lossless=self.lossless)
-            nwords = entropy.packed_words(desc)
         else:
             codes, anchor = entropy.encode_blocks(x2d, eb, lossless=self.lossless)
             packed, desc, nwords = entropy.pack(codes, cap)

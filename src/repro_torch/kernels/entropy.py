@@ -4,7 +4,7 @@ Three kernels, each the counterpart of a Pallas kernel in
 ``src/repro/kernels/entropy.py`` and written by hand in CUDA C++
 (``csrc/entropy.cu``, bound through a C ABI with ``ctypes``):
 
-  * ``quantize_pack``             f32 blocks -> stream, desc, anchor
+  * ``quantize_pack``             f32 blocks -> stream, desc, anchor, total
   * ``unpack_dequantize``         stream -> f32 blocks
   * ``unpack_dequantize_reduce``  acc + decompress(stream)
 
@@ -12,6 +12,15 @@ Each block of 256 codes is packed as four 64-element sub-blocks at their
 own widths; ``desc`` carries the four 6-bit widths in one int32
 (``core/entropy.py`` has the layout).  ``lossless=True`` quantizes to the
 f32 bit pattern instead (eb is not read, so eb = 0 never divides).
+
+Each call is a single pass over tiles of 32 blocks: a tile finds its word
+offset with a decoupled look-back across the grid
+(``csrc/lorenzo_common.cuh``), packs from shared memory or stages its
+stream segment there to decode.  ``quantize_pack`` is that launch plus one
+that zeroes the words from the total to the capacity; the unpack kernels
+are one launch each.  The look-back's state words and tile counter are
+scratch kept per CUDA stream (``_lookback``), tagged with a new epoch per
+call so they never need clearing.
 
 Beside each kernel wrapper sits its plain PyTorch version (``*_plain``),
 bitwise the same function (words at or past the capacity read as 0, the
@@ -21,7 +30,9 @@ plain version and a CUDA tensor to the kernel.  Launches are counted in
 
 Shapes and types: f32 data is (nb, 256) with nb a multiple of 8; wire
 words are int32 tensors carrying uint32 bits; ``desc`` and ``anchor`` are
-int32 (nb,); ``eb`` is a 0-d f32 tensor on the data's device.
+int32 (nb,); ``eb`` is a 0-d f32 tensor on the data's device; the total
+(the stream's true length in words, which may pass the capacity) is a 0-d
+int32 tensor.
 """
 from __future__ import annotations
 
@@ -69,8 +80,8 @@ def _count(name: str) -> None:
 
 def quantize_pack_plain(x2d, eb, capacity_words: int, *, lossless: bool = False):
     codes, anchor = entropy.encode_blocks(x2d, eb, lossless=lossless)
-    packed, desc, _ = entropy.pack(codes, capacity_words)
-    return packed, desc, anchor
+    packed, desc, total = entropy.pack(codes, capacity_words)
+    return packed, desc, anchor, total
 
 
 def unpack_dequantize_plain(packed, desc, anchor, eb, *, lossless: bool = False):
@@ -90,13 +101,41 @@ def unpack_dequantize_reduce_plain(packed, desc, anchor, eb, acc, *,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "ent_quantize_pack": (_P, _I, _P, _I, _P, _L, _P, _P, _P, _P),
-    "ent_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _I, _P, _P, _P, _P),
+    "ent_quantize_pack": (_P, _I, _P, _I, _P, _L, _P, _P, _P, _P, _P, _I, _P),
+    "ent_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P),
 }
+TILE_BLOCKS = 32  # Lorenzo blocks per look-back tile (csrc/entropy.cu)
+_EPOCHS = 1 << 30  # epochs 1 .. 2**30 - 1 fit the state word's 30 tag bits
+_SCRATCH: dict = {}  # (device, stream handle) -> [int64 scratch, last epoch]
+_SCRATCH_LOCK = threading.Lock()
 
 
 def _launch(fn: str, *args) -> None:
     build.launch(build.load("entropy", _SIGNATURES), fn, *args)
+
+
+def _lookback(device, nb: int):
+    """Look-back scratch for one call on ``device``'s current stream: (int64
+    scratch, epoch).  Element 0 holds the tile counter, which every launch
+    leaves at 0; then one state word per tile.  The ranks of a
+    ``ThreadGroup`` share the stream, so their calls run in order and take
+    turns on one scratch; each gets its own epoch.  A grown scratch starts
+    zeroed (epoch 0, never handed out), and the epoch's wrap clears it.
+    The caller holds the scratch until its launch is queued."""
+    tiles = -(-nb // TILE_BLOCKS)
+    # by device too: every device's default stream has the handle 0
+    key = (device.index, torch.cuda.current_stream().cuda_stream)
+    with _SCRATCH_LOCK:
+        entry = _SCRATCH.get(key)
+        if entry is None or entry[0].numel() - 1 < tiles:
+            size = max(tiles, 2 * (entry[0].numel() - 1) if entry else 0)
+            entry = _SCRATCH[key] = [
+                torch.zeros(size + 1, dtype=torch.int64, device=device), 0]
+        entry[1] += 1
+        if entry[1] == _EPOCHS:
+            entry[0].zero_()
+            entry[1] = 1
+        return entry[0], entry[1]
 
 
 def _scalars(eb: torch.Tensor, lossless: bool):
@@ -109,7 +148,8 @@ def _scalars(eb: torch.Tensor, lossless: bool):
 
 
 def quantize_pack(x2d, eb, capacity_words: int, *, lossless: bool = False):
-    """f32 (nb, 256) -> (packed int32[cap], desc int32 (nb,), anchor int32 (nb,))."""
+    """f32 (nb, 256) -> (packed int32[cap], desc int32 (nb,), anchor int32
+    (nb,), total words int32 0-d)."""
     nb = lorenzo._check_blocks(x2d, "x2d")
     lorenzo._check(eb, "eb", torch.float32, ())
     _, recip = _scalars(eb, lossless)
@@ -117,12 +157,14 @@ def quantize_pack(x2d, eb, capacity_words: int, *, lossless: bool = False):
     packed = torch.empty(int(capacity_words), dtype=torch.int32, device=dev)
     desc = torch.empty(nb, dtype=torch.int32, device=dev)
     anchor = torch.empty_like(desc)
-    offsets = torch.empty(nb + 1, dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    scratch, epoch = _lookback(dev, nb)
     _launch("ent_quantize_pack", x2d.data_ptr(), nb, recip.data_ptr(), int(lossless),
             packed.data_ptr(), int(capacity_words), desc.data_ptr(),
-            anchor.data_ptr(), offsets.data_ptr())
+            anchor.data_ptr(), total.data_ptr(), scratch.data_ptr() + 8,
+            scratch.data_ptr(), epoch)
     _count("quantize_pack")
-    return packed, desc, anchor
+    return packed, desc, anchor, total
 
 
 def _unpack(name, packed, desc, anchor, eb, acc, lossless):
@@ -135,11 +177,11 @@ def _unpack(name, packed, desc, anchor, eb, acc, lossless):
         lorenzo._check(acc, "acc", torch.float32, (nb, BLOCK))
     twoeb, _ = _scalars(eb, lossless)
     out = torch.empty((nb, BLOCK), dtype=torch.float32, device=packed.device)
-    offsets = torch.empty(nb + 1, dtype=torch.int32, device=packed.device)
+    scratch, epoch = _lookback(packed.device, nb)
     _launch("ent_unpack_dequantize", packed.data_ptr(), packed.shape[0],
             desc.data_ptr(), anchor.data_ptr(), nb, twoeb.data_ptr(), int(lossless),
             acc.data_ptr() if acc is not None else None, out.data_ptr(),
-            offsets.data_ptr())
+            scratch.data_ptr() + 8, scratch.data_ptr(), epoch)
     _count(name)
     return out
 

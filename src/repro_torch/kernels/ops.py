@@ -118,7 +118,9 @@ def dequantize_reduce(codes, anchor, eb, acc2d):
 
 def entropy_quantize_pack(x2d, eb, capacity_words: int, *, lossless: bool = False):
     """f32 blocks -> entropy-coded (packed int32 (capacity_words,), desc,
-    anchor); ``desc`` packs the four per-sub-block widths."""
+    anchor, total words int32 0-d); ``desc`` packs the four per-sub-block
+    widths, and the total is the stream's true length (it may pass the
+    capacity)."""
     return _route(x2d, "quantize_pack", entropy)(
         x2d, as_eb(eb, x2d.device), int(capacity_words), lossless=lossless)
 

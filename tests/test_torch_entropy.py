@@ -126,8 +126,9 @@ def test_plain_kernel_bitwise_equals_jax(kernel, kind, n, eb, cf):
     x, acc, cap, lossless, want = _case(kind, n, eb, cf)
     x2d, acc2d = ops.to_blocks(torch.from_numpy(x)), ops.to_blocks(torch.from_numpy(acc))
     pk, desc, an = (_t(a) for a in want["quantize_pack"])  # the JAX stream
+    total = None
     if kernel == "quantize_pack":
-        got = ops.entropy_quantize_pack(x2d, eb, cap, lossless=lossless)
+        *got, total = ops.entropy_quantize_pack(x2d, eb, cap, lossless=lossless)
     elif kernel == "unpack_dequantize":
         got = (ops.entropy_unpack_dequantize(pk, desc, an, eb, lossless=lossless),)
     else:
@@ -137,7 +138,7 @@ def test_plain_kernel_bitwise_equals_jax(kernel, kind, n, eb, cf):
     for i, (g, w) in enumerate(zip(got, want[kernel])):
         _assert_bitwise(g, w, f"{kernel} output {i}")
     if kernel == "quantize_pack":
-        assert int(entropy.packed_words(got[1])) == \
+        assert int(total) == int(entropy.packed_words(got[1])) == \
             int(jentropy.packed_words(jnp.asarray(want[kernel][1])))
 
 
