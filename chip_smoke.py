@@ -19,7 +19,16 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    anchor and nwords must be equal and every f32 output bitwise equal;
    prints the mismatch counts and, for rows 1-10, each kernel's median
    time over 10 back-to-back calls, over one call, and its kernels' device
-   time (profiler) against its bound;
+   time (profiler) against its bound (the ring hop, kernel 2, without the
+   f32 sum at the ring piece and with it at the bucket, as its paths call
+   it); then kernel 2 on its single-pass design's edges, both ``emit_f32``
+   modes and its total: one tile, part-full last tiles, outgoing
+   capacities on and inside a tile, an incoming stream cut inside a tile,
+   an overflowing stream, full-width random bits at the ring piece, 50
+   back-to-back calls on one scratch, hop calls interleaved with entropy
+   calls on the same stream, and from the profiler one
+   ``hop_lookback_kernel`` and one ``hop_zero_tail_kernel`` launch per
+   call and no one-CTA scan;
 3. holds the three unfused kernels (``quantize``, ``dequantize``,
    ``dequantize_reduce``) against their plain versions the same way, on
    ragged sizes, on NaN, +-Inf and values past the int32 range of q, on
@@ -27,7 +36,9 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    chunks of 20,187,500 elements, 630,912 rows in one ``quantize``);
 4. runs the allreduce, ``GZCommunicator("x").allreduce`` over a
    ``ThreadGroup`` of ranks on the card, at 646 MB per rank with 8 ranks
-   (plan ``ring``, 2 pieces, profiled), 16 MB with 8 ranks (``redoub``)
+   (plan ``ring``, 2 pieces, profiled: the Lorenzo kernels' launches are
+   checked against the schedule, 96 hop and 176 one-CTA scan launches),
+   16 MB with 8 ranks (``redoub``)
    and 16 MB with 6 ranks (``redoub`` with the remainder stage), then a
    4 MB allreduce through the kernels and through the plain versions
    (bitwise equal);
@@ -58,8 +69,9 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     profiled (each entropy sub-kernel's launches and device time, the
     launch structure checked again), with its host floor at 1/256 size
     (phase ``grad-sync``);
-11. the same sync under ``lorenzo``, ``lossless``, ``passthrough`` and
-    ``codec="auto"``, and at N = 6;
+11. the same sync under ``lorenzo`` (then profiled once: kernel 2's
+    launches and device time, the launch structure checked), ``lossless``,
+    ``passthrough`` and ``codec="auto"``, and at N = 6;
 12. checks that the all-to-all's backward on a one-card ``ThreadGroup``
     raises instead of hanging (phase ``c6``);
 13. holds the flash-attention kernel (kernel 11; bf16 on the tensor-core
@@ -193,8 +205,8 @@ def _median_ms(fn, reps, calls=1):
 
 
 # The port's own kernels (csrc/lorenzo.cu, csrc/entropy.cu) by symbol.
-OWN_KERNEL = re.compile(r"\(anonymous namespace\)::(ent_\w+_kernel|quantize_front_kernel|"
-                        r"hop_front_kernel|pack_kernel|unpack_kernel|dequantize_kernel|"
+OWN_KERNEL = re.compile(r"\(anonymous namespace\)::(ent_\w+_kernel|hop_\w+_kernel|"
+                        r"quantize_front_kernel|pack_kernel|unpack_kernel|dequantize_kernel|"
                         r"word_offsets_kernel)\b")
 
 
@@ -302,9 +314,12 @@ def check_kernels(device, gen):
         cap = capacity_words_for(n, cf, ops.BLOCK)
         stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)
         words_in = int(stream[1].long().sum().item()) * 8
+        # the hop in its path's mode: the ring piece without the f32 sum,
+        # the bucket (the redoub carry) and the other cases with it
+        hop_kw = {"emit_f32": label != "ring-piece", "return_total": True}
         calls = {
             "quantize_pack": ((x2d, eb_in, cap), {}),
-            "unpack_reduce_repack": ((*stream, eb_in, acc, eb_out, cap), {"emit_f32": True}),
+            "unpack_reduce_repack": ((*stream, eb_in, acc, eb_out, cap), hop_kw),
             "unpack_dequantize_reduce": ((*stream, eb_in, acc), {}),
             "unpack_dequantize": ((*stream, eb_in), {}),
         }
@@ -324,6 +339,12 @@ def check_kernels(device, gen):
                     raise AssertionError(f"{name}: nwords {nw_got} != {nw_want}")
                 if label == "overflow" and nw_got <= cap:
                     raise AssertionError(f"{name}: overflow case did not overflow")
+            if name == "unpack_reduce_repack":
+                if int(got[-1]) != nw_got:
+                    raise AssertionError(f"hop total {int(got[-1])} != 8 * sum(bw) {nw_got}")
+                other = {**kw, "emit_f32": not kw["emit_f32"]}  # the other mode too
+                _compare(f"{name} [{label} n={n} emit_f32={other['emit_f32']}]",
+                         kern(*args, **other), plain(*args, **other))
             line.append(f"{name}=0/{sum(g.numel() for g in got)}")
             if timed:
                 emit = kw.get("emit_f32", False)
@@ -347,7 +368,146 @@ def check_kernels(device, gen):
             f"mismatches {' '.join(line)}")
     for label, r in timings:
         _log_time(r, label)
+    _check_hop_edges(device, gen, eb_in, eb_out)
     return records
+
+
+ENTROPY_SYMBOLS = r"ent_\w+_kernel|word_offsets_kernel"
+LORENZO_SYMBOLS = r"hop_\w+_kernel|word_offsets_kernel|pack_kernel|quantize_front_kernel|unpack_kernel"
+
+
+def _kernel_launches(events, symbols):
+    """{kernel symbol: [device launches, device ms]} over a profile's device
+    rows of the port's kernels whose names match ``symbols`` (a regex
+    alternation)."""
+    rows = {}
+    for e in events:
+        m = re.search(rf"::({symbols})(<[^>]*>)?", e.key)
+        if m:
+            row = rows.setdefault(m.group(1) + (m.group(2) or ""), [0, 0.0])
+            row[0] += e.count
+            row[1] += e.self_device_time_total / 1e3
+    return rows
+
+
+def _check_hop_launch_structure(rows, calls, label, dropped=0.0):
+    """Every ``unpack_reduce_repack`` call is one ``hop_lookback_kernel``
+    launch and one ``hop_zero_tail_kernel`` launch, and the one-CTA scan
+    runs once per call of kernels 1, 3 and 4 and never for the hop.
+    ``calls`` are the Lorenzo wrappers' counts; ``dropped`` is the share of
+    device events a long profile may lose (never gain)."""
+    want = {"hop_lookback_kernel": calls["unpack_reduce_repack"],
+            "hop_zero_tail_kernel": calls["unpack_reduce_repack"],
+            "word_offsets_kernel": calls["quantize_pack"] + calls["unpack_dequantize"]
+            + calls["unpack_dequantize_reduce"]}
+    got = dict.fromkeys(want, 0)
+    for sym, (count, _) in rows.items():
+        base = sym.split("<")[0]
+        if base == "hop_front_kernel":
+            raise AssertionError(f"{label}: {sym} launched {count} times")
+        if base in got:
+            got[base] += count
+    if any(not (1 - dropped) * want[k] <= got[k] <= want[k] for k in want):
+        raise AssertionError(f"{label}: Lorenzo kernel launches {got} for wrapper calls {want}")
+    return got
+
+
+def _check_hop_edges(device, gen, eb_in, eb_out):
+    """Kernel 2 against its plain version, bitwise, on the single-pass
+    design's edges (both ``emit_f32`` modes, the total too): one tile,
+    part-full last tiles, outgoing capacities on and inside a tile, an
+    incoming stream cut inside a tile, an overflowing stream, full-width
+    random bits at the 646 MB ring piece; 50 back-to-back calls on one
+    scratch, and hop calls interleaved with entropy calls on the same stream
+    (one scratch allocator); then the launches per call from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.compressed import capacity_words_for
+    from repro_torch.kernels import entropy, lorenzo, ops
+
+    def hop_case(label, x2d, acc, cap_in, cap_out):
+        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap_in)
+        for emit in (False, True):
+            args = (*stream, eb_in, acc, eb_out, cap_out)
+            got = lorenzo.unpack_reduce_repack(*args, emit_f32=emit, return_total=True)
+            want = lorenzo.unpack_reduce_repack_plain(*args, emit_f32=emit, return_total=True)
+            torch.cuda.synchronize()
+            _compare(f"unpack_reduce_repack [{label} emit_f32={emit}]", got, want)
+        log(f"hop kernel vs plain [{label}, {x2d.shape[0]} rows, cap_in {cap_in}, cap_out "
+            f"{cap_out}, {int(got[-1])} words out]: mismatches 0 in stream/bw/anchor/total/"
+            f"f32, both emit_f32 modes")
+        return got
+
+    def walk(nb):
+        return ops.to_blocks(_random_walk(nb * 256, gen, device) * 8.0)
+
+    for nb in (32, 8, 40, 72):  # one tile; part-full last tiles
+        x2d, acc = walk(nb), walk(nb) / 8.0
+        hop_case("one tile" if nb == 32 else "part-full last tile", x2d, acc,
+                 capacity_words_for(nb * 256, 0.6, 256), capacity_words_for(nb * 256, 0.6, 256))
+    nb = 5 * 32
+    x2d, acc = walk(nb), walk(nb) / 8.0
+    ample = capacity_words_for(nb * 256, 2.0, 256)
+    bw_out = lorenzo.unpack_reduce_repack_plain(
+        *lorenzo.quantize_pack_plain(x2d, eb_in, ample), eb_in, acc, eb_out, 8)[1]
+    for label, cap in _tile_caps((8 * bw_out.long()).tolist(), 3).items():
+        if not int(hop_case(label, x2d, acc, ample, cap)[-1]) > cap:
+            raise AssertionError(f"{label}: the outgoing stream does not overflow")
+    bw_in = lorenzo.quantize_pack_plain(x2d, eb_in, 8)[1]
+    hop_case("incoming stream cut inside a tile", x2d, acc,
+             _tile_caps((8 * bw_in.long()).tolist(), 2)["cap inside a tile"], ample)
+    if not int(hop_case("overflow", x2d, acc, ample, 64)[-1]) > 64:
+        raise AssertionError("overflow case did not overflow")
+    n = _main_piece_elems()
+    bits = ops.to_blocks(_random_bits(n, gen, device))
+    acc_bits = ops.to_blocks(_random_bits(n, gen, device))
+    cap = capacity_words_for(n, 2.0, 256)
+    got = hop_case("646 MB ring piece, full-width random bits", bits, acc_bits, cap, cap)
+    full = int((got[1] == 32).sum())
+    if full < 0.9 * bits.shape[0]:
+        raise AssertionError(f"random bits: {full} of {bits.shape[0]} blocks at width 32")
+    del bits, acc_bits, got
+
+    n = BUCKET_BYTES // 4
+    x2d, acc = ops.to_blocks(_random_walk(n, gen, device) * 8.0), \
+        ops.to_blocks(_random_walk(n, gen, device))
+    cap = capacity_words_for(n, 0.6, 256)
+    stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)
+    args = (*stream, eb_in, acc, eb_out, cap)
+    want = lorenzo.unpack_reduce_repack_plain(*args, emit_f32=True, return_total=True)
+    outs = [lorenzo.unpack_reduce_repack(*args, emit_f32=True, return_total=True)
+            for _ in range(50)]
+    for i, got in enumerate(outs):
+        _compare(f"unpack_reduce_repack [back-to-back call {i}]", got, want)
+    del outs
+    ent = entropy.quantize_pack_plain(acc, eb_in, cap)
+    ent_want = (ent, entropy.unpack_dequantize_reduce_plain(*ent[:3], eb_in, x2d))
+    outs = []
+    for _ in range(20):  # hop, entropy pack, hop, entropy unpack-reduce: one scratch
+        outs.append(("hop", lorenzo.unpack_reduce_repack(*args, emit_f32=True,
+                                                         return_total=True)))
+        outs.append(("ent", entropy.quantize_pack(acc, eb_in, cap)))
+        outs.append(("hop", lorenzo.unpack_reduce_repack(*args, emit_f32=True,
+                                                         return_total=True)))
+        outs.append(("red", (entropy.unpack_dequantize_reduce(*ent[:3], eb_in, x2d),)))
+    for i, (kind, got) in enumerate(outs):
+        _compare(f"interleaved call {i} ({kind})", got,
+                 want if kind == "hop" else ent_want[0] if kind == "ent" else (ent_want[1],))
+    log("hop kernel vs plain [50 back-to-back calls at the 16 MiB bucket, one scratch; "
+        "20 rounds interleaved with entropy calls on the same stream]: mismatches 0")
+    del outs
+    lorenzo.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lorenzo.unpack_reduce_repack(*args, emit_f32=True)
+            lorenzo.unpack_reduce_repack(*args)
+        torch.cuda.synchronize()
+    rows = _kernel_launches(_device_events(prof), LORENZO_SYMBOLS)
+    _check_hop_launch_structure(rows, lorenzo.LAUNCHES, "hop calls")
+    log(f"hop kernel launches for 6 calls (16 MiB bucket): {rows}")
+    del prof, stream, args, want, ent, ent_want
+    torch.cuda.empty_cache()
 
 
 def _wild(n, gen, device):
@@ -624,6 +784,11 @@ def _profile(group, fn, xs, plan, intervals=None):
     busy = sum(e.self_device_time_total for e in events) / 1e3
     log(f"profile: warm wall {warm * 1e3:.1f} ms; traced wall {traced * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %)")
+    rows = _kernel_launches(events, LORENZO_SYMBOLS)
+    got = _check_hop_launch_structure(rows, _expected_launches(plan, group.size),
+                                      f"profiled {plan.op}", dropped=0.05)
+    log(f"  Lorenzo launches in the profile (hop, tail, one-CTA scan): {got}; "
+        + "; ".join(f"{k} {c} x {ms:.2f} ms" for k, (c, ms) in sorted(rows.items())))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
     for e in events:
@@ -952,17 +1117,22 @@ def _time_entropy(tag, stream, x2d, acc, eb, cap, words, errs, lossless):
     return records
 
 
-def _tile_caps(desc):
-    """Capacities that end a stream exactly at the end of look-back tile 3
-    and inside it (in its first non-empty block segment)."""
-    from repro_torch.core import entropy as ent
-    from repro_torch.kernels import entropy
+def _tile_caps(words, tile):
+    """Capacities that end a stream of per-block word counts ``words``
+    exactly at the end of look-back tile ``tile`` and inside it (in its
+    first non-empty block)."""
+    from repro_torch.kernels import lookback
 
-    words = (ent.split_desc(desc).long().sum(dim=1) * ent.SUB_WORDS_PER_BIT).tolist()
-    edge = sum(words[: 4 * entropy.TILE_BLOCKS])
-    first = next(w for w in words[3 * entropy.TILE_BLOCKS:] if w)
-    return {"cap on a tile boundary": edge,
-            "cap inside a tile": sum(words[: 3 * entropy.TILE_BLOCKS]) + first // 2 + 1}
+    r = lookback.TILE_BLOCKS
+    first = next(w for w in words[tile * r:] if w)
+    return {"cap on a tile boundary": sum(words[: (tile + 1) * r]),
+            "cap inside a tile": sum(words[: tile * r]) + first // 2 + 1}
+
+
+def _entropy_words(desc):
+    from repro_torch.core import entropy as ent
+
+    return (ent.split_desc(desc).long().sum(dim=1) * ent.SUB_WORDS_PER_BIT).tolist()
 
 
 def _entropy_case(label, x2d, acc, eb, cap, lossless):
@@ -1013,7 +1183,7 @@ def _check_entropy_edges(device, gen, eb):
     for lossless in (False, True):
         packed, desc, anchor, _ = entropy.quantize_pack_plain(x2d, eb, nb5 * 256,
                                                               lossless=lossless)
-        for label, cap in _tile_caps(desc).items():
+        for label, cap in _tile_caps(_entropy_words(desc), 3).items():
             if not _entropy_case(label, x2d, acc, eb, cap, lossless)[2] > cap:
                 raise AssertionError(f"{label}: the stream does not overflow")
         for nb in (45, 13, 1):
@@ -1044,19 +1214,6 @@ def _check_entropy_edges(device, gen, eb):
         "one scratch]: mismatches 0")
     del outs, wants
     torch.cuda.empty_cache()
-
-
-def _entropy_kernel_launches(events):
-    """{kernel symbol: [device launches, device ms]} over a profile's
-    device rows of the entropy kernels and of any word-offset scan."""
-    rows = {}
-    for e in events:
-        m = re.search(r"\b(ent_\w+_kernel|word_offsets_kernel)(<[^>]*>)?", e.key)
-        if m:
-            row = rows.setdefault(m.group(0), [0, 0.0])
-            row[0] += e.count
-            row[1] += e.self_device_time_total / 1e3
-    return rows
 
 
 def _check_entropy_launch_structure(rows, calls, label, dropped=0.0):
@@ -1142,7 +1299,7 @@ def check_entropy_kernels(device, gen):
                         for _ in range(3):
                             getattr(entropy, fn)(*args, lossless=lossless)
                     torch.cuda.synchronize()
-                rows = _entropy_kernel_launches(_device_events(prof))
+                rows = _kernel_launches(_device_events(prof), ENTROPY_SYMBOLS)
                 _check_entropy_launch_structure(rows, entropy.LAUNCHES, label)
                 log(f"entropy kernel launches for 3 calls of each ({label}): {rows}")
                 del prof
@@ -1338,7 +1495,7 @@ def run_grad_sync(device, gen):
         f"({100 * busy / (traced * 1e3):.1f} %)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:16]:
         log(f"  {e.count:>6} x {e.self_device_time_total / 1e3:8.2f} ms  {e.key[:160]}")
-    rows = _entropy_kernel_launches(events)
+    rows = _kernel_launches(events, ENTROPY_SYMBOLS)
     for sym, (count, ms) in sorted(rows.items()):
         log(f"  entropy sub-kernel {sym}: {count} launches, {ms:.2f} ms of device time "
             f"({1e3 * ms / max(count, 1):.2f} us each)")
@@ -1366,6 +1523,22 @@ def run_grad_sync(device, gen):
         if codec in ("lossless", "passthrough"):
             results[codec] = [_flat_leaves(out) for out, _ in res]
         del res
+        if codec == "lorenzo":  # kernel 2 in the default sync, from the profiler
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                res, calls, traced = _sync_once(group, trees, s, device)
+            del res
+            events = _device_events(prof)
+            busy = sum(e.self_device_time_total for e in events) / 1e3
+            rows = _kernel_launches(events, LORENZO_SYMBOLS)
+            got = _check_hop_launch_structure(rows, calls, "grad sync lorenzo", dropped=0.05)
+            hop = [(c, ms) for k, (c, ms) in rows.items() if k.startswith("hop_lookback")]
+            log(f"grad sync lorenzo profile: traced wall {traced * 1e3:.1f} ms, device busy "
+                f"{busy:.1f} ms; kernel 2: {calls['unpack_reduce_repack']} calls, "
+                f"{sum(c for c, _ in hop)} hop_lookback_kernel launches, "
+                f"{sum(ms for k, (_, ms) in rows.items() if k.startswith('hop_')):.2f} ms of "
+                f"device time with its tail launches; Lorenzo launches {got}; "
+                + "; ".join(f"{k} {c} x {ms:.2f} ms" for k, (c, ms) in sorted(rows.items())))
+            del prof, events
     mism = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
                for ra, rb in zip(results["lossless"], results["passthrough"])
                for a, b in zip(ra, rb))

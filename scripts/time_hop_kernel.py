@@ -1,0 +1,138 @@
+"""Time the Lorenzo ring hop (kernel 2, ``unpack_reduce_repack``) of one
+checkout of the port.
+
+    python3 scripts/time_hop_kernel.py [--src DIR] [--label NAME]
+
+``--src`` is the ``src`` directory that holds ``repro_torch`` (default:
+this checkout's).  Run it for two checkouts in one process list on one
+card (for example a parent unpacked with ``git archive`` into a directory
+that ``.gitignore`` lists, then this tree, this tree, the parent) to
+compare them.  Shapes: one 16 MiB gradient bucket (16,384 rows) with the
+f32 sum written (the recursive-doubling carry of the default ``lorenzo``
+grad sync), and one pipelined-ring piece of the 646 MB allreduce (39,432
+rows) without it (the ring's mode) and with it; the incoming stream is
+packed at eb = 1e-4 / 8, re-packed at 1e-4 / 7, capacity factor 0.6, as
+in ``chip_smoke.py``.  For each it checks the kernel against the plain
+version (stream words, widths, anchors and the f32 sum bitwise) and
+prints the median ms of 20 event pairs around 10 back-to-back calls,
+around one call, the device time per call of the port's kernels from the
+profiler (by kernel name, with launches per call), and the bytes bound at
+3.35 TB/s.  It needs a CUDA card and imports no JAX.
+"""
+import argparse
+import pathlib
+import re
+import subprocess
+import sys
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+EB = 1e-4
+OWN = re.compile(r"\(anonymous namespace\)::(hop_\w+_kernel|pack_kernel|"
+                 r"word_offsets_kernel)(<[^>]*>)?")
+
+
+def _median_ms(torch, fn, reps=20, calls=1):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return sorted(times)[len(times) // 2]
+
+
+def _device(torch, fn, calls=10):
+    """{kernel: (launches per call, device us per call)} from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        m = OWN.search(e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            n, us = rows.get(m.group(0), (0, 0.0))
+            rows[m.group(0)] = (n + e.count / calls, us + e.self_device_time_total / calls)
+    return rows
+
+
+def _walk(torch, n, gen, dev):
+    steps = torch.randn(n, dtype=torch.float64, generator=gen, device=dev).mul_(0.01)
+    return torch.cumsum(steps, 0).to(torch.float32)
+
+
+def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve().parents[1] / "src"))
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_hop_kernel.py: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
+    from repro_torch.core.collectives import PIECE_QUANTUM
+    from repro_torch.core.compressed import capacity_words_for
+    from repro_torch.kernels import lorenzo, ops
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    label = args.label or args.src
+    print(f"[{label}] card: {smi}; package {lorenzo.__file__}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    eb_in = torch.full((), EB / 8, dtype=torch.float32, device=dev)
+    eb_out = torch.full((), EB / 7, dtype=torch.float32, device=dev)
+    quantum = 8 * 2 * PIECE_QUANTUM
+    piece = -(-(646_000_000 // 4) // quantum) * quantum // 16
+    cases = [("16 MiB bucket", 4 * 1024 * 1024, True),
+             ("646 MB ring piece", piece, False), ("646 MB ring piece", piece, True)]
+    for shape, n, emit in cases:
+        x2d = ops.to_blocks(_walk(torch, n, gen, dev) * 8.0)
+        acc = ops.to_blocks(_walk(torch, n, gen, dev))
+        nb = x2d.shape[0]
+        cap = capacity_words_for(n, 0.6, 256)
+        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)
+        words_in = 8 * int(stream[1].long().sum())
+        hop_args = (*stream, eb_in, acc, eb_out, cap)
+        got = lorenzo.unpack_reduce_repack(*hop_args, emit_f32=emit)
+        want = lorenzo.unpack_reduce_repack_plain(*hop_args, emit_f32=emit)
+        mism = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                   for g, w in zip(got, want))
+        if mism:
+            raise AssertionError(f"{shape}: {mism} elements differ from the plain version")
+        meta = 8 * nb
+        nbytes = 4 * min(words_in, cap) + meta + 4 * nb * 256 + 4 * cap + meta + \
+            (4 * nb * 256 if emit else 0)
+
+        def fn():
+            return lorenzo.unpack_reduce_repack(*hop_args, emit_f32=emit)
+
+        b2b = _median_ms(torch, fn, calls=10)
+        one = _median_ms(torch, fn)
+        rows = _device(torch, fn)
+        dev_us = sum(us for _, us in rows.values())
+        split = "; ".join(f"{k} x{c:g} {us:.1f} us" for k, (c, us) in sorted(rows.items()))
+        print(f"[{label}] {shape} ({nb} rows, {words_in} words in) emit_f32={emit}: "
+              f"mismatches 0; {b2b:.4f} ms back-to-back, {one:.4f} ms one call, "
+              f"{dev_us / 1e3:.4f} ms device ({split}); bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+        del x2d, acc, stream, got, want
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -102,7 +102,8 @@ class ErrorBoundedLorenzo:
         ``decompress_reduce`` then ``compress``, byte-identical).
         ``eb_out`` defaults to the incoming stream's bound.  Returns
         ``(Compressed, updated | None)``; the f32 sum comes back only with
-        ``return_updated`` (the redoub carry)."""
+        ``return_updated`` (the redoub carry).  ``nwords`` is the total the
+        hop returns beside the stream."""
         if not self.fused:
             return _composed_hop(self, c, acc, eb_out, return_updated)
         if int(acc.numel()) != c.n:
@@ -111,12 +112,11 @@ class ErrorBoundedLorenzo:
         cap = capacity_words_for(c.n, self.capacity_factor, self.block)
         res = ops.unpack_reduce_repack(
             c.packed, c.bitwidth, c.anchor, c.eb, ops.to_blocks(acc), eb_out,
-            cap, emit_f32=return_updated,
+            cap, emit_f32=return_updated, return_total=True,
         )
         packed, bw, anchor = res[:3]
         c_out = Compressed(
-            packed=packed, bitwidth=bw, anchor=anchor,
-            nwords=bitpack.packed_words(bw, self.block), eb=eb_out,
+            packed=packed, bitwidth=bw, anchor=anchor, nwords=res[-1], eb=eb_out,
             n=c.n, block=self.block,
         )
         updated = ops.from_blocks(res[3], c.n) if return_updated else None

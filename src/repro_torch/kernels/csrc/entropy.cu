@@ -69,24 +69,6 @@ constexpr int kSubs = 4;
 constexpr int kSub = kBlock / kSubs;        // 64 elements per sub-block
 constexpr int kSubWordsPerBit = kSub / 32;  // 2 words per bit of sub width
 constexpr int kDescBits = 6;
-constexpr int kTileThreads = 256;           // 8 warps
-constexpr int kWarpBlocks = 4;              // Lorenzo blocks per warp and tile
-constexpr int kTileBlocks = kWarps * kWarpBlocks;  // 32 blocks per tile
-constexpr int kTailBlocks = 1024;           // grid cap of the tail-zeroing launch
-
-// ceil(2^21 / bw) for bw in 1..32: (n * kRecip[bw]) >> 21 == n / bw for every
-// n < 2^11 (the error n * (kRecip[bw] * bw - 2^21) / 2^21 stays below 1 / bw),
-// and a word's first bit inside its sub is below 64 * 32 = 2^11.
-constexpr int kRecipShift = 21;
-#define LZ_RECIP(d) (((1u << kRecipShift) + (d) - 1) / (d))
-__constant__ uint32_t kRecip[33] = {
-    0u,          LZ_RECIP(1),  LZ_RECIP(2),  LZ_RECIP(3),  LZ_RECIP(4),  LZ_RECIP(5),
-    LZ_RECIP(6), LZ_RECIP(7),  LZ_RECIP(8),  LZ_RECIP(9),  LZ_RECIP(10), LZ_RECIP(11),
-    LZ_RECIP(12), LZ_RECIP(13), LZ_RECIP(14), LZ_RECIP(15), LZ_RECIP(16), LZ_RECIP(17),
-    LZ_RECIP(18), LZ_RECIP(19), LZ_RECIP(20), LZ_RECIP(21), LZ_RECIP(22), LZ_RECIP(23),
-    LZ_RECIP(24), LZ_RECIP(25), LZ_RECIP(26), LZ_RECIP(27), LZ_RECIP(28), LZ_RECIP(29),
-    LZ_RECIP(30), LZ_RECIP(31), LZ_RECIP(32)};
-#undef LZ_RECIP
 
 __device__ __forceinline__ int sub_width(int32_t desc, int k) {
   return (desc >> (kDescBits * k)) & ((1 << kDescBits) - 1);
@@ -104,41 +86,10 @@ __device__ __forceinline__ int32_t quantize_one(float x, float recip) {
   else return __float2int_rn(__fmul_rn(x, recip));
 }
 
-// Four consecutive floats: one 16-byte load, or four 4-byte loads where the
-// caller's tensor starts off a 16-byte boundary (a view into a larger one).
-__device__ __forceinline__ float4 load4(const float* p) {
-  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) return *reinterpret_cast<const float4*>(p);
-  return make_float4(p[0], p[1], p[2], p[3]);
-}
-
-__device__ __forceinline__ uint32_t zigzag(int32_t q, int32_t prev) {
-  const int32_t d = (int32_t)((uint32_t)q - (uint32_t)prev);
-  return ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
-}
-
 __device__ __forceinline__ uint32_t half_warp_max(uint32_t v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-__device__ __forceinline__ uint32_t warp_inclusive_sum(uint32_t v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t n = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += n;
-  }
-  return v;
-}
-
-// Tile-level word counts: lane i of warp 0 holds block i's words; writes
-// each block's in-tile offset to blkoff_s and returns the tile's total.
-__device__ __forceinline__ uint32_t tile_offsets(const int32_t* words_s, int32_t* blkoff_s,
-                                                 int lane) {
-  const uint32_t w = (uint32_t)words_s[lane];
-  const uint32_t incl = warp_inclusive_sum(w, lane);
-  blkoff_s[lane] = (int32_t)(incl - w);
-  return __shfl_sync(0xffffffffu, incl, 31);
 }
 
 // First word of sub k inside a block's payload.
@@ -248,21 +199,11 @@ ent_pack_lookback_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
 }
 
-// Zero the unused tail [total, cap) of the capacity buffer, 16 bytes a
-// store between the 4-word boundaries (the wrapper allocates the buffer, so
-// it starts on a 16-byte boundary).
+// Zero the unused tail [total, cap) of the capacity buffer.
 __global__ void __launch_bounds__(kBlock)
 ent_zero_tail_kernel(uint32_t* __restrict__ packed, long long cap,
                      const int32_t* __restrict__ total) {
-  const long long start = *total;
-  const long long gid = (long long)blockIdx.x * kBlock + threadIdx.x;
-  const long long stride = (long long)gridDim.x * kBlock;
-  const long long mid = start < cap ? min((start + 3) & ~3LL, cap) : cap;
-  const long long end4 = max(mid, cap & ~3LL);
-  if (start + gid < mid) packed[start + gid] = 0u;
-  if (end4 + gid < cap) packed[end4 + gid] = 0u;
-  for (long long i = mid / 4 + gid; i < end4 / 4; i += stride)
-    reinterpret_cast<uint4*>(packed)[i] = make_uint4(0u, 0u, 0u, 0u);
+  zero_tail(packed, cap, *total);
 }
 
 // Unpack (and reduce): one tile of 32 blocks per CTA (see the header comment).
@@ -301,26 +242,9 @@ ent_unpack_lookback_kernel(const uint32_t* __restrict__ packed, long long cap,
     if (lane == 0) off_s = excl;
   }
   __syncthreads();
-  // Stage words [lo, end) where lo is the 16-byte boundary at or below the
-  // segment's first word; words outside [0, cap) read as 0.
   const long long off = off_s;
   const long long end = off + blkoff_s[kTileBlocks - 1] + words_s[kTileBlocks - 1];
-  const long long mis = (long long)((reinterpret_cast<uintptr_t>(packed) >> 2) & 3);
-  const long long lo = ((off + mis) & ~3LL) - mis;
-  const int n4 = (int)((end - lo + 3) >> 2);
-  for (int i = threadIdx.x; i < n4; i += kTileThreads) {
-    const long long w0 = lo + 4LL * i;
-    uint4 v;
-    if (w0 >= 0 && w0 + 4 <= cap) {
-      v = *reinterpret_cast<const uint4*>(packed + w0);
-    } else {
-      uint32_t t[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) t[k] = w0 + k >= 0 ? load_word(packed, cap, w0 + k) : 0u;
-      v = make_uint4(t[0], t[1], t[2], t[3]);
-    }
-    reinterpret_cast<uint4*>(seg_s)[i] = v;
-  }
+  const long long lo = stage_segment(packed, cap, off, end, seg_s);
   __syncthreads();
   const float twoeb = kLossless ? 0.f : *twoeb_p;
 #pragma unroll
@@ -414,7 +338,7 @@ int unpack_impl(const uint32_t* packed, long long cap, const int32_t* desc,
 
 extern "C" {
 
-// ``lb_state`` holds one 64-bit look-back word per tile (ceil(nb / 8)) and
+// ``lb_state`` holds one 64-bit look-back word per tile (ceil(nb / 32)) and
 // ``lb_counter`` the tile counter (0 between launches on the stream);
 // ``epoch`` tags this call's state words (see lorenzo_common.cuh).
 int ent_quantize_pack(const float* x, int nb, const float* recip, int lossless,

@@ -18,42 +18,81 @@
 // (core/bitpack.py).  Each is a single launch: the work is block-local,
 // so no scan across blocks is needed.
 //
-// Layout: f32 data is (nb, 256); one CUDA block of 256 threads handles one
-// 256-element Lorenzo block, thread j owning element j.  Wire words are
+// Layout: f32 data is (nb, 256); outside the hop one CUDA block of 256
+// threads handles one 256-element Lorenzo block, thread j owning element
+// j.  Wire words are
 // uint32, LSB-first, block i's codes at word offset off_i = sum_{k<i} 8*bw_k
 // (BLOCK % 32 == 0, so every block starts on a word boundary).
 //
 // What changed against the TPU design: the Pallas kernels walk a sequential
-// grid and carry the running word offset in SMEM.  A GPU grid has no order,
-// so each entry point is a short sequence of launches instead:
+// grid and carry the running word offset in SMEM.  A GPU grid has no order.
+// Kernels 1, 3 and 4 are a short sequence of launches instead:
 //   front (quantize -> per-block bw, anchor) -> scan (exclusive prefix sum of
 //   8*bw over the blocks, hand-written, one CTA) -> pack (every thread owns
-//   one output word and ORs in the codes that overlap it, so no atomics).
-// Receive side: scan of the incoming widths -> unpack.  The hop kernel fuses
-// unpack + reduce + the quantize front, writes the reduced f32 chunk to
-// device memory, and the pack launch reads it back.  Keeping that
-// intermediate on chip is later work.
+//   one output word and ORs in the codes that overlap it, so no atomics);
+//   receive side: scan of the incoming widths -> unpack.
+//
+// The ring hop (kernel 2) is one pass per call over tiles of 32 blocks
+// (256 threads; warp w takes blocks w, w + 8, w + 16 and w + 24; tile
+// indices drawn in start order), with two decoupled look-backs of
+// lorenzo_common.cuh in one launch, plus a small launch that zeroes
+// [total, cap).  Each CTA:
+//   1. draws its tile; warp 0 reads the tile's 32 incoming widths while
+//      the other warps prefetch their blocks' acc rows into L2;
+//   2. look-back A (warp 0): publishes 8 * sum(bw_in) of the tile at once
+//      and finds the tile's first incoming word;
+//   3. stages the tile's incoming segment in shared memory (16-byte loads
+//      from the boundary at or below its first word; words at or past
+//      cap_in read as 0), decodes each block (lane l: elements 4l..4l+3 and
+//      128+4l..128+4l+3, a two-part warp scan for the prefix sum), reduces
+//      with acc rounded once, writes the f32 sum only when the caller asks
+//      for it, re-quantizes at the outgoing bound, takes the Lorenzo deltas
+//      and the block's width with warp shuffles and keeps the zigzag codes
+//      in a shared row;
+//   4. look-back B (warp 0): publishes 8 * sum(bw_out) of the tile in a
+//      second state array (same epoch, same tile index) as soon as every
+//      block's width is known and finds its first outgoing word; the tile
+//      with the last block writes the stream's total.  Meanwhile every
+//      warp packs its blocks in place (warp 0 after its look-back): lanes
+//      8g .. 8g + 7 take the warp's block g, lane r packing codes
+//      32r .. 32r + 31 LSB-first into words bw*r .. bw*r + bw - 1 (32
+//      codes of bw bits are bw whole words: no atomics, no division);
+//   5. copies each block's words out, coalesced, those below cap_out.
+// The f32 sum never returns to device memory on the ring path.  Deadlock
+// freedom: either look-back of tile t waits only on tiles below t, and
+// tiles are drawn in start order, so each of those is running or done.
+// Tile 0 waits on nothing; a tile whose predecessors finish both
+// look-backs finishes its own (look-back B of tile t needs tiles below t
+// to have passed look-back A, which never waits on t).  The incoming
+// segment and the code rows take 68 KB of dynamic shared memory a CTA
+// (three CTAs an SM), opted into once per device.  The pack is by runs and
+// overlaps look-back B, not one thread per output word after it (kernel
+// 1's pack_kernel): building words one by one was the largest part of the
+// kernel on the H100, and it sat on the critical path behind the look-back.
 //
 // Bound on this card: bytes.  Each element is read and written a few times
-// as 4-byte words and does ~20 integer operations, far below the ~300
+// as 4-byte words and does ~20-60 integer operations, far below the ~300
 // operations per byte at which an H100 stops being memory-bound.  The design
-// keeps every global access coalesced over the block (thread j touches
-// element j; pack threads write consecutive words) and does the in-block
-// work (Lorenzo delta, max, prefix sum, bit placement) in registers and
-// shared memory.
+// keeps every global access coalesced (16-byte loads of acc and stores of
+// the f32 sum, consecutive stream words a warp) and does the in-block work
+// (Lorenzo delta, max, prefix sum, bit placement) in registers and shared
+// memory.
 //
 // Exactness (bitwise equal to the JAX kernel path and to the plain torch
 // versions): q = __float2int_rn(__fmul_rn(x, recip)) (saturating, NaN -> 0);
 // zigzag on int32; bw = 32 - clz(max code); reconstruction is an int32
 // wrapping prefix sum plus the anchor, qf = __int2float_rn(q); the reduce is
-// __fmaf_rn(qf, twoeb, acc), rounded once.  recip and twoeb arrive as device
+// __fmaf_rn(qf, twoeb, acc), rounded once (the hop passes a NaN in acc
+// through as the reference does).  recip and twoeb arrive as device
 // scalars computed by the wrapper, like the reference's (1, 1) operands.
 // Compile without --use_fast_math.  The quantizer front, the
-// reconstruction and the word-offset scan live in lorenzo_common.cuh,
-// shared with the entropy-coded wire kernels (entropy.cu).
+// reconstruction, the word-offset scan and the look-back live in
+// lorenzo_common.cuh, shared with the entropy-coded wire kernels
+// (entropy.cu).
 //
-// Capacity: words at index >= cap are never stored; the pack launch zeroes
-// [nwords, cap).  On the receive side every word at index >= cap reads as 0.
+// Capacity: words at index >= cap are never stored; the pack launch (the
+// hop: its tail launch) zeroes [nwords, cap).  On the receive side every
+// word at index >= cap reads as 0.
 
 #include "lorenzo_common.cuh"
 
@@ -158,29 +197,263 @@ dequantize_kernel(const uint32_t* __restrict__ codes, const int32_t* __restrict_
   out[i] = kReduce ? __fmaf_rn(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
 }
 
-// Hop front: decode + reduce (written out as f32), then the quantize front
-// of the sum at the outgoing bound.
-__global__ void __launch_bounds__(kBlock)
-hop_front_kernel(const uint32_t* __restrict__ packed, long long cap,
-                 const int32_t* __restrict__ bw_in, const int32_t* __restrict__ anchor_in,
-                 const int32_t* __restrict__ offsets, const float* __restrict__ twoeb_p,
-                 const float* __restrict__ acc, const float* __restrict__ recip_p,
-                 float* __restrict__ x_out, int32_t* __restrict__ bw_out,
-                 int32_t* __restrict__ anchor_out) {
-  __shared__ uint32_t red[kWarps];
-  __shared__ int32_t q_s[kBlock];
-  const int b = blockIdx.x;
-  const float qf = decode_q(packed, cap, bw_in[b], anchor_in[b], offsets[b], red);
-  const size_t i = (size_t)b * kBlock + threadIdx.x;
-  const float xv = __fmaf_rn(qf, *twoeb_p, acc[i]);
-  x_out[i] = xv;
-  const int32_t q = __float2int_rn(__fmul_rn(xv, *recip_p));
-  __syncthreads();  // red is reused by block_max
-  const uint32_t umax = block_max(lorenzo_zig(q, q_s), red);
-  if (threadIdx.x == 0) {
-    bw_out[b] = 32 - __clz((int)umax);
-    anchor_out[b] = q;
+constexpr int kSegWords = kTileBlocks * kBlock + 8;  // a tile's staged incoming segment
+constexpr int kRun = 32;                             // codes a lane packs: bw whole words
+constexpr int kZRow = kBlock + 4 * (kBlock / kRun);  // a block's codes, 4 words of skew a run
+constexpr int kHopSmem = (kSegWords + kTileBlocks * kZRow) * 4;  // + the codes: 69,664 B
+
+// Code e of a block in its shared row: runs of 32 codes 36 words apart, so
+// that the eight lanes reading one 16-byte piece of eight runs hit 32
+// different banks.
+__device__ __forceinline__ int zrow(int e) { return e + 4 * (e / kRun); }
+
+// The reduce acc + q * 2eb, rounded once.  A NaN in acc comes out as
+// itself, quieted, as the reference's add propagates it (the card's fma
+// alone would return its canonical NaN); q * 2eb is finite.
+__device__ __forceinline__ float fma_acc(float qf, float twoeb, float a) {
+  const float r = __fmaf_rn(qf, twoeb, a);
+  return a != a ? __int_as_float(__float_as_int(a) | 0x00400000) : r;
+}
+
+// Receive: lane l's eight int32 values of a dense block (elements 4l+e and
+// 128+4l+e, e < 4; before the multiply by 2*eb), decoded at width bw from
+// the staged segment, whose word ``first`` is the block's first: unzigzag,
+// then the int32-wrapping prefix sum over the block as a two-part warp scan
+// (elements 0..127 are the lanes' low parts in lane order, 128..255 their
+// high parts), plus the anchor.
+__device__ __forceinline__ void decode_block(const uint32_t* seg_s, int first, int bw,
+                                             uint32_t anchor, int lane, int32_t q[8]) {
+  const uint32_t mask = width_mask(bw);
+  const int bit_base = first * 32 + 4 * lane * bw;
+  uint32_t dd[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int bitpos = bit_base + ((e >> 2) * 128 + (e & 3)) * bw;
+    const int wi = bitpos >> 5, sh = bitpos & 31;
+    uint32_t u = seg_s[wi] >> sh;
+    if (sh && sh + bw > 32) u |= seg_s[wi + 1] << (32 - sh);
+    u &= mask;
+    dd[e] = (uint32_t)((int32_t)(u >> 1) ^ -(int32_t)(u & 1u));
   }
+  const uint32_t s_lo = dd[0] + dd[1] + dd[2] + dd[3];
+  const uint32_t s_hi = dd[4] + dd[5] + dd[6] + dd[7];
+  const uint32_t i_lo = warp_inclusive_sum(s_lo, lane);
+  const uint32_t i_hi = warp_inclusive_sum(s_hi, lane);
+  uint32_t run[2] = {anchor + (i_lo - s_lo),
+                     anchor + __shfl_sync(0xffffffffu, i_lo, 31) + (i_hi - s_hi)};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) q[e] = (int32_t)(run[e >> 2] += dd[e]);
+}
+
+// Send: the zigzag Lorenzo codes of lane l's eight quantized values (the
+// layout of decode_block) into zb, the block's row of codes in shared
+// memory (``zrow``);
+// returns the block's width 32 - clz(max code).  The previous element
+// comes from the same lane or by a shuffle; element 0 has none, element
+// 128's is lane 31's element 127.
+__device__ __forceinline__ int encode_block(const int32_t q[8], uint32_t* zb, int lane) {
+  const int32_t up_lo = __shfl_up_sync(0xffffffffu, q[3], 1);
+  const int32_t up_hi = __shfl_up_sync(0xffffffffu, q[7], 1);
+  const int32_t last_lo = __shfl_sync(0xffffffffu, q[3], 31);
+  uint32_t zz[8];
+  zz[0] = zigzag(q[0], lane ? up_lo : q[0]);
+  zz[4] = zigzag(q[4], lane ? up_hi : last_lo);
+#pragma unroll
+  for (int e = 1; e < 4; ++e) {
+    zz[e] = zigzag(q[e], q[e - 1]);
+    zz[4 + e] = zigzag(q[4 + e], q[3 + e]);
+  }
+  uint32_t m = max(max(max(zz[0], zz[1]), max(zz[2], zz[3])),
+                   max(max(zz[4], zz[5]), max(zz[6], zz[7])));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  *reinterpret_cast<uint4*>(zb + zrow(4 * lane)) = make_uint4(zz[0], zz[1], zz[2], zz[3]);
+  *reinterpret_cast<uint4*>(zb + zrow(128 + 4 * lane)) =
+      make_uint4(zz[4], zz[5], zz[6], zz[7]);
+  return 32 - __clz((int)m);
+}
+
+// Send: a block's 8 * bw stream words, built in place.  Lane r of the
+// eight that share the block packs its codes 32 r .. 32 r + 31, LSB-first,
+// into words bw r .. bw r + bw - 1: 32 codes of bw bits fill bw whole words,
+// so the lanes need no atomics and no division.  Every lane of the warp
+// reads its codes before any writes (the warp's four blocks are its own);
+// then zb[0, 8 * bw) is the block's segment.
+__device__ __forceinline__ void pack_run_in_place(uint32_t* zb, int bw, int r) {
+  uint32_t c[kRun];
+#pragma unroll
+  for (int k = 0; k < kRun; k += 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(zb + zrow(kRun * r + k));
+    c[k] = v.x, c[k + 1] = v.y, c[k + 2] = v.z, c[k + 3] = v.w;
+  }
+  __syncwarp();
+  uint32_t* out = zb + bw * r;
+  uint32_t cur = 0u;
+  int used = 0;  // bits of cur taken, 0..31
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    cur |= c[k] << used;
+    if (used + bw >= 32) {  // the word is full: store it, keep the code's high bits
+      *out++ = cur;
+      cur = __funnelshift_l(c[k], 0u, used);  // c >> (32 - used), 0 when used == 0
+    }
+    used = (used + bw) & 31;
+  }
+}
+
+// The ring hop: one tile of 32 blocks per CTA (see the header comment).
+// ``x_out`` is written only with kEmit.
+template <bool kEmit>
+__global__ void __launch_bounds__(kTileThreads)
+hop_lookback_kernel(const uint32_t* __restrict__ packed_in, long long cap_in,
+                    const int32_t* __restrict__ bw_in, const int32_t* __restrict__ anchor_in,
+                    int nb, const float* __restrict__ twoeb_p, const float* __restrict__ acc,
+                    const float* __restrict__ recip_p, float* __restrict__ x_out,
+                    uint32_t* __restrict__ packed_out, long long cap_out,
+                    int32_t* __restrict__ bw_out, int32_t* __restrict__ anchor_out,
+                    int32_t* __restrict__ total_out, Lookback lb_in, Lookback lb_out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* const seg_s = smem;            // the incoming segment, staged
+  uint32_t* const z_s = smem + kSegWords;  // block blk's codes, then its words, at row blk
+  __shared__ int32_t inoff_s[kTileBlocks], wout_s[kTileBlocks], outoff_s[kTileBlocks];
+  __shared__ uint32_t off_in_s, words_in_s, off_out_s;
+  __shared__ int tile_s;
+  const int tiles = (nb + kTileBlocks - 1) / kTileBlocks;
+  const int tile = lookback_tile(lb_in, tiles, &tile_s);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) {  // look-back A at once: lane i reads block i's width
+    const int b = tile * kTileBlocks + lane;
+    const uint32_t w = b < nb ? (uint32_t)(bw_in[b] * kWordsPerBit) : 0u;
+    const uint32_t incl = warp_inclusive_sum(w, lane);
+    inoff_s[lane] = (int32_t)(incl - w);
+    const uint32_t agg = __shfl_sync(0xffffffffu, incl, 31);
+    const uint32_t excl = lookback_exclusive(lb_in, tile, agg);
+    if (lane == 0) {
+      off_in_s = excl;
+      words_in_s = agg;
+    }
+  }
+  int bwi[kWarpBlocks];
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int blk = warp + kWarps * i;  // step i covers 8 consecutive blocks
+    const int b = tile * kTileBlocks + blk;
+    bwi[i] = b < nb ? bw_in[b] : 0;
+    if (b < nb) {  // acc into L2 while look-back A resolves
+      const float* ab = acc + (size_t)b * kBlock;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(ab + 4 * lane));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(ab + 128 + 4 * lane));
+    }
+  }
+  __syncthreads();
+  const long long off = off_in_s;
+  const long long end = off + words_in_s;
+  const long long lo = stage_segment(packed_in, cap_in, off, end, seg_s);
+  __syncthreads();
+  const float twoeb = *twoeb_p, recip = *recip_p;
+  int bwo[kWarpBlocks];
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int blk = warp + kWarps * i;
+    const int b = tile * kTileBlocks + blk;
+    bwo[i] = 0;
+    if (b < nb) {  // warp-uniform
+      int32_t q[8];
+      decode_block(seg_s, (int)(off - lo) + inoff_s[blk], bwi[i], (uint32_t)anchor_in[b],
+                   lane, q);
+      // Reduce, rounded once, and quantize the sum at the outgoing bound.
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        const size_t i0 = (size_t)b * kBlock + 128 * part + 4 * lane;
+        const float4 a = load4(acc + i0);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        float xv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xv[e] = fma_acc(__int2float_rn(q[4 * part + e]), twoeb, av[e]);
+          q[4 * part + e] = __float2int_rn(__fmul_rn(xv[e], recip));
+        }
+        if constexpr (kEmit)
+          *reinterpret_cast<float4*>(x_out + i0) = make_float4(xv[0], xv[1], xv[2], xv[3]);
+      }
+      bwo[i] = encode_block(q, z_s + blk * kZRow, lane);
+      if (lane == 0) {
+        bw_out[b] = bwo[i];
+        anchor_out[b] = q[0];
+      }
+    }
+    if (lane == 0) wout_s[blk] = bwo[i] * kWordsPerBit;
+  }
+  __syncthreads();
+  if (warp == 0) {  // look-back B: the tile's first outgoing word
+    const uint32_t agg = tile_offsets(wout_s, outoff_s, lane);
+    const uint32_t excl = lookback_exclusive(lb_out, tile, agg);
+    if (lane == 0) {
+      off_out_s = excl;
+      if (tile == tiles - 1) *total_out = (int32_t)(excl + agg);
+    }
+  }
+  {  // pack while look-back B resolves: lanes 8g .. 8g + 7 take the warp's block g
+    const int g = lane >> 3;
+    const int bw = g == 0 ? bwo[0] : g == 1 ? bwo[1] : g == 2 ? bwo[2] : bwo[3];
+    pack_run_in_place(z_s + (warp + kWarps * g) * kZRow, bw, lane & 7);
+  }
+  __syncthreads();
+  // Copy each block's segment out, the words below cap_out.
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int blk = warp + kWarps * i;
+    const long long base = (long long)off_out_s + outoff_s[blk];
+    const uint32_t* zb = z_s + blk * kZRow;
+    for (int j = lane; j < bwo[i] * kWordsPerBit; j += 32)
+      if (base + j < cap_out) packed_out[base + j] = zb[j];
+  }
+}
+
+// Zero the unused tail [total, cap) of the hop's outgoing capacity buffer.
+__global__ void __launch_bounds__(kBlock)
+hop_zero_tail_kernel(uint32_t* __restrict__ packed, long long cap,
+                     const int32_t* __restrict__ total) {
+  zero_tail(packed, cap, *total);
+}
+
+// Above 48 KB a kernel's dynamic shared memory needs an opt-in, once per
+// kernel and device (racing callers set the same value).
+template <bool kEmit>
+int hop_opt_in() {
+  static unsigned long long done = 0ull;  // bit d: device d opted in
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (__atomic_load_n(&done, __ATOMIC_ACQUIRE) & bit) return 0;
+  e = cudaFuncSetAttribute(hop_lookback_kernel<kEmit>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kHopSmem);
+  if (e != cudaSuccess) return (int)e;
+  __atomic_fetch_or(&done, bit, __ATOMIC_RELEASE);
+  return 0;
+}
+
+template <bool kEmit>
+int hop_impl(const uint32_t* packed_in, long long cap_in, const int32_t* bw_in,
+             const int32_t* anchor_in, int nb, const float* twoeb, const float* acc,
+             const float* recip, float* x_out, uint32_t* packed_out, long long cap_out,
+             int32_t* bw_out, int32_t* anchor_out, int32_t* total, Lookback lb_in,
+             Lookback lb_out, cudaStream_t stream) {
+  const int err = hop_opt_in<kEmit>();
+  if (err) return err;
+  const int tiles = (nb + kTileBlocks - 1) / kTileBlocks;
+  hop_lookback_kernel<kEmit><<<tiles, kTileThreads, kHopSmem, stream>>>(
+      packed_in, cap_in, bw_in, anchor_in, nb, twoeb, acc, recip, x_out, packed_out,
+      cap_out, bw_out, anchor_out, total, lb_in, lb_out);
+  LZ_CHECK();
+  if (cap_out > 0) {
+    const long long want = (cap_out + kBlock - 1) / kBlock;
+    hop_zero_tail_kernel<<<(int)(want < kTailBlocks ? want : kTailBlocks), kBlock, 0,
+                           stream>>>(packed_out, cap_out, total);
+    LZ_CHECK();
+  }
+  return 0;
 }
 
 }  // namespace
@@ -215,24 +488,27 @@ int lz_unpack_dequantize(const uint32_t* packed, long long cap, const int32_t* b
   return 0;
 }
 
+// The ring hop.  ``x_out`` may be null (no f32 sum out).  ``lb_state``
+// holds 2 * ceil(nb / 32) 64-bit look-back words (incoming, then
+// outgoing), ``lb_counter`` the tile counter (0 between launches on the
+// stream); ``epoch`` tags this call's state words (see lorenzo_common.cuh).
+// ``total`` receives the outgoing stream's true length in words.  nb > 0.
 int lz_unpack_reduce_repack(const uint32_t* packed_in, long long cap_in,
                             const int32_t* bw_in, const int32_t* anchor_in, int nb,
                             const float* twoeb, const float* acc, const float* recip,
                             float* x_out, uint32_t* packed_out, long long cap_out,
-                            int32_t* bw_out, int32_t* anchor_out, int32_t* offsets_in,
-                            int32_t* offsets_out, cudaStream_t stream) {
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw_in}, nb, offsets_in);
-  LZ_CHECK();
-  hop_front_kernel<<<nb, kBlock, 0, stream>>>(packed_in, cap_in, bw_in, anchor_in,
-                                              offsets_in, twoeb, acc, recip, x_out,
-                                              bw_out, anchor_out);
-  LZ_CHECK();
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw_out}, nb, offsets_out);
-  LZ_CHECK();
-  pack_kernel<<<nb, kBlock, 0, stream>>>(x_out, recip, bw_out, offsets_out, nb,
-                                         packed_out, cap_out);
-  LZ_CHECK();
-  return 0;
+                            int32_t* bw_out, int32_t* anchor_out, int32_t* total,
+                            unsigned long long* lb_state, unsigned int* lb_counter,
+                            unsigned int epoch, cudaStream_t stream) {
+  const int tiles = (nb + kTileBlocks - 1) / kTileBlocks;
+  const Lookback lb_in{lb_state, lb_counter, epoch};
+  const Lookback lb_out{lb_state + tiles, lb_counter, epoch};
+  return x_out
+      ? hop_impl<true>(packed_in, cap_in, bw_in, anchor_in, nb, twoeb, acc, recip, x_out,
+                       packed_out, cap_out, bw_out, anchor_out, total, lb_in, lb_out, stream)
+      : hop_impl<false>(packed_in, cap_in, bw_in, anchor_in, nb, twoeb, acc, recip, nullptr,
+                        packed_out, cap_out, bw_out, anchor_out, total, lb_in, lb_out,
+                        stream);
 }
 
 int lz_quantize(const float* x, int nb, const float* recip, uint32_t* codes,

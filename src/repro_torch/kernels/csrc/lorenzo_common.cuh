@@ -1,11 +1,13 @@
 // Device functions shared by the Lorenzo codec kernels (lorenzo.cu) and
 // the entropy-coded wire kernels (entropy.cu): the quantizer front, the
-// reconstruction, the one-CTA word-offset scan of the dense kernels and the
-// single-pass decoupled look-back of the entropy kernels.
+// reconstruction, the one-CTA word-offset scan of the dense kernels 1, 3
+// and 4, the single-pass decoupled look-back of the entropy kernels and the
+// ring hop, and the pack's exact division and tail zeroing.
 //
-// Layout: f32 data is (nb, 256).  In the dense kernels one CUDA block of
-// 256 threads handles one 256-element Lorenzo block, thread j owning
-// element j; the entropy kernels take tiles of 8 blocks, one per warp.
+// Layout: f32 data is (nb, 256).  In the dense kernels 1 and 3-7 one CUDA
+// block of 256 threads handles one 256-element Lorenzo block, thread j
+// owning element j; the look-back kernels take tiles of 32 blocks, four
+// per warp.
 // Wire words are uint32, LSB-first, and every block's payload starts on a
 // word boundary.
 //
@@ -67,6 +69,38 @@ __device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* red) {
 __device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ p,
                                               long long cap, long long w) {
   return w < cap ? p[w] : 0u;
+}
+
+// ceil(2^21 / bw) for bw in 1..32: (n * kRecip[bw]) >> 21 == n / bw, in 32
+// bits, for every n < 256 * bw + 32.  The error n * (kRecip[bw] * bw - 2^21)
+// / 2^21 stays below 1 / bw while n * 31 < 2^21, and the product below 2^32.
+// A pack kernel divides the first (and last) bit of an output word by the
+// width of the codes that fill it; a segment holds at most 256 codes.
+constexpr int kRecipShift = 21;
+#define LZ_RECIP(d) (((1u << kRecipShift) + (d) - 1) / (d))
+__constant__ uint32_t kRecip[33] = {
+    0u,          LZ_RECIP(1),  LZ_RECIP(2),  LZ_RECIP(3),  LZ_RECIP(4),  LZ_RECIP(5),
+    LZ_RECIP(6), LZ_RECIP(7),  LZ_RECIP(8),  LZ_RECIP(9),  LZ_RECIP(10), LZ_RECIP(11),
+    LZ_RECIP(12), LZ_RECIP(13), LZ_RECIP(14), LZ_RECIP(15), LZ_RECIP(16), LZ_RECIP(17),
+    LZ_RECIP(18), LZ_RECIP(19), LZ_RECIP(20), LZ_RECIP(21), LZ_RECIP(22), LZ_RECIP(23),
+    LZ_RECIP(24), LZ_RECIP(25), LZ_RECIP(26), LZ_RECIP(27), LZ_RECIP(28), LZ_RECIP(29),
+    LZ_RECIP(30), LZ_RECIP(31), LZ_RECIP(32)};
+#undef LZ_RECIP
+
+// Zero the unused tail [start, cap) of a capacity buffer, 16 bytes a store
+// between the 4-word boundaries (the wrappers allocate the buffer, so it
+// starts on a 16-byte boundary).  Every thread of a 1-D grid of 256-thread
+// blocks calls it.
+__device__ __forceinline__ void zero_tail(uint32_t* __restrict__ packed, long long cap,
+                                          long long start) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long mid = start < cap ? min((start + 3) & ~3LL, cap) : cap;
+  const long long end4 = max(mid, cap & ~3LL);
+  if (start + gid < mid) packed[start + gid] = 0u;
+  if (end4 + gid < cap) packed[end4 + gid] = 0u;
+  for (long long i = mid / 4 + gid; i < end4 / 4; i += stride)
+    reinterpret_cast<uint4*>(packed)[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
 // Zigzag code u of thread j -> its int32 quantized value: unzigzag,
@@ -216,6 +250,69 @@ __device__ __forceinline__ uint32_t lookback_exclusive(const Lookback& lb, int t
   if (lane == 0)
     store_release(lb.state + tile, lookback_word(lb.epoch, kFlagInclusive, excl + agg));
   return excl;
+}
+
+// Tiles of the look-back kernels (entropy.cu, the hop in lorenzo.cu).
+constexpr int kTileThreads = 256;                  // 8 warps
+constexpr int kWarpBlocks = 4;                     // Lorenzo blocks per warp and tile
+constexpr int kTileBlocks = kWarps * kWarpBlocks;  // 32 blocks per tile
+constexpr int kTailBlocks = 1024;                  // grid cap of a tail-zeroing launch
+
+// Four consecutive floats: one 16-byte load, or four 4-byte loads where the
+// caller's tensor starts off a 16-byte boundary (a view into a larger one).
+__device__ __forceinline__ float4 load4(const float* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ uint32_t warp_inclusive_sum(uint32_t v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += n;
+  }
+  return v;
+}
+
+// Lane i of warp 0 holds block i's word count; writes each block's
+// in-tile offset to blkoff_s and returns the tile's total.
+__device__ __forceinline__ uint32_t tile_offsets(const int32_t* words_s, int32_t* blkoff_s,
+                                                 int lane) {
+  const uint32_t w = (uint32_t)words_s[lane];
+  const uint32_t incl = warp_inclusive_sum(w, lane);
+  blkoff_s[lane] = (int32_t)(incl - w);
+  return __shfl_sync(0xffffffffu, incl, 31);
+}
+
+// Stage words [lo, end) of a stream into seg_s, where lo is the 16-byte
+// boundary at or below the segment's first word ``off``; words outside
+// [0, cap) read as 0.  Every thread of the CTA calls it, then syncs.
+// Returns lo (seg_s[w - lo] is word w); seg_s needs end - off + 7 words.
+__device__ __forceinline__ long long stage_segment(const uint32_t* __restrict__ packed,
+                                                   long long cap, long long off,
+                                                   long long end, uint32_t* seg_s) {
+  const long long mis = (long long)((reinterpret_cast<uintptr_t>(packed) >> 2) & 3);
+  const long long lo = ((off + mis) & ~3LL) - mis;
+  const int n4 = (int)((end - lo + 3) >> 2);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    const long long w0 = lo + 4LL * i;
+    uint4 v;
+    if (w0 >= 0 && w0 + 4 <= cap) {
+      v = *reinterpret_cast<const uint4*>(packed + w0);
+    } else {
+      uint32_t t[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) t[k] = w0 + k >= 0 ? load_word(packed, cap, w0 + k) : 0u;
+      v = make_uint4(t[0], t[1], t[2], t[3]);
+    }
+    reinterpret_cast<uint4*>(seg_s)[i] = v;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ uint32_t zigzag(int32_t q, int32_t prev) {
+  const int32_t d = (int32_t)((uint32_t)q - (uint32_t)prev);
+  return ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
 }
 
 }  // namespace

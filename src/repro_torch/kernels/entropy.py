@@ -19,8 +19,8 @@ offset with a decoupled look-back across the grid
 stream segment there to decode.  ``quantize_pack`` is that launch plus one
 that zeroes the words from the total to the capacity; the unpack kernels
 are one launch each.  The look-back's state words and tile counter are
-scratch kept per CUDA stream (``_lookback``), tagged with a new epoch per
-call so they never need clearing.
+scratch kept per CUDA stream (``kernels/lookback.py``), tagged with a new
+epoch per call so they never need clearing.
 
 Beside each kernel wrapper sits its plain PyTorch version (``*_plain``),
 bitwise the same function (words at or past the capacity read as 0, the
@@ -42,7 +42,7 @@ import threading
 import torch
 
 from repro_torch.core import entropy
-from repro_torch.kernels import build, lorenzo
+from repro_torch.kernels import build, lookback, lorenzo
 
 __all__ = [
     "KERNELS",
@@ -104,38 +104,11 @@ _SIGNATURES = {
     "ent_quantize_pack": (_P, _I, _P, _I, _P, _L, _P, _P, _P, _P, _P, _I, _P),
     "ent_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P),
 }
-TILE_BLOCKS = 32  # Lorenzo blocks per look-back tile (csrc/entropy.cu)
-_EPOCHS = 1 << 30  # epochs 1 .. 2**30 - 1 fit the state word's 30 tag bits
-_SCRATCH: dict = {}  # (device, stream handle) -> [int64 scratch, last epoch]
-_SCRATCH_LOCK = threading.Lock()
+TILE_BLOCKS = lookback.TILE_BLOCKS
 
 
 def _launch(fn: str, *args) -> None:
     build.launch(build.load("entropy", _SIGNATURES), fn, *args)
-
-
-def _lookback(device, nb: int):
-    """Look-back scratch for one call on ``device``'s current stream: (int64
-    scratch, epoch).  Element 0 holds the tile counter, which every launch
-    leaves at 0; then one state word per tile.  The ranks of a
-    ``ThreadGroup`` share the stream, so their calls run in order and take
-    turns on one scratch; each gets its own epoch.  A grown scratch starts
-    zeroed (epoch 0, never handed out), and the epoch's wrap clears it.
-    The caller holds the scratch until its launch is queued."""
-    tiles = -(-nb // TILE_BLOCKS)
-    # by device too: every device's default stream has the handle 0
-    key = (device.index, torch.cuda.current_stream().cuda_stream)
-    with _SCRATCH_LOCK:
-        entry = _SCRATCH.get(key)
-        if entry is None or entry[0].numel() - 1 < tiles:
-            size = max(tiles, 2 * (entry[0].numel() - 1) if entry else 0)
-            entry = _SCRATCH[key] = [
-                torch.zeros(size + 1, dtype=torch.int64, device=device), 0]
-        entry[1] += 1
-        if entry[1] == _EPOCHS:
-            entry[0].zero_()
-            entry[1] = 1
-        return entry[0], entry[1]
 
 
 def _scalars(eb: torch.Tensor, lossless: bool):
@@ -158,7 +131,7 @@ def quantize_pack(x2d, eb, capacity_words: int, *, lossless: bool = False):
     desc = torch.empty(nb, dtype=torch.int32, device=dev)
     anchor = torch.empty_like(desc)
     total = torch.empty((), dtype=torch.int32, device=dev)
-    scratch, epoch = _lookback(dev, nb)
+    scratch, epoch = lookback.scratch(dev, lookback.tiles_for(nb))
     _launch("ent_quantize_pack", x2d.data_ptr(), nb, recip.data_ptr(), int(lossless),
             packed.data_ptr(), int(capacity_words), desc.data_ptr(),
             anchor.data_ptr(), total.data_ptr(), scratch.data_ptr() + 8,
@@ -177,7 +150,7 @@ def _unpack(name, packed, desc, anchor, eb, acc, lossless):
         lorenzo._check(acc, "acc", torch.float32, (nb, BLOCK))
     twoeb, _ = _scalars(eb, lossless)
     out = torch.empty((nb, BLOCK), dtype=torch.float32, device=packed.device)
-    scratch, epoch = _lookback(packed.device, nb)
+    scratch, epoch = lookback.scratch(packed.device, lookback.tiles_for(nb))
     _launch("ent_unpack_dequantize", packed.data_ptr(), packed.shape[0],
             desc.data_ptr(), anchor.data_ptr(), nb, twoeb.data_ptr(), int(lossless),
             acc.data_ptr() if acc is not None else None, out.data_ptr(),

@@ -26,6 +26,10 @@ tensor to the plain version and a CUDA tensor to the kernel.  Each kernel
 wrapper counts its launches in ``LAUNCHES`` (one per call: a call is a
 short fixed sequence of CUDA launches, see the source note in
 ``lorenzo.cu``), so a run can show that the main path went through it.
+The ring hop is one single-pass launch with two decoupled look-backs and
+a tail-zeroing launch; its look-back scratch comes from
+``kernels/lookback.py``.  ``quantize_pack`` and the unpack kernels still
+scan the word offsets in a one-CTA launch.
 
 Shapes and types: f32 data is (nb, 256) with nb a multiple of 8; wire
 words and zigzag codes are int32 tensors carrying uint32 bits (codes are
@@ -40,7 +44,7 @@ import threading
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, lookback, ref
 
 __all__ = [
     "BLOCK",
@@ -105,10 +109,18 @@ def unpack_dequantize_reduce_plain(packed, bitwidth, anchor, eb, acc):
 
 
 def unpack_reduce_repack_plain(packed, bitwidth, anchor, eb_in, acc, eb_out,
-                               capacity_words: int, *, emit_f32: bool = False):
+                               capacity_words: int, *, emit_f32: bool = False,
+                               return_total: bool = False):
     x = unpack_dequantize_reduce_plain(packed, bitwidth, anchor, eb_in, acc)
-    out = quantize_pack_plain(x, eb_out, capacity_words)
-    return (*out, x) if emit_f32 else out
+    codes, bw, anchor_out = ref.quantize_ref(x, eb_out)
+    packed_out, total = bitpack.pack(codes, bw, capacity_words)
+    return _hop_outputs(packed_out, bw, anchor_out, x, total, emit_f32, return_total)
+
+
+def _hop_outputs(packed, bw, anchor, x, total, emit_f32, return_total):
+    """(packed, bw, anchor[, f32 sum][, total words])."""
+    return (packed, bw, anchor) + ((x,) if emit_f32 else ()) + \
+        ((total,) if return_total else ())
 
 
 def quantize_plain(x2d, eb):
@@ -133,7 +145,7 @@ _SIGNATURES = {
     "lz_quantize_pack": (_P, _I, _P, _P, _L, _P, _P, _P, _P),
     "lz_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P),
     "lz_unpack_reduce_repack": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _L, _P,
-                                _P, _P, _P, _P),
+                                _P, _P, _P, _P, _I, _P),
     "lz_quantize": (_P, _I, _P, _P, _P, _P, _P),
     "lz_dequantize": (_P, _P, _I, _P, _P, _P, _P),
 }
@@ -215,28 +227,37 @@ def unpack_dequantize_reduce(packed, bitwidth, anchor, eb, acc):
 
 
 def unpack_reduce_repack(packed, bitwidth, anchor, eb_in, acc, eb_out,
-                         capacity_words: int, *, emit_f32: bool = False):
-    """Received words + local f32 -> (packed_out, bw_out, anchor_out[, f32])."""
+                         capacity_words: int, *, emit_f32: bool = False,
+                         return_total: bool = False):
+    """Received words + local f32 -> (packed_out, bw_out, anchor_out[, f32
+    sum][, total words int32 0-d]).  One single-pass launch over tiles of
+    32 blocks with two look-backs (incoming and outgoing word offsets),
+    plus one that zeroes the words from the total to the capacity.  The
+    f32 sum is written only with ``emit_f32``; the total is the stream's
+    true length (it may pass the capacity)."""
     nb = _check_blocks(acc, "acc")
+    if nb == 0:
+        raise ValueError("acc has no blocks")
     _check(packed, "packed", torch.int32)
     _check(bitwidth, "bitwidth", torch.int32, (nb,))
     _check(anchor, "anchor", torch.int32, (nb,))
     twoeb, _ = _scalars(eb_in)
     _, recip = _scalars(eb_out)
     dev = acc.device
-    x = torch.empty((nb, BLOCK), dtype=torch.float32, device=dev)
+    x = torch.empty((nb, BLOCK), dtype=torch.float32, device=dev) if emit_f32 else None
     packed_out = torch.empty(int(capacity_words), dtype=torch.int32, device=dev)
     bw_out = torch.empty(nb, dtype=torch.int32, device=dev)
     anchor_out = torch.empty_like(bw_out)
-    offsets = torch.empty((2, nb + 1), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    scratch, epoch = lookback.scratch(dev, 2 * lookback.tiles_for(nb))
     _launch("lz_unpack_reduce_repack", packed.data_ptr(), packed.shape[0],
             bitwidth.data_ptr(), anchor.data_ptr(), nb, twoeb.data_ptr(),
-            acc.data_ptr(), recip.data_ptr(), x.data_ptr(), packed_out.data_ptr(),
-            int(capacity_words), bw_out.data_ptr(), anchor_out.data_ptr(),
-            offsets[0].data_ptr(), offsets[1].data_ptr())
+            acc.data_ptr(), recip.data_ptr(), x.data_ptr() if emit_f32 else None,
+            packed_out.data_ptr(), int(capacity_words), bw_out.data_ptr(),
+            anchor_out.data_ptr(), total.data_ptr(), scratch.data_ptr() + 8,
+            scratch.data_ptr(), epoch)
     _count("unpack_reduce_repack")
-    return (packed_out, bw_out, anchor_out, x) if emit_f32 else \
-        (packed_out, bw_out, anchor_out)
+    return _hop_outputs(packed_out, bw_out, anchor_out, x, total, emit_f32, return_total)
 
 
 def quantize(x2d, eb):

@@ -92,12 +92,15 @@ def unpack_dequantize_reduce(packed, bitwidth, anchor, eb, acc2d):
 
 
 def unpack_reduce_repack(packed, bitwidth, anchor, eb_in, acc2d, eb_out,
-                         capacity_words: int, *, emit_f32: bool = False):
+                         capacity_words: int, *, emit_f32: bool = False,
+                         return_total: bool = False):
     """Single-pass ring hop: received stream + local f32 chunk -> the next
-    hop's stream (packed_out, bw_out, anchor_out[, updated f32])."""
+    hop's stream (packed_out, bw_out, anchor_out[, updated f32][, total
+    words int32 0-d, which may pass the capacity])."""
     return _route(acc2d, "unpack_reduce_repack")(
         packed, bitwidth, anchor, as_eb(eb_in, acc2d.device), acc2d,
-        as_eb(eb_out, acc2d.device), int(capacity_words), emit_f32=emit_f32)
+        as_eb(eb_out, acc2d.device), int(capacity_words), emit_f32=emit_f32,
+        return_total=return_total)
 
 
 def quantize(x2d, eb):
