@@ -28,7 +28,15 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    back-to-back calls on one scratch, hop calls interleaved with entropy
    calls on the same stream, and from the profiler one
    ``hop_lookback_kernel`` and one ``hop_zero_tail_kernel`` launch per
-   call and no one-CTA scan;
+   call and no one-CTA scan; then kernel 1 on its single-pass design's
+   edges (stream, bw, anchor and total bitwise): one tile, part-full last
+   tiles, capacities on and inside a tile, an overflowing stream,
+   NaN/Inf/saturating input, full-width random bits at the ring piece, 50
+   back-to-back calls on one scratch, calls interleaved with hop and
+   entropy calls, and from the profiler one ``qp_lookback_kernel`` and one
+   ``qp_zero_tail_kernel`` launch per call; then kernels 3, 7 and 10
+   (lossy and lossless) with signalling NaNs and NaNs carrying payloads in
+   ``acc``, by bits;
 3. holds the three unfused kernels (``quantize``, ``dequantize``,
    ``dequantize_reduce``) against their plain versions the same way, on
    ragged sizes, on NaN, +-Inf and values past the int32 range of q, on
@@ -37,7 +45,8 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 4. runs the allreduce, ``GZCommunicator("x").allreduce`` over a
    ``ThreadGroup`` of ranks on the card, at 646 MB per rank with 8 ranks
    (plan ``ring``, 2 pieces, profiled: the Lorenzo kernels' launches are
-   checked against the schedule, 96 hop and 176 one-CTA scan launches),
+   checked against the schedule, 96 hop, 32 kernel 1 and 144 one-CTA
+   scan launches),
    16 MB with 8 ranks (``redoub``)
    and 16 MB with 6 ranks (``redoub`` with the remainder stage), then a
    4 MB allreduce through the kernels and through the plain versions
@@ -206,8 +215,8 @@ def _median_ms(fn, reps, calls=1):
 
 # The port's own kernels (csrc/lorenzo.cu, csrc/entropy.cu) by symbol.
 OWN_KERNEL = re.compile(r"\(anonymous namespace\)::(ent_\w+_kernel|hop_\w+_kernel|"
-                        r"quantize_front_kernel|pack_kernel|unpack_kernel|dequantize_kernel|"
-                        r"word_offsets_kernel)\b")
+                        r"qp_\w+_kernel|quantize_front_kernel|unpack_kernel|"
+                        r"dequantize_kernel|word_offsets_kernel)\b")
 
 
 def _device_ms(fn, calls=10):
@@ -312,7 +321,7 @@ def check_kernels(device, gen):
         acc = ops.to_blocks(_random_walk(n, gen, device))
         nb = x2d.shape[0]
         cap = capacity_words_for(n, cf, ops.BLOCK)
-        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)
+        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)[:3]
         words_in = int(stream[1].long().sum().item()) * 8
         # the hop in its path's mode: the ring piece without the f32 sum,
         # the bucket (the redoub carry) and the other cases with it
@@ -339,9 +348,9 @@ def check_kernels(device, gen):
                     raise AssertionError(f"{name}: nwords {nw_got} != {nw_want}")
                 if label == "overflow" and nw_got <= cap:
                     raise AssertionError(f"{name}: overflow case did not overflow")
-            if name == "unpack_reduce_repack":
                 if int(got[-1]) != nw_got:
-                    raise AssertionError(f"hop total {int(got[-1])} != 8 * sum(bw) {nw_got}")
+                    raise AssertionError(f"{name}: total {int(got[-1])} != 8 * sum(bw) {nw_got}")
+            if name == "unpack_reduce_repack":
                 other = {**kw, "emit_f32": not kw["emit_f32"]}  # the other mode too
                 _compare(f"{name} [{label} n={n} emit_f32={other['emit_f32']}]",
                          kern(*args, **other), plain(*args, **other))
@@ -369,11 +378,14 @@ def check_kernels(device, gen):
     for label, r in timings:
         _log_time(r, label)
     _check_hop_edges(device, gen, eb_in, eb_out)
+    _check_pack_edges(device, gen, eb_in)
+    _check_nan_acc(device, gen)
     return records
 
 
 ENTROPY_SYMBOLS = r"ent_\w+_kernel|word_offsets_kernel"
-LORENZO_SYMBOLS = r"hop_\w+_kernel|word_offsets_kernel|pack_kernel|quantize_front_kernel|unpack_kernel"
+LORENZO_SYMBOLS = (r"hop_\w+_kernel|qp_\w+_kernel|word_offsets_kernel|"
+                   r"quantize_front_kernel|unpack_kernel")
 
 
 def _kernel_launches(events, symbols):
@@ -390,25 +402,43 @@ def _kernel_launches(events, symbols):
     return rows
 
 
+class ProfileShortfall(AssertionError):
+    """A profile that holds fewer launches of a kernel than the bound allows
+    and no kernel more than its wrapper launched: what a lossy trace shows."""
+
+
+def _check_counts(got, want, dropped, what):
+    """Each kernel's profiled launches ``got`` within [(1 - dropped) *
+    want, want]: more is an error, fewer a ``ProfileShortfall``."""
+    if set(got) != set(want) or any(got[k] > want[k] for k in want):
+        raise AssertionError(f"{what}: {got} for wrapper calls {want}")
+    if any(got[k] < (1 - dropped) * want[k] for k in want):
+        raise ProfileShortfall(f"{what}: {got} for wrapper calls {want}")
+
+
 def _check_hop_launch_structure(rows, calls, label, dropped=0.0):
     """Every ``unpack_reduce_repack`` call is one ``hop_lookback_kernel``
-    launch and one ``hop_zero_tail_kernel`` launch, and the one-CTA scan
-    runs once per call of kernels 1, 3 and 4 and never for the hop.
+    launch and one ``hop_zero_tail_kernel`` launch, every ``quantize_pack``
+    call one ``qp_lookback_kernel`` and one ``qp_zero_tail_kernel``, every
+    ``quantize`` call one ``quantize_front_kernel``, and the one-CTA scan
+    and ``unpack_kernel`` run once per call of kernels 3 and 4 only.
     ``calls`` are the Lorenzo wrappers' counts; ``dropped`` is the share of
     device events a long profile may lose (never gain)."""
     want = {"hop_lookback_kernel": calls["unpack_reduce_repack"],
             "hop_zero_tail_kernel": calls["unpack_reduce_repack"],
-            "word_offsets_kernel": calls["quantize_pack"] + calls["unpack_dequantize"]
+            "qp_lookback_kernel": calls["quantize_pack"],
+            "qp_zero_tail_kernel": calls["quantize_pack"],
+            "quantize_front_kernel": calls["quantize"],
+            "word_offsets_kernel": calls["unpack_dequantize"]
             + calls["unpack_dequantize_reduce"]}
+    want["unpack_kernel"] = want["word_offsets_kernel"]
     got = dict.fromkeys(want, 0)
     for sym, (count, _) in rows.items():
         base = sym.split("<")[0]
-        if base == "hop_front_kernel":
+        if base not in got:
             raise AssertionError(f"{label}: {sym} launched {count} times")
-        if base in got:
-            got[base] += count
-    if any(not (1 - dropped) * want[k] <= got[k] <= want[k] for k in want):
-        raise AssertionError(f"{label}: Lorenzo kernel launches {got} for wrapper calls {want}")
+        got[base] += count
+    _check_counts(got, want, dropped, f"{label}: Lorenzo kernel launches")
     return got
 
 
@@ -427,7 +457,7 @@ def _check_hop_edges(device, gen, eb_in, eb_out):
     from repro_torch.kernels import entropy, lorenzo, ops
 
     def hop_case(label, x2d, acc, cap_in, cap_out):
-        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap_in)
+        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap_in)[:3]
         for emit in (False, True):
             args = (*stream, eb_in, acc, eb_out, cap_out)
             got = lorenzo.unpack_reduce_repack(*args, emit_f32=emit, return_total=True)
@@ -450,7 +480,7 @@ def _check_hop_edges(device, gen, eb_in, eb_out):
     x2d, acc = walk(nb), walk(nb) / 8.0
     ample = capacity_words_for(nb * 256, 2.0, 256)
     bw_out = lorenzo.unpack_reduce_repack_plain(
-        *lorenzo.quantize_pack_plain(x2d, eb_in, ample), eb_in, acc, eb_out, 8)[1]
+        *lorenzo.quantize_pack_plain(x2d, eb_in, ample)[:3], eb_in, acc, eb_out, 8)[1]
     for label, cap in _tile_caps((8 * bw_out.long()).tolist(), 3).items():
         if not int(hop_case(label, x2d, acc, ample, cap)[-1]) > cap:
             raise AssertionError(f"{label}: the outgoing stream does not overflow")
@@ -473,7 +503,7 @@ def _check_hop_edges(device, gen, eb_in, eb_out):
     x2d, acc = ops.to_blocks(_random_walk(n, gen, device) * 8.0), \
         ops.to_blocks(_random_walk(n, gen, device))
     cap = capacity_words_for(n, 0.6, 256)
-    stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)
+    stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)[:3]
     args = (*stream, eb_in, acc, eb_out, cap)
     want = lorenzo.unpack_reduce_repack_plain(*args, emit_f32=True, return_total=True)
     outs = [lorenzo.unpack_reduce_repack(*args, emit_f32=True, return_total=True)
@@ -507,6 +537,165 @@ def _check_hop_edges(device, gen, eb_in, eb_out):
     _check_hop_launch_structure(rows, lorenzo.LAUNCHES, "hop calls")
     log(f"hop kernel launches for 6 calls (16 MiB bucket): {rows}")
     del prof, stream, args, want, ent, ent_want
+    torch.cuda.empty_cache()
+
+
+def _check_pack_edges(device, gen, eb):
+    """Kernel 1 against its plain version, bitwise (stream, bw, anchor and
+    the total, which must be 8 * sum(bw)), on the single-pass design's
+    edges: one tile, part-full last tiles, capacities on and inside a tile,
+    an overflowing stream, NaN/Inf/saturating input, full-width random bits
+    at the 646 MB ring piece; 50 back-to-back calls on one scratch, and
+    calls interleaved with hop and entropy calls on the same stream; then
+    the launches per call from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.compressed import capacity_words_for
+    from repro_torch.kernels import entropy, lorenzo, ops
+
+    def case(label, x2d, cap):
+        got = lorenzo.quantize_pack(x2d, eb, cap)
+        want = lorenzo.quantize_pack_plain(x2d, eb, cap)
+        torch.cuda.synchronize()
+        _compare(f"quantize_pack [{label}]", got, want)
+        total = int(got[-1])
+        if total != 8 * int(got[1].long().sum()):
+            raise AssertionError(f"quantize_pack [{label}]: total {total} != 8 * sum(bw)")
+        log(f"quantize_pack kernel vs plain [{label}, {x2d.shape[0]} rows, cap {cap}, "
+            f"{total} words]: mismatches 0 in stream/bw/anchor/total")
+        return got
+
+    def walk(nb):
+        return ops.to_blocks(_random_walk(nb * 256, gen, device) * 8.0)
+
+    for nb in (32, 8, 40, 72):  # one tile; part-full last tiles
+        case("one tile" if nb == 32 else "part-full last tile", walk(nb),
+             capacity_words_for(nb * 256, 0.6, 256))
+    x2d = walk(5 * 32)
+    bw = lorenzo.quantize_pack_plain(x2d, eb, 8)[1]
+    for label, cap in {**_tile_caps((8 * bw.long()).tolist(), 3), "overflow": 64}.items():
+        if not int(case(label, x2d, cap)[-1]) > cap:
+            raise AssertionError(f"{label}: the stream does not overflow")
+    case("nan/inf/saturating", ops.to_blocks(_wild(300_000, gen, device)),
+         capacity_words_for(300_000, 2.0, 256))
+    n = _main_piece_elems()
+    bits = ops.to_blocks(_random_bits(n, gen, device))
+    got = case("646 MB ring piece, full-width random bits", bits,
+               capacity_words_for(n, 2.0, 256))
+    full = int((got[1] == 32).sum())
+    if full < 0.9 * bits.shape[0]:
+        raise AssertionError(f"random bits: {full} of {bits.shape[0]} blocks at width 32")
+    del bits, got
+
+    n = BUCKET_BYTES // 4
+    x2d, acc = ops.to_blocks(_random_walk(n, gen, device) * 8.0), \
+        ops.to_blocks(_random_walk(n, gen, device))
+    cap = capacity_words_for(n, 0.6, 256)
+    want = lorenzo.quantize_pack_plain(x2d, eb, cap)
+    outs = [lorenzo.quantize_pack(x2d, eb, cap) for _ in range(50)]
+    for i, got in enumerate(outs):
+        _compare(f"quantize_pack [back-to-back call {i}]", got, want)
+    hop_args = (*want[:3], eb, acc, eb, cap)
+    hop_want = lorenzo.unpack_reduce_repack_plain(*hop_args, emit_f32=True, return_total=True)
+    ent = entropy.quantize_pack_plain(acc, eb, cap)
+    red_want = (entropy.unpack_dequantize_reduce_plain(*ent[:3], eb, x2d),)
+    wants = {"qp": want, "hop": hop_want, "ent": ent, "red": red_want}
+    outs = []
+    for _ in range(20):  # one scratch for all: kernel 1, hop, entropy pack, kernel 1, reduce
+        outs.append(("qp", lorenzo.quantize_pack(x2d, eb, cap)))
+        outs.append(("hop", lorenzo.unpack_reduce_repack(*hop_args, emit_f32=True,
+                                                         return_total=True)))
+        outs.append(("ent", entropy.quantize_pack(acc, eb, cap)))
+        outs.append(("qp", lorenzo.quantize_pack(x2d, eb, cap)))
+        outs.append(("red", (entropy.unpack_dequantize_reduce(*ent[:3], eb, x2d),)))
+    for i, (kind, got) in enumerate(outs):
+        _compare(f"interleaved call {i} ({kind})", got, wants[kind])
+    log("quantize_pack kernel vs plain [50 back-to-back calls at the 16 MiB bucket, one "
+        "scratch; 20 rounds interleaved with hop and entropy calls on the same stream]: "
+        "mismatches 0")
+    del outs, wants
+    lorenzo.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lorenzo.quantize_pack(x2d, eb, cap)
+        torch.cuda.synchronize()
+    rows = _kernel_launches(_device_events(prof), LORENZO_SYMBOLS)
+    _check_hop_launch_structure(rows, lorenzo.LAUNCHES, "quantize_pack calls")
+    log(f"quantize_pack kernel launches for 3 calls (16 MiB bucket): {rows}")
+    del prof, x2d, acc, want, hop_want, ent, red_want
+    torch.cuda.empty_cache()
+
+
+# Signalling NaNs, then quiet ones and NaNs carrying payloads, as f32 bits.
+NAN_BITS = (0x7F800001, 0xFF800001, 0x7FA5A5A5, 0xFFBFFFFF,
+            0x7FC00000, 0xFFC00000, 0x7FC12345, 0xFFE00ABC, 0x7FFFFFFF)
+
+
+def _nan_laden(n, gen, device, stride):
+    """A random walk with the NaNs of ``NAN_BITS`` every ``stride`` elements
+    and +-Inf every 53 and 59."""
+    import torch
+
+    x = _random_walk(n, gen, device)
+    idx = torch.arange(0, n, stride, device=device)
+    nans = torch.tensor(NAN_BITS, dtype=torch.int64, device=device).to(torch.int32)
+    x.view(torch.int32)[idx] = nans[torch.arange(idx.numel(), device=device) % len(NAN_BITS)]
+    x[11::53] = float("inf")
+    x[13::59] = float("-inf")
+    return x
+
+
+def _check_nan_acc(device, gen):
+    """Kernels 3, 7 and 10 (lossy and lossless) against their plain
+    versions, by bits, with signalling NaNs and NaNs carrying payloads in
+    ``acc`` (lossless: NaN values too, both NaN, and inf - inf): a NaN in
+    acc comes out as itself, quieted, where the value is not NaN."""
+    import torch
+
+    from repro_torch.core.compressed import capacity_words_for
+    from repro_torch.core.compressor import lossless_capacity_words
+    from repro_torch.kernels import entropy, lorenzo, ops
+
+    n = 300_000
+    eb = torch.full((), EB, dtype=torch.float32, device=device)
+    x2d = ops.to_blocks(_random_walk(n, gen, device) * 8.0)
+    acc = ops.to_blocks(_nan_laden(n, gen, device, 37))
+    vals = ops.to_blocks(_nan_laden(n, gen, device, 41))  # lossless values
+    infs = torch.isinf(acc)
+    vals[infs] = -acc[infs]
+    cap = capacity_words_for(n, 0.6, 256)
+    stream = lorenzo.quantize_pack_plain(x2d, eb, cap)[:3]
+    codes, _, anchor = lorenzo.quantize_plain(x2d, eb)
+    ent = entropy.quantize_pack_plain(x2d, eb, cap)
+    ent_l = entropy.quantize_pack_plain(vals, eb, lossless_capacity_words(n), lossless=True)
+    cases = {  # name: (kernel, plain, arguments, keywords, the values decoded)
+        "unpack_dequantize_reduce": (lorenzo.unpack_dequantize_reduce,
+                                     lorenzo.unpack_dequantize_reduce_plain,
+                                     (*stream, eb, acc), {}, x2d),
+        "dequantize_reduce": (lorenzo.dequantize_reduce, lorenzo.dequantize_reduce_plain,
+                              (codes, anchor, eb, acc), {}, x2d),
+        "entropy_unpack_dequantize_reduce": (
+            entropy.unpack_dequantize_reduce, entropy.unpack_dequantize_reduce_plain,
+            (*ent[:3], eb, acc), {}, x2d),
+        "entropy_unpack_dequantize_reduce lossless": (
+            entropy.unpack_dequantize_reduce, entropy.unpack_dequantize_reduce_plain,
+            (*ent_l[:3], eb, acc), {"lossless": True}, vals),
+    }
+    nan = torch.isnan(acc)
+    for name, (kern, plain, args, kw, values) in cases.items():
+        got = kern(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        _compare(f"{name} [NaN in acc]", (got,), (want,))
+        only = nan & ~torch.isnan(values)
+        if not torch.equal(got.view(torch.int32)[only],
+                           acc.view(torch.int32)[only] | 0x00400000):
+            raise AssertionError(f"{name}: a NaN in acc did not come out as itself, quieted")
+        log(f"{name} kernel vs plain [NaN in acc: {int(nan.sum())} NaNs, "
+            f"{int(infs.sum())} infinities, {int((nan & ~only).sum())} NaN values under a "
+            f"NaN acc]: mismatches 0 by bits")
+    del x2d, acc, vals, stream, codes, ent, ent_l
     torch.cuda.empty_cache()
 
 
@@ -787,7 +976,7 @@ def _profile(group, fn, xs, plan, intervals=None):
     rows = _kernel_launches(events, LORENZO_SYMBOLS)
     got = _check_hop_launch_structure(rows, _expected_launches(plan, group.size),
                                       f"profiled {plan.op}", dropped=0.05)
-    log(f"  Lorenzo launches in the profile (hop, tail, one-CTA scan): {got}; "
+    log(f"  Lorenzo launches in the profile (by kernel): {got}; "
         + "; ".join(f"{k} {c} x {ms:.2f} ms" for k, (c, ms) in sorted(rows.items())))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
@@ -1232,10 +1421,7 @@ def _check_entropy_launch_structure(rows, calls, label, dropped=0.0):
             raise AssertionError(f"{label}: {sym} launched {count} times")
         base = sym.split("<")[0]
         got[base] = got.get(base, 0) + count
-    if set(got) != set(want) or any(
-            not (1 - dropped) * want[k] <= got[k] <= want[k] for k in want):
-        raise AssertionError(f"{label}: entropy kernel launches {got} for wrapper "
-                             f"calls {want}")
+    _check_counts(got, want, dropped, f"{label}: entropy kernel launches")
 
 
 def check_entropy_kernels(device, gen):
@@ -1399,6 +1585,30 @@ def _sync_once(group, trees, sync, device):
     return res, _launches(), time.perf_counter() - t0
 
 
+def _traced_sync(group, trees, sync, device, label, check):
+    """``_sync_once`` under torch.profiler, its launch structure held by
+    ``check(device events, launch counts)``.  A trace of a whole sync can
+    lose device events (on the H100 up to 7 % of a sync's launches, in
+    stretches at either end or inside; the wrappers' counts, checked
+    exactly beside it, were right): a trace whose counts fall short of the
+    bound (``ProfileShortfall``), and no more, is logged and taken again,
+    at most three times.  Returns (device events, launch counts, traced
+    wall seconds, what ``check`` returned)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res, calls, traced = _sync_once(group, trees, sync, device)
+        del res
+        events = _device_events(prof)
+        try:
+            return events, calls, traced, check(events, calls)
+        except ProfileShortfall as e:
+            log(f"{label}: {e}; taking the trace again")
+    raise AssertionError(f"{label}: three traces fell short of the wrappers' launch counts")
+
+
 def _check_sync(label, trees, res, sync, n, launches, device):
     """Every rank's leaves within sum(per-stage bounds) * scale +
     1e-6 max|exact| of the f64 sum, no flag set, and the launch counts
@@ -1445,7 +1655,6 @@ def run_grad_sync(device, gen):
     same inputs, and the N = 6 remainder stage.  Returns the launch counts
     of the N = 8 and N = 6 entropy runs."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import transport
     from repro_torch.core.collectives import GZConfig
@@ -1476,19 +1685,15 @@ def run_grad_sync(device, gen):
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     main_launches = launches
     _, _, warm = _sync_once(group, trees, sync, device)
+    def entropy_calls(launches):
+        return {k[len("entropy_"):]: v for k, v in launches.items() if k in ENTROPY_KERNELS}
 
-    def body(tree):
-        from repro_torch.core import grad_sync
-        return grad_sync.dp_allreduce_grads_stats(tree, ("x",), sync, device=device)
-
-    _reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        group.run(body, trees, axis_name="x")
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
-    calls = {k[len("entropy_"):]: v for k, v in _launches().items() if k in ENTROPY_KERNELS}
-    events = _device_events(prof)
+    events, calls, traced, _ = _traced_sync(
+        group, trees, sync, device, "grad sync entropy",
+        lambda ev, launches: _check_entropy_launch_structure(
+            _kernel_launches(ev, ENTROPY_SYMBOLS), entropy_calls(launches), "grad sync",
+            dropped=0.05))
+    calls = entropy_calls(calls)
     busy = sum(e.self_device_time_total for e in events) / 1e3
     log(f"grad sync profile: warm wall {warm * 1e3:.1f} ms; traced wall "
         f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms "
@@ -1500,8 +1705,7 @@ def run_grad_sync(device, gen):
         log(f"  entropy sub-kernel {sym}: {count} launches, {ms:.2f} ms of device time "
             f"({1e3 * ms / max(count, 1):.2f} us each)")
     log(f"  wrapper calls in the profiled sync: {calls}")
-    _check_entropy_launch_structure(rows, calls, "grad sync", dropped=0.05)
-    del prof, events
+    del events
     small = _layer_grads(n, gen, device, shrink=256)
     small_sync = sync_for("lorenzo+entropy", BUCKET_BYTES // 256)
     walls = [_sync_once(group, small, small_sync, device)[2] for _ in range(3)]
@@ -1523,22 +1727,25 @@ def run_grad_sync(device, gen):
         if codec in ("lossless", "passthrough"):
             results[codec] = [_flat_leaves(out) for out, _ in res]
         del res
-        if codec == "lorenzo":  # kernel 2 in the default sync, from the profiler
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                res, calls, traced = _sync_once(group, trees, s, device)
-            del res
-            events = _device_events(prof)
+        if codec == "lorenzo":  # kernels 1 and 2 in the default sync, from the profiler
+            events, calls, traced, got = _traced_sync(
+                group, trees, s, device, "grad sync lorenzo",
+                lambda ev, launches: _check_hop_launch_structure(
+                    _kernel_launches(ev, LORENZO_SYMBOLS), launches, "grad sync lorenzo",
+                    dropped=0.05))
             busy = sum(e.self_device_time_total for e in events) / 1e3
             rows = _kernel_launches(events, LORENZO_SYMBOLS)
-            got = _check_hop_launch_structure(rows, calls, "grad sync lorenzo", dropped=0.05)
             hop = [(c, ms) for k, (c, ms) in rows.items() if k.startswith("hop_lookback")]
+            qp_ms = sum(ms for k, (_, ms) in rows.items() if k.startswith("qp_"))
             log(f"grad sync lorenzo profile: traced wall {traced * 1e3:.1f} ms, device busy "
                 f"{busy:.1f} ms; kernel 2: {calls['unpack_reduce_repack']} calls, "
                 f"{sum(c for c, _ in hop)} hop_lookback_kernel launches, "
                 f"{sum(ms for k, (_, ms) in rows.items() if k.startswith('hop_')):.2f} ms of "
-                f"device time with its tail launches; Lorenzo launches {got}; "
+                f"device time with its tail launches; kernel 1: {calls['quantize_pack']} "
+                f"calls, {qp_ms:.2f} ms of device time with its tail launches, "
+                f"{qp_ms / n:.3f} ms per rank; Lorenzo launches {got}; "
                 + "; ".join(f"{k} {c} x {ms:.2f} ms" for k, (c, ms) in sorted(rows.items())))
-            del prof, events
+            del events
     mism = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
                for ra, rb in zip(results["lossless"], results["passthrough"])
                for a, b in zip(ra, rb))

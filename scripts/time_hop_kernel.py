@@ -1,7 +1,10 @@
-"""Time the Lorenzo ring hop (kernel 2, ``unpack_reduce_repack``) of one
-checkout of the port.
+"""Time the Lorenzo ring hop (kernel 2, ``unpack_reduce_repack``), or,
+with ``--kernel quantize_pack``, kernel 1, or, with ``--kernel compress``,
+the fused ``ErrorBoundedLorenzo.compress`` around it, of one checkout of
+the port.
 
     python3 scripts/time_hop_kernel.py [--src DIR] [--label NAME]
+        [--kernel unpack_reduce_repack|quantize_pack|compress]
 
 ``--src`` is the ``src`` directory that holds ``repro_torch`` (default:
 this checkout's).  Run it for two checkouts in one process list on one
@@ -12,13 +15,23 @@ f32 sum written (the recursive-doubling carry of the default ``lorenzo``
 grad sync), and one pipelined-ring piece of the 646 MB allreduce (39,432
 rows) without it (the ring's mode) and with it; the incoming stream is
 packed at eb = 1e-4 / 8, re-packed at 1e-4 / 7, capacity factor 0.6, as
-in ``chip_smoke.py``.  For each it checks the kernel against the plain
-version (stream words, widths, anchors and the f32 sum bitwise) and
-prints the median ms of 20 event pairs around 10 back-to-back calls,
-around one call, the device time per call of the port's kernels from the
-profiler (by kernel name, with launches per call), and the bytes bound at
-3.35 TB/s.  It needs a CUDA card and imports no JAX.
+in ``chip_smoke.py``.  Kernel 1 packs the same inputs at eb = 1e-4 / 8,
+capacity factor 0.6, at the bucket and the ring piece.  ``compress``
+packs one 16 MiB bucket as the default ``lorenzo`` grad sync does, and
+then prints the host cost of each step of the call apart (the stream
+lookup, the look-back scratch, the eb scalars, one allocation, the
+ctypes call, the word count that ``compress`` takes from the widths where
+the wrapper returns no total), in us per call over 2,000 calls.  For each
+it checks the kernel against the plain version (stream words, widths,
+anchors, the total and the f32 sum bitwise) and prints the median ms of
+20 event pairs around 10 back-to-back calls, around one call, the host us
+per call of 1,000 calls queued without a sync, the device time per call of
+the port's kernels from the profiler (by kernel name, with launches per
+call), and the bytes bound at 3.35 TB/s.  The parent's kernel 1 launched
+``quantize_front_kernel``, ``word_offsets_kernel`` and ``pack_kernel``,
+so ``OWN`` names them too.  It needs a CUDA card and imports no JAX.
 """
+import time
 import argparse
 import pathlib
 import re
@@ -27,8 +40,8 @@ import sys
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 EB = 1e-4
-OWN = re.compile(r"\(anonymous namespace\)::(hop_\w+_kernel|pack_kernel|"
-                 r"word_offsets_kernel)(<[^>]*>)?")
+OWN = re.compile(r"\(anonymous namespace\)::(hop_\w+_kernel|qp_\w+_kernel|pack_kernel|"
+                 r"quantize_front_kernel|word_offsets_kernel)(<[^>]*>)?")
 
 
 def _median_ms(torch, fn, reps=20, calls=1):
@@ -66,15 +79,111 @@ def _device(torch, fn, calls=10):
     return rows
 
 
+def _host_us(torch, fn, calls=1000):
+    """Host us per call of ``calls`` calls queued without a sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def _walk(torch, n, gen, dev):
     steps = torch.randn(n, dtype=torch.float64, generator=gen, device=dev).mul_(0.01)
     return torch.cumsum(steps, 0).to(torch.float32)
+
+
+def _report(torch, label, what, fn, nbytes):
+    """Print ``fn``'s median ms back-to-back and over one call, its
+    kernels' device time per call by name, and the bytes bound."""
+    b2b = _median_ms(torch, fn, calls=10)
+    one = _median_ms(torch, fn)
+    host = _host_us(torch, fn)
+    rows = _device(torch, fn)
+    dev_us = sum(us for _, us in rows.values())
+    split = "; ".join(f"{k} x{c:g} {us:.1f} us" for k, (c, us) in sorted(rows.items()))
+    print(f"[{label}] {what}: mismatches 0; {b2b:.4f} ms back-to-back, {one:.4f} ms one "
+          f"call, {host:.1f} us host per call, {dev_us / 1e3:.4f} ms device ({split}); bound "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+
+
+def _time_quantize_pack(torch, lorenzo, ops, label, shape, n, gen, dev, eb):
+    """Kernel 1 on a random walk of n elements: checked against the plain
+    version, then timed.  Bytes: x in; the stream to its capacity, bw,
+    anchor and the total out."""
+    from repro_torch.core.compressed import capacity_words_for
+
+    x2d = ops.to_blocks(_walk(torch, n, gen, dev) * 8.0)
+    nb = x2d.shape[0]
+    cap = capacity_words_for(n, 0.6, 256)
+    got = lorenzo.quantize_pack(x2d, eb, cap)
+    want = lorenzo.quantize_pack_plain(x2d, eb, cap)
+    mism = sum(int((g != w).sum()) for g, w in zip(got, want))  # the parent's has no total
+    if mism:
+        raise AssertionError(f"{shape}: {mism} elements differ from the plain version")
+    words = 8 * int(want[1].long().sum())
+    _report(torch, label, f"quantize_pack {shape} ({nb} rows, {words} words)",
+            lambda: lorenzo.quantize_pack(x2d, eb, cap), 4 * nb * 256 + 4 * cap + 8 * nb + 4)
+    del x2d, got, want
+    torch.cuda.empty_cache()
+
+
+def _time_compress(torch, lorenzo, ops, label, n, gen, dev, eb):
+    """The fused ``ErrorBoundedLorenzo.compress`` of one bucket: checked
+    against the plain kernel 1 (stream, widths, anchors, nwords = 8 *
+    sum(bw)), timed as ``_report`` does, then each host step of the call
+    timed apart."""
+    from repro_torch.core import bitpack
+    from repro_torch.core.compressor import ErrorBoundedLorenzo
+    from repro_torch.kernels import build, lookback
+
+    comp = ErrorBoundedLorenzo()
+    x = _walk(torch, n, gen, dev) * 8.0
+    x2d = ops.to_blocks(x)
+    c = comp.compress(x, eb)
+    cap = c.packed.shape[0]
+    want = lorenzo.quantize_pack_plain(x2d, eb, cap)
+    mism = sum(int((g != w).sum()) for g, w in zip((c.packed, c.bitwidth, c.anchor), want))
+    if mism or int(c.nwords) != 8 * int(want[1].long().sum()):
+        raise AssertionError(f"compress: {mism} elements differ, nwords {int(c.nwords)}")
+    nb = x2d.shape[0]
+    _report(torch, label, f"compress 16 MiB bucket ({nb} rows, cap {cap})",
+            lambda: comp.compress(x, eb), 4 * nb * 256 + 4 * cap + 8 * nb + 4)
+    lib = build.load("lorenzo", lorenzo._SIGNATURES)
+    twoeb, _ = lorenzo._scalars(eb)
+    small = (torch.zeros((8, 256), dtype=torch.int32, device=dev),
+             torch.zeros(8, dtype=torch.int32, device=dev),
+             torch.empty((8, 256), dtype=torch.float32, device=dev))
+    steps = {
+        "current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "build.stream_handle": getattr(build, "stream_handle", None),
+        "lookback.scratch": lambda: lookback.scratch(x2d.device, lookback.tiles_for(nb)),
+        "eb scalars (2 x eb, 1 / 2eb)": lambda: lorenzo._scalars(eb),
+        "torch.empty(cap, int32)": lambda: torch.empty(cap, dtype=torch.int32, device=dev),
+        "build.launch of one 8-block lz_dequantize": lambda: build.launch(
+            lib, "lz_dequantize", small[0].data_ptr(), small[1].data_ptr(), 8,
+            twoeb.data_ptr(), None, small[2].data_ptr()),
+        "bitpack.packed_words(bw)": lambda: bitpack.packed_words(c.bitwidth, 256),
+        "ops.to_blocks + as_eb": lambda: (ops.to_blocks(x), ops.as_eb(eb, dev)),
+    }
+    for what, fn in steps.items():
+        if fn is None:  # a checkout without this step
+            continue
+        print(f"[{label}]   host step {what}: {_host_us(torch, fn, 2000):.2f} us per call",
+              flush=True)
+    del x, x2d, c, want
+    torch.cuda.empty_cache()
 
 
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--kernel", default="unpack_reduce_repack",
+                    choices=("unpack_reduce_repack", "quantize_pack", "compress"))
     args = ap.parse_args(argv)
     import torch
 
@@ -97,6 +206,13 @@ def main(argv):
     eb_out = torch.full((), EB / 7, dtype=torch.float32, device=dev)
     quantum = 8 * 2 * PIECE_QUANTUM
     piece = -(-(646_000_000 // 4) // quantum) * quantum // 16
+    if args.kernel == "compress":
+        _time_compress(torch, lorenzo, ops, label, 4 * 1024 * 1024, gen, dev, eb_in)
+        return 0
+    if args.kernel == "quantize_pack":
+        for shape, n in (("16 MiB bucket", 4 * 1024 * 1024), ("646 MB ring piece", piece)):
+            _time_quantize_pack(torch, lorenzo, ops, label, shape, n, gen, dev, eb_in)
+        return 0
     cases = [("16 MiB bucket", 4 * 1024 * 1024, True),
              ("646 MB ring piece", piece, False), ("646 MB ring piece", piece, True)]
     for shape, n, emit in cases:
@@ -104,7 +220,7 @@ def main(argv):
         acc = ops.to_blocks(_walk(torch, n, gen, dev))
         nb = x2d.shape[0]
         cap = capacity_words_for(n, 0.6, 256)
-        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)
+        stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap)[:3]
         words_in = 8 * int(stream[1].long().sum())
         hop_args = (*stream, eb_in, acc, eb_out, cap)
         got = lorenzo.unpack_reduce_repack(*hop_args, emit_f32=emit)
@@ -116,19 +232,8 @@ def main(argv):
         meta = 8 * nb
         nbytes = 4 * min(words_in, cap) + meta + 4 * nb * 256 + 4 * cap + meta + \
             (4 * nb * 256 if emit else 0)
-
-        def fn():
-            return lorenzo.unpack_reduce_repack(*hop_args, emit_f32=emit)
-
-        b2b = _median_ms(torch, fn, calls=10)
-        one = _median_ms(torch, fn)
-        rows = _device(torch, fn)
-        dev_us = sum(us for _, us in rows.values())
-        split = "; ".join(f"{k} x{c:g} {us:.1f} us" for k, (c, us) in sorted(rows.items()))
-        print(f"[{label}] {shape} ({nb} rows, {words_in} words in) emit_f32={emit}: "
-              f"mismatches 0; {b2b:.4f} ms back-to-back, {one:.4f} ms one call, "
-              f"{dev_us / 1e3:.4f} ms device ({split}); bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
+        _report(torch, label, f"{shape} ({nb} rows, {words_in} words in) emit_f32={emit}",
+                lambda: lorenzo.unpack_reduce_repack(*hop_args, emit_f32=emit), nbytes)
         del x2d, acc, stream, got, want
         torch.cuda.empty_cache()
     return 0

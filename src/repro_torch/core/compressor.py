@@ -59,8 +59,7 @@ class ErrorBoundedLorenzo:
         x2d = ops.to_blocks(x)
         cap = capacity_words_for(n, self.capacity_factor, self.block)
         if self.fused:
-            packed, bw, anchor = ops.quantize_pack(x2d, eb, cap)
-            nwords = bitpack.packed_words(bw, self.block)
+            packed, bw, anchor, nwords = ops.quantize_pack(x2d, eb, cap)
         else:
             codes, bw, anchor = ops.quantize(x2d, eb)
             packed, nwords = bitpack.pack(codes, bw, cap)

@@ -183,8 +183,10 @@ def decode_reduce_blocks(codes: torch.Tensor, anchor: torch.Tensor, eb,
     The reference composes this from ``decode_blocks`` and an add; traced
     under ``jit`` (every collective), XLA contracts the multiply and the
     add into one FMA, as the kernels do, so the port rounds once too.
-    Lossless is one add of the decoded bit patterns."""
+    Lossless is one add of the decoded bit patterns (``ref.add_f32``: a
+    NaN comes out as the reference kernel's add returns it on the CPU, on
+    the card too)."""
     q = _reconstruct(codes, anchor)
     if lossless:
-        return acc + q.view(torch.float32)
+        return ref.add_f32(acc, q.view(torch.float32))
     return ref.fma_f32(q.to(torch.float32), ref.twoeb_of(_as_eb(eb, q.device)), acc)

@@ -25,7 +25,7 @@ import threading
 import time
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "nvcc_path", "build",
-           "build_all", "load", "launch"]
+           "build_all", "load", "launch", "stream_handle"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -117,6 +117,16 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         return lib
 
 
+def stream_handle() -> int:
+    """The raw handle of the current device's current CUDA stream: what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    ``torch.cuda.Stream`` object on every call (a wrapper that takes
+    look-back scratch asks twice)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(lib: ctypes.CDLL, fn: str, *args) -> None:
     """Call C entry point ``fn`` on the current CUDA stream; raise on a
     nonzero ``cudaError_t``.  The caller allocates outputs and scratch on
@@ -125,6 +135,6 @@ def launch(lib: ctypes.CDLL, fn: str, *args) -> None:
     stream."""
     import torch
 
-    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    err = getattr(lib, fn)(*args, stream_handle())
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed with error {err}")

@@ -21,6 +21,8 @@
 // payloads survive), and its reduce is one __fadd_rn.  Lossy decode is
 // __fmul_rn(q, 2eb), and the reduce __fmaf_rn(q, 2eb, acc), rounded once
 // like the reference kernel (acc + q * 2eb contracts to one FMA there).
+// Both reduces pass a NaN through as the reference on the CPU does
+// (add_acc, fma_acc in lorenzo_common.cuh).
 //
 // What changed against the TPU design: the Pallas kernels walk a sequential
 // grid and carry the running word offset in SMEM.  A GPU grid has no order,
@@ -295,10 +297,10 @@ ent_unpack_lookback_kernel(const uint32_t* __restrict__ packed, long long cap,
         run[part] += dd[4 * part + e];
         const int32_t q = (int32_t)run[part];
         if constexpr (kLossless) {
-          v[e] = kReduce ? __fadd_rn(av[e], __int_as_float(q)) : __int_as_float(q);
+          v[e] = kReduce ? add_acc(av[e], __int_as_float(q)) : __int_as_float(q);
         } else {
           const float qf = __int2float_rn(q);
-          v[e] = kReduce ? __fmaf_rn(qf, twoeb, av[e]) : __fmul_rn(qf, twoeb);
+          v[e] = kReduce ? fma_acc(qf, twoeb, av[e]) : __fmul_rn(qf, twoeb);
         }
       }
       *reinterpret_cast<float4*>(ob + 128 * part + 4 * lane) = make_float4(v[0], v[1], v[2], v[3]);

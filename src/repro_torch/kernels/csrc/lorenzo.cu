@@ -18,19 +18,17 @@
 // (core/bitpack.py).  Each is a single launch: the work is block-local,
 // so no scan across blocks is needed.
 //
-// Layout: f32 data is (nb, 256); outside the hop one CUDA block of 256
-// threads handles one 256-element Lorenzo block, thread j owning element
-// j.  Wire words are
+// Layout: f32 data is (nb, 256); outside kernels 1 and 2 one CUDA block of
+// 256 threads handles one 256-element Lorenzo block, thread j owning
+// element j.  Wire words are
 // uint32, LSB-first, block i's codes at word offset off_i = sum_{k<i} 8*bw_k
 // (BLOCK % 32 == 0, so every block starts on a word boundary).
 //
 // What changed against the TPU design: the Pallas kernels walk a sequential
 // grid and carry the running word offset in SMEM.  A GPU grid has no order.
-// Kernels 1, 3 and 4 are a short sequence of launches instead:
-//   front (quantize -> per-block bw, anchor) -> scan (exclusive prefix sum of
-//   8*bw over the blocks, hand-written, one CTA) -> pack (every thread owns
-//   one output word and ORs in the codes that overlap it, so no atomics);
-//   receive side: scan of the incoming widths -> unpack.
+// Kernels 3 and 4 are two launches instead: a scan of the incoming widths
+// (exclusive prefix sum of 8*bw over the blocks, hand-written, one CTA),
+// then the unpack.
 //
 // The ring hop (kernel 2) is one pass per call over tiles of 32 blocks
 // (256 threads; warp w takes blocks w, w + 8, w + 16 and w + 24; tile
@@ -66,9 +64,19 @@
 // to have passed look-back A, which never waits on t).  The incoming
 // segment and the code rows take 68 KB of dynamic shared memory a CTA
 // (three CTAs an SM), opted into once per device.  The pack is by runs and
-// overlaps look-back B, not one thread per output word after it (kernel
-// 1's pack_kernel): building words one by one was the largest part of the
-// kernel on the H100, and it sat on the critical path behind the look-back.
+// overlaps look-back B, not one thread per output word after it: building
+// words one by one was the largest part of the kernel on the H100, and it
+// sat on the critical path behind the look-back.
+//
+// Kernel 1 (quantize_pack) is the hop's send half alone: one pass over
+// tiles of 32 blocks with one look-back, plus the tail launch.  Each CTA
+// loads its blocks' x in the lane layout (16-byte loads), quantizes,
+// encodes each block into its shared row (encode_block), publishes
+// 8 * sum(bw) of the tile and looks back (warp 0; the tile with the last
+// block writes the total) while the warps pack in place
+// (pack_run_in_place), then copies the words out below cap.  x is read
+// once; the codes never leave shared memory (36 KB a CTA, no opt-in).  The
+// same deadlock argument holds: the look-back waits only on tiles below.
 //
 // Bound on this card: bytes.  Each element is read and written a few times
 // as 4-byte words and does ~20-60 integer operations, far below the ~300
@@ -82,16 +90,16 @@
 // versions): q = __float2int_rn(__fmul_rn(x, recip)) (saturating, NaN -> 0);
 // zigzag on int32; bw = 32 - clz(max code); reconstruction is an int32
 // wrapping prefix sum plus the anchor, qf = __int2float_rn(q); the reduce is
-// __fmaf_rn(qf, twoeb, acc), rounded once (the hop passes a NaN in acc
-// through as the reference does).  recip and twoeb arrive as device
+// __fmaf_rn(qf, twoeb, acc), rounded once, passing a NaN in acc through as
+// the reference does (fma_acc).  recip and twoeb arrive as device
 // scalars computed by the wrapper, like the reference's (1, 1) operands.
 // Compile without --use_fast_math.  The quantizer front, the
-// reconstruction, the word-offset scan and the look-back live in
-// lorenzo_common.cuh, shared with the entropy-coded wire kernels
+// reconstruction, the word-offset scan, the look-back and the reduces live
+// in lorenzo_common.cuh, shared with the entropy-coded wire kernels
 // (entropy.cu).
 //
-// Capacity: words at index >= cap are never stored; the pack launch (the
-// hop: its tail launch) zeroes [nwords, cap).  On the receive side every
+// Capacity: words at index >= cap are never stored; kernel 1's and the
+// hop's tail launches zero [nwords, cap).  On the receive side every
 // word at index >= cap reads as 0.
 
 #include "lorenzo_common.cuh"
@@ -119,9 +127,8 @@ __device__ __forceinline__ float decode_q(const uint32_t* __restrict__ packed,
   return reconstruct_q((lo | hi) & width_mask(bw), anchor, red);
 }
 
-// Quantize front: per-block bitwidth and anchor of f32 blocks; with
-// kCodes also the zigzag codes themselves (the unfused quantize).
-template <bool kCodes>
+// The unfused quantize: the zigzag codes, per-block bitwidth and anchor of
+// f32 blocks.
 __global__ void __launch_bounds__(kBlock)
 quantize_front_kernel(const float* __restrict__ x, const float* __restrict__ recip_p,
                       uint32_t* __restrict__ codes, int32_t* __restrict__ bw_out,
@@ -131,44 +138,12 @@ quantize_front_kernel(const float* __restrict__ x, const float* __restrict__ rec
   const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
   const int32_t q = __float2int_rn(__fmul_rn(x[i], *recip_p));
   const uint32_t zig = lorenzo_zig(q, q_s);
-  if constexpr (kCodes) codes[i] = zig;
+  codes[i] = zig;
   const uint32_t umax = block_max(zig, red);
   if (threadIdx.x == 0) {
     bw_out[blockIdx.x] = 32 - __clz((int)umax);
     anchor_out[blockIdx.x] = q;
   }
-}
-
-// Pack: re-quantize block b from f32, then thread t builds output word t of
-// the block's segment from the codes overlapping it.  Also zeroes the
-// unused tail [total, cap) of the capacity buffer.
-__global__ void __launch_bounds__(kBlock)
-pack_kernel(const float* __restrict__ x, const float* __restrict__ recip_p,
-            const int32_t* __restrict__ bw_in, const int32_t* __restrict__ offsets,
-            int nb, uint32_t* __restrict__ packed, long long cap) {
-  __shared__ int32_t q_s[kBlock];
-  __shared__ uint32_t z_s[kBlock];
-  const int b = blockIdx.x, j = threadIdx.x;
-  const int32_t q = __float2int_rn(__fmul_rn(x[(size_t)b * kBlock + j], *recip_p));
-  const uint32_t zig = lorenzo_zig(q, q_s);
-  const int bw = bw_in[b];
-  z_s[j] = zig & width_mask(bw);
-  __syncthreads();
-  if (j < bw * kWordsPerBit) {
-    const int bit0 = 32 * j;
-    const int e0 = bit0 / bw;
-    const int e1 = min((bit0 + 31) / bw, kBlock - 1);
-    uint32_t w = 0;
-    for (int e = e0; e <= e1; ++e) {
-      const int sh = e * bw - bit0;
-      w |= sh >= 0 ? (z_s[e] << sh) : (z_s[e] >> -sh);
-    }
-    const long long gw = (long long)offsets[b] + j;
-    if (gw < cap) packed[gw] = w;
-  }
-  const long long stride = (long long)nb * kBlock;
-  for (long long i = (long long)offsets[nb] + (long long)b * kBlock + j; i < cap; i += stride)
-    packed[i] = 0u;
 }
 
 template <bool kReduce>
@@ -181,7 +156,7 @@ unpack_kernel(const uint32_t* __restrict__ packed, long long cap,
   const int b = blockIdx.x;
   const float qf = decode_q(packed, cap, bw_in[b], anchor_in[b], offsets[b], red);
   const size_t i = (size_t)b * kBlock + threadIdx.x;
-  out[i] = kReduce ? __fmaf_rn(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
+  out[i] = kReduce ? fma_acc(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
 }
 
 // Unfused decode: codes (nb, 256) + anchor -> f32, optionally + acc with
@@ -194,7 +169,7 @@ dequantize_kernel(const uint32_t* __restrict__ codes, const int32_t* __restrict_
   __shared__ uint32_t red[kWarps];
   const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
   const float qf = reconstruct_q(codes[i], anchor_in[blockIdx.x], red);
-  out[i] = kReduce ? __fmaf_rn(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
+  out[i] = kReduce ? fma_acc(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
 }
 
 constexpr int kSegWords = kTileBlocks * kBlock + 8;  // a tile's staged incoming segment
@@ -206,14 +181,6 @@ constexpr int kHopSmem = (kSegWords + kTileBlocks * kZRow) * 4;  // + the codes:
 // that the eight lanes reading one 16-byte piece of eight runs hit 32
 // different banks.
 __device__ __forceinline__ int zrow(int e) { return e + 4 * (e / kRun); }
-
-// The reduce acc + q * 2eb, rounded once.  A NaN in acc comes out as
-// itself, quieted, as the reference's add propagates it (the card's fma
-// alone would return its canonical NaN); q * 2eb is finite.
-__device__ __forceinline__ float fma_acc(float qf, float twoeb, float a) {
-  const float r = __fmaf_rn(qf, twoeb, a);
-  return a != a ? __int_as_float(__float_as_int(a) | 0x00400000) : r;
-}
 
 // Receive: lane l's eight int32 values of a dense block (elements 4l+e and
 // 128+4l+e, e < 4; before the multiply by 2*eb), decoded at width bw from
@@ -456,19 +423,96 @@ int hop_impl(const uint32_t* packed_in, long long cap_in, const int32_t* bw_in,
   return 0;
 }
 
+// Kernel 1: one tile of 32 blocks per CTA (see the header comment).
+__global__ void __launch_bounds__(kTileThreads)
+qp_lookback_kernel(const float* __restrict__ x, const float* __restrict__ recip_p, int nb,
+                   uint32_t* __restrict__ packed, long long cap, int32_t* __restrict__ bw_out,
+                   int32_t* __restrict__ anchor_out, int32_t* __restrict__ total_out,
+                   Lookback lb) {
+  __shared__ __align__(16) uint32_t z_s[kTileBlocks * kZRow];  // block blk's codes, then words
+  __shared__ int32_t words_s[kTileBlocks], blkoff_s[kTileBlocks];
+  __shared__ uint32_t off_s;
+  __shared__ int tile_s;
+  const int tiles = (nb + kTileBlocks - 1) / kTileBlocks;
+  const int tile = lookback_tile(lb, tiles, &tile_s);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float recip = *recip_p;
+  int bw[kWarpBlocks];
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int blk = warp + kWarps * i;  // step i covers 8 consecutive blocks
+    const int b = tile * kTileBlocks + blk;
+    bw[i] = 0;
+    if (b < nb) {  // warp-uniform
+      const float* xb = x + (size_t)b * kBlock;
+      const float4 lo = load4(xb + 4 * lane), hi = load4(xb + 128 + 4 * lane);
+      const float xv[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      int32_t q[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q[e] = __float2int_rn(__fmul_rn(xv[e], recip));
+      bw[i] = encode_block(q, z_s + blk * kZRow, lane);
+      if (lane == 0) {
+        bw_out[b] = bw[i];
+        anchor_out[b] = q[0];
+      }
+    }
+    if (lane == 0) words_s[blk] = bw[i] * kWordsPerBit;
+  }
+  __syncthreads();
+  if (warp == 0) {  // the tile's first word
+    const uint32_t agg = tile_offsets(words_s, blkoff_s, lane);
+    const uint32_t excl = lookback_exclusive(lb, tile, agg);
+    if (lane == 0) {
+      off_s = excl;
+      if (tile == tiles - 1) *total_out = (int32_t)(excl + agg);
+    }
+  }
+  {  // pack while the look-back resolves: lanes 8g .. 8g + 7 take the warp's block g
+    const int g = lane >> 3;
+    const int w = g == 0 ? bw[0] : g == 1 ? bw[1] : g == 2 ? bw[2] : bw[3];
+    pack_run_in_place(z_s + (warp + kWarps * g) * kZRow, w, lane & 7);
+  }
+  __syncthreads();
+  // Copy each block's segment out, the words below cap.
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int blk = warp + kWarps * i;
+    const long long base = (long long)off_s + blkoff_s[blk];
+    const uint32_t* zb = z_s + blk * kZRow;
+    for (int j = lane; j < bw[i] * kWordsPerBit; j += 32)
+      if (base + j < cap) packed[base + j] = zb[j];
+  }
+}
+
+// Zero the unused tail [total, cap) of kernel 1's capacity buffer.
+__global__ void __launch_bounds__(kBlock)
+qp_zero_tail_kernel(uint32_t* __restrict__ packed, long long cap,
+                    const int32_t* __restrict__ total) {
+  zero_tail(packed, cap, *total);
+}
+
 }  // namespace
 
 extern "C" {
 
+// Kernel 1.  ``lb_state`` holds ceil(nb / 32) 64-bit look-back words,
+// ``lb_counter`` the tile counter (0 between launches on the stream);
+// ``epoch`` tags this call's state words (see lorenzo_common.cuh).
+// ``total`` receives the stream's true length in words.  nb > 0.
 int lz_quantize_pack(const float* x, int nb, const float* recip, uint32_t* packed,
-                     long long cap, int32_t* bw, int32_t* anchor, int32_t* offsets,
-                     cudaStream_t stream) {
-  quantize_front_kernel<false><<<nb, kBlock, 0, stream>>>(x, recip, nullptr, bw, anchor);
+                     long long cap, int32_t* bw, int32_t* anchor, int32_t* total,
+                     unsigned long long* lb_state, unsigned int* lb_counter,
+                     unsigned int epoch, cudaStream_t stream) {
+  const int tiles = (nb + kTileBlocks - 1) / kTileBlocks;
+  qp_lookback_kernel<<<tiles, kTileThreads, 0, stream>>>(
+      x, recip, nb, packed, cap, bw, anchor, total, Lookback{lb_state, lb_counter, epoch});
   LZ_CHECK();
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw}, nb, offsets);
-  LZ_CHECK();
-  pack_kernel<<<nb, kBlock, 0, stream>>>(x, recip, bw, offsets, nb, packed, cap);
-  LZ_CHECK();
+  if (cap > 0) {
+    const long long want = (cap + kBlock - 1) / kBlock;
+    qp_zero_tail_kernel<<<(int)(want < kTailBlocks ? want : kTailBlocks), kBlock, 0,
+                          stream>>>(packed, cap, total);
+    LZ_CHECK();
+  }
   return 0;
 }
 
@@ -513,7 +557,7 @@ int lz_unpack_reduce_repack(const uint32_t* packed_in, long long cap_in,
 
 int lz_quantize(const float* x, int nb, const float* recip, uint32_t* codes,
                 int32_t* bw, int32_t* anchor, cudaStream_t stream) {
-  quantize_front_kernel<true><<<nb, kBlock, 0, stream>>>(x, recip, codes, bw, anchor);
+  quantize_front_kernel<<<nb, kBlock, 0, stream>>>(x, recip, codes, bw, anchor);
   LZ_CHECK();
   return 0;
 }

@@ -1,13 +1,13 @@
 // Device functions shared by the Lorenzo codec kernels (lorenzo.cu) and
 // the entropy-coded wire kernels (entropy.cu): the quantizer front, the
-// reconstruction, the one-CTA word-offset scan of the dense kernels 1, 3
-// and 4, the single-pass decoupled look-back of the entropy kernels and the
-// ring hop, and the pack's exact division and tail zeroing.
+// reconstruction, the one-CTA word-offset scan of the dense kernels 3 and
+// 4, the single-pass decoupled look-back of the entropy kernels, kernel 1
+// and the ring hop, the pack's exact division and tail zeroing, and the
+// reduces that pass a NaN in acc through.
 //
-// Layout: f32 data is (nb, 256).  In the dense kernels 1 and 3-7 one CUDA
-// block of 256 threads handles one 256-element Lorenzo block, thread j
-// owning element j; the look-back kernels take tiles of 32 blocks, four
-// per warp.
+// Layout: f32 data is (nb, 256).  In the dense kernels 3-7 one CUDA block
+// of 256 threads handles one 256-element Lorenzo block, thread j owning
+// element j; the look-back kernels take tiles of 32 blocks, four per warp.
 // Wire words are uint32, LSB-first, and every block's payload starts on a
 // word boundary.
 //
@@ -313,6 +313,26 @@ __device__ __forceinline__ long long stage_segment(const uint32_t* __restrict__ 
 __device__ __forceinline__ uint32_t zigzag(int32_t q, int32_t prev) {
   const int32_t d = (int32_t)((uint32_t)q - (uint32_t)prev);
   return ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
+}
+
+// The reduces.  On a NaN the card's arithmetic returns its canonical NaN;
+// the reference kernels on the CPU, and the plain versions, return the NaN
+// operand quieted (the decoded value's where both are NaN), and x86's
+// default NaN 0xFFC00000 for inf - inf.
+constexpr uint32_t kQuietBit = 0x00400000u;
+
+// acc + q * 2eb, rounded once; q * 2eb is finite, so a NaN comes only from acc.
+__device__ __forceinline__ float fma_acc(float qf, float twoeb, float a) {
+  const float r = __fmaf_rn(qf, twoeb, a);
+  return a != a ? __uint_as_float(__float_as_uint(a) | kQuietBit) : r;
+}
+
+// acc + v (the lossless reduce, v any bit pattern), rounded once.
+__device__ __forceinline__ float add_acc(float a, float v) {
+  const float r = __fadd_rn(a, v);
+  if (r == r) return r;
+  const uint32_t nan = v != v ? __float_as_uint(v) : a != a ? __float_as_uint(a) : 0xFFC00000u;
+  return __uint_as_float(nan | kQuietBit);
 }
 
 }  // namespace

@@ -5,16 +5,18 @@ find the exclusive prefix of a per-tile count without a second pass.
 Each launch needs a tile counter, which every launch leaves at 0, and
 one 64-bit state word per tile and look-back, tagged with the call's
 epoch so that words of earlier calls read as invalid and the array never
-needs clearing.  The entropy kernels (``kernels/entropy.py``) run one
-look-back per call, the Lorenzo ring hop (``kernels/lorenzo.py``
-``unpack_reduce_repack``) two.  All of them take their scratch here, one
-per (device, CUDA stream).
+needs clearing.  The entropy kernels (``kernels/entropy.py``) and the
+Lorenzo ``quantize_pack`` run one look-back per call, the Lorenzo ring
+hop (``kernels/lorenzo.py`` ``unpack_reduce_repack``) two.  All of them
+take their scratch here, one per (device, CUDA stream).
 """
 from __future__ import annotations
 
 import threading
 
 import torch
+
+from . import build
 
 __all__ = ["TILE_BLOCKS", "tiles_for", "scratch"]
 
@@ -38,7 +40,7 @@ def scratch(device, state_words: int):
     handed out), and the epoch's wrap clears it.  The caller holds the
     scratch until its launch is queued."""
     # by device too: every device's default stream has the handle 0
-    key = (device.index, torch.cuda.current_stream().cuda_stream)
+    key = (device.index, build.stream_handle())
     with _LOCK:
         entry = _SCRATCH.get(key)
         if entry is None or entry[0].numel() - 1 < state_words:

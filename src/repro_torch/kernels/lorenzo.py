@@ -5,7 +5,8 @@ Seven kernels, each the counterpart of a Pallas kernel in
 (``csrc/lorenzo.cu``, bound through a C ABI with ``ctypes``).  The fused
 codec:
 
-  * ``quantize_pack``             f32 blocks -> packed wire words, bw, anchor
+  * ``quantize_pack``             f32 blocks -> packed wire words, bw, anchor,
+                                  total
   * ``unpack_dequantize``         wire words -> f32 blocks
   * ``unpack_dequantize_reduce``  acc + decompress(wire words)
   * ``unpack_reduce_repack``      the single-pass ring hop: received words +
@@ -26,9 +27,9 @@ tensor to the plain version and a CUDA tensor to the kernel.  Each kernel
 wrapper counts its launches in ``LAUNCHES`` (one per call: a call is a
 short fixed sequence of CUDA launches, see the source note in
 ``lorenzo.cu``), so a run can show that the main path went through it.
-The ring hop is one single-pass launch with two decoupled look-backs and
-a tail-zeroing launch; its look-back scratch comes from
-``kernels/lookback.py``.  ``quantize_pack`` and the unpack kernels still
+``quantize_pack`` is one single-pass launch with a decoupled look-back,
+the ring hop one with two; each adds a tail-zeroing launch and takes its
+look-back scratch from ``kernels/lookback.py``.  The unpack kernels still
 scan the word offsets in a one-CTA launch.
 
 Shapes and types: f32 data is (nb, 256) with nb a multiple of 8; wire
@@ -95,8 +96,8 @@ def _count(name: str) -> None:
 
 def quantize_pack_plain(x2d, eb, capacity_words: int):
     codes, bw, anchor = ref.quantize_ref(x2d, eb)
-    packed, _ = bitpack.pack(codes, bw, capacity_words)
-    return packed, bw, anchor
+    packed, total = bitpack.pack(codes, bw, capacity_words)
+    return packed, bw, anchor, total
 
 
 def unpack_dequantize_plain(packed, bitwidth, anchor, eb):
@@ -142,7 +143,7 @@ def dequantize_reduce_plain(codes, anchor, eb, acc):
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "lz_quantize_pack": (_P, _I, _P, _P, _L, _P, _P, _P, _P),
+    "lz_quantize_pack": (_P, _I, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P),
     "lz_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P),
     "lz_unpack_reduce_repack": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _L, _P,
                                 _P, _P, _P, _P, _I, _P),
@@ -184,18 +185,27 @@ def _launch(fn: str, *args) -> None:
 
 
 def quantize_pack(x2d, eb, capacity_words: int):
-    """f32 (nb, 256) -> (packed int32[cap], bw int32 (nb,), anchor int32 (nb,))."""
+    """f32 (nb, 256) -> (packed int32[cap], bw int32 (nb,), anchor int32
+    (nb,), total words int32 0-d).  One single-pass launch over tiles of
+    32 blocks with a look-back for the word offsets, plus one that zeroes
+    the words from the total to the capacity.  The total is the stream's
+    true length (it may pass the capacity)."""
     nb = _check_blocks(x2d, "x2d")
+    if nb == 0:
+        raise ValueError("x2d has no blocks")
     _, recip = _scalars(eb)
-    packed = torch.empty(int(capacity_words), dtype=torch.int32, device=x2d.device)
-    bw = torch.empty(nb, dtype=torch.int32, device=x2d.device)
+    dev = x2d.device
+    packed = torch.empty(int(capacity_words), dtype=torch.int32, device=dev)
+    bw = torch.empty(nb, dtype=torch.int32, device=dev)
     anchor = torch.empty_like(bw)
-    offsets = torch.empty(nb + 1, dtype=torch.int32, device=x2d.device)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    scratch, epoch = lookback.scratch(dev, lookback.tiles_for(nb))
     _launch("lz_quantize_pack", x2d.data_ptr(), nb, recip.data_ptr(),
             packed.data_ptr(), int(capacity_words), bw.data_ptr(),
-            anchor.data_ptr(), offsets.data_ptr())
+            anchor.data_ptr(), total.data_ptr(), scratch.data_ptr() + 8,
+            scratch.data_ptr(), epoch)
     _count("quantize_pack")
-    return packed, bw, anchor
+    return packed, bw, anchor, total
 
 
 def _unpack(name, packed, bitwidth, anchor, eb, acc):

@@ -74,9 +74,9 @@ def _route(t: torch.Tensor, name: str, module=lorenzo):
 
 
 def quantize_pack(x2d, eb, capacity_words: int):
-    """f32 blocks -> (packed int32 (capacity_words,), bw, anchor)."""
-    return _route(x2d, "quantize_pack")(
-        x2d, as_eb(eb, x2d.device), int(capacity_words))
+    """f32 blocks -> (packed int32 (capacity_words,), bw, anchor, total
+    words int32 0-d, which may pass the capacity)."""
+    return _route(x2d, "quantize_pack")(x2d, as_eb(eb, x2d.device), int(capacity_words))
 
 
 def unpack_dequantize(packed, bitwidth, anchor, eb):

@@ -37,6 +37,7 @@ __all__ = [
     "as_u32",
     "f32_to_i32_rn",
     "fma_f32",
+    "add_f32",
     "bitwidth_of",
     "quantize_ref",
     "dequantize_ref",
@@ -89,6 +90,22 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
                          torch.full_like(s, float("-inf")))
     s = torch.where(move, torch.nextafter(s, toward), s)
     return s.to(torch.float32)
+
+
+_QUIET_BIT = 0x00400000
+_DEFAULT_NAN = -0x00400000  # 0xFFC00000 as int32
+
+
+def add_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 ``a + b`` with the NaN that the reference kernel's add returns on
+    the CPU, on any device: a NaN operand comes out quieted, ``b``'s where
+    both are NaN, and inf - inf as x86's default NaN 0xFFC00000.  torch's
+    add does the same on the CPU, but returns the card's canonical NaN on
+    CUDA; the CUDA kernels follow this rule (``add_acc``)."""
+    s = a + b
+    ai, bi = a.view(torch.int32), b.view(torch.int32)
+    nan = torch.where(torch.isnan(b), bi, torch.where(torch.isnan(a), ai, _DEFAULT_NAN))
+    return torch.where(torch.isnan(s), (nan | _QUIET_BIT).view(torch.float32), s)
 
 
 def twoeb_of(eb: torch.Tensor) -> torch.Tensor:

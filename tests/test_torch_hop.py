@@ -32,6 +32,7 @@ widths and full-width random bits.  The compressor's ``nwords`` after a
 hop is the total, ``packed_words(bw_out)``, overflow included.  A last
 test holds the kernels' C prototypes against their ``ctypes`` signatures.
 """
+import ctypes
 import pathlib
 import re
 
@@ -83,8 +84,10 @@ def _walk(aggs_in, body, seed, *, worst=False, resident=None):
     """One launch: tiles drawn in index order, at most ``resident`` in
     flight; each publishes its incoming aggregate, looks back (state array
     A), runs ``body(t, off_in) -> outgoing aggregate``, publishes that and
-    looks back again (array B).  Returns (incoming offsets, outgoing
-    offsets, the last tile's inclusive outgoing prefix, window reads)."""
+    looks back again (array B).  A ``body`` that returns None ends its tile
+    after look-back A (kernel 1's single look-back).  Returns (incoming
+    offsets, outgoing offsets, the last tile's inclusive prefix in the last
+    array it published, window reads)."""
     rng = np.random.default_rng(seed)
     tiles = len(aggs_in)
     states = [_stale(rng, tiles), _stale(rng, tiles)]
@@ -98,6 +101,7 @@ def _walk(aggs_in, body, seed, *, worst=False, resident=None):
         states[lb][t] = _state_word(EPOCH, FLAG_INCLUSIVE, excl + aggs[lb][t])
         if lb == 0:
             aggs[1][t] = body(t, excl)
+        if lb == 0 and aggs[1][t] is not None:
             active[t] = [1, None]
         else:
             del active[t]
@@ -139,7 +143,7 @@ def _walk(aggs_in, body, seed, *, worst=False, resident=None):
             finish(t, lb, st[1])
         else:
             st[0] -= 32
-    last = states[1][tiles - 1]
+    last = states[0 if aggs[1][tiles - 1] is None else 1][tiles - 1]
     assert int(last >> 34) == EPOCH and int((last >> 32) & 3) == FLAG_INCLUSIVE
     return offs[0], offs[1], int(last & MASK32), reads
 
@@ -195,7 +199,14 @@ def _send(q_in, acc, eb_in, eb_out):
     """Reduce (rounded once), re-quantize and encode in the lane layout:
     (f32 sum, skewed rows of codes (blocks, ZROW), bw_out, anchor_out)."""
     x = ref.fma_f32(q_in.to(torch.float32), ref.twoeb_of(eb_in), acc)
-    q = ref.f32_to_i32_rn(x * ref.recip_of(eb_out)).to(torch.int64)
+    q = ref.f32_to_i32_rn(x * ref.recip_of(eb_out))
+    return (x,) + _encode(q)
+
+
+def _encode(q):
+    """encode_block of int32 q (blocks, 256) in the lane layout: (skewed
+    rows of codes (blocks, ZROW), bw, anchor)."""
+    q = q.to(torch.int64)
     ql = q.view(-1, 2, 32, 4)                             # (block, part, lane, e)
     prev = torch.empty_like(ql)
     prev[..., 1:] = ql[..., :-1]                          # the same lane
@@ -208,7 +219,7 @@ def _send(q_in, acc, eb_in, eb_out):
     e = torch.arange(256)
     rows = torch.full((zz.shape[0], ZROW), SENTINEL, dtype=torch.int64)
     rows[:, e + 4 * (e // RUN)] = zz                     # zrow(e)
-    return x, rows, bw, wrap_i32(q[:, 0])
+    return rows, bw, wrap_i32(q[:, 0])
 
 
 def _pack_in_place(rows, bw):
@@ -263,26 +274,36 @@ def _hop_replay(stream, acc, eb_in, eb_out, cap_out, *, seed, worst=False, resid
         return 8 * int(bw_out[blocks].to(torch.int64).sum())
 
     _, offs_out, total, _ = _walk(aggs_in, body, seed, worst=worst, resident=resident)
-    out = torch.full((cap_out,), SENTINEL, dtype=torch.int64)
-    writes = torch.zeros(cap_out, dtype=torch.int64)
-    nw = 8 * bw_out.to(torch.int64)
-    for t, off in enumerate(offs_out):  # the copy-out, below the capacity
+    out = _copy_out(offs_out, words, bw_out, cap_out, total)
+    res = (out, bw_out, anchor_out) + ((x,) if emit_f32 else ())
+    return res + (torch.tensor(total, dtype=torch.int32),)
+
+
+def _copy_out(offs, words, bw, cap, total):
+    """Each tile's copy-out below the capacity from its first word
+    ``offs[t]``, then the tail launch's zeroing of [total, cap) in its
+    4-word split; every word below the capacity is written exactly once.
+    Returns the int32 stream."""
+    nb = bw.shape[0]
+    out = torch.full((cap,), SENTINEL, dtype=torch.int64)
+    writes = torch.zeros(cap, dtype=torch.int64)
+    nw = 8 * bw.to(torch.int64)
+    for t, off in enumerate(offs):
         base = off
         for b in range(t * R, min((t + 1) * R, nb)):
             g = base + torch.arange(int(nw[b]))
-            keep = g < cap_out
+            keep = g < cap
             out[g[keep]] = words[b, : int(nw[b])][keep]
             writes.index_add_(0, g[keep], torch.ones_like(g[keep]))
             base += int(nw[b])
-    mid = min((total + 3) & ~3, cap_out) if total < cap_out else cap_out
-    end4 = max(mid, cap_out & ~3)
-    for lo, hi in ((total, mid), (mid, end4), (end4, cap_out)):  # the tail launch
+    mid = min((total + 3) & ~3, cap) if total < cap else cap
+    end4 = max(mid, cap & ~3)
+    for lo, hi in ((total, mid), (mid, end4), (end4, cap)):  # the tail launch
         if lo < hi:
             out[lo:hi] = 0
             writes[lo:hi] += 1
-    assert cap_out == 0 or (int(writes.min()) == 1 and int(writes.max()) == 1)
-    res = (wrap_i32(out), bw_out, anchor_out) + ((x,) if emit_f32 else ())
-    return res + (torch.tensor(total, dtype=torch.int32),)
+    assert cap == 0 or (int(writes.min()) == 1 and int(writes.max()) == 1)
+    return wrap_i32(out)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +343,7 @@ def _case(nb, kind, cap_in_kind, cap_out_kind, seed):
 
     full = lorenzo.quantize_pack_plain(x2d, eb_in, capacity_words_for(n, 2.0, 256))
     cap_in = cap_of(cap_in_kind, full[1])
-    stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap_in)
+    stream = lorenzo.quantize_pack_plain(x2d, eb_in, cap_in)[:3]
     probe = lorenzo.unpack_reduce_repack_plain(*stream, eb_in, acc, eb_out, 8)
     cap_out = cap_of(cap_out_kind, probe[1])
     return stream, acc, eb_in, eb_out, cap_out
@@ -471,19 +492,33 @@ def test_hop_total_and_compressor_nwords(cap_out):
 
 
 def _prototypes(source):
-    """{C entry point: number of parameters} of a source's extern "C" block."""
+    """{C entry point: its parameters' types} of a source's extern "C" block."""
     text = (CSRC / source).read_text()
     text = text[text.index('extern "C" {'):]
-    return {m.group(1): len(m.group(2).split(","))
+    return {m.group(1): [" ".join(p.split()[:-1]) for p in m.group(2).split(",")]
             for m in re.finditer(r"^int (\w+)\(([^)]*)\)", text, re.M)}
+
+
+def _ctype_of(c_type):
+    """The ctypes argument type a C parameter type needs: a pointer or the
+    stream is c_void_p, ``long long`` c_longlong, an int c_int."""
+    if c_type.endswith("*") or c_type == "cudaStream_t":
+        return ctypes.c_void_p
+    if c_type == "long long":
+        return ctypes.c_longlong
+    assert c_type in ("int", "unsigned int"), c_type
+    return ctypes.c_int
 
 
 @pytest.mark.parametrize("module,source", [(lorenzo, "lorenzo.cu"),
                                            (kentropy, "entropy.cu")])
 def test_ctypes_signatures_match_prototypes(module, source):
     """Every wrapper passes as many arguments as the C function takes (the
-    stream last): a short signature truncates the stream pointer."""
+    stream last), each of the ctypes type its C type needs: a short
+    signature truncates the stream pointer, an int where a pointer goes
+    cuts the pointer."""
     protos = _prototypes(source)
     assert set(protos) == set(module._SIGNATURES)
     for fn, argtypes in module._SIGNATURES.items():
-        assert len(argtypes) == protos[fn], fn
+        assert len(argtypes) == len(protos[fn]), fn
+        assert list(argtypes) == [_ctype_of(t) for t in protos[fn]], fn
