@@ -28,13 +28,21 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    back-to-back calls on one scratch, hop calls interleaved with entropy
    calls on the same stream, and from the profiler one
    ``hop_lookback_kernel`` and one ``hop_zero_tail_kernel`` launch per
-   call and no one-CTA scan; then kernel 1 on its single-pass design's
+   call; then kernel 1 on its single-pass design's
    edges (stream, bw, anchor and total bitwise): one tile, part-full last
    tiles, capacities on and inside a tile, an overflowing stream,
    NaN/Inf/saturating input, full-width random bits at the ring piece, 50
    back-to-back calls on one scratch, calls interleaved with hop and
    entropy calls, and from the profiler one ``qp_lookback_kernel`` and one
-   ``qp_zero_tail_kernel`` launch per call; then kernels 3, 7 and 10
+   ``qp_zero_tail_kernel`` launch per call; then kernels 3 and 4 on their
+   single-pass design's edges (f32 by bits): one tile, part-full last
+   tiles, all-zero widths, full-width random bits at the ring piece,
+   streams cut on and inside a tile and far below their length,
+   ``packed`` 1, 2 and 3 words off a 16-byte boundary and an unaligned
+   ``acc``, 50 back-to-back calls on one scratch, calls interleaved with
+   kernel 1, kernel 2 and entropy calls, a 0-block call raising, and from
+   the profiler one ``ud_lookback_kernel`` launch per call; then kernels
+   3, 7 and 10
    (lossy and lossless) with signalling NaNs and NaNs carrying payloads in
    ``acc``, by bits;
 3. holds the three unfused kernels (``quantize``, ``dequantize``,
@@ -45,8 +53,8 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 4. runs the allreduce, ``GZCommunicator("x").allreduce`` over a
    ``ThreadGroup`` of ranks on the card, at 646 MB per rank with 8 ranks
    (plan ``ring``, 2 pieces, profiled: the Lorenzo kernels' launches are
-   checked against the schedule, 96 hop, 32 kernel 1 and 144 one-CTA
-   scan launches),
+   checked against the schedule: 96 hop, 32 kernel 1 and 144
+   ``ud_lookback_kernel`` launches of kernels 3 and 4),
    16 MB with 8 ranks (``redoub``)
    and 16 MB with 6 ranks (``redoub`` with the remainder stage), then a
    4 MB allreduce through the kernels and through the plain versions
@@ -70,7 +78,7 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    tile, part-full last tiles, an all-zero stream, capacities on and
    inside a tile, full-width random bits at 646 MB, 50 back-to-back calls
    on one scratch; checks from the profiler that kernel 8 is two launches
-   per call, kernels 9 and 10 one, and that no word-offset scan runs;
+   per call, kernels 9 and 10 one;
 9. runs the 646 MB x 8 allreduce and the 646 MB scatter under
    ``lorenzo+entropy`` (phase ``codecs``);
 10. runs the gradient sync of one minitron-8b decoder layer (973 MB per
@@ -78,8 +86,8 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     profiled (each entropy sub-kernel's launches and device time, the
     launch structure checked again), with its host floor at 1/256 size
     (phase ``grad-sync``);
-11. the same sync under ``lorenzo`` (then profiled once: kernel 2's
-    launches and device time, the launch structure checked), ``lossless``,
+11. the same sync under ``lorenzo`` (then profiled once: kernels 1, 2
+    and 3's launches and device time, the launch structure checked), ``lossless``,
     ``passthrough`` and ``codec="auto"``, and at N = 6;
 12. checks that the all-to-all's backward on a one-card ``ThreadGroup``
     raises instead of hanging (phase ``c6``);
@@ -215,8 +223,8 @@ def _median_ms(fn, reps, calls=1):
 
 # The port's own kernels (csrc/lorenzo.cu, csrc/entropy.cu) by symbol.
 OWN_KERNEL = re.compile(r"\(anonymous namespace\)::(ent_\w+_kernel|hop_\w+_kernel|"
-                        r"qp_\w+_kernel|quantize_front_kernel|unpack_kernel|"
-                        r"dequantize_kernel|word_offsets_kernel)\b")
+                        r"qp_\w+_kernel|ud_\w+_kernel|quantize_front_kernel|"
+                        r"dequantize_kernel)\b")
 
 
 def _device_ms(fn, calls=10):
@@ -379,13 +387,13 @@ def check_kernels(device, gen):
         _log_time(r, label)
     _check_hop_edges(device, gen, eb_in, eb_out)
     _check_pack_edges(device, gen, eb_in)
+    _check_unpack_edges(device, gen, eb_in, eb_out)
     _check_nan_acc(device, gen)
     return records
 
 
-ENTROPY_SYMBOLS = r"ent_\w+_kernel|word_offsets_kernel"
-LORENZO_SYMBOLS = (r"hop_\w+_kernel|qp_\w+_kernel|word_offsets_kernel|"
-                   r"quantize_front_kernel|unpack_kernel")
+ENTROPY_SYMBOLS = r"ent_\w+_kernel"
+LORENZO_SYMBOLS = r"hop_\w+_kernel|qp_\w+_kernel|ud_\w+_kernel|quantize_front_kernel"
 
 
 def _kernel_launches(events, symbols):
@@ -400,6 +408,13 @@ def _kernel_launches(events, symbols):
             row[0] += e.count
             row[1] += e.self_device_time_total / 1e3
     return rows
+
+
+def _ud_summary(rows):
+    """Kernels 3 and 4's launches and device ms in ``_kernel_launches`` rows."""
+    return ", ".join(f"{rows.get(k, [0, 0.0])[0]} {k} launches, "
+                     f"{rows.get(k, [0, 0.0])[1]:.2f} ms"
+                     for k in ("ud_lookback_kernel<true>", "ud_lookback_kernel<false>"))
 
 
 class ProfileShortfall(AssertionError):
@@ -420,18 +435,17 @@ def _check_hop_launch_structure(rows, calls, label, dropped=0.0):
     """Every ``unpack_reduce_repack`` call is one ``hop_lookback_kernel``
     launch and one ``hop_zero_tail_kernel`` launch, every ``quantize_pack``
     call one ``qp_lookback_kernel`` and one ``qp_zero_tail_kernel``, every
-    ``quantize`` call one ``quantize_front_kernel``, and the one-CTA scan
-    and ``unpack_kernel`` run once per call of kernels 3 and 4 only.
-    ``calls`` are the Lorenzo wrappers' counts; ``dropped`` is the share of
-    device events a long profile may lose (never gain)."""
+    ``quantize`` call one ``quantize_front_kernel``, and every call of
+    kernels 3 and 4 one ``ud_lookback_kernel``.  ``calls`` are the Lorenzo
+    wrappers' counts; ``dropped`` is the share of device events a long
+    profile may lose (never gain)."""
     want = {"hop_lookback_kernel": calls["unpack_reduce_repack"],
             "hop_zero_tail_kernel": calls["unpack_reduce_repack"],
             "qp_lookback_kernel": calls["quantize_pack"],
             "qp_zero_tail_kernel": calls["quantize_pack"],
             "quantize_front_kernel": calls["quantize"],
-            "word_offsets_kernel": calls["unpack_dequantize"]
+            "ud_lookback_kernel": calls["unpack_dequantize"]
             + calls["unpack_dequantize_reduce"]}
-    want["unpack_kernel"] = want["word_offsets_kernel"]
     got = dict.fromkeys(want, 0)
     for sym, (count, _) in rows.items():
         base = sym.split("<")[0]
@@ -624,6 +638,136 @@ def _check_pack_edges(device, gen, eb):
     _check_hop_launch_structure(rows, lorenzo.LAUNCHES, "quantize_pack calls")
     log(f"quantize_pack kernel launches for 3 calls (16 MiB bucket): {rows}")
     del prof, x2d, acc, want, hop_want, ent, red_want
+    torch.cuda.empty_cache()
+
+
+def _check_unpack_edges(device, gen, eb, eb_out):
+    """Kernels 3 and 4 against their plain versions, f32 by bits, on the
+    single-pass design's edges: one tile, part-full last tiles, all-zero
+    widths, full-width random bits at the 646 MB ring piece (NaNs in acc
+    too), streams cut on and inside a tile and far below their length,
+    ``packed`` as a view 1, 2 and 3 words off a 16-byte boundary, ``acc``
+    as an unaligned view; 50 back-to-back calls on one scratch, and calls
+    interleaved on the same stream with kernel 1, kernel 2 and entropy
+    calls; a 0-block call raises ``ValueError``; then one
+    ``ud_lookback_kernel`` launch per call from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.compressed import capacity_words_for
+    from repro_torch.kernels import entropy, lorenzo, ops
+
+    def case(label, stream, acc):
+        got = (lorenzo.unpack_dequantize(*stream, eb),
+               lorenzo.unpack_dequantize_reduce(*stream, eb, acc))
+        want = (lorenzo.unpack_dequantize_plain(*stream, eb),
+                lorenzo.unpack_dequantize_reduce_plain(*stream, eb, acc))
+        torch.cuda.synchronize()
+        _compare(f"unpack_dequantize [{label}]", got[:1], want[:1])
+        _compare(f"unpack_dequantize_reduce [{label}]", got[1:], want[1:])
+        words = 8 * int(stream[1].long().sum())
+        log(f"unpack kernels vs plain [{label}, {stream[1].shape[0]} rows, cap "
+            f"{stream[0].shape[0]}, {words} words]: mismatches 0 by bits, kernels 3 and 4")
+        return words
+
+    def walk(nb):
+        return ops.to_blocks(_random_walk(nb * 256, gen, device) * 8.0)
+
+    def packed_of(x2d, cap):
+        return lorenzo.quantize_pack_plain(x2d, eb, cap)[:3]
+
+    for nb in (32, 8, 40, 72):  # one tile; part-full last tiles
+        case("one tile" if nb == 32 else "part-full last tile",
+             packed_of(walk(nb), capacity_words_for(nb * 256, 0.6, 256)), walk(nb) / 8.0)
+    zero = packed_of(torch.zeros((40, 256), device=device), capacity_words_for(40 * 256, 0.6, 256))
+    if case("all-zero widths", zero, walk(40) / 8.0) != 0:
+        raise AssertionError("all-zero input: the stream is not empty")
+    nb = 5 * 32
+    x2d, acc = walk(nb), walk(nb) / 8.0
+    ample = capacity_words_for(nb * 256, 2.0, 256)
+    stream = packed_of(x2d, ample)
+    case("ample capacity", stream, acc)
+    for label, cap in {**_tile_caps((8 * stream[1].long()).tolist(), 3),
+                       "cut far below the stream": 64}.items():
+        if not case(label, packed_of(x2d, cap), acc) > cap:
+            raise AssertionError(f"{label}: the stream is not cut")
+    for k in (1, 2, 3):  # the stream pointer k words past a 16-byte boundary
+        buf = torch.zeros(ample + 4, dtype=torch.int32, device=device)
+        view = buf[k: k + ample]
+        view.copy_(stream[0])
+        case(f"packed {4 * k} bytes off a 16-byte boundary", (view, *stream[1:]), acc)
+    buf = torch.empty(nb * 256 + 1, dtype=torch.float32, device=device)
+    acc_view = buf[1:].view(nb, 256)
+    acc_view.copy_(acc)
+    case("acc 4 bytes off a 16-byte boundary", stream, acc_view)
+    n = _main_piece_elems()
+    bits = ops.to_blocks(_random_bits(n, gen, device))
+    stream = packed_of(bits, capacity_words_for(n, 2.0, 256))
+    full = int((stream[1] == 32).sum())
+    if full < 0.9 * bits.shape[0]:
+        raise AssertionError(f"random bits: {full} of {bits.shape[0]} blocks at width 32")
+    case("646 MB ring piece, full-width random bits", stream,
+         ops.to_blocks(_random_bits(n, gen, device)))
+    del bits, stream, buf, acc_view
+    words8 = torch.zeros(8, dtype=torch.int32, device=device)
+    empty = torch.zeros(0, dtype=torch.int32, device=device)
+    for extra in ((), (torch.empty((0, 256), device=device),)):
+        fn = lorenzo.unpack_dequantize_reduce if extra else lorenzo.unpack_dequantize
+        try:
+            fn(words8, empty, empty, eb, *extra)
+        except ValueError:
+            continue
+        raise AssertionError(f"{fn.__name__}: a 0-block call did not raise ValueError")
+
+    n = BUCKET_BYTES // 4
+    x2d, acc = ops.to_blocks(_random_walk(n, gen, device) * 8.0), \
+        ops.to_blocks(_random_walk(n, gen, device))
+    cap = capacity_words_for(n, 0.6, 256)
+    stream = packed_of(x2d, cap)
+    wants = {"ud": (lorenzo.unpack_dequantize_plain(*stream, eb),),
+             "udr": (lorenzo.unpack_dequantize_reduce_plain(*stream, eb, acc),)}
+    outs = []
+    for _ in range(25):  # 50 calls back to back, one scratch
+        outs.append(("ud", (lorenzo.unpack_dequantize(*stream, eb),)))
+        outs.append(("udr", (lorenzo.unpack_dequantize_reduce(*stream, eb, acc),)))
+    for i, (kind, got) in enumerate(outs):
+        _compare(f"unpack [back-to-back call {i} ({kind})]", got, wants[kind])
+    del outs
+    hop_args = (*stream, eb, acc, eb_out, cap)
+    ent = entropy.quantize_pack_plain(acc, eb, cap)
+    wants.update(qp=lorenzo.quantize_pack_plain(x2d, eb, cap),
+                 hop=lorenzo.unpack_reduce_repack_plain(*hop_args, emit_f32=True,
+                                                        return_total=True),
+                 ent=ent, red=(entropy.unpack_dequantize_reduce_plain(*ent[:3], eb, x2d),))
+    outs = []
+    for _ in range(20):  # kernels 4, 1, 3, 2, entropy pack, 4, entropy reduce: one scratch
+        outs.append(("ud", (lorenzo.unpack_dequantize(*stream, eb),)))
+        outs.append(("qp", lorenzo.quantize_pack(x2d, eb, cap)))
+        outs.append(("udr", (lorenzo.unpack_dequantize_reduce(*stream, eb, acc),)))
+        outs.append(("hop", lorenzo.unpack_reduce_repack(*hop_args, emit_f32=True,
+                                                         return_total=True)))
+        outs.append(("ent", entropy.quantize_pack(acc, eb, cap)))
+        outs.append(("ud", (lorenzo.unpack_dequantize(*stream, eb),)))
+        outs.append(("red", (entropy.unpack_dequantize_reduce(*ent[:3], eb, x2d),)))
+    for i, (kind, got) in enumerate(outs):
+        _compare(f"interleaved call {i} ({kind})", got, wants[kind])
+    log("unpack kernels vs plain [50 back-to-back calls at the 16 MiB bucket, one scratch; "
+        "20 rounds interleaved with kernel 1, kernel 2 and entropy calls on the same "
+        "stream]: mismatches 0; a 0-block call raises ValueError")
+    del outs, wants
+    lorenzo.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lorenzo.unpack_dequantize(*stream, eb)
+            lorenzo.unpack_dequantize_reduce(*stream, eb, acc)
+        torch.cuda.synchronize()
+    rows = _kernel_launches(_device_events(prof), LORENZO_SYMBOLS)
+    _check_hop_launch_structure(rows, lorenzo.LAUNCHES, "unpack calls")
+    if {k: c for k, (c, _) in rows.items()} != {"ud_lookback_kernel<true>": 3,
+                                                 "ud_lookback_kernel<false>": 3}:
+        raise AssertionError(f"unpack calls: launches {rows} for 3 calls of kernels 3 and 4")
+    log(f"unpack kernel launches for 3 calls each of kernels 3 and 4 (16 MiB bucket): {rows}")
+    del prof, x2d, acc, stream, ent
     torch.cuda.empty_cache()
 
 
@@ -978,6 +1122,8 @@ def _profile(group, fn, xs, plan, intervals=None):
                                       f"profiled {plan.op}", dropped=0.05)
     log(f"  Lorenzo launches in the profile (by kernel): {got}; "
         + "; ".join(f"{k} {c} x {ms:.2f} ms" for k, (c, ms) in sorted(rows.items())))
+    log("  kernels 3 and 4 (ud_lookback_kernel<true> / <false>): "
+        + _ud_summary(rows))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
     for e in events:
@@ -1407,7 +1553,7 @@ def _check_entropy_edges(device, gen, eb):
 
 def _check_entropy_launch_structure(rows, calls, label, dropped=0.0):
     """Kernel 8 is one look-back launch and one tail launch per call,
-    kernels 9 and 10 one launch each, and no word-offset scan runs.  Over
+    kernels 9 and 10 one launch each, and nothing else runs.  Over
     a long traced window the profiler can lose a few device events (it
     kept 1,392 of 1,416 in a traced gradient sync on the H100), never add
     any: ``dropped`` is the share of launches it may miss."""
@@ -1417,8 +1563,6 @@ def _check_entropy_launch_structure(rows, calls, label, dropped=0.0):
             + calls["unpack_dequantize_reduce"]}
     got = dict.fromkeys(want, 0)
     for sym, (count, _) in rows.items():
-        if sym.startswith("word_offsets_kernel"):
-            raise AssertionError(f"{label}: {sym} launched {count} times")
         base = sym.split("<")[0]
         got[base] = got.get(base, 0) + count
     _check_counts(got, want, dropped, f"{label}: entropy kernel launches")
@@ -1737,13 +1881,16 @@ def run_grad_sync(device, gen):
             rows = _kernel_launches(events, LORENZO_SYMBOLS)
             hop = [(c, ms) for k, (c, ms) in rows.items() if k.startswith("hop_lookback")]
             qp_ms = sum(ms for k, (_, ms) in rows.items() if k.startswith("qp_"))
+            ud_ms = sum(ms for k, (_, ms) in rows.items() if k.startswith("ud_"))
             log(f"grad sync lorenzo profile: traced wall {traced * 1e3:.1f} ms, device busy "
                 f"{busy:.1f} ms; kernel 2: {calls['unpack_reduce_repack']} calls, "
                 f"{sum(c for c, _ in hop)} hop_lookback_kernel launches, "
                 f"{sum(ms for k, (_, ms) in rows.items() if k.startswith('hop_')):.2f} ms of "
                 f"device time with its tail launches; kernel 1: {calls['quantize_pack']} "
                 f"calls, {qp_ms:.2f} ms of device time with its tail launches, "
-                f"{qp_ms / n:.3f} ms per rank; Lorenzo launches {got}; "
+                f"{qp_ms / n:.3f} ms per rank; kernel 3: "
+                f"{calls['unpack_dequantize_reduce']} calls, {_ud_summary(rows)}, "
+                f"{ud_ms / n:.3f} ms per rank; Lorenzo launches {got}; "
                 + "; ".join(f"{k} {c} x {ms:.2f} ms" for k, (c, ms) in sorted(rows.items())))
             del events
     mism = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())

@@ -1,10 +1,12 @@
 """Time the Lorenzo ring hop (kernel 2, ``unpack_reduce_repack``), or,
 with ``--kernel quantize_pack``, kernel 1, or, with ``--kernel compress``,
-the fused ``ErrorBoundedLorenzo.compress`` around it, of one checkout of
-the port.
+the fused ``ErrorBoundedLorenzo.compress`` around it, or, with ``--kernel
+unpack_dequantize`` or ``unpack_dequantize_reduce``, kernel 4 or 3, of one
+checkout of the port.
 
     python3 scripts/time_hop_kernel.py [--src DIR] [--label NAME]
-        [--kernel unpack_reduce_repack|quantize_pack|compress]
+        [--kernel unpack_reduce_repack|quantize_pack|compress|
+                  unpack_dequantize|unpack_dequantize_reduce]
 
 ``--src`` is the ``src`` directory that holds ``repro_torch`` (default:
 this checkout's).  Run it for two checkouts in one process list on one
@@ -16,7 +18,8 @@ grad sync), and one pipelined-ring piece of the 646 MB allreduce (39,432
 rows) without it (the ring's mode) and with it; the incoming stream is
 packed at eb = 1e-4 / 8, re-packed at 1e-4 / 7, capacity factor 0.6, as
 in ``chip_smoke.py``.  Kernel 1 packs the same inputs at eb = 1e-4 / 8,
-capacity factor 0.6, at the bucket and the ring piece.  ``compress``
+capacity factor 0.6, at the bucket and the ring piece; kernels 3 and 4
+decode such a stream there (kernel 3 adds it to a second random walk).  ``compress``
 packs one 16 MiB bucket as the default ``lorenzo`` grad sync does, and
 then prints the host cost of each step of the call apart (the stream
 lookup, the look-back scratch, the eb scalars, one allocation, the
@@ -27,9 +30,11 @@ anchors, the total and the f32 sum bitwise) and prints the median ms of
 20 event pairs around 10 back-to-back calls, around one call, the host us
 per call of 1,000 calls queued without a sync, the device time per call of
 the port's kernels from the profiler (by kernel name, with launches per
-call), and the bytes bound at 3.35 TB/s.  The parent's kernel 1 launched
-``quantize_front_kernel``, ``word_offsets_kernel`` and ``pack_kernel``,
-so ``OWN`` names them too.  It needs a CUDA card and imports no JAX.
+call), and the bytes bound at 3.35 TB/s.  Earlier designs launched
+``quantize_front_kernel``, ``word_offsets_kernel`` and ``pack_kernel``
+(kernel 1) and ``word_offsets_kernel`` and ``unpack_kernel`` (kernels 3
+and 4), so ``OWN`` names them too: it times a parent checkout with the
+same columns.  It needs a CUDA card and imports no JAX.
 """
 import time
 import argparse
@@ -40,8 +45,9 @@ import sys
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 EB = 1e-4
-OWN = re.compile(r"\(anonymous namespace\)::(hop_\w+_kernel|qp_\w+_kernel|pack_kernel|"
-                 r"quantize_front_kernel|word_offsets_kernel)(<[^>]*>)?")
+OWN = re.compile(r"\(anonymous namespace\)::(hop_\w+_kernel|qp_\w+_kernel|ud_\w+_kernel|"
+                 r"pack_kernel|quantize_front_kernel|word_offsets_kernel|"
+                 r"unpack_kernel)(<[^>]*>)?")
 
 
 def _median_ms(torch, fn, reps=20, calls=1):
@@ -131,6 +137,32 @@ def _time_quantize_pack(torch, lorenzo, ops, label, shape, n, gen, dev, eb):
     torch.cuda.empty_cache()
 
 
+def _time_unpack(torch, lorenzo, ops, name, label, shape, n, gen, dev, eb):
+    """Kernel 4 (``unpack_dequantize``) or 3 (``unpack_dequantize_reduce``)
+    on the stream of a random walk of n elements: checked against the plain
+    version by bits, then timed.  Bytes: the stream to its true length,
+    bw and anchor (and acc) in; f32 out."""
+    from repro_torch.core.compressed import capacity_words_for
+
+    x2d = ops.to_blocks(_walk(torch, n, gen, dev) * 8.0)
+    acc = ops.to_blocks(_walk(torch, n, gen, dev))
+    nb = x2d.shape[0]
+    cap = capacity_words_for(n, 0.6, 256)
+    stream = lorenzo.quantize_pack_plain(x2d, eb, cap)[:3]
+    reduce = name == "unpack_dequantize_reduce"
+    args = (*stream, eb) + ((acc,) if reduce else ())
+    kern = getattr(lorenzo, name)
+    got, want = kern(*args), getattr(lorenzo, f"{name}_plain")(*args)
+    mism = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if mism:
+        raise AssertionError(f"{name} {shape}: {mism} elements differ from the plain version")
+    words = 8 * int(stream[1].long().sum())
+    _report(torch, label, f"{name} {shape} ({nb} rows, {words} words)", lambda: kern(*args),
+            4 * min(words, cap) + 8 * nb + 4 * nb * 256 * (2 if reduce else 1))
+    del x2d, acc, stream, got, want
+    torch.cuda.empty_cache()
+
+
 def _time_compress(torch, lorenzo, ops, label, n, gen, dev, eb):
     """The fused ``ErrorBoundedLorenzo.compress`` of one bucket: checked
     against the plain kernel 1 (stream, widths, anchors, nwords = 8 *
@@ -183,7 +215,8 @@ def main(argv):
     ap.add_argument("--src", default=str(pathlib.Path(__file__).resolve().parents[1] / "src"))
     ap.add_argument("--label", default=None)
     ap.add_argument("--kernel", default="unpack_reduce_repack",
-                    choices=("unpack_reduce_repack", "quantize_pack", "compress"))
+                    choices=("unpack_reduce_repack", "quantize_pack", "compress",
+                             "unpack_dequantize", "unpack_dequantize_reduce"))
     args = ap.parse_args(argv)
     import torch
 
@@ -212,6 +245,10 @@ def main(argv):
     if args.kernel == "quantize_pack":
         for shape, n in (("16 MiB bucket", 4 * 1024 * 1024), ("646 MB ring piece", piece)):
             _time_quantize_pack(torch, lorenzo, ops, label, shape, n, gen, dev, eb_in)
+        return 0
+    if args.kernel.startswith("unpack_dequantize"):
+        for shape, n in (("16 MiB bucket", 4 * 1024 * 1024), ("646 MB ring piece", piece)):
+            _time_unpack(torch, lorenzo, ops, args.kernel, label, shape, n, gen, dev, eb_in)
         return 0
     cases = [("16 MiB bucket", 4 * 1024 * 1024, True),
              ("646 MB ring piece", piece, False), ("646 MB ring piece", piece, True)]

@@ -16,25 +16,23 @@
 // The last two are the unfused codec: zigzag codes travel through device
 // memory as uint32 (nb, 256) and the bit packing is separate torch code
 // (core/bitpack.py).  Each is a single launch: the work is block-local,
-// so no scan across blocks is needed.
+// so no scan across blocks is needed.  There one CUDA block of 256
+// threads handles one 256-element Lorenzo block, thread j owning element
+// j.
 //
-// Layout: f32 data is (nb, 256); outside kernels 1 and 2 one CUDA block of
-// 256 threads handles one 256-element Lorenzo block, thread j owning
-// element j.  Wire words are
-// uint32, LSB-first, block i's codes at word offset off_i = sum_{k<i} 8*bw_k
-// (BLOCK % 32 == 0, so every block starts on a word boundary).
+// Layout: f32 data is (nb, 256).  Wire words are uint32, LSB-first, block
+// i's codes at word offset off_i = sum_{k<i} 8*bw_k (BLOCK % 32 == 0, so
+// every block starts on a word boundary).
 //
 // What changed against the TPU design: the Pallas kernels walk a sequential
 // grid and carry the running word offset in SMEM.  A GPU grid has no order.
-// Kernels 3 and 4 are two launches instead: a scan of the incoming widths
-// (exclusive prefix sum of 8*bw over the blocks, hand-written, one CTA),
-// then the unpack.
+// Kernels 1-4 are one pass each over tiles of 32 blocks (256 threads; warp
+// w takes blocks w, w + 8, w + 16 and w + 24; tile indices drawn in start
+// order), and a tile finds its first word with the decoupled look-back of
+// lorenzo_common.cuh: no scan launch, no offsets array.
 //
-// The ring hop (kernel 2) is one pass per call over tiles of 32 blocks
-// (256 threads; warp w takes blocks w, w + 8, w + 16 and w + 24; tile
-// indices drawn in start order), with two decoupled look-backs of
-// lorenzo_common.cuh in one launch, plus a small launch that zeroes
-// [total, cap).  Each CTA:
+// The ring hop (kernel 2) runs two look-backs in one launch, plus a small
+// launch that zeroes [total, cap).  Each CTA:
 //   1. draws its tile; warp 0 reads the tile's 32 incoming widths while
 //      the other warps prefetch their blocks' acc rows into L2;
 //   2. look-back A (warp 0): publishes 8 * sum(bw_in) of the tile at once
@@ -78,13 +76,25 @@
 // once; the codes never leave shared memory (36 KB a CTA, no opt-in).  The
 // same deadlock argument holds: the look-back waits only on tiles below.
 //
+// Kernels 3 and 4 (unpack_dequantize_reduce, unpack_dequantize) are the
+// hop's receive half alone, one template that differs in its last step:
+// one launch per call, no tail (the output is dense f32).  Each CTA runs
+// the receive front (receive_front: steps 1-3 above up to the staging,
+// with the acc prefetch only for kernel 3, the warps reading their blocks'
+// widths and anchors while warp 0 looks back), decodes each block with
+// decode_block and writes acc + q * 2eb rounded once (fma_acc, kernel 3)
+// or q * 2eb (kernel 4), 16-byte loads of acc and stores of f32.  The
+// staged segment takes 32,800 B of static shared memory (no opt-in).  The
+// same deadlock argument holds: the look-back waits only on tiles below,
+// which were drawn earlier.
+//
 // Bound on this card: bytes.  Each element is read and written a few times
 // as 4-byte words and does ~20-60 integer operations, far below the ~300
 // operations per byte at which an H100 stops being memory-bound.  The design
 // keeps every global access coalesced (16-byte loads of acc and stores of
-// the f32 sum, consecutive stream words a warp) and does the in-block work
-// (Lorenzo delta, max, prefix sum, bit placement) in registers and shared
-// memory.
+// the f32 sum, consecutive stream words a warp), reads each stream word
+// once per tile into shared memory, and does the in-block work (Lorenzo
+// delta, max, prefix sum, bit placement) in registers and shared memory.
 //
 // Exactness (bitwise equal to the JAX kernel path and to the plain torch
 // versions): q = __float2int_rn(__fmul_rn(x, recip)) (saturating, NaN -> 0);
@@ -94,8 +104,8 @@
 // the reference does (fma_acc).  recip and twoeb arrive as device
 // scalars computed by the wrapper, like the reference's (1, 1) operands.
 // Compile without --use_fast_math.  The quantizer front, the
-// reconstruction, the word-offset scan, the look-back and the reduces live
-// in lorenzo_common.cuh, shared with the entropy-coded wire kernels
+// reconstruction, the look-back, the staging and the reduces live in
+// lorenzo_common.cuh, shared with the entropy-coded wire kernels
 // (entropy.cu).
 //
 // Capacity: words at index >= cap are never stored; kernel 1's and the
@@ -107,25 +117,6 @@
 namespace {
 
 constexpr int kWordsPerBit = kBlock / 32;   // words per unit of bitwidth
-
-// Dense layout: block i's payload is 8 * bw_i words.
-struct DenseWords {
-  const int32_t* bw;
-  __device__ __forceinline__ int32_t operator()(int i) const { return bw[i] * kWordsPerBit; }
-};
-
-// Thread j's value of Lorenzo block b, decoded from the stream and
-// reconstructed to f32 (before the multiply by 2*eb).
-__device__ __forceinline__ float decode_q(const uint32_t* __restrict__ packed,
-                                          long long cap, int bw, int32_t anchor,
-                                          int off, uint32_t* red) {
-  const long long bitpos = (long long)off * 32 + (long long)threadIdx.x * bw;
-  const long long w = bitpos >> 5;
-  const int sh = (int)(bitpos & 31);
-  const uint32_t lo = load_word(packed, cap, w) >> sh;
-  const uint32_t hi = sh ? (load_word(packed, cap, w + 1) << (32 - sh)) : 0u;
-  return reconstruct_q((lo | hi) & width_mask(bw), anchor, red);
-}
 
 // The unfused quantize: the zigzag codes, per-block bitwidth and anchor of
 // f32 blocks.
@@ -144,19 +135,6 @@ quantize_front_kernel(const float* __restrict__ x, const float* __restrict__ rec
     bw_out[blockIdx.x] = 32 - __clz((int)umax);
     anchor_out[blockIdx.x] = q;
   }
-}
-
-template <bool kReduce>
-__global__ void __launch_bounds__(kBlock)
-unpack_kernel(const uint32_t* __restrict__ packed, long long cap,
-              const int32_t* __restrict__ bw_in, const int32_t* __restrict__ anchor_in,
-              const int32_t* __restrict__ offsets, const float* __restrict__ twoeb_p,
-              const float* __restrict__ acc, float* __restrict__ out) {
-  __shared__ uint32_t red[kWarps];
-  const int b = blockIdx.x;
-  const float qf = decode_q(packed, cap, bw_in[b], anchor_in[b], offsets[b], red);
-  const size_t i = (size_t)b * kBlock + threadIdx.x;
-  out[i] = kReduce ? fma_acc(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
 }
 
 // Unfused decode: codes (nb, 256) + anchor -> f32, optionally + acc with
@@ -210,6 +188,99 @@ __device__ __forceinline__ void decode_block(const uint32_t* seg_s, int first, i
                      anchor + __shfl_sync(0xffffffffu, i_lo, 31) + (i_hi - s_hi)};
 #pragma unroll
   for (int e = 0; e < 8; ++e) q[e] = (int32_t)(run[e >> 2] += dd[e]);
+}
+
+// Receive front of one tile of 32 incoming blocks (kernels 3 and 4; the
+// hop runs the same steps inline).  Warp 0, lane i, reads block i's
+// width, writes each block's in-tile word offset to inoff_s, publishes the
+// tile's 8 * sum(bw) at once and looks back for its first word; meanwhile
+// every warp reads its blocks' widths and anchors (bwi, anc: blocks
+// warp + 8 i) and, with kPrefetch, fetches their acc rows into L2.  Then
+// the CTA stages the tile's words in seg_s.  Every thread calls it (two
+// __syncthreads inside); span_s is two shared words.  Returns ``first``:
+// block blk's first word is seg_s[first + inoff_s[blk]].
+template <bool kPrefetch>
+__device__ __forceinline__ int receive_front(const uint32_t* __restrict__ packed,
+                                             long long cap, const int32_t* __restrict__ bw_in,
+                                             const int32_t* __restrict__ anchor_in, int nb,
+                                             const float* __restrict__ acc, const Lookback& lb,
+                                             int tile, int32_t* inoff_s, uint32_t* span_s,
+                                             uint32_t* seg_s, int bwi[kWarpBlocks],
+                                             int32_t anc[kWarpBlocks]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 0) {  // the look-back at once: lane i reads block i's width
+    const int b = tile * kTileBlocks + lane;
+    const uint32_t w = b < nb ? (uint32_t)(bw_in[b] * kWordsPerBit) : 0u;
+    const uint32_t incl = warp_inclusive_sum(w, lane);
+    inoff_s[lane] = (int32_t)(incl - w);
+    const uint32_t agg = __shfl_sync(0xffffffffu, incl, 31);
+    const uint32_t excl = lookback_exclusive(lb, tile, agg);
+    if (lane == 0) {
+      span_s[0] = excl;
+      span_s[1] = agg;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int b = tile * kTileBlocks + warp + kWarps * i;  // step i: 8 consecutive blocks
+    bwi[i] = b < nb ? bw_in[b] : 0;
+    anc[i] = b < nb ? anchor_in[b] : 0;
+    if (kPrefetch && b < nb) {  // acc into L2 while the look-back resolves
+      const float* ab = acc + (size_t)b * kBlock;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(ab + 4 * lane));
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(ab + 128 + 4 * lane));
+    }
+  }
+  __syncthreads();
+  const long long off = span_s[0];
+  const long long lo = stage_segment(packed, cap, off, off + span_s[1], seg_s);
+  __syncthreads();
+  return (int)(off - lo);
+}
+
+// Kernels 3 (kReduce: acc + q * 2eb, rounded once) and 4 (q * 2eb): one
+// tile of 32 blocks per CTA (see the header comment).
+template <bool kReduce>
+__global__ void __launch_bounds__(kTileThreads)
+ud_lookback_kernel(const uint32_t* __restrict__ packed, long long cap,
+                   const int32_t* __restrict__ bw_in, const int32_t* __restrict__ anchor_in,
+                   int nb, const float* __restrict__ twoeb_p, const float* __restrict__ acc,
+                   float* __restrict__ out, Lookback lb) {
+  __shared__ __align__(16) uint32_t seg_s[kSegWords];  // the tile's words, staged
+  __shared__ int32_t inoff_s[kTileBlocks];
+  __shared__ uint32_t span_s[2];
+  __shared__ int tile_s;
+  const int tiles = (nb + kTileBlocks - 1) / kTileBlocks;
+  const int tile = lookback_tile(lb, tiles, &tile_s);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int bwi[kWarpBlocks];
+  int32_t anc[kWarpBlocks];
+  const int first = receive_front<kReduce>(packed, cap, bw_in, anchor_in, nb, acc, lb, tile,
+                                           inoff_s, span_s, seg_s, bwi, anc);
+  const float twoeb = *twoeb_p;
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int blk = warp + kWarps * i;
+    const int b = tile * kTileBlocks + blk;
+    if (b >= nb) break;  // warp-uniform; later steps are further on
+    int32_t q[8];
+    decode_block(seg_s, first + inoff_s[blk], bwi[i], (uint32_t)anc[i], lane, q);
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      const size_t i0 = (size_t)b * kBlock + 128 * part + 4 * lane;
+      float v[4];
+      if constexpr (kReduce) {
+        const float4 a = load4(acc + i0);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = fma_acc(__int2float_rn(q[4 * part + e]), twoeb, av[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(__int2float_rn(q[4 * part + e]), twoeb);
+      }
+      *reinterpret_cast<float4*>(out + i0) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
 }
 
 // Send: the zigzag Lorenzo codes of lane l's eight quantized values (the
@@ -516,18 +587,23 @@ int lz_quantize_pack(const float* x, int nb, const float* recip, uint32_t* packe
   return 0;
 }
 
+// Kernels 3 and 4 (kernel 3 with acc), one launch.  ``lb_state`` holds
+// ceil(nb / 32) 64-bit look-back words, ``lb_counter`` the tile counter (0
+// between launches on the stream); ``epoch`` tags this call's state words
+// (see lorenzo_common.cuh).  ``out`` starts on a 16-byte boundary.  nb > 0.
 int lz_unpack_dequantize(const uint32_t* packed, long long cap, const int32_t* bw,
                          const int32_t* anchor, int nb, const float* twoeb,
-                         const float* acc, float* out, int32_t* offsets,
+                         const float* acc, float* out, unsigned long long* lb_state,
+                         unsigned int* lb_counter, unsigned int epoch,
                          cudaStream_t stream) {
-  word_offsets_kernel<<<1, kScanThreads, 0, stream>>>(DenseWords{bw}, nb, offsets);
-  LZ_CHECK();
+  const int tiles = (nb + kTileBlocks - 1) / kTileBlocks;
+  const Lookback lb{lb_state, lb_counter, epoch};
   if (acc)
-    unpack_kernel<true><<<nb, kBlock, 0, stream>>>(packed, cap, bw, anchor, offsets,
-                                                   twoeb, acc, out);
+    ud_lookback_kernel<true><<<tiles, kTileThreads, 0, stream>>>(packed, cap, bw, anchor, nb,
+                                                                 twoeb, acc, out, lb);
   else
-    unpack_kernel<false><<<nb, kBlock, 0, stream>>>(packed, cap, bw, anchor, offsets,
-                                                    twoeb, nullptr, out);
+    ud_lookback_kernel<false><<<tiles, kTileThreads, 0, stream>>>(packed, cap, bw, anchor, nb,
+                                                                  twoeb, nullptr, out, lb);
   LZ_CHECK();
   return 0;
 }

@@ -1,15 +1,15 @@
 // Device functions shared by the Lorenzo codec kernels (lorenzo.cu) and
 // the entropy-coded wire kernels (entropy.cu): the quantizer front, the
-// reconstruction, the one-CTA word-offset scan of the dense kernels 3 and
-// 4, the single-pass decoupled look-back of the entropy kernels, kernel 1
-// and the ring hop, the pack's exact division and tail zeroing, and the
-// reduces that pass a NaN in acc through.
+// reconstruction, the single-pass decoupled look-back of the entropy
+// kernels and Lorenzo kernels 1-4, the staging of a tile's stream words,
+// the pack's exact division and tail zeroing, and the reduces that pass a
+// NaN in acc through.
 //
-// Layout: f32 data is (nb, 256).  In the dense kernels 3-7 one CUDA block
-// of 256 threads handles one 256-element Lorenzo block, thread j owning
-// element j; the look-back kernels take tiles of 32 blocks, four per warp.
-// Wire words are uint32, LSB-first, and every block's payload starts on a
-// word boundary.
+// Layout: f32 data is (nb, 256).  In the unfused kernels 5-7 one CUDA
+// block of 256 threads handles one 256-element Lorenzo block, thread j
+// owning element j; the look-back kernels take tiles of 32 blocks, four
+// per warp.  Wire words are uint32, LSB-first, and every block's payload
+// starts on a word boundary.
 //
 // Exactness: q = __float2int_rn(__fmul_rn(x, recip)) (saturating, NaN -> 0);
 // zigzag on int32; widths are 32 - clz(max code); reconstruction is an int32
@@ -23,7 +23,6 @@ namespace {
 
 constexpr int kBlock = 256;                 // elements per Lorenzo block
 constexpr int kWarps = kBlock / 32;
-constexpr int kScanThreads = 1024;
 
 __device__ __forceinline__ uint32_t width_mask(int bw) {
   return bw == 0 ? 0u : (0xFFFFFFFFu >> (32 - bw));
@@ -116,46 +115,6 @@ __device__ __forceinline__ int32_t reconstruct_qi(uint32_t u, int32_t anchor,
 __device__ __forceinline__ float reconstruct_q(uint32_t u, int32_t anchor,
                                                uint32_t* red) {
   return __int2float_rn(reconstruct_qi(u, anchor, red));
-}
-
-// Exclusive prefix sum of the per-block word counts words(i) over nb
-// blocks; offsets[nb] = total words.  One CTA: thread t sums a contiguous
-// segment, the CTA scans the partials, then each thread writes its
-// segment's offsets.  ``Words`` maps a block index to its word count.
-template <class Words>
-__global__ void __launch_bounds__(kScanThreads)
-word_offsets_kernel(Words words, int nb, int32_t* __restrict__ offsets) {
-  __shared__ int32_t part[kScanThreads / 32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (nb + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * per, nb), hi = min(lo + per, nb);
-  int32_t s = 0;
-  for (int i = lo; i < hi; ++i) s += words(i);
-  int32_t incl = s;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int32_t n = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += n;
-  }
-  if (lane == 31) part[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int32_t v = part[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t n = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += n;
-    }
-    part[lane] = v;  // inclusive over warps
-  }
-  __syncthreads();
-  incl += warp ? part[warp - 1] : 0;
-  int32_t run = incl - s;
-  for (int i = lo; i < hi; ++i) {
-    offsets[i] = run;
-    run += words(i);
-  }
-  if (t == kScanThreads - 1) offsets[nb] = incl;
 }
 
 // Single-pass decoupled look-back (Merrill & Garland, "Single-pass Parallel
@@ -252,7 +211,7 @@ __device__ __forceinline__ uint32_t lookback_exclusive(const Lookback& lb, int t
   return excl;
 }
 
-// Tiles of the look-back kernels (entropy.cu, the hop in lorenzo.cu).
+// Tiles of the look-back kernels (entropy.cu; kernels 1-4 in lorenzo.cu).
 constexpr int kTileThreads = 256;                  // 8 warps
 constexpr int kWarpBlocks = 4;                     // Lorenzo blocks per warp and tile
 constexpr int kTileBlocks = kWarps * kWarpBlocks;  // 32 blocks per tile

@@ -6,9 +6,13 @@ Each launch needs a tile counter, which every launch leaves at 0, and
 one 64-bit state word per tile and look-back, tagged with the call's
 epoch so that words of earlier calls read as invalid and the array never
 needs clearing.  The entropy kernels (``kernels/entropy.py``) and the
-Lorenzo ``quantize_pack`` run one look-back per call, the Lorenzo ring
-hop (``kernels/lorenzo.py`` ``unpack_reduce_repack``) two.  All of them
-take their scratch here, one per (device, CUDA stream).
+Lorenzo ``quantize_pack`` and ``unpack_dequantize{,_reduce}`` run one
+look-back per call, the Lorenzo ring hop (``kernels/lorenzo.py``
+``unpack_reduce_repack``) two.  All of them take their scratch here, one
+per (device, CUDA stream).  The look-back takes the place of the running
+word offset that the Pallas kernels carry in SMEM over their sequential
+grid; it costs one 8-byte state word per 32 blocks where a scan launch
+read every width again, since bytes bound these kernels.
 """
 from __future__ import annotations
 

@@ -28,9 +28,12 @@ wrapper counts its launches in ``LAUNCHES`` (one per call: a call is a
 short fixed sequence of CUDA launches, see the source note in
 ``lorenzo.cu``), so a run can show that the main path went through it.
 ``quantize_pack`` is one single-pass launch with a decoupled look-back,
-the ring hop one with two; each adds a tail-zeroing launch and takes its
-look-back scratch from ``kernels/lookback.py``.  The unpack kernels still
-scan the word offsets in a one-CTA launch.
+the ring hop one with two, each plus a tail-zeroing launch;
+``unpack_dequantize{,_reduce}`` is one single-pass launch with one
+look-back and no tail (the output is dense f32).  Each takes its
+look-back scratch from ``kernels/lookback.py``.  Bytes bound every kernel
+here on the H100: the single-pass kernels read the stream once into
+shared memory and move f32 in 16-byte loads and stores.
 
 Shapes and types: f32 data is (nb, 256) with nb a multiple of 8; wire
 words and zigzag codes are int32 tensors carrying uint32 bits (codes are
@@ -144,7 +147,7 @@ def dequantize_reduce_plain(codes, anchor, eb, acc):
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "lz_quantize_pack": (_P, _I, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P),
-    "lz_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P),
+    "lz_unpack_dequantize": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P),
     "lz_unpack_reduce_repack": (_P, _L, _P, _P, _I, _P, _P, _P, _P, _P, _L, _P,
                                 _P, _P, _P, _P, _I, _P),
     "lz_quantize": (_P, _I, _P, _P, _P, _P, _P),
@@ -209,19 +212,26 @@ def quantize_pack(x2d, eb, capacity_words: int):
 
 
 def _unpack(name, packed, bitwidth, anchor, eb, acc):
+    """Kernels 3 and 4: one single-pass launch over tiles of 32 blocks with
+    a look-back for the word offsets."""
     nb = bitwidth.shape[0]
+    if nb == 0:
+        raise ValueError("bitwidth has no blocks")
+    if nb * BLOCK >= 2**31:
+        raise ValueError(f"{nb * BLOCK} elements exceed the int32 word offsets")
     _check(packed, "packed", torch.int32)
     _check(bitwidth, "bitwidth", torch.int32, (nb,))
     _check(anchor, "anchor", torch.int32, (nb,))
     if acc is not None:
         _check(acc, "acc", torch.float32, (nb, BLOCK))
     twoeb, _ = _scalars(eb)
-    out = torch.empty((nb, BLOCK), dtype=torch.float32, device=packed.device)
-    offsets = torch.empty(nb + 1, dtype=torch.int32, device=packed.device)
+    dev = packed.device
+    out = torch.empty((nb, BLOCK), dtype=torch.float32, device=dev)
+    scratch, epoch = lookback.scratch(dev, lookback.tiles_for(nb))
     _launch("lz_unpack_dequantize", packed.data_ptr(), packed.shape[0],
             bitwidth.data_ptr(), anchor.data_ptr(), nb, twoeb.data_ptr(),
             acc.data_ptr() if acc is not None else None, out.data_ptr(),
-            offsets.data_ptr())
+            scratch.data_ptr() + 8, scratch.data_ptr(), epoch)
     _count(name)
     return out
 
