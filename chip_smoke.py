@@ -49,7 +49,12 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    ``dequantize_reduce``) against their plain versions the same way, on
    ragged sizes, on NaN, +-Inf and values past the int32 range of q, on
    codes whose prefix sum wraps in int32, and at the scatter's shape (8
-   chunks of 20,187,500 elements, 630,912 rows in one ``quantize``);
+   chunks of 20,187,500 elements, 630,912 rows in one ``quantize``); then
+   kernels 6 and 7 on their tiled design's edges (f32 by bits): one tile
+   and part-full last tiles, ``codes`` and ``acc`` 1, 2 and 3 words off a
+   16-byte boundary, int32-wrapping codes at the scatter's shape, 50
+   back-to-back calls, a 0-row call raising, and from the profiler one
+   ``dq_tile_kernel`` launch per call and no ``dequantize_kernel``;
 4. runs the allreduce, ``GZCommunicator("x").allreduce`` over a
    ``ThreadGroup`` of ranks on the card, at 646 MB per rank with 8 ranks
    (plan ``ring``, 2 pieces, profiled: the Lorenzo kernels' launches are
@@ -69,7 +74,11 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
    equal);
 7. runs the two-pass paths, 16 MB x 8 allreduces with ``fused=False``
    (redoub and ring/2) and ``fused_hop=False`` (ring/2), each bitwise
-   equal to the fused run on the same inputs;
+   equal to the fused run on the same inputs, then the 646 MB x 8
+   ``scatter`` with ``fused=False`` (the paper's gZ-Scatter on the
+   two-pass codec: one ``quantize`` at the root, one ``dequantize`` per
+   rank), profiled, bitwise equal to phase 5's fused scatter on the same
+   input;
 8. holds the three entropy kernels (``entropy_quantize_pack``,
    ``entropy_unpack_dequantize``, ``entropy_unpack_dequantize_reduce``)
    against their plain versions, lossy and lossless (stream, desc, anchor,
@@ -173,6 +182,41 @@ def log(*a):
     print(*a, flush=True)
 
 
+def ptxas_lines(log):
+    """``kernel<template arguments>: registers ...; stack and spills`` for
+    each entry function of an ``nvcc -Xptxas -v`` log.  The mangled name is
+    read by its length prefixes (a namespace, then the kernel); a name of
+    another shape is printed as it is."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = _kernel_name(m.group(1)), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split('Used', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
+def _kernel_name(sym):
+    m = re.match(r"_ZN(\d+)", sym) or re.match(r"_Z()", sym)
+    if not m:
+        return sym
+    rest = sym[m.end() + int(m.group(1) or 0):]
+    n = re.match(r"\d+", rest)
+    if not n:
+        return sym
+    name = rest[n.end(): n.end() + int(n.group())]
+    args = re.match(r"I((?:L[bi]\d+E)+)E", rest[n.end() + int(n.group()):])
+    if args:
+        vals = [("false", "true")[int(v)] if k == "b" else v
+                for k, v in re.findall(r"L([bi])(\d+)E", args.group(1))]
+        name += f"<{', '.join(vals)}>"
+    return name
+
+
 def _reset_launches():
     from repro_torch.kernels import entropy, flash_attn, lorenzo
 
@@ -224,7 +268,7 @@ def _median_ms(fn, reps, calls=1):
 # The port's own kernels (csrc/lorenzo.cu, csrc/entropy.cu) by symbol.
 OWN_KERNEL = re.compile(r"\(anonymous namespace\)::(ent_\w+_kernel|hop_\w+_kernel|"
                         r"qp_\w+_kernel|ud_\w+_kernel|quantize_front_kernel|"
-                        r"dequantize_kernel)\b")
+                        r"dq_\w+_kernel)\b")
 
 
 def _device_ms(fn, calls=10):
@@ -393,7 +437,7 @@ def check_kernels(device, gen):
 
 
 ENTROPY_SYMBOLS = r"ent_\w+_kernel"
-LORENZO_SYMBOLS = r"hop_\w+_kernel|qp_\w+_kernel|ud_\w+_kernel|quantize_front_kernel"
+LORENZO_SYMBOLS = r"hop_\w+_kernel|qp_\w+_kernel|ud_\w+_kernel|dq_\w+_kernel|quantize_front_kernel"
 
 
 def _kernel_launches(events, symbols):
@@ -410,11 +454,12 @@ def _kernel_launches(events, symbols):
     return rows
 
 
-def _ud_summary(rows):
-    """Kernels 3 and 4's launches and device ms in ``_kernel_launches`` rows."""
+def _ud_summary(rows, kernel="ud_lookback_kernel"):
+    """Kernels 3 and 4's (or, with ``dq_tile_kernel``, 7 and 6's) launches
+    and device ms in ``_kernel_launches`` rows."""
     return ", ".join(f"{rows.get(k, [0, 0.0])[0]} {k} launches, "
                      f"{rows.get(k, [0, 0.0])[1]:.2f} ms"
-                     for k in ("ud_lookback_kernel<true>", "ud_lookback_kernel<false>"))
+                     for k in (f"{kernel}<true>", f"{kernel}<false>"))
 
 
 class ProfileShortfall(AssertionError):
@@ -435,8 +480,9 @@ def _check_hop_launch_structure(rows, calls, label, dropped=0.0):
     """Every ``unpack_reduce_repack`` call is one ``hop_lookback_kernel``
     launch and one ``hop_zero_tail_kernel`` launch, every ``quantize_pack``
     call one ``qp_lookback_kernel`` and one ``qp_zero_tail_kernel``, every
-    ``quantize`` call one ``quantize_front_kernel``, and every call of
-    kernels 3 and 4 one ``ud_lookback_kernel``.  ``calls`` are the Lorenzo
+    ``quantize`` call one ``quantize_front_kernel``, every call of kernels
+    3 and 4 one ``ud_lookback_kernel`` and every call of kernels 6 and 7
+    one ``dq_tile_kernel``.  ``calls`` are the Lorenzo
     wrappers' counts; ``dropped`` is the share of device events a long
     profile may lose (never gain)."""
     want = {"hop_lookback_kernel": calls["unpack_reduce_repack"],
@@ -445,7 +491,8 @@ def _check_hop_launch_structure(rows, calls, label, dropped=0.0):
             "qp_zero_tail_kernel": calls["quantize_pack"],
             "quantize_front_kernel": calls["quantize"],
             "ud_lookback_kernel": calls["unpack_dequantize"]
-            + calls["unpack_dequantize_reduce"]}
+            + calls["unpack_dequantize_reduce"],
+            "dq_tile_kernel": calls["dequantize"] + calls["dequantize_reduce"]}
     got = dict.fromkeys(want, 0)
     for sym, (count, _) in rows.items():
         base = sym.split("<")[0]
@@ -869,6 +916,98 @@ def _wrapping_codes(nb, gen, device):
     return codes, anchor
 
 
+def _check_dequant_edges(device, gen, eb):
+    """Kernels 6 and 7 against their plain versions, f32 by bits, on the
+    tiled design's edges: one tile, full tiles and part-full last tiles
+    (1, 7, 8, 31, 32, 33, 40, 72, 264 and 16,895 rows in 8-block tiles,
+    16,896 and 16,929 rows in 32-block tiles), ``codes`` and ``acc`` as
+    views 1, 2 and 3 words off a 16-byte boundary, int32-wrapping codes
+    at the scatter's shape (630,912 rows), 50 back-to-back calls at one
+    ``fused=False`` scatter chunk (78,864 rows); a 0-row call raises
+    ``ValueError``; then,
+    from the profiler, one ``dq_tile_kernel`` launch per call and no other
+    Lorenzo kernel (the one-CTA-per-block ``dequantize_kernel`` included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import lorenzo, ops
+
+    def case(label, codes, anchor, acc):
+        got = (lorenzo.dequantize(codes, anchor, eb),
+               lorenzo.dequantize_reduce(codes, anchor, eb, acc))
+        want = (lorenzo.dequantize_plain(codes, anchor, eb),
+                lorenzo.dequantize_reduce_plain(codes, anchor, eb, acc))
+        torch.cuda.synchronize()
+        _compare(f"dequantize [{label}]", got[:1], want[:1])
+        _compare(f"dequantize_reduce [{label}]", got[1:], want[1:])
+        log(f"unfused decode vs plain [{label}, {codes.shape[0]} rows]: mismatches 0 by "
+            f"bits, kernels 6 and 7")
+
+    def smooth(nb):
+        x2d = (_random_walk(nb * 256, gen, device) * 8.0).view(nb, 256)
+        codes, _, anchor = lorenzo.quantize_plain(x2d, eb)
+        return codes, anchor, _random_walk(nb * 256, gen, device).view(nb, 256)
+
+    for nb in (1, 7, 8, 31, 32, 33, 40, 72, 264, 16_895, 16_896, 16_929):
+        tile = 32 if nb >= 16_896 else 8  # lz_dequantize's kWideRows
+        label = "one tile" if nb == tile else "part-full last tile" if nb % tile else \
+            "full tiles"
+        case(f"{label} of {tile} blocks", *smooth(nb))
+    nb = 72
+    codes, anchor, acc = smooth(nb)
+    for k in (1, 2, 3):  # both pointers k words past a 16-byte boundary
+        cbuf = torch.zeros(nb * 256 + 4, dtype=torch.int32, device=device)
+        abuf = torch.zeros(nb * 256 + 4, dtype=torch.float32, device=device)
+        cview, aview = cbuf[k: k + nb * 256].view(nb, 256), abuf[k: k + nb * 256].view(nb, 256)
+        cview.copy_(codes)
+        aview.copy_(acc)
+        case(f"codes and acc {4 * k} bytes off a 16-byte boundary", cview, anchor, aview)
+    del cbuf, abuf, cview, aview
+    rows = 8 * ops.n_blocks_for(MAIN_BYTES // 4 // 8)
+    codes, anchor = _wrapping_codes(rows, gen, device)
+    case("int32-wrapping codes at the scatter shape", codes, anchor,
+         _random_walk(rows * 256, gen, device).view(rows, 256) * 1e6)
+    del codes, anchor
+    torch.cuda.empty_cache()
+    for extra in ((), (torch.empty((0, 256), device=device),)):
+        fn = lorenzo.dequantize_reduce if extra else lorenzo.dequantize
+        try:
+            fn(torch.zeros((0, 256), dtype=torch.int32, device=device),
+               torch.zeros(0, dtype=torch.int32, device=device), eb, *extra)
+        except ValueError:
+            continue
+        raise AssertionError(f"{fn.__name__}: a 0-row call did not raise ValueError")
+
+    codes, anchor, acc = smooth(ops.n_blocks_for(MAIN_BYTES // 4 // 8))
+    wants = {"dq": lorenzo.dequantize_plain(codes, anchor, eb),
+             "dqr": lorenzo.dequantize_reduce_plain(codes, anchor, eb, acc)}
+    outs = []
+    for _ in range(25):  # 50 calls back to back
+        outs.append(("dq", lorenzo.dequantize(codes, anchor, eb)))
+        outs.append(("dqr", lorenzo.dequantize_reduce(codes, anchor, eb, acc)))
+    for i, (kind, got) in enumerate(outs):
+        _compare(f"unfused decode [back-to-back call {i} ({kind})]", (got,), (wants[kind],))
+    log(f"unfused decode vs plain [50 back-to-back calls at one fused=False scatter chunk, "
+        f"{codes.shape[0]} rows]: mismatches 0; a 0-row call raises ValueError")
+    del outs, wants
+    lorenzo.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lorenzo.dequantize(codes, anchor, eb)
+            lorenzo.dequantize_reduce(codes, anchor, eb, acc)
+        torch.cuda.synchronize()
+    rows = _kernel_launches(_device_events(prof), LORENZO_SYMBOLS + "|dequantize_kernel")
+    _check_hop_launch_structure(rows, lorenzo.LAUNCHES, "unfused decode calls")
+    if {k: c for k, (c, _) in rows.items()} != {"dq_tile_kernel<true>": 3,
+                                                 "dq_tile_kernel<false>": 3}:
+        raise AssertionError(f"unfused decode calls: launches {rows} for 3 calls of kernels "
+                             f"6 and 7")
+    log(f"unfused decode kernel launches for 3 calls each of kernels 6 and 7 "
+        f"({codes.shape[0]} rows): {rows}")
+    del prof, codes, anchor, acc
+    torch.cuda.empty_cache()
+
+
 def _unfused_bytes(name, nb):
     """Bytes the unfused kernel must move: inputs once, outputs once."""
     n = nb * 256
@@ -941,6 +1080,8 @@ def check_unfused_kernels(device, gen):
         _compare(f"{name} [int32 wrap]", (getattr(lorenzo, name)(*args),),
                  (getattr(lorenzo, f"{name}_plain")(*args),))
     log("unfused kernels vs plain [int32-wrapping prefix sums, 4096 rows]: mismatches 0")
+    del codes, anchor, acc
+    _check_dequant_edges(device, gen, eb)
     for r in records.values():
         _log_time(r, "scatter shape")
     torch.cuda.empty_cache()
@@ -1124,6 +1265,8 @@ def _profile(group, fn, xs, plan, intervals=None):
         + "; ".join(f"{k} {c} x {ms:.2f} ms" for k, (c, ms) in sorted(rows.items())))
     log("  kernels 3 and 4 (ud_lookback_kernel<true> / <false>): "
         + _ud_summary(rows))
+    log("  kernels 7 and 6 (dq_tile_kernel<true> / <false>): "
+        + _ud_summary(rows, "dq_tile_kernel"))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
     for e in events:
@@ -1240,9 +1383,13 @@ def _bitwise_mismatches(a, b):
                for x, y in zip(a, b))
 
 
-def run_scatter(n, nbytes, device, gen, label, profile=False, codec="lorenzo"):
+def run_scatter(n, nbytes, device, gen, label, profile=False, codec="lorenzo", fused=True,
+                fused_run=None):
     """``scatter`` of ``nbytes`` at the root over n ranks.  Non-root
-    inputs are NaN: only the root's payload is significant."""
+    inputs are NaN: only the root's payload is significant.  With
+    ``fused_run``, the (root input, results) of an earlier scatter, it
+    scatters that input and must be bitwise equal to those results.
+    Returns (plan, launches, wall, (root input, results))."""
     import torch
 
     from repro_torch.core import bitpack, transport
@@ -1251,10 +1398,11 @@ def run_scatter(n, nbytes, device, gen, label, profile=False, codec="lorenzo"):
     from repro_torch.kernels import lorenzo, ops
 
     n_elems = nbytes // 4 // n * n  # whole chunks
-    x_full = _random_walk(n_elems, gen, device)
+    x_full = _random_walk(n_elems, gen, device) if fused_run is None else fused_run[0]
     junk = torch.full_like(x_full, float("nan"))
     xs = [x_full] + [junk] * (n - 1)
-    comm = GZCommunicator("x", config=GZConfig(codec=codec), axis_size=n, device=device)
+    comm = GZCommunicator("x", config=GZConfig(codec=codec, fused=fused), axis_size=n,
+                          device=device)
     plan = comm.plan("scatter", (n_elems,))
     streams = sum(h.chunk_slab[1] for rnd in plan.route_table.rounds for h in rnd
                   if h.sender == 0)
@@ -1264,8 +1412,8 @@ def run_scatter(n, nbytes, device, gen, label, profile=False, codec="lorenzo"):
     err = _check_result(f"scatter {label}", res,
                         [x_full[r * chunk:(r + 1) * chunk].double() for r in range(n)],
                         1e-6)
-    log(f"scatter {label} N={n} {nbytes / 1e6:.0f} MB at the root, codec {codec}: "
-        f"algo={plan.algo} "
+    log(f"scatter {label} N={n} {nbytes / 1e6:.0f} MB at the root, codec {codec}, "
+        f"fused={fused}: algo={plan.algo} "
         f"pipeline_chunks={plan.pipeline_chunks} wire_bytes={plan.wire_bytes} "
         f"root_chunk_streams={streams} ratio={plan.ratio:.4f} cold wall "
         f"{wall * 1e3:.1f} ms err={err:.3e} launches={_nonzero(launches)}")
@@ -1273,7 +1421,11 @@ def run_scatter(n, nbytes, device, gen, label, profile=False, codec="lorenzo"):
         raise AssertionError(f"scatter plan {plan.algo}/{plan.pipeline_chunks} with "
                              f"{streams} root streams")
     _check_launches(plan, n, launches)
-    del res
+    if fused_run is not None:
+        mism = _bitwise_mismatches(res, fused_run[1])
+        log(f"scatter {label}: vs the earlier run on the same input, mismatches={mism}")
+        if mism:
+            raise AssertionError(f"scatter {label}: differs from the earlier run in {mism}")
     if profile:
         _profile(group, comm.scatter, xs, plan)
         rows = ops.n_blocks_for(chunk)
@@ -1283,9 +1435,13 @@ def run_scatter(n, nbytes, device, gen, label, profile=False, codec="lorenzo"):
         ms = _median_ms(lambda: bitpack.pack(codes, bw, cap), 5)
         log(f"bitpack.pack (torch ops) at one chunk ({rows} rows, cap {cap}): {ms:.3f} ms "
             f"median; x {n} chunks = {n * ms:.2f} ms per scatter")
-    del xs, x_full, junk
+        if not fused:  # the two-pass decode's unpack, once per rank
+            packed = bitpack.pack(codes, bw, cap)[0]
+            ms = _median_ms(lambda: bitpack.unpack(packed, bw, ops.BLOCK), 5)
+            log(f"bitpack.unpack (torch ops) at one chunk: {ms:.3f} ms median, once per rank")
+    del xs, junk
     torch.cuda.empty_cache()
-    return plan, launches, wall
+    return plan, launches, wall, (x_full, res)
 
 
 def _movement_references(op, xs, n):
@@ -2315,8 +2471,9 @@ def main(argv=()) -> int:
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     for name, rec in build.build_all().items():  # one nvcc per source, together
-        ptxas = [ln for ln in rec["ptxas"].splitlines() if "registers" in ln]
-        log(f"built {name}.cu in {rec['seconds']:.1f} s; " + "; ".join(ptxas))
+        log(f"built {name}.cu in {rec['seconds']:.1f} s")
+        for line in ptxas_lines(rec["ptxas"]):
+            log(f"  ptxas {name}.cu {line}")
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     check_flash_sass()
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2342,7 +2499,8 @@ def main(argv=()) -> int:
 
     if "movers" in phases:
         # The paper's Fig. 12 scatter, then the other data movers.
-        plan, launches, _ = run_scatter(8, MAIN_BYTES, device, gen, "main", profile=True)
+        plan, launches, _, fused_run = run_scatter(8, MAIN_BYTES, device, gen, "main",
+                                                   profile=True)
         if plan.wire_bytes != SCATTER_WIRE_BYTES:
             raise AssertionError(f"scatter wire bytes {plan.wire_bytes} != "
                                  f"{SCATTER_WIRE_BYTES}")
@@ -2350,13 +2508,22 @@ def main(argv=()) -> int:
         run_scatter(6, 64_000_000, device, gen, "trimmed")
         run_movers(device, gen)
         two_pass = run_two_pass(device, gen)
+        # The paper's gZ-Scatter on the two-pass codec, on the same input.
+        plan, launches, _, _ = run_scatter(8, MAIN_BYTES, device, gen, "main", profile=True,
+                                           fused=False, fused_run=fused_run)
+        if plan.wire_bytes != SCATTER_WIRE_BYTES or \
+                (launches["quantize"], launches["dequantize"]) != (1, 8):
+            raise AssertionError(f"fused=False scatter: wire bytes {plan.wire_bytes}, "
+                                 f"launches {_nonzero(launches)}")
+        del fused_run
+        torch.cuda.empty_cache()
         _record(records, "dequantize_reduce")["launches"] = \
             two_pass[("redoub", ("fused",))]["dequantize_reduce"]
         _record(records, "dequantize")["launches"] = two_pass[("ring", ("fused",))]["dequantize"]
 
     if "codecs" in phases:
         run_entropy_allreduce(device, gen)
-        plan, _, _ = run_scatter(8, MAIN_BYTES, device, gen, "main", codec="lorenzo+entropy")
+        plan, *_ = run_scatter(8, MAIN_BYTES, device, gen, "main", codec="lorenzo+entropy")
         if plan.wire_bytes != SCATTER_WIRE_BYTES:
             raise AssertionError(f"entropy scatter wire bytes {plan.wire_bytes}")
 

@@ -1,12 +1,14 @@
 """Time the Lorenzo ring hop (kernel 2, ``unpack_reduce_repack``), or,
 with ``--kernel quantize_pack``, kernel 1, or, with ``--kernel compress``,
 the fused ``ErrorBoundedLorenzo.compress`` around it, or, with ``--kernel
-unpack_dequantize`` or ``unpack_dequantize_reduce``, kernel 4 or 3, of one
-checkout of the port.
+unpack_dequantize`` or ``unpack_dequantize_reduce``, kernel 4 or 3, or,
+with ``--kernel dequantize`` or ``dequantize_reduce``, kernel 6 or 7, of
+one checkout of the port.
 
     python3 scripts/time_hop_kernel.py [--src DIR] [--label NAME]
         [--kernel unpack_reduce_repack|quantize_pack|compress|
-                  unpack_dequantize|unpack_dequantize_reduce]
+                  unpack_dequantize|unpack_dequantize_reduce|
+                  dequantize|dequantize_reduce]
 
 ``--src`` is the ``src`` directory that holds ``repro_torch`` (default:
 this checkout's).  Run it for two checkouts in one process list on one
@@ -19,7 +21,12 @@ rows) without it (the ring's mode) and with it; the incoming stream is
 packed at eb = 1e-4 / 8, re-packed at 1e-4 / 7, capacity factor 0.6, as
 in ``chip_smoke.py``.  Kernel 1 packs the same inputs at eb = 1e-4 / 8,
 capacity factor 0.6, at the bucket and the ring piece; kernels 3 and 4
-decode such a stream there (kernel 3 adds it to a second random walk).  ``compress``
+decode such a stream there (kernel 3 adds it to a second random walk).
+Kernels 6 and 7 decode the unfused ``quantize``'s codes of a random walk
+at eb = 1e-4 (kernel 7 adds them to a second walk) at the scatter's
+batched shape (630,912 rows), at one ``fused=False`` scatter chunk of the
+646 MB scatter over 8 ranks (78,864 rows) and at one piece of the
+``fused=False`` ring/2 allreduce of 16 MB over 8 ranks (984 rows).  ``compress``
 packs one 16 MiB bucket as the default ``lorenzo`` grad sync does, and
 then prints the host cost of each step of the call apart (the stream
 lookup, the look-back scratch, the eb scalars, one allocation, the
@@ -32,9 +39,10 @@ per call of 1,000 calls queued without a sync, the device time per call of
 the port's kernels from the profiler (by kernel name, with launches per
 call), and the bytes bound at 3.35 TB/s.  Earlier designs launched
 ``quantize_front_kernel``, ``word_offsets_kernel`` and ``pack_kernel``
-(kernel 1) and ``word_offsets_kernel`` and ``unpack_kernel`` (kernels 3
-and 4), so ``OWN`` names them too: it times a parent checkout with the
-same columns.  It needs a CUDA card and imports no JAX.
+(kernel 1), ``word_offsets_kernel`` and ``unpack_kernel`` (kernels 3
+and 4) and ``dequantize_kernel`` (kernels 6 and 7, one CTA per block),
+so ``OWN`` names them too: it times a parent checkout with the same
+columns.  It needs a CUDA card and imports no JAX.
 """
 import time
 import argparse
@@ -43,11 +51,14 @@ import re
 import subprocess
 import sys
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from chip_smoke import ptxas_lines  # noqa: E402  (stdlib only at import)
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 EB = 1e-4
 OWN = re.compile(r"\(anonymous namespace\)::(hop_\w+_kernel|qp_\w+_kernel|ud_\w+_kernel|"
-                 r"pack_kernel|quantize_front_kernel|word_offsets_kernel|"
-                 r"unpack_kernel)(<[^>]*>)?")
+                 r"dq_\w+_kernel|pack_kernel|quantize_front_kernel|word_offsets_kernel|"
+                 r"unpack_kernel|dequantize_kernel)(<[^>]*>)?")
 
 
 def _median_ms(torch, fn, reps=20, calls=1):
@@ -163,6 +174,27 @@ def _time_unpack(torch, lorenzo, ops, name, label, shape, n, gen, dev, eb):
     torch.cuda.empty_cache()
 
 
+def _time_dequantize(torch, lorenzo, name, label, shape, nb, gen, dev):
+    """Kernel 6 (``dequantize``) or 7 (``dequantize_reduce``) on the codes
+    and anchors of a random walk of nb rows at eb = 1e-4: checked against
+    the plain version by bits, then timed.  Bytes: codes and anchor (and
+    acc) in; f32 out."""
+    eb = torch.full((), EB, dtype=torch.float32, device=dev)
+    codes, _, anchor = lorenzo.quantize(_walk(torch, nb * 256, gen, dev).view(nb, 256), eb)
+    acc = _walk(torch, nb * 256, gen, dev).view(nb, 256)
+    reduce = name == "dequantize_reduce"
+    args = (codes, anchor, eb) + ((acc,) if reduce else ())
+    kern = getattr(lorenzo, name)
+    got, want = kern(*args), getattr(lorenzo, f"{name}_plain")(*args)
+    mism = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if mism:
+        raise AssertionError(f"{name} {shape}: {mism} elements differ from the plain version")
+    _report(torch, label, f"{name} {shape} ({nb} rows)", lambda: kern(*args),
+            4 * nb * 256 + 4 * nb + 4 * nb * 256 * (2 if reduce else 1))
+    del codes, anchor, acc, got, want
+    torch.cuda.empty_cache()
+
+
 def _time_compress(torch, lorenzo, ops, label, n, gen, dev, eb):
     """The fused ``ErrorBoundedLorenzo.compress`` of one bucket: checked
     against the plain kernel 1 (stream, widths, anchors, nwords = 8 *
@@ -216,7 +248,8 @@ def main(argv):
     ap.add_argument("--label", default=None)
     ap.add_argument("--kernel", default="unpack_reduce_repack",
                     choices=("unpack_reduce_repack", "quantize_pack", "compress",
-                             "unpack_dequantize", "unpack_dequantize_reduce"))
+                             "unpack_dequantize", "unpack_dequantize_reduce",
+                             "dequantize", "dequantize_reduce"))
     args = ap.parse_args(argv)
     import torch
 
@@ -233,6 +266,10 @@ def main(argv):
                          check=True).stdout.strip().splitlines()[0]
     label = args.label or args.src
     print(f"[{label}] card: {smi}; package {lorenzo.__file__}", flush=True)
+    from repro_torch.kernels import build
+
+    for line in ptxas_lines(build.build("lorenzo")["ptxas"]):
+        print(f"[{label}] ptxas lorenzo.cu {line}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     eb_in = torch.full((), EB / 8, dtype=torch.float32, device=dev)
@@ -245,6 +282,13 @@ def main(argv):
     if args.kernel == "quantize_pack":
         for shape, n in (("16 MiB bucket", 4 * 1024 * 1024), ("646 MB ring piece", piece)):
             _time_quantize_pack(torch, lorenzo, ops, label, shape, n, gen, dev, eb_in)
+        return 0
+    if args.kernel in ("dequantize", "dequantize_reduce"):
+        chunk = ops.n_blocks_for(646_000_000 // 4 // 8)  # one fused=False scatter chunk
+        ring = -(-(16_000_000 // 4) // quantum) * quantum // 16 // 256
+        for shape, nb in (("scatter shape", 8 * chunk), ("fused=False scatter chunk", chunk),
+                          ("fused=False ring/2 piece at 16 MB", ring)):
+            _time_dequantize(torch, lorenzo, args.kernel, label, shape, nb, gen, dev)
         return 0
     if args.kernel.startswith("unpack_dequantize"):
         for shape, n in (("16 MiB bucket", 4 * 1024 * 1024), ("646 MB ring piece", piece)):

@@ -16,9 +16,24 @@
 // The last two are the unfused codec: zigzag codes travel through device
 // memory as uint32 (nb, 256) and the bit packing is separate torch code
 // (core/bitpack.py).  Each is a single launch: the work is block-local,
-// so no scan across blocks is needed.  There one CUDA block of 256
-// threads handles one 256-element Lorenzo block, thread j owning element
-// j.
+// so no scan across blocks is needed.  Kernel 5 (quantize) gives one CUDA
+// block of 256 threads to one 256-element Lorenzo block, thread j owning
+// element j (a delta through shared memory, a block-wide maximum).
+// Kernels 6 and 7 (dequantize, dequantize_reduce) are one template,
+// dq_tile_kernel, over tiles of 32 blocks as kernels 1-4 take them, with
+// no look-back (the codes sit at fixed offsets).  Lane l of warp w owns
+// elements 4l..4l+3 and 128+4l..128+4l+3 of blocks w, w + 8, w + 16 and
+// w + 24 of its tile.  It issues every 16-byte load of those blocks'
+// codes (and of acc, kernel 7) before the first scan: 128 B a lane (256 B
+// with acc), 32 KB a CTA in flight.  Then, per block, it un-zigzags, runs
+// the two-part warp scan of decode_block (scan_block) in registers and
+// stores the f32 in 16-byte pieces: no shared memory, no __syncthreads.
+// One 256-thread CTA per block, with 4-byte loads and a shared-memory
+// block scan, holds at most 8 CTAs and so 8 KB of code loads in flight on
+// an SM, about half of what keeps the H100's HBM busy.  Below kWideRows
+// rows a call is too small to fill the card with such tiles, and its four
+// scans a warp run one after the other; there a tile is 8 blocks, one a
+// warp, so that four times as many CTAs share the work.
 //
 // Layout: f32 data is (nb, 256).  Wire words are uint32, LSB-first, block
 // i's codes at word offset off_i = sum_{k<i} 8*bw_k (BLOCK % 32 == 0, so
@@ -103,8 +118,8 @@
 // __fmaf_rn(qf, twoeb, acc), rounded once, passing a NaN in acc through as
 // the reference does (fma_acc).  recip and twoeb arrive as device
 // scalars computed by the wrapper, like the reference's (1, 1) operands.
-// Compile without --use_fast_math.  The quantizer front, the
-// reconstruction, the look-back, the staging and the reduces live in
+// Compile without --use_fast_math.  Kernel 5's delta and maximum, the
+// look-back, the staging, the 16-byte loads and the reduces live in
 // lorenzo_common.cuh, shared with the entropy-coded wire kernels
 // (entropy.cu).
 //
@@ -117,6 +132,9 @@
 namespace {
 
 constexpr int kWordsPerBit = kBlock / 32;   // words per unit of bitwidth
+// Rows from which kernels 6 and 7 give a warp kWarpBlocks blocks: four
+// 32-block tiles for each of the H100's 132 SMs.
+constexpr int kWideRows = 4 * 132 * kTileBlocks;
 
 // The unfused quantize: the zigzag codes, per-block bitwidth and anchor of
 // f32 blocks.
@@ -137,19 +155,6 @@ quantize_front_kernel(const float* __restrict__ x, const float* __restrict__ rec
   }
 }
 
-// Unfused decode: codes (nb, 256) + anchor -> f32, optionally + acc with
-// one rounding.
-template <bool kReduce>
-__global__ void __launch_bounds__(kBlock)
-dequantize_kernel(const uint32_t* __restrict__ codes, const int32_t* __restrict__ anchor_in,
-                  const float* __restrict__ twoeb_p, const float* __restrict__ acc,
-                  float* __restrict__ out) {
-  __shared__ uint32_t red[kWarps];
-  const size_t i = (size_t)blockIdx.x * kBlock + threadIdx.x;
-  const float qf = reconstruct_q(codes[i], anchor_in[blockIdx.x], red);
-  out[i] = kReduce ? fma_acc(qf, *twoeb_p, acc[i]) : __fmul_rn(qf, *twoeb_p);
-}
-
 constexpr int kSegWords = kTileBlocks * kBlock + 8;  // a tile's staged incoming segment
 constexpr int kRun = 32;                             // codes a lane packs: bw whole words
 constexpr int kZRow = kBlock + 4 * (kBlock / kRun);  // a block's codes, 4 words of skew a run
@@ -160,12 +165,26 @@ constexpr int kHopSmem = (kSegWords + kTileBlocks * kZRow) * 4;  // + the codes:
 // different banks.
 __device__ __forceinline__ int zrow(int e) { return e + 4 * (e / kRun); }
 
-// Receive: lane l's eight int32 values of a dense block (elements 4l+e and
-// 128+4l+e, e < 4; before the multiply by 2*eb), decoded at width bw from
-// the staged segment, whose word ``first`` is the block's first: unzigzag,
-// then the int32-wrapping prefix sum over the block as a two-part warp scan
+// Lane l's eight int32 values of a block (elements 4l+e and 128+4l+e,
+// e < 4; before the multiply by 2*eb) from its eight un-zigzagged deltas
+// dd: the int32-wrapping prefix sum over the block as a two-part warp scan
 // (elements 0..127 are the lanes' low parts in lane order, 128..255 their
-// high parts), plus the anchor.
+// high parts), plus the anchor.  The whole warp calls it.
+__device__ __forceinline__ void scan_block(const uint32_t dd[8], uint32_t anchor, int lane,
+                                           int32_t q[8]) {
+  const uint32_t s_lo = dd[0] + dd[1] + dd[2] + dd[3];
+  const uint32_t s_hi = dd[4] + dd[5] + dd[6] + dd[7];
+  const uint32_t i_lo = warp_inclusive_sum(s_lo, lane);
+  const uint32_t i_hi = warp_inclusive_sum(s_hi, lane);
+  uint32_t run[2] = {anchor + (i_lo - s_lo),
+                     anchor + __shfl_sync(0xffffffffu, i_lo, 31) + (i_hi - s_hi)};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) q[e] = (int32_t)(run[e >> 2] += dd[e]);
+}
+
+// Receive: lane l's eight int32 values of a dense block (the layout of
+// scan_block), decoded at width bw from the staged segment, whose word
+// ``first`` is the block's first: unzigzag, then scan_block.
 __device__ __forceinline__ void decode_block(const uint32_t* seg_s, int first, int bw,
                                              uint32_t anchor, int lane, int32_t q[8]) {
   const uint32_t mask = width_mask(bw);
@@ -177,17 +196,65 @@ __device__ __forceinline__ void decode_block(const uint32_t* seg_s, int first, i
     const int wi = bitpos >> 5, sh = bitpos & 31;
     uint32_t u = seg_s[wi] >> sh;
     if (sh && sh + bw > 32) u |= seg_s[wi + 1] << (32 - sh);
-    u &= mask;
-    dd[e] = (uint32_t)((int32_t)(u >> 1) ^ -(int32_t)(u & 1u));
+    dd[e] = unzigzag(u & mask);
   }
-  const uint32_t s_lo = dd[0] + dd[1] + dd[2] + dd[3];
-  const uint32_t s_hi = dd[4] + dd[5] + dd[6] + dd[7];
-  const uint32_t i_lo = warp_inclusive_sum(s_lo, lane);
-  const uint32_t i_hi = warp_inclusive_sum(s_hi, lane);
-  uint32_t run[2] = {anchor + (i_lo - s_lo),
-                     anchor + __shfl_sync(0xffffffffu, i_lo, 31) + (i_hi - s_hi)};
+  scan_block(dd, anchor, lane, q);
+}
+
+// Kernels 7 (kReduce: acc + q * 2eb, rounded once) and 6 (q * 2eb): one
+// tile of 8 * wb blocks per CTA, warp w taking blocks w, w + 8, ..,
+// w + 8 (wb - 1), wb <= kWarpBlocks (see the header comment).  ``codes``
+// and ``acc`` may start off a 16-byte boundary (load4); ``out`` does not.
+template <bool kReduce>
+__global__ void __launch_bounds__(kTileThreads)
+dq_tile_kernel(const uint32_t* __restrict__ codes, const int32_t* __restrict__ anchor_in,
+               int nb, int wb, const float* __restrict__ twoeb_p,
+               const float* __restrict__ acc, float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = blockIdx.x * kWarps * wb + warp;
+  const float twoeb = *twoeb_p;
+  uint4 c[kWarpBlocks][2];
+  float4 a[kWarpBlocks][2];
+  uint32_t anc[kWarpBlocks];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) q[e] = (int32_t)(run[e >> 2] += dd[e]);
+  for (int i = 0; i < kWarpBlocks; ++i) {  // every load before the first scan
+    const int b = first + kWarps * i;
+    if (i == wb || b >= nb) break;  // warp-uniform; later steps are further on
+    const size_t i0 = (size_t)b * kBlock + 4 * lane;
+    c[i][0] = load4(codes + i0);
+    c[i][1] = load4(codes + i0 + 128);
+    anc[i] = (uint32_t)anchor_in[b];
+    if constexpr (kReduce) {
+      a[i][0] = load4(acc + i0);
+      a[i][1] = load4(acc + i0 + 128);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWarpBlocks; ++i) {
+    const int b = first + kWarps * i;
+    if (i == wb || b >= nb) break;
+    const uint32_t u[8] = {c[i][0].x, c[i][0].y, c[i][0].z, c[i][0].w,
+                           c[i][1].x, c[i][1].y, c[i][1].z, c[i][1].w};
+    uint32_t dd[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dd[e] = unzigzag(u[e]);
+    int32_t q[8];
+    scan_block(dd, anc[i], lane, q);
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+      float v[4];
+      if constexpr (kReduce) {
+        const float av[4] = {a[i][part].x, a[i][part].y, a[i][part].z, a[i][part].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = fma_acc(__int2float_rn(q[4 * part + e]), twoeb, av[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = __fmul_rn(__int2float_rn(q[4 * part + e]), twoeb);
+      }
+      *reinterpret_cast<float4*>(out + (size_t)b * kBlock + 128 * part + 4 * lane) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
 }
 
 // Receive front of one tile of 32 incoming blocks (kernels 3 and 4; the
@@ -638,13 +705,19 @@ int lz_quantize(const float* x, int nb, const float* recip, uint32_t* codes,
   return 0;
 }
 
+// Kernels 6 and 7 (kernel 7 with acc), one launch.  ``out`` starts on a
+// 16-byte boundary.  nb > 0.
 int lz_dequantize(const uint32_t* codes, const int32_t* anchor, int nb,
                   const float* twoeb, const float* acc, float* out,
                   cudaStream_t stream) {
+  const int wb = nb >= kWideRows ? kWarpBlocks : 1;  // blocks a warp
+  const int tiles = (nb + kWarps * wb - 1) / (kWarps * wb);
   if (acc)
-    dequantize_kernel<true><<<nb, kBlock, 0, stream>>>(codes, anchor, twoeb, acc, out);
+    dq_tile_kernel<true><<<tiles, kTileThreads, 0, stream>>>(codes, anchor, nb, wb, twoeb,
+                                                             acc, out);
   else
-    dequantize_kernel<false><<<nb, kBlock, 0, stream>>>(codes, anchor, twoeb, nullptr, out);
+    dq_tile_kernel<false><<<tiles, kTileThreads, 0, stream>>>(codes, anchor, nb, wb, twoeb,
+                                                              nullptr, out);
   LZ_CHECK();
   return 0;
 }

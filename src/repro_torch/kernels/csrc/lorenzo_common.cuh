@@ -1,15 +1,17 @@
 // Device functions shared by the Lorenzo codec kernels (lorenzo.cu) and
-// the entropy-coded wire kernels (entropy.cu): the quantizer front, the
-// reconstruction, the single-pass decoupled look-back of the entropy
+// the entropy-coded wire kernels (entropy.cu): kernel 5's block-wide
+// delta and maximum, the single-pass decoupled look-back of the entropy
 // kernels and Lorenzo kernels 1-4, the staging of a tile's stream words,
-// the pack's exact division and tail zeroing, and the reduces that pass a
-// NaN in acc through.
+// the 16-byte loads, the pack's exact division and tail zeroing, and the
+// reduces that pass a NaN in acc through.
 //
-// Layout: f32 data is (nb, 256).  In the unfused kernels 5-7 one CUDA
-// block of 256 threads handles one 256-element Lorenzo block, thread j
-// owning element j; the look-back kernels take tiles of 32 blocks, four
-// per warp.  Wire words are uint32, LSB-first, and every block's payload
-// starts on a word boundary.
+// Layout: f32 data is (nb, 256).  In the unfused quantize (kernel 5) one
+// CUDA block of 256 threads handles one 256-element Lorenzo block, thread
+// j owning element j (lorenzo_zig, block_max); every other kernel takes
+// tiles of 32 blocks, four per warp (kernels 6 and 7 on small calls: 8
+// blocks, one per warp), lane l of a warp owning elements 4l..4l+3 and
+// 128+4l..128+4l+3 of its block.  Wire words are uint32, LSB-first, and
+// every block's payload starts on a word boundary.
 //
 // Exactness: q = __float2int_rn(__fmul_rn(x, recip)) (saturating, NaN -> 0);
 // zigzag on int32; widths are 32 - clz(max code); reconstruction is an int32
@@ -49,21 +51,6 @@ __device__ __forceinline__ uint32_t block_max(uint32_t v, uint32_t* red) {
   return r;
 }
 
-// Inclusive prefix sum over the 256 threads, wrapping like int32.
-__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t n = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += n;
-  }
-  if (lane == 31) red[warp] = v;
-  __syncthreads();
-  uint32_t off = 0;
-  for (int w = 0; w < warp; ++w) off += red[w];
-  return v + off;
-}
-
 // Word w of a stream of cap words; every word at or past cap reads as 0.
 __device__ __forceinline__ uint32_t load_word(const uint32_t* __restrict__ p,
                                               long long cap, long long w) {
@@ -100,21 +87,6 @@ __device__ __forceinline__ void zero_tail(uint32_t* __restrict__ packed, long lo
   if (end4 + gid < cap) packed[end4 + gid] = 0u;
   for (long long i = mid / 4 + gid; i < end4 / 4; i += stride)
     reinterpret_cast<uint4*>(packed)[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Zigzag code u of thread j -> its int32 quantized value: unzigzag,
-// int32-wrapping prefix sum over the block, plus the anchor.
-__device__ __forceinline__ int32_t reconstruct_qi(uint32_t u, int32_t anchor,
-                                                  uint32_t* red) {
-  const int32_t d = (int32_t)(u >> 1) ^ -(int32_t)(u & 1u);
-  const uint32_t qs = block_scan((uint32_t)d, red);
-  return (int32_t)((uint32_t)anchor + qs);
-}
-
-// The same as f32 (before the multiply by 2*eb), rounded to nearest.
-__device__ __forceinline__ float reconstruct_q(uint32_t u, int32_t anchor,
-                                               uint32_t* red) {
-  return __int2float_rn(reconstruct_qi(u, anchor, red));
 }
 
 // Single-pass decoupled look-back (Merrill & Garland, "Single-pass Parallel
@@ -211,7 +183,8 @@ __device__ __forceinline__ uint32_t lookback_exclusive(const Lookback& lb, int t
   return excl;
 }
 
-// Tiles of the look-back kernels (entropy.cu; kernels 1-4 in lorenzo.cu).
+// Tiles of the look-back kernels (entropy.cu; kernels 1-4 in lorenzo.cu) and
+// of the unfused decode (kernels 6 and 7).
 constexpr int kTileThreads = 256;                  // 8 warps
 constexpr int kWarpBlocks = 4;                     // Lorenzo blocks per warp and tile
 constexpr int kTileBlocks = kWarps * kWarpBlocks;  // 32 blocks per tile
@@ -222,6 +195,12 @@ constexpr int kTailBlocks = 1024;                  // grid cap of a tail-zeroing
 __device__ __forceinline__ float4 load4(const float* p) {
   if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) return *reinterpret_cast<const float4*>(p);
   return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// The same for four consecutive uint32 words.
+__device__ __forceinline__ uint4 load4(const uint32_t* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) return *reinterpret_cast<const uint4*>(p);
+  return make_uint4(p[0], p[1], p[2], p[3]);
 }
 
 __device__ __forceinline__ uint32_t warp_inclusive_sum(uint32_t v, int lane) {
@@ -272,6 +251,11 @@ __device__ __forceinline__ long long stage_segment(const uint32_t* __restrict__ 
 __device__ __forceinline__ uint32_t zigzag(int32_t q, int32_t prev) {
   const int32_t d = (int32_t)((uint32_t)q - (uint32_t)prev);
   return ((uint32_t)d << 1) ^ (uint32_t)(d >> 31);
+}
+
+// Zigzag code u -> its int32 delta, as uint32 bits.
+__device__ __forceinline__ uint32_t unzigzag(uint32_t u) {
+  return (uint32_t)((int32_t)(u >> 1) ^ -(int32_t)(u & 1u));
 }
 
 // The reduces.  On a NaN the card's arithmetic returns its canonical NaN;

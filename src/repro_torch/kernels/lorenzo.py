@@ -31,9 +31,12 @@ short fixed sequence of CUDA launches, see the source note in
 the ring hop one with two, each plus a tail-zeroing launch;
 ``unpack_dequantize{,_reduce}`` is one single-pass launch with one
 look-back and no tail (the output is dense f32).  Each takes its
-look-back scratch from ``kernels/lookback.py``.  Bytes bound every kernel
+look-back scratch from ``kernels/lookback.py``.  ``dequantize{,_reduce}``
+is one launch over the same tiles with no look-back (the codes sit at
+fixed offsets), ``quantize`` one CTA per block.  Bytes bound every kernel
 here on the H100: the single-pass kernels read the stream once into
-shared memory and move f32 in 16-byte loads and stores.
+shared memory, and every kernel but ``quantize`` moves f32 (and codes) in
+16-byte loads and stores.
 
 Shapes and types: f32 data is (nb, 256) with nb a multiple of 8; wire
 words and zigzag codes are int32 tensors carrying uint32 bits (codes are
@@ -156,14 +159,14 @@ _SIGNATURES = {
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
 def _check_blocks(x2d: torch.Tensor, name: str) -> int:
@@ -294,7 +297,10 @@ def quantize(x2d, eb):
 
 
 def _dequantize(name, codes, anchor, eb, acc):
+    """Kernels 6 and 7: one launch over tiles of 32 blocks, no look-back."""
     nb = codes.shape[0]
+    if nb == 0:
+        raise ValueError("codes has no blocks")
     _check(codes, "codes", torch.int32, (nb, BLOCK))
     _check(anchor, "anchor", torch.int32, (nb,))
     if acc is not None:

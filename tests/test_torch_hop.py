@@ -185,7 +185,13 @@ def _receive(pk, cap_in, bw, anchor, off, mis):
     spill = (sh != 0) & (sh + b > 32)
     u = u | torch.where(spill, (seg[(wi + 1).clamp(max=last)] << (32 - sh)) & MASK32,
                         torch.zeros_like(u))
-    u = u & ((torch.ones_like(b) << b) - 1)
+    return _unzigzag_scan(u & ((torch.ones_like(b) << b) - 1), anchor)
+
+
+def _unzigzag_scan(u, anchor):
+    """``unzigzag`` then ``scan_block`` of ``csrc/lorenzo.cu``: zigzag codes
+    (block, part, lane, e) in the lane layout + int32 anchors (block,) ->
+    int32 q (blocks, 256) in element order, by the two-part warp scan."""
     d = ((u >> 1) ^ -(u & 1)) & MASK32
     s = d.sum(dim=3)                                      # (block, part, lane)
     inc = torch.cumsum(s, dim=2)                          # the warp scans
