@@ -98,9 +98,26 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 11. the same sync under ``lorenzo`` (then profiled once: kernels 1, 2
     and 3's launches and device time, the launch structure checked), ``lossless``,
     ``passthrough`` and ``codec="auto"``, and at N = 6;
-12. checks that the all-to-all's backward on a one-card ``ThreadGroup``
+12. runs the degradation layer on the main paths with their real kernels
+    (phase ``faults``): the 646 MB x 8 allreduce (ring/2) clean under
+    ``verify_streams`` (bitwise the unguarded run, no flag), an injected
+    overflow on rank 3, 8 NaNs on rank 5, and a round-1 wire bitflip
+    under ``fallback`` (bitwise the rank-order lossless sum of the
+    poisoned or sanitized inputs; the bitflip silent without
+    ``verify_streams``, caught with it, missed at round 10,000), and
+    ``raise`` (every rank raises the reference's message on a forced
+    overflow, none on clean data); the 646 MB x 8 scatter with NaN on the
+    root (the sanitized lossless scatter) and on a non-root (no flag);
+    the gradient sync of one minitron-8b layer in 57 full buckets, every
+    one overflowing under ``fallback`` (every leaf bitwise the lossless
+    sum); every case with its health counters and the compressed pass's
+    exact launches; then the clean allreduce timed with and without
+    ``verify_streams`` (warm walls in turns, device busy and the
+    checksum's launches and device time from one profile each) and the
+    fallback of a forced overflow beside its compressed call;
+13. checks that the all-to-all's backward on a one-card ``ThreadGroup``
     raises instead of hanging (phase ``c6``);
-13. holds the flash-attention kernel (kernel 11; bf16 on the tensor-core
+14. holds the flash-attention kernel (kernel 11; bf16 on the tensor-core
     route, f32 on the CUDA-core route, each counted) against its plain
     version at D = 32, 64 and 128, f32 and bf16, causal, causal with
     windows 64, 100, 128 and 1000, non-causal with Sq != Sk, ragged lengths
@@ -109,25 +126,26 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     and at the main path's shape (B=2, S=2048, H=32, D=128, bf16), timed
     there beside the plain version, SDPA and the bound, then checked and
     timed beside SDPA at B=8 S=2048 and B=2 S=8192 causal and S=4096
-    non-causal (phase ``model``, as are 14-16);
-14. runs this slice's main path, ``Model.loss_fn`` of minitron-8b at full
+    non-causal (phase ``model``, as are 15-17);
+15. runs this slice's main path, ``Model.loss_fn`` of minitron-8b at full
     width and depth (19.76 GB of bf16 weights from seed 0) on a B=2,
     S=2048 batch, through kernel 11 (32 launches, all on the tensor-core
     route) and through the chunked path (none), within 2e-3 of each other,
     profiled;
-15. compares the full-sequence logits through kernel 11 at S=128 with 128
+16. compares the full-sequence logits through kernel 11 at S=128 with 128
     ``decode_fn`` steps (rel <= 0.05);
-16. runs ``repro_torch.launch.serve.serve`` at full size (batch 4, 16
+17. runs ``repro_torch.launch.serve.serve`` at full size (batch 4, 16
     prompt and 32 generated tokens, cache 128) and prints its tokens per
     second.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
-bound, and not overflow.
+bound, and not overflow (the ``faults`` phase's cases overflow or fail on
+purpose and are held by bits to the lossless result instead).
 
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
-``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``c6`` (12) and
-``model`` (13-16); a partial run prints no result lines.
+``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
+``c6`` (13) and ``model`` (14-17); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -2113,6 +2131,298 @@ def check_a2a_backward_on_threadgroup(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase faults: the degradation layer at full size
+# ---------------------------------------------------------------------------
+
+FAULTS_SCATTER_NAN = 8  # poisoned positions of the NaN specs
+# 57 full buckets of the layer's 243,277,824 f32 (17.07 MB each): under the
+# default 16 MiB the 59th bucket holds 1,728 values and zeros, a stream
+# that fits any capacity (one word per block at least), so it could not
+# overflow.
+FALLBACK_BUCKET_BYTES = GRAD_SYNC_ELEMS // 57 * 4
+
+
+def _fold(parts):
+    """Rank-order sum, the lossless fallback's (``transport.sum_across``)."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def _sanitized(x):
+    import torch
+
+    return torch.where(torch.isfinite(x), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _health(op, want, label):
+    """The health counters of the one call since the last clear: exactly
+    ``want`` = (overflow, nonfinite, fell back) for ``op``."""
+    from repro_torch.core import comm
+
+    got = comm.health_stats()
+    comm.clear_health_stats()
+    o, nf, fb = want
+    expect = {(op, "'x'"): {"calls": 1, "overflow": int(o), "nonfinite": int(nf),
+                            "fallbacks": int(fb)}}
+    if got != expect:
+        raise AssertionError(f"{label}: health counters {got} != {expect}")
+
+
+def _flags(res):
+    """(overflow, nonfinite), which must be the same on every rank."""
+    pairs = {(bool(r.overflow), bool(r.nonfinite)) for r in res}
+    if len(pairs) != 1:
+        raise AssertionError(f"ranks disagree on the flags: {pairs}")
+    return pairs.pop()
+
+
+def _equal_to(res, wants, label):
+    """Every rank's value bitwise equal to its wanted tensor."""
+    import torch
+
+    mism = sum(int((r.value.view(torch.int32) != w.view(torch.int32)).sum())
+               for r, w in zip(res, wants))
+    if mism:
+        raise AssertionError(f"{label}: {mism} elements differ")
+
+
+def _fault_case(group, comm, op, xs, spec, plan, label, want_flags, wants):
+    """One call under ``spec`` (or none): flags, the health counters, the
+    compressed pass's exact launches (the lossless re-run launches no
+    codec kernel) and, with ``wants``, bitwise values.  Returns (results,
+    wall seconds)."""
+    from repro_torch.core import faults
+
+    with faults.inject(spec) if spec is not None else contextlib.nullcontext():
+        res, launches, wall = _run(group, comm, op, xs)
+    flags = _flags(res)
+    log(f"faults {label}: flags (overflow, nonfinite) {flags}, wall {wall * 1e3:.1f} ms, "
+        f"launches={_nonzero(launches)}")
+    if want_flags is not None and flags != want_flags:
+        raise AssertionError(f"{label}: flags {flags} != {want_flags}")
+    _check_launches(plan, group.size, launches)
+    if wants is not None:
+        _equal_to(res, wants, label)
+    fell_back = comm.config.on_overflow == "fallback" and any(flags)
+    _health(op, flags + (fell_back,), label)
+    return res, wall
+
+
+def _checksum_profile(group, comm, xs, label):
+    """Device busy time of one call, and the launches and device time of
+    the stream checksum's kernels (the concatenation and the XOR fold)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        group.run(comm.allreduce, xs, axis_name="x")
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    xor = [e for e in events if "BitwiseXor" in e.key]
+    cat = [e for e in events if "CatArrayBatchedCopy" in e.key]
+    rows = {k: (sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3)
+            for k, ev in (("xor", xor), ("cat", cat))}
+    log(f"faults {label} profile: device busy {busy:.2f} ms; checksum XOR fold "
+        f"{rows['xor'][0]} launches, {rows['xor'][1]:.2f} ms; concatenation "
+        f"{rows['cat'][0]} launches, {rows['cat'][1]:.2f} ms")
+    return busy, rows
+
+
+def run_faults(device, gen):
+    """The degradation layer on the port's main paths, with their real
+    kernels: the 646 MB x 8 allreduce (ring/2) clean under
+    ``verify_streams``, an injected overflow, a NaN and wire bitflips
+    under ``fallback``, and ``raise``; the 646 MB x 8 scatter with NaN on
+    the root and on a non-root; the gradient sync of one minitron-8b
+    layer with every bucket overflowing under ``fallback``.  Values are
+    checked by bits against the lossless rank-order sum, flags and health
+    counters by the event, launches against the schedule; then the clean
+    allreduce is timed with and without ``verify_streams`` and the
+    fallback beside the compressed call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import buckets, comm as comm_mod, faults, grad_sync, transport
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.comm import GZCommunicator
+
+    n, n_elems = 8, MAIN_BYTES // 4
+    group = transport.ThreadGroup(n, device)
+    xs = [_random_walk(n_elems, gen, device) for _ in range(n)]
+
+    def communicator(**kw):
+        return GZCommunicator("x", config=GZConfig(**kw), axis_size=n, device=device)
+
+    flag = communicator()
+    plan = flag.plan("allreduce", (n_elems,))
+    if (plan.algo, plan.pipeline_chunks) != ("ring", 2):
+        raise AssertionError(f"646 MB plan is {plan.algo}/{plan.pipeline_chunks}")
+    comm_mod.clear_health_stats()
+    comm_mod.enable_health_tracking(True)
+    try:
+        clean, _ = _fault_case(group, flag, "allreduce", xs, None, plan, "clean, flag",
+                               (False, False), None)
+        verify = communicator(verify_streams=True)
+        _fault_case(group, verify, "allreduce", xs, None, plan, "clean, verify_streams",
+                    (False, False), [r.value for r in clean])
+        fallback = communicator(on_overflow="fallback")
+        spec = faults.FaultSpec("overflow", ranks=(3,))
+        noise = torch.from_numpy(faults._overflow_noise((n_elems,), spec)).to(device)
+        _fault_case(group, fallback, "allreduce", xs, spec, plan, "overflow on rank 3",
+                    (True, False), [_fold(xs[:3] + [noise] + xs[4:])] * n)
+        del noise
+        spec = faults.FaultSpec("nan", ranks=(5,), n=FAULTS_SCATTER_NAN)
+        x5 = xs[5].clone()
+        x5[torch.from_numpy(faults._poison_positions(n_elems, spec)).to(device)] = 0.0
+        res, _ = _fault_case(group, fallback, "allreduce", xs, spec, plan,
+                             "NaN on rank 5", None, [_fold(xs[:5] + [x5] + xs[6:])] * n)
+        if not _flags(res)[1]:
+            raise AssertionError("NaN on rank 5: the non-finite flag is not set")
+        del x5, res
+        spec = faults.FaultSpec("bitflip", ranks=(1,), rounds=(1,))
+        res, _ = _fault_case(group, flag, "allreduce", xs, spec, plan,
+                             "bitflip round 1, unguarded", (False, False), None)
+        log(f"faults bitflip round 1, unguarded: {_bitwise_mismatches(res, clean)} elements "
+            "differ from the clean run, silently")
+        # 64 flips: some land inside the valid stream and corrupt values
+        res, _ = _fault_case(group, flag, "allreduce", xs,
+                             faults.FaultSpec("bitflip", ranks=(1,), rounds=(1,), n=64), plan,
+                             "64 bitflips round 1, unguarded", (False, False), None)
+        silent = _bitwise_mismatches(res, clean)
+        log(f"faults 64 bitflips round 1, unguarded: {silent} elements differ from the clean "
+            "run, no flag")
+        if not silent:
+            raise AssertionError("64 bitflips corrupted nothing: the hook misses the streams")
+        del res
+        guarded = communicator(on_overflow="fallback", verify_streams=True)
+        _fault_case(group, guarded, "allreduce", xs, spec, plan,
+                    "bitflip round 1, verify_streams + fallback", (True, False),
+                    [_fold(xs)] * n)
+        _fault_case(group, guarded, "allreduce", xs,
+                    faults.FaultSpec("bitflip", ranks=(1,), rounds=(10_000,)), plan,
+                    "bitflip round 10000, verify_streams + fallback", (False, False),
+                    [r.value for r in clean])
+        starved = dict(capacity_factor=0.02)  # a forced overflow, no injection
+        raising = communicator(on_overflow="raise", **starved)
+        messages = group.run(lambda x: _raise_message(raising, x), xs, axis_name="x")
+        want = ("gZ collective degraded (allreduce over 'x'): overflow=True nonfinite=False"
+                " — a compressed stream exceeded its provisioned capacity (or failed "
+                "verification) or the input held NaN/Inf.  Use on_overflow='fallback' for "
+                "in-trace lossless recovery, or 'flag' to only report.")
+        if messages != [want] * n:
+            raise AssertionError(f"raise policy: {messages[0]!r} on some rank, want {want!r}")
+        _health("allreduce", (True, False, False), "raise on a forced overflow")
+        _fault_case(group, communicator(on_overflow="raise"), "allreduce", xs, None, plan,
+                    "clean, raise", (False, False), [r.value for r in clean])
+        log(f"faults raise policy: every rank raised the reference's message: {want[:60]}...")
+        del clean
+
+        # Timing: the clean call with and without verify_streams, in turns,
+        # and the fallback of a forced overflow beside its compressed call,
+        # with the health counters (a host sync a call) off.
+        comm_mod.enable_health_tracking(False)
+        starved_flag = communicator(**starved)
+        starved_fb = communicator(on_overflow="fallback", **starved)
+        walls = {}
+        for name, c in (("flag", flag), ("verify", verify), ("verify", verify),
+                        ("flag", flag), ("flag", flag), ("verify", verify),
+                        ("starved flag", starved_flag), ("starved fallback", starved_fb),
+                        ("starved fallback", starved_fb), ("starved flag", starved_flag)):
+            walls.setdefault(name, []).append(_run(group, c, "allreduce", xs)[2])
+        for name, w in walls.items():
+            log(f"faults timing 646 MB x 8 allreduce, {name}: warm walls "
+                + ", ".join(f"{v * 1e3:.1f}" for v in w) + f" ms; min {min(w) * 1e3:.1f} ms")
+        busy_flag, _ = _checksum_profile(group, flag, xs, "clean, flag")
+        busy_verify, rows = _checksum_profile(group, verify, xs, "clean, verify_streams")
+        comm_mod.enable_health_tracking(True)
+        log(f"faults verify_streams overhead at 646 MB x 8: warm wall "
+            f"{min(walls['verify']) * 1e3:.1f} vs {min(walls['flag']) * 1e3:.1f} ms "
+            f"(+{(min(walls['verify']) / min(walls['flag']) - 1) * 100:.1f} %); device busy "
+            f"{busy_verify:.2f} vs {busy_flag:.2f} ms; checksum kernels "
+            f"{rows['xor'][0] + rows['cat'][0]} launches, "
+            f"{rows['xor'][1] + rows['cat'][1]:.2f} ms; fallback wall "
+            f"{min(walls['starved fallback']) * 1e3:.1f} ms beside the compressed call's "
+            f"{min(walls['starved flag']) * 1e3:.1f} ms")
+        del xs
+        torch.cuda.empty_cache()
+
+        # The scatter: NaN on the root recovers the sanitized lossless
+        # scatter; NaN on a non-root does not trip the guard.
+        x_full = _random_walk(n_elems // n * n, gen, device)
+        chunk = x_full.shape[0] // n
+        junk = torch.full_like(x_full, float("nan"))
+        sx = [x_full] + [junk] * (n - 1)
+        sc = communicator(on_overflow="fallback")
+        splan = sc.plan("scatter", x_full.shape)
+        clean, _ = _fault_case(group, communicator(), "scatter", sx, None, splan,
+                               "scatter clean, flag", (False, False), None)
+        _fault_case(group, sc, "scatter", sx, faults.FaultSpec("nan", ranks=(3,), n=8), splan,
+                    "scatter NaN on rank 3 (non-root)", (False, False),
+                    [r.value for r in clean])
+        spec = faults.FaultSpec("nan", ranks=(0,), n=FAULTS_SCATTER_NAN)
+        root = x_full.clone()
+        root[torch.from_numpy(faults._poison_positions(root.numel(), spec)).to(device)] = 0.0
+        res, _ = _fault_case(group, sc, "scatter", sx, spec, splan, "scatter NaN on the root",
+                             None, [root[r * chunk:(r + 1) * chunk] for r in range(n)])
+        if not _flags(res)[1]:
+            raise AssertionError("scatter NaN on the root: the non-finite flag is not set")
+        del x_full, junk, sx, clean, root, res
+        torch.cuda.empty_cache()
+
+        # The gradient sync: every bucket overflows and falls back.
+        trees = _layer_grads(n, gen, device)
+        sync = grad_sync.SyncConfig(
+            gz=GZConfig(eb=1e-9, algo="redoub", worst_case_budget=False,
+                        codec="lorenzo+entropy", capacity_factor=0.05,
+                        on_overflow="fallback"),
+            relative_eb=False, bucket_bytes=FALLBACK_BUCKET_BYTES)
+        res, launches, wall = _sync_once(group, trees, sync, device)
+        leaves = [_flat_leaves(t) for t in trees]
+        ledger = buckets.ledger_for([a.shape for a in leaves[0]], sync.bucket_bytes)
+        gplan = GZCommunicator("x", config=sync.gz, axis_size=n, device=device,
+                               auto_depth=True).plan("allreduce", (ledger.bucket_elems,))
+        expected = {k: v * ledger.n_buckets for k, v in _expected_launches(gplan, n).items()}
+        if launches != expected:
+            raise AssertionError(f"grad sync fallback: launches {launches} != {expected}")
+        mism = 0
+        outs = [_flat_leaves(out) for out, _ in res]
+        for i in range(len(leaves[0])):
+            want = _fold([lv[i] for lv in leaves])
+            mism += sum(int((o[i].view(torch.int32) != want.view(torch.int32)).sum())
+                        for o in outs)
+        stats = {(bool(st.overflow), bool(st.nonfinite)) for _, st in res}
+        health = comm_mod.health_stats()
+        comm_mod.clear_health_stats()
+        want_health = {("allreduce", "'x'"): {"calls": ledger.n_buckets,
+                                              "overflow": ledger.n_buckets, "nonfinite": 0,
+                                              "fallbacks": ledger.n_buckets}}
+        log(f"faults grad sync minitron-8b layer N={n}, lorenzo+entropy at eb 1e-9, capacity "
+            f"0.05, fallback: {ledger.n_buckets} buckets, wall {wall * 1e3:.1f} ms, "
+            f"mismatches vs the lossless sum {mism}, stats {stats}, health {health}, "
+            f"launches={_nonzero(launches)}")
+        if mism or stats != {(True, False)} or health != want_health:
+            raise AssertionError("grad sync fallback: values, flags or health counters wrong")
+        del trees, res, outs, leaves
+        torch.cuda.empty_cache()
+    finally:
+        comm_mod.enable_health_tracking(False)
+        comm_mod.clear_health_stats()
+
+
+def _raise_message(comm, x):
+    """A rank's ``allreduce`` under the ``raise`` policy: the message it
+    raised, or None."""
+    try:
+        comm.allreduce(x)
+    except RuntimeError as e:
+        return str(e)
+    return None
+
+
+# ---------------------------------------------------------------------------
 # Phases 13-16: the dense model's forward and serving path, kernel 11
 # ---------------------------------------------------------------------------
 
@@ -2434,7 +2744,7 @@ def run_model(device):
 # ---------------------------------------------------------------------------
 
 
-PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "c6", "model")
+PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "c6", "model")
 
 
 def _record(records, name):
@@ -2534,6 +2844,9 @@ def main(argv=()) -> int:
             _record(records, name)["launches"] = main_launches[name]
         _record(records, "entropy_unpack_dequantize")["launches"] = \
             launches6["entropy_unpack_dequantize"]
+
+    if "faults" in phases:
+        run_faults(device, gen)
 
     if "c6" in phases:
         check_a2a_backward_on_threadgroup(device)

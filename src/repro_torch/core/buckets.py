@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 
 import torch
 
@@ -172,18 +173,18 @@ def build_ledger(shapes, bucket_bytes: int, *, elem_bytes: int = 4) -> BucketLed
 
 _LEDGER_CACHE: dict = {}
 _LEDGER_STATS = {"hits": 0, "misses": 0}
+_LEDGER_LOCK = threading.Lock()  # the rank threads of a ThreadGroup share the cache
 
 
 def ledger_for(shapes, bucket_bytes: int) -> BucketLedger:
     """Memoized :func:`build_ledger`."""
     key = (tuple(tuple(int(d) for d in s) for s in shapes), int(bucket_bytes))
-    hit = _LEDGER_CACHE.get(key)
-    if hit is not None:
-        _LEDGER_STATS["hits"] += 1
-        return hit
-    _LEDGER_STATS["misses"] += 1
-    ledger = _LEDGER_CACHE[key] = build_ledger(shapes, bucket_bytes)
-    return ledger
+    with _LEDGER_LOCK:
+        hit = _LEDGER_CACHE.get(key)
+        _LEDGER_STATS["hits" if hit is not None else "misses"] += 1
+        if hit is None:
+            hit = _LEDGER_CACHE[key] = build_ledger(shapes, bucket_bytes)
+    return hit
 
 
 def ledger_cache_stats() -> dict:
@@ -192,6 +193,7 @@ def ledger_cache_stats() -> dict:
 
 
 def clear_ledger_cache() -> None:
-    _LEDGER_CACHE.clear()
-    _LEDGER_STATS["hits"] = 0
-    _LEDGER_STATS["misses"] = 0
+    with _LEDGER_LOCK:
+        _LEDGER_CACHE.clear()
+        _LEDGER_STATS["hits"] = 0
+        _LEDGER_STATS["misses"] = 0

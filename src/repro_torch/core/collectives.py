@@ -29,9 +29,20 @@ and the all-to-all batch the ``lorenzo`` chunks into one ``quantize`` and
 send the other codecs' chunks through their compressor one by one, as
 the reference does.
 
+The degradation layer (the reference's ``collectives.py:213-380``):
+every compressed exchange is ``_exchange``, the counterpart of
+``_ppermute_guarded``, with the reference's schedule-table round index;
+it applies the wire-fault hook (``core/faults.py``) to what it received
+and, under ``verify_streams``, ships the XOR checksum of what was sent as
+an exchange of its own on the same perm and compares it with the
+checksum of what arrived.  A mismatch is OR-ed into the overflow flag
+where the reference ORs it.  The all-to-all stays unguarded, as in the
+reference.  ``_execute_lossless`` is the uncompressed re-run of each op
+over the same transport (the communicator's ``fallback`` policy, in
+``core/comm.py``).
+
 Outside this slice, and raising ``NotImplementedError`` that names the
-ROADMAP item: ``algo="intring"`` (A9), ``on_overflow`` other than
-``"flag"`` and ``verify_streams=True`` (A8).
+ROADMAP item: ``algo="intring"`` (A9).
 """
 from __future__ import annotations
 
@@ -40,7 +51,9 @@ import math
 
 import torch
 
-from repro_torch.core import bitpack, codecs, cost_model, error_budget, schedule
+from repro_torch.core import (
+    bitpack, codecs, cost_model, error_budget, faults, schedule, transport,
+)
 from repro_torch.core.compressed import (
     Compressed, capacity_words_for, validate_capacity_factor,
 )
@@ -108,20 +121,132 @@ def _require_slice(cfg: GZConfig) -> None:
     """Raise for the knobs this port does not execute yet."""
     if cfg.algo == "intring":
         raise NotImplementedError("algo='intring' is not ported yet (ROADMAP A9)")
-    if cfg.on_overflow != "flag":
-        raise NotImplementedError(
-            f"on_overflow={cfg.on_overflow!r} is not ported yet (ROADMAP A8)")
-    if cfg.verify_streams:
-        raise NotImplementedError("verify_streams=True is not ported yet (ROADMAP A8)")
-
-
-def _exchange(g, c, perm):
-    """One compressed exchange: ``c`` travels along ``perm``."""
-    return c.with_tensors(g.exchange(c.tensors(), perm))
 
 
 def _false(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.bool, device=device)
+
+
+def _or(flag, bad):
+    """``flag | bad``, where ``bad`` is None for an unguarded exchange (no
+    extra launch on the flag-mode path)."""
+    return flag if bad is None else flag | bad
+
+
+def _tree_checksum(tensors) -> torch.Tensor:
+    """XOR of every 32-bit word of every wire tensor (packed, bitwidth,
+    anchor, nwords as int32, eb's f32 bits), as an int32 0-d tensor: the
+    bits of the reference's ``_tree_checksum`` of the same container.
+    torch has no XOR reduction, so the words are laid end to end, padded
+    with zeros to a power of two, and folded in halves."""
+    words = [t.reshape(-1).view(torch.int32) for t in tensors]
+    n = sum(w.numel() for w in words)
+    size = 1 << max(n - 1, 0).bit_length()
+    flat = torch.cat(words + [torch.zeros(size - n, dtype=torch.int32,
+                                          device=words[0].device)])
+    while flat.numel() > 1:
+        half = flat.numel() // 2
+        flat = torch.bitwise_xor(flat[:half], flat[half:])
+    return flat[0]
+
+
+def _exchange_tensors(g, tensors, perm, guard=False, round_idx=None):
+    """One exchange of wire tensors along ``perm`` (the reference's
+    ``_ppermute_guarded``).  The wire-fault hook applies to what was
+    received.  With ``guard`` the sender's checksum travels on the same
+    perm as an exchange of its own and is compared with the checksum of
+    what arrived; a rank no pair addresses receives zero streams and a
+    zero checksum, so it cannot raise a false alarm.  Returns ``(recv,
+    bad)``, ``bad`` None when unguarded."""
+    recv = faults.maybe_corrupt_wire(g.exchange(tensors, perm), g, round_idx)
+    if not guard:
+        return recv, None
+    (chk_sent,) = g.exchange((_tree_checksum(tensors),), perm)
+    return recv, chk_sent != _tree_checksum(recv)
+
+
+def _exchange(g, c, perm, guard=False, round_idx=None):
+    """One compressed exchange: ``c`` travels along ``perm``.  Returns
+    ``(received container, bad)`` (``_exchange_tensors``)."""
+    recv, bad = _exchange_tensors(g, c.tensors(), perm, guard, round_idx)
+    return c.with_tensors(recv), bad
+
+
+# ---------------------------------------------------------------------------
+# Lossless fallback schedules
+# ---------------------------------------------------------------------------
+#
+# Every op has an uncompressed twin over the same transport.  NaN/Inf
+# become 0 first (identity on finite data), so an overflow-only fallback
+# is the exact lossless result and a poisoned input gives the lossless
+# result of the sanitized input.  The sums fold in rank order, as
+# ``sum_across`` does (the reference's CPU ``psum`` bits); the scatter and
+# broadcast walk the same tree tables with raw f32 payloads, which the
+# wire-fault hook never touches.
+
+
+def _nonfinite_local(x) -> torch.Tensor:
+    """This rank's NaN/Inf presence (False for non-float payloads)."""
+    if not x.dtype.is_floating_point:
+        return _false(x.device)
+    return ~torch.isfinite(x).all()
+
+
+def _sanitize(x):
+    """NaN/Inf replaced by 0 (identity on finite data)."""
+    if not x.dtype.is_floating_point:
+        return x
+    return torch.where(torch.isfinite(x), x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+
+
+def _lossless_scatter(x_full, g, cfg: GZConfig):
+    """The trimmed-slab tree with raw f32 held slabs: rank r ends with the
+    root's sanitized chunk r.  Non-root ranks start from zeros, which the
+    installs overwrite before anything reads them."""
+    n, r = g.size, g.rank
+    chunk_n = x_full.shape[0] // n
+    n_virt = 1 << cost_model.steps_for("binomial", n)
+    held = torch.zeros((n_virt, chunk_n), dtype=torch.float32, device=x_full.device)
+    if r == 0:
+        held[:n] = _sanitize(x_full.to(torch.float32)).view(n, chunk_n)
+    (held,), _ = _scatter_tree_trimmed((held,), g, n, n_virt, cfg)
+    return held[r].to(x_full.dtype)
+
+
+def _lossless_broadcast(x, g):
+    """The binomial tree's forwarding pairs (``schedule.tree_plan``) with
+    the raw f32 payload."""
+    r = g.rank
+    buf = _sanitize(x.reshape(-1).to(torch.float32))
+    for span, _full, _trim, perm in schedule.tree_plan(g.size):
+        (recv,) = g.exchange((buf,), perm)
+        if r % (span * 2) == span:
+            buf = recv
+    return buf.reshape(x.shape).to(x.dtype)
+
+
+def _execute_lossless(op, x, g, cfg: GZConfig, *, root: int = 0):
+    """Uncompressed re-run of ``op`` on rank handle ``g`` (exact)."""
+    n = g.size
+    if op == "allreduce":
+        return g.sum_across(_sanitize(x.to(torch.float32))).to(x.dtype)
+    if op == "reduce_scatter":
+        # rank r folds every rank's chunk r, in rank order
+        (parts,) = g.all_to_all((_sanitize(x.to(torch.float32)).view(n, -1),))
+        return transport._fold(parts).to(x.dtype)
+    if op == "allgather":
+        (parts,) = g.all_gather((_sanitize(x),))
+        return parts.reshape((n * x.shape[0],) + tuple(x.shape[1:])) if x.dim() \
+            else parts
+    if op == "scatter":
+        return _lossless_scatter(x, g, cfg)
+    if op == "broadcast":
+        return _lossless_broadcast(x, g)
+    if op == "all_to_all":
+        (parts,) = g.all_to_all((_sanitize(x).reshape((n, -1)),))
+        return parts.reshape(x.shape)
+    raise ValueError(f"no lossless fallback for op {op!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +264,9 @@ def _allreduce_redoub(x, g, cfg: GZConfig):
     fused hop the last doubling step's kernel emits the unfold payload
     directly; ``fused_hop=False`` compresses before every exchange and
     reduces after it.  Overflow flags are masked to streams that actually
-    travel.
+    travel; a failed stream check counts on the rank that received it.
+    Round indices: 0 the fold, ``base + k`` doubling step k, ``base +
+    steps`` the unfold.
     """
     n = g.size
     comp = cfg.compressor()
@@ -158,23 +285,29 @@ def _allreduce_redoub(x, g, cfg: GZConfig):
     step_perms = [sched.perm(base + k) for k in range(steps)]
     acc = x
     overflow = _false(x.device)
+    guard = cfg.verify_streams
 
     if not cfg.fused_hop:
         if rem:
             c = comp.compress(acc, eb_stage)
             if is_fold_src:
                 overflow = overflow | c.overflowed()
-            acc = comp.decompress_reduce(_exchange(g, c, sched.perm(0)), acc)
+            c_recv, bad = _exchange(g, c, sched.perm(0), guard, 0)
+            overflow = _or(overflow, bad)
+            acc = comp.decompress_reduce(c_recv, acc)
         for k in range(steps):
             c = comp.compress(acc, eb_stage)
             if is_participant:
                 overflow = overflow | c.overflowed()
-            acc = comp.decompress_reduce(_exchange(g, c, step_perms[k]), acc)
+            c_recv, bad = _exchange(g, c, step_perms[k], guard, base + k)
+            overflow = _or(overflow, bad)
+            acc = comp.decompress_reduce(c_recv, acc)
         if rem:
             c = comp.compress(acc, eb_stage)
             if is_fold_dst:
                 overflow = overflow | c.overflowed()
-            c_back = _exchange(g, c, sched.perm(base + steps))
+            c_back, bad = _exchange(g, c, sched.perm(base + steps), guard, base + steps)
+            overflow = _or(overflow, bad)
             if is_fold_src:
                 acc = comp.decompress(c_back)
         return acc, overflow
@@ -183,13 +316,15 @@ def _allreduce_redoub(x, g, cfg: GZConfig):
     if is_fold_src or not rem:
         overflow = overflow | c.overflowed()
     if rem:
-        c_recv = _exchange(g, c, sched.perm(0))
+        c_recv, bad = _exchange(g, c, sched.perm(0), guard, 0)
+        overflow = _or(overflow, bad)
         c, acc = comp.decompress_reduce_compress(
             c_recv, acc, eb_stage, return_updated=True)
         if is_participant:
             overflow = overflow | c.overflowed()
     for k in range(steps):
-        c_recv = _exchange(g, c, step_perms[k])
+        c_recv, bad = _exchange(g, c, step_perms[k], guard, base + k)
+        overflow = _or(overflow, bad)
         if k < steps - 1:
             c, acc = comp.decompress_reduce_compress(
                 c_recv, acc, eb_stage, return_updated=True)
@@ -203,7 +338,8 @@ def _allreduce_redoub(x, g, cfg: GZConfig):
         else:
             acc = comp.decompress_reduce(c_recv, acc)
     if rem:
-        c_back = _exchange(g, c, sched.perm(base + steps))
+        c_back, bad = _exchange(g, c, sched.perm(base + steps), guard, base + steps)
+        overflow = _or(overflow, bad)
         if is_fold_src:
             acc = comp.decompress(c_back)
     return acc, overflow
@@ -236,7 +372,8 @@ def _reduce_scatter_ring(x, g, cfg: GZConfig, eb_stage, *, owner_offset=0):
     stream in one kernel and the last hop emits the f32 sum;
     ``fused_hop=False`` compresses the send chunk, exchanges, and reduces
     into the receive chunk every step.  Returns (acc, chunk_n, overflow);
-    rank r's reduced chunk is at index (r + 1 + owner_offset) % N.
+    rank r's reduced chunk is at index (r + 1 + owner_offset) % N.  Step
+    s is round s.
     """
     n = g.size
     comp = cfg.compressor()
@@ -244,6 +381,7 @@ def _reduce_scatter_ring(x, g, cfg: GZConfig, eb_stage, *, owner_offset=0):
     t = owner_offset
     acc, chunk_n = _pad_to_chunks(x, n)
     perm = schedule.ring_perm(n)
+    guard = cfg.verify_streams
 
     if not cfg.fused_hop:
         overflow = _false(x.device)
@@ -251,20 +389,22 @@ def _reduce_scatter_ring(x, g, cfg: GZConfig, eb_stage, *, owner_offset=0):
             c = comp.compress(_chunk(acc, (r - s + t) % n, chunk_n), eb_stage)
             overflow = overflow | c.overflowed()
             recv_idx = (r - s - 1 + t) % n
-            updated = comp.decompress_reduce(
-                _exchange(g, c, perm), _chunk(acc, recv_idx, chunk_n))
+            c_recv, bad = _exchange(g, c, perm, guard, s)
+            overflow = _or(overflow, bad)
+            updated = comp.decompress_reduce(c_recv, _chunk(acc, recv_idx, chunk_n))
             _set_chunk(acc, updated, recv_idx, chunk_n)
         return acc, chunk_n, overflow
 
     c = comp.compress(_chunk(acc, (r + t) % n, chunk_n), eb_stage)
     overflow = c.overflowed()
     for s in range(n - 2):
-        c_recv = _exchange(g, c, perm)
+        c_recv, bad = _exchange(g, c, perm, guard, s)
         recv_idx = (r - s - 1 + t) % n
         c, _ = comp.decompress_reduce_compress(
             c_recv, _chunk(acc, recv_idx, chunk_n), eb_stage)
-        overflow = overflow | c.overflowed()
-    c_recv = _exchange(g, c, perm)
+        overflow = _or(overflow, bad) | c.overflowed()
+    c_recv, bad = _exchange(g, c, perm, guard, n - 2)
+    overflow = _or(overflow, bad)
     recv_idx = (r - (n - 2) - 1 + t) % n
     updated = comp.decompress_reduce(c_recv, _chunk(acc, recv_idx, chunk_n))
     return _set_chunk(acc, updated, recv_idx, chunk_n), chunk_n, overflow
@@ -320,7 +460,8 @@ def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage, *,
     produced P-1 hops earlier, then runs this hop's fused kernel, and the
     last step's P hops drain to the f32 accumulator.  ``fused_hop=False``
     compresses piece t+1 from the pre-update accumulator, ships piece t
-    and reduces it, one piece per iteration.
+    and reduces it, one piece per iteration.  A piece shipped for step s
+    is round s.
     """
     n = g.size
     p_chunks = cfg.pipeline_chunks
@@ -332,6 +473,7 @@ def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage, *,
     acc, chunk_n, piece_n = _pad_for_pipeline(x, n, p_chunks)
     perm = schedule.ring_perm(n)
     T = (n - 1) * p_chunks
+    guard = cfg.verify_streams
 
     if not cfg.fused_hop:
         def send_piece(t):
@@ -347,8 +489,10 @@ def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage, *,
                 overflow = overflow | c_next.overflowed()
             s, p = divmod(t, p_chunks)
             recv_idx = (r - s - 1 + t0) % n
+            c_recv, bad = _exchange(g, c_in, perm, guard, s)
+            overflow = _or(overflow, bad)
             updated = comp.decompress_reduce(
-                _exchange(g, c_in, perm), _piece(acc, recv_idx, p, chunk_n, piece_n))
+                c_recv, _piece(acc, recv_idx, p, chunk_n, piece_n))
             _set_piece(acc, updated, recv_idx, p, chunk_n, piece_n)
             if t + 1 < T:
                 c_in = c_next
@@ -360,10 +504,13 @@ def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage, *,
         c = comp.compress(_piece(acc, (r + t0) % n, p, chunk_n, piece_n), eb_stage)
         overflow = overflow | c.overflowed()
         pend.append(c)
-    c_fly = _exchange(g, pend[0], perm)
+    c_fly, bad = _exchange(g, pend[0], perm, guard, 0)
+    overflow = _or(overflow, bad)
 
     for u in range(T - p_chunks):
-        c_fly_next = _exchange(g, pend[(u + 1) % p_chunks], perm)
+        c_fly_next, bad = _exchange(g, pend[(u + 1) % p_chunks], perm, guard,
+                                    (u + 1) // p_chunks)
+        overflow = _or(overflow, bad)
         s, p = u // p_chunks, u % p_chunks
         recv_idx = (r - s - 1 + t0) % n
         c_next, _ = comp.decompress_reduce_compress(
@@ -375,7 +522,8 @@ def _reduce_scatter_ring_pipelined(x, g, cfg: GZConfig, eb_stage, *,
     recv_last = (r - (n - 2) - 1 + t0) % n
     for p in range(p_chunks):
         if p + 1 < p_chunks:
-            c_fly_next = _exchange(g, pend[p + 1], perm)
+            c_fly_next, bad = _exchange(g, pend[p + 1], perm, guard, n - 2)
+            overflow = _or(overflow, bad)
         updated = comp.decompress_reduce(
             c_fly, _piece(acc, recv_last, p, chunk_n, piece_n))
         acc = _set_piece(acc, updated, recv_last, p, chunk_n, piece_n)
@@ -399,9 +547,10 @@ def _compress_own_pieces(buf, own_idx, eb, cfg: GZConfig, chunk_n, piece_n,
 
 
 def _forward_pieces_ring(buf, pieces, g, cfg: GZConfig, recv_idx_fn,
-                         chunk_n, piece_n):
+                         chunk_n, piece_n, overflow, round_offset=0):
     """Forward P compressed pieces around the ring for n-1 steps,
-    installing decompressed copies at chunk ``recv_idx_fn(s)``."""
+    installing decompressed copies at chunk ``recv_idx_fn(s)``; step s is
+    round ``round_offset + s``.  Returns (buf, overflow)."""
     n = g.size
     comp = cfg.compressor()
     perm = schedule.ring_perm(n)
@@ -409,12 +558,13 @@ def _forward_pieces_ring(buf, pieces, g, cfg: GZConfig, recv_idx_fn,
         recv_idx = recv_idx_fn(s)
         new_pieces = []
         for p, c_p in enumerate(pieces):
-            c_new = _exchange(g, c_p, perm)
+            c_new, bad = _exchange(g, c_p, perm, cfg.verify_streams, round_offset + s)
+            overflow = _or(overflow, bad)
             buf = _set_piece(buf, comp.decompress(c_new), recv_idx, p, chunk_n,
                              piece_n)
             new_pieces.append(c_new)
         pieces = tuple(new_pieces)
-    return buf
+    return buf, overflow
 
 
 def _allgather_forward_pipelined(acc, g, cfg: GZConfig, eb_stage, chunk_n,
@@ -423,9 +573,9 @@ def _allgather_forward_pipelined(acc, g, cfg: GZConfig, eb_stage, chunk_n,
     n, r = g.size, g.rank
     acc, pieces, overflow = _compress_own_pieces(
         acc, (r + 1) % n, eb_stage, cfg, chunk_n, piece_n, overflow)
-    acc = _forward_pieces_ring(acc, pieces, g, cfg, lambda s: (r - s) % n,
-                               chunk_n, piece_n)
-    return acc, overflow
+    # the allgather rounds follow the n-1 reduce-scatter rounds
+    return _forward_pieces_ring(acc, pieces, g, cfg, lambda s: (r - s) % n,
+                                chunk_n, piece_n, overflow, round_offset=n - 1)
 
 
 def _allreduce_ring(x, g, cfg: GZConfig):
@@ -451,7 +601,8 @@ def _allreduce_ring(x, g, cfg: GZConfig):
     acc = _set_chunk(acc, comp.decompress(c_cur), own_idx, chunk_n)
     perm = schedule.ring_perm(n)
     for s in range(n - 1):
-        c_cur = _exchange(g, c_cur, perm)
+        c_cur, bad = _exchange(g, c_cur, perm, cfg.verify_streams, (n - 1) + s)
+        overflow = _or(overflow, bad)
         acc = _set_chunk(acc, comp.decompress(c_cur), (r - s) % n, chunk_n)
     return acc[: x.shape[0]], overflow
 
@@ -530,8 +681,8 @@ def _execute_allgather(x, g, cfg: GZConfig):
         out[r * chunk_n:r * chunk_n + n_orig] = flat
         out, pieces, ovf = _compress_own_pieces(
             out, r, cfg.eb, cfg, chunk_n, piece_n, _false(dev))
-        out = _forward_pieces_ring(out, pieces, g, cfg,
-                                   lambda s: (r - s - 1) % n, chunk_n, piece_n)
+        out, ovf = _forward_pieces_ring(out, pieces, g, cfg,
+                                        lambda s: (r - s - 1) % n, chunk_n, piece_n, ovf)
         out = out.view(n, chunk_n)[:, :n_orig].reshape(-1)
     else:
         out = torch.zeros(n * n_orig, dtype=torch.float32, device=dev)
@@ -540,7 +691,8 @@ def _execute_allgather(x, g, cfg: GZConfig):
         _set_chunk(out, comp.decompress(c_cur), r, n_orig)
         perm = schedule.ring_perm(n)
         for s in range(n - 1):
-            c_cur = _exchange(g, c_cur, perm)
+            c_cur, bad = _exchange(g, c_cur, perm, cfg.verify_streams, s)
+            ovf = _or(ovf, bad)
             _set_chunk(out, comp.decompress(c_cur), (r - s - 1) % n, n_orig)
     if x.dim():
         out = out.reshape((n * x.shape[0],) + tuple(x.shape[1:]))
@@ -621,42 +773,53 @@ def _scatter_held_buffers(x_full, n, cfg: GZConfig, *, compress: bool):
     return held, chunk_n, n_virt, ovf
 
 
-def _slab_exchange(held, g, install_at, perm, start, slab, n_virt, is_recv):
+def _slab_exchange(held, g, install_at, perm, start, slab, n_virt, is_recv,
+                   guard=False, round_idx=None):
     """Ship a ``slab``-chunk window of the held buffers along ``perm`` and,
     on a receiver, copy it into its own buffers at ``install_at``.  Window
-    starts are clamped into the buffer like ``lax.dynamic_slice``'s."""
+    starts are clamped into the buffer like ``lax.dynamic_slice``'s.
+    Returns ``bad`` (``_exchange_tensors``), None on a rank that installs
+    nothing."""
     lo = min(start % n_virt, n_virt - slab)
-    recv = g.exchange(tuple(h[lo:lo + slab] for h in held), perm)
-    if is_recv:
-        at = min(install_at, n_virt - slab)
-        for h, rv in zip(held, recv):
-            h[at:at + slab] = rv
-    return held
+    recv, bad = _exchange_tensors(g, tuple(h[lo:lo + slab] for h in held), perm,
+                                  guard, round_idx)
+    if not is_recv:
+        return None
+    at = min(install_at, n_virt - slab)
+    for h, rv in zip(held, recv):
+        h[at:at + slab] = rv
+    return bad
 
 
 def _scatter_tree_trimmed(held, g, n, n_virt, cfg: GZConfig):
     """Trimmed-slab binomial tree: each round ships only the real ranks of
-    the receiver's subtree.  Per round (``schedule.tree_plan``, perms
+    the receiver's subtree.  Per round k (``schedule.tree_plan``, perms
     verbatim from the route table): the full-span exchanges, split into
     ``cfg.pipeline_chunks`` piece exchanges, then the at most one
-    boundary exchange of ``n - receiver`` chunks as one exchange.  The
-    root ships exactly n-1 chunk streams at any axis size."""
+    boundary exchange of ``n - receiver`` chunks as one exchange, all of
+    them round k.  The root ships exactly n-1 chunk streams at any axis
+    size.  Returns ``(held, corrupt)``: a failed stream check on a
+    receiver."""
     r = g.rank
-    for span, full_senders, trim, perm in schedule.tree_plan(n):
+    guard = cfg.verify_streams
+    corrupt = _false(held[0].device)
+    for k, (span, full_senders, trim, perm) in enumerate(schedule.tree_plan(n)):
         start = r + span  # a sender's outgoing slab: its subtree's right half
         if full_senders:
             perm_full = perm[: len(full_senders)]
             is_recv = r % (span * 2) == span and r + span <= n
             groups = min(max(cfg.pipeline_chunks, 1), span)
             sub = span // groups
-            for k in range(groups):
-                held = _slab_exchange(held, g, r + k * sub, perm_full,
-                                      start + k * sub, sub, n_virt, is_recv)
+            for j in range(groups):
+                corrupt = _or(corrupt, _slab_exchange(
+                    held, g, r + j * sub, perm_full, start + j * sub, sub, n_virt,
+                    is_recv, guard, k))
         if trim is not None:
             _snd, rcv, slab = trim
-            held = _slab_exchange(held, g, r, perm[len(full_senders):], start,
-                                  slab, n_virt, r == rcv)
-    return held
+            corrupt = _or(corrupt, _slab_exchange(
+                held, g, r, perm[len(full_senders):], start, slab, n_virt, r == rcv,
+                guard, k))
+    return held, corrupt
 
 
 def _scatter_tree_padded_reference(held, g, n, n_virt, cfg: GZConfig):
@@ -664,9 +827,11 @@ def _scatter_tree_padded_reference(held, g, n, n_virt, cfg: GZConfig):
     the trimmed schedule (tests only: every real rank must decode the
     same bytes from both walks).  Round k ships a full 2**k-chunk slab,
     padding chunks included, from each sender ``i % 2**(k+1) == 0`` to
-    ``i + 2**k``."""
+    ``i + 2**k``.  Its exchanges carry no round index, as the
+    reference's."""
     r = g.rank
     steps = n_virt.bit_length() - 1
+    corrupt = _false(held[0].device)
     for k in reversed(range(steps)):
         span = 1 << k
         # schedule-authority: allow — padded-tree byte-parity oracle
@@ -676,9 +841,10 @@ def _scatter_tree_padded_reference(held, g, n, n_virt, cfg: GZConfig):
         groups = min(max(cfg.pipeline_chunks, 1), span)
         sub = span // groups
         for j in range(groups):
-            held = _slab_exchange(held, g, r + j * sub, perm,
-                                  r + span + j * sub, sub, n_virt, is_recv)
-    return held
+            corrupt = _or(corrupt, _slab_exchange(
+                held, g, r + j * sub, perm, r + span + j * sub, sub, n_virt, is_recv,
+                cfg.verify_streams))
+    return held, corrupt
 
 
 def _execute_scatter(x_full, g, cfg: GZConfig, *, root: int = 0,
@@ -692,7 +858,8 @@ def _execute_scatter(x_full, g, cfg: GZConfig, *, root: int = 0,
     would never travel and the reference masks their overflow away, so
     the result and the root-masked flag are bitwise the reference's.
     Under ``lorenzo``: one ``quantize`` per call (root) and one decode
-    per rank.
+    per rank.  A failed stream check is not root-masked: a corrupt stream
+    is unusable wherever it lands.
     ``_padded_reference=True`` walks the padded virtual tree instead
     (test oracle; the same bytes at every real rank).
     """
@@ -714,11 +881,11 @@ def _execute_scatter(x_full, g, cfg: GZConfig, *, root: int = 0,
         x_full, n, cfg, compress=r == 0)
     tree = (_scatter_tree_padded_reference if _padded_reference
             else _scatter_tree_trimmed)
-    packed, bw, anchor = tree(held, g, n, n_virt, cfg)
+    (packed, bw, anchor), corrupt = tree(held, g, n, n_virt, cfg)
     comp = cfg.compressor()
     out = comp.decompress(
         _wire_container(comp, packed[r], bw[r], anchor[r], cfg.eb, chunk_n))
-    return out.to(x_full.dtype), ovf
+    return out.to(x_full.dtype), ovf | corrupt
 
 
 def _execute_broadcast(x, g, cfg: GZConfig, *, root: int = 0):
@@ -726,7 +893,8 @@ def _execute_broadcast(x, g, cfg: GZConfig, *, root: int = 0):
     once, forward the stream down the trimmed tree (``schedule.tree_plan``
     pairs), decompress once per rank.  Every rank compresses its local
     ``x`` as the reference does; only the root's stream travels, so only
-    its overflow flag counts."""
+    its overflow flag counts; a failed stream check counts on the rank
+    that keeps the stream."""
     _require_slice(cfg)
     n, r = g.size, g.rank
     if root != 0:
@@ -737,10 +905,11 @@ def _execute_broadcast(x, g, cfg: GZConfig, *, root: int = 0):
     comp = cfg.compressor()
     c = comp.compress(x.reshape(-1).to(torch.float32), cfg.eb)
     ovf = c.overflowed() if r == 0 else _false(x.device)
-    for span, _full, _trim, perm in schedule.tree_plan(n):
-        c_recv = _exchange(g, c, perm)
+    for k, (span, _full, _trim, perm) in enumerate(schedule.tree_plan(n)):
+        c_recv, bad = _exchange(g, c, perm, cfg.verify_streams, k)
         if r % (span * 2) == span:
             c = c_recv
+            ovf = _or(ovf, bad)
     return comp.decompress(c).reshape(x.shape).to(x.dtype), ovf
 
 
@@ -755,8 +924,8 @@ def _execute_all_to_all(x, g, cfg: GZConfig):
     ``x`` (n*chunk, ...) holds slot buffers grouped by destination rank
     along the leading dim.  Each destination chunk is compressed on its
     own (``_compress_chunks``), the streams travel through the
-    transport's ``all_to_all``, and each rank decompresses what it
-    received, stacked in sender order."""
+    transport's ``all_to_all`` (unguarded, as in the reference), and each
+    rank decompresses what it received, stacked in sender order."""
     _require_slice(cfg)
     n = g.size
     if x.shape[0] % n != 0:

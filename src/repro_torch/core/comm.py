@@ -23,9 +23,16 @@ What differs from the reference:
   * on a ``ThreadGroup`` the ``all_to_all`` backward must run on the
     rank's own thread (CUDA backward runs on the autograd device thread,
     where it raises: take gradients through ``DistGroup``);
-  * only ``on_overflow="flag"`` is executed: the fallback and raise
-    policies, ``verify_streams`` and the health counters raise or are
-    absent (ROADMAP A8).
+  * the degradation policy runs after the collective instead of inside a
+    trace.  ``flags_across`` gives every rank the same ``overflow`` and
+    ``nonfinite``; under ``fallback`` every rank then re-runs the op's
+    lossless schedule (``collectives._execute_lossless``) over the input
+    the compressed schedule consumed when either is set, and under
+    ``raise`` every rank raises the reference's ``RuntimeError``.  Both
+    read the replicated flags on the host (one sync per call); ``flag``
+    adds nothing;
+  * the health counters are counted on the host by rank 0 of each call,
+    under a lock (the rank threads of a ``ThreadGroup`` share them).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import (
-    codecs, collectives, cost_model, error_budget, schedule, transport,
+    codecs, collectives, cost_model, error_budget, faults, schedule, transport,
 )
 from repro_torch.core.compressed import capacity_words_for
 from repro_torch.kernels import ops
@@ -53,6 +60,9 @@ __all__ = [
     "policy_names",
     "plan_cache_stats",
     "clear_plan_cache",
+    "enable_health_tracking",
+    "health_stats",
+    "clear_health_stats",
 ]
 
 OPS = (
@@ -473,6 +483,7 @@ _COMM_CACHE: dict = {}  # GZCommunicator.for_config
 _PLAN_STATS = {"hits": 0, "misses": 0}
 _PLAN_STATS_BY_CODEC: dict = {}
 _PLAN_STATS_BY_OP: dict = {}
+_PLAN_LOCK = threading.Lock()  # the rank threads of a ThreadGroup share the cache
 
 
 def _stat(table: dict, key: str, field: str) -> None:
@@ -500,12 +511,13 @@ def plan_cache_stats() -> dict:
 
 
 def clear_plan_cache() -> None:
-    _PLAN_CACHE.clear()
-    _COMM_CACHE.clear()
-    _PLAN_STATS["hits"] = 0
-    _PLAN_STATS["misses"] = 0
-    _PLAN_STATS_BY_CODEC.clear()
-    _PLAN_STATS_BY_OP.clear()
+    with _PLAN_LOCK:
+        _PLAN_CACHE.clear()
+        _COMM_CACHE.clear()
+        _PLAN_STATS["hits"] = 0
+        _PLAN_STATS["misses"] = 0
+        _PLAN_STATS_BY_CODEC.clear()
+        _PLAN_STATS_BY_OP.clear()
 
 
 def _codec_adjusted(codec, ratio, hw):
@@ -628,15 +640,14 @@ def _resolve_plan(
         on_overflow, verify_streams,
         codec,  # last: plan_cache_stats' by_codec reads key[-1]
     )
-    hit = _PLAN_CACHE.get(key)
+    with _PLAN_LOCK:
+        hit = _PLAN_CACHE.get(key)
+        field = "misses" if hit is None else "hits"
+        _PLAN_STATS[field] += 1
+        _stat(_PLAN_STATS_BY_CODEC, codec, field)
+        _stat(_PLAN_STATS_BY_OP, op, field)
     if hit is not None:
-        _PLAN_STATS["hits"] += 1
-        _stat(_PLAN_STATS_BY_CODEC, codec, "hits")
-        _stat(_PLAN_STATS_BY_OP, op, "hits")
         return hit
-    _PLAN_STATS["misses"] += 1
-    _stat(_PLAN_STATS_BY_CODEC, codec, "misses")
-    _stat(_PLAN_STATS_BY_OP, op, "misses")
     if op not in OPS:
         raise ValueError(f"unknown collective op {op!r}")
     try:
@@ -671,8 +682,8 @@ def _resolve_plan(
         route_table=(schedule.build(op, algo, axis_size)
                      if axis_size >= 2 else None),
     )
-    _PLAN_CACHE[key] = plan
-    return plan
+    with _PLAN_LOCK:
+        return _PLAN_CACHE.setdefault(key, plan)
 
 
 def _dtype_name(dtype) -> str:
@@ -720,6 +731,57 @@ class _AllToAll(torch.autograd.Function):
                 "gradients through DistGroup (one process per rank)"
             )
         return collectives._execute_all_to_all(g_out, ctx.g, ctx.cfg)[0], None, None
+
+
+# ---------------------------------------------------------------------------
+# Health counters
+# ---------------------------------------------------------------------------
+#
+# Per-(op, axis) counts of calls, overflow events, non-finite events and
+# fallback executions, counted once per call by rank 0.  Off by default:
+# counting reads the flags on the host, one sync per call.
+
+_HEALTH: dict = {}
+_HEALTH_ENABLED = False
+_HEALTH_LOCK = threading.Lock()
+
+
+def enable_health_tracking(enabled: bool = True) -> None:
+    """Toggle the per-communicator health counters."""
+    global _HEALTH_ENABLED
+    _HEALTH_ENABLED = enabled
+
+
+def health_stats() -> dict:
+    """{(op, axis_repr): {'calls', 'overflow', 'nonfinite', 'fallbacks'}}"""
+    with _HEALTH_LOCK:
+        return {k: dict(v) for k, v in _HEALTH.items()}
+
+
+def clear_health_stats() -> None:
+    with _HEALTH_LOCK:
+        _HEALTH.clear()
+
+
+def _count_health(key, overflow: bool, nonfinite: bool, fell_back: bool) -> None:
+    with _HEALTH_LOCK:
+        rec = _HEALTH.setdefault(
+            key, {"calls": 0, "overflow": 0, "nonfinite": 0, "fallbacks": 0})
+        rec["calls"] += 1
+        rec["overflow"] += int(overflow)
+        rec["nonfinite"] += int(nonfinite)
+        rec["fallbacks"] += int(fell_back)
+
+
+def _degraded_message(what, overflow: bool, nonfinite: bool) -> str:
+    """The reference's ``_raise_degraded`` text, word for word."""
+    return (
+        f"gZ collective degraded ({what}): overflow={overflow} "
+        f"nonfinite={nonfinite} — a compressed stream exceeded "
+        "its provisioned capacity (or failed verification) or the "
+        "input held NaN/Inf.  Use on_overflow='fallback' for in-trace "
+        "lossless recovery, or 'flag' to only report."
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -812,23 +874,40 @@ class GZCommunicator:
             codec=cfg.codec,
         )
 
-    def _finish(self, op, g, x, out, ovf, plan: Plan, *,
+    def _finish(self, op, g, x, out, ovf, plan: Plan, cfg, *,
                 root: int = 0) -> CollectiveResult:
-        """OR the overflow and non-finite flags across ranks (flag mode).
+        """The shared epilogue: OR the overflow and non-finite flags
+        across ranks, apply the plan's degradation policy, count health.
+
         For scatter and broadcast only the root's payload is significant,
-        so only the root's non-finite bit counts."""
-        if x.dtype.is_floating_point and (
-                op not in ("scatter", "broadcast") or g.rank == root):
-            nf_loc = ~torch.isfinite(x).all()
+        so only the root's non-finite bit counts.  ``x`` is the (possibly
+        poisoned) input the compressed schedule consumed: under
+        ``fallback`` every rank re-runs the lossless schedule over it when
+        the replicated flags say the call degraded, so the result is the
+        exact collective of the sanitized input."""
+        if op not in ("scatter", "broadcast") or g.rank == root:
+            nf_loc = collectives._nonfinite_local(x)
         else:
-            nf_loc = torch.zeros((), dtype=torch.bool, device=x.device)
+            nf_loc = collectives._false(x.device)
         overflow, nonfinite = g.flags_across(ovf, nf_loc)
+        policy = plan.on_overflow
+        if policy != "flag" or _HEALTH_ENABLED:
+            # the replicated flags: every rank takes the same branch
+            ovf_now, nf_now = bool(overflow), bool(nonfinite)
+            fell_back = policy == "fallback" and (ovf_now or nf_now)
+            if fell_back:
+                out = collectives._execute_lossless(op, x, g, cfg, root=root)
+            if _HEALTH_ENABLED and g.rank == 0:
+                _count_health((op, repr(self.axis_name)), ovf_now, nf_now, fell_back)
+            if policy == "raise" and (ovf_now or nf_now):
+                raise RuntimeError(_degraded_message(
+                    f"{op} over {self.axis_name!r}", ovf_now, nf_now))
         return CollectiveResult(out, overflow, nonfinite, plan.wire_bytes,
                                 plan.ratio)
 
     def _run(self, op, x, plan, group, execute, **kw) -> CollectiveResult:
-        """The shared call path: device check, trivial axis, plan,
-        ``execute(x, g, config, **kw)``, flags."""
+        """The shared call path: device check, trivial axis, the input
+        fault hook, plan, ``execute(x, g, config, **kw)``, the epilogue."""
         if x.device.type != self.device.type:
             raise ValueError(
                 f"communicator runs on {self.device}, got a tensor on {x.device}"
@@ -837,9 +916,11 @@ class GZCommunicator:
         if g.size == 1:
             zero = torch.zeros((), dtype=torch.bool, device=x.device)
             return CollectiveResult(x, zero, zero, 0, 1.0)
+        x = faults.maybe_poison_input(x, g)
         plan = plan or self.plan(op, x.shape, x.dtype, group=g)
-        out, ovf = execute(x, g, plan.as_config(), **kw)
-        return self._finish(op, g, x, out, ovf, plan, **kw)
+        cfg = plan.as_config()
+        out, ovf = execute(x, g, cfg, **kw)
+        return self._finish(op, g, x, out, ovf, plan, cfg, **kw)
 
     def allreduce(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
                   group=None) -> CollectiveResult:

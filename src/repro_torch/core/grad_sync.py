@@ -21,12 +21,19 @@ Values are bitwise the reference's: leaves are flattened in JAX's order
 whole-tree ravel and chunk scan, kept as the reference) gives the same
 bits as the bucketed path.
 
+The degradation policy is the communicator's, per bucket: under
+``gz.on_overflow="fallback"`` a bucket that overflowed or saw NaN/Inf is
+the lossless rank-order sum of its payload (bitwise the reference's
+recovery bucket), and ``SyncStats`` still reports the flags; under
+``"raise"`` the sync raises.
+
 The port's communicators plan at its default ``hw`` point
 (``cost_model.A100_SLINGSHOT``); the reference's at its own.  With an
 explicit algorithm and codec (the default ``SyncConfig``) both resolve
 the same schedule.  Several axis names (the reference's two-level hier
 plan) raise ``NotImplementedError`` (ROADMAP A9); the FSDP gather and
-reduce-scatter are not ported (ROADMAP A11).
+reduce-scatter, with ``mark_degraded`` and the trainer's skip of a
+degraded step (``_skip_merge``), are not ported (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -60,7 +67,7 @@ class SyncConfig:
     ``relative_eb``: scale eb by the tree's global RMS; ``bucket_bytes``:
     the f32 payload of one collective call; ``pipeline_chunks``: 0 plans
     the ring depth per bucket, > 0 forces it; ``mark_degraded`` belongs
-    to the FSDP path (not ported) and is only validated here.
+    to the FSDP path (ROADMAP A11) and is only validated here.
     """
 
     gz: Optional[GZConfig] = GZConfig(eb=1e-4, algo="redoub", worst_case_budget=False)
@@ -282,7 +289,9 @@ def dp_allreduce_grads_stats(grads, axis_names: Sequence[str],
 
     Returns ``(summed tree, SyncStats)``; callers divide by the rank
     count for a mean and should consult ``stats.degraded`` before applying
-    the update.  Every leaf lies on ``device`` ("cuda" unless the caller
+    the update under ``on_overflow="flag"`` (under ``"fallback"`` the
+    values are already exact; the flags then say the lossless path ran).
+    Every leaf lies on ``device`` ("cuda" unless the caller
     asks for "cpu").  Bitwise the reference's ``dp_allreduce_grads_stats``
     (module docstring).
     """

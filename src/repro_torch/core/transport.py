@@ -2,7 +2,7 @@
 do for the JAX package.
 
 Rank-centric collective code (``core/collectives.py``) sees one handle per
-rank with four members:
+rank with these members:
 
   * ``rank`` and ``size`` (``lax.axis_index`` / the axis size);
   * ``exchange(tensors, perm)`` — ppermute semantics: every rank passes
@@ -13,6 +13,9 @@ rank with four members:
   * ``all_to_all(tensors)`` — ``lax.all_to_all`` semantics (untiled, split
     and concat on dim 0): each tensor's leading dim has one slot per rank;
     rank r gets back, in slot i, what rank i passed in its slot r;
+  * ``all_gather(tensors)`` — ``lax.all_gather`` semantics (untiled): each
+    tensor comes back stacked over a new leading dim of one slot per rank,
+    slot i holding what rank i passed (the lossless allgather);
   * ``flags_across(*flags)`` — the global OR of per-rank bool flags, one
     combined reduction (the ``psum(...) > 0`` of the reference);
   * ``sum_across(x)`` — the sum of every rank's f32 tensor ``x`` (the
@@ -26,17 +29,26 @@ Two groups provide handles:
   * :class:`ThreadGroup` — N ranks as N threads of one process on one
     device, exchanging through a barrier and a mailbox (``exchange`` makes
     no copies: the received tensors are the sender's, so rank code never
-    writes into a tensor it sent or received; ``all_to_all`` stacks the
-    slots it receives into new tensors).
+    writes into a tensor it sent or received; ``all_to_all`` and
+    ``all_gather`` stack the slots they receive into new tensors).
     Every rank launches on the stream that was current when ``run`` was
     called, so stream order alone orders one rank's kernels before another
     rank's reads.
   * :class:`DistGroup` — one rank per process over ``torch.distributed``:
     ``batch_isend_irecv`` for the exchange and the all-to-all,
-    ``all_reduce(MAX)`` for the flags, ``all_gather`` for the sum.  NCCL on GPUs, gloo on the CPU.
+    ``all_reduce(MAX)`` for the flags, ``all_gather`` for the sum and the
+    gather.  NCCL on GPUs, gloo on the CPU.
 
 A group is bound to an axis name per thread (``bind``); a communicator
 built for that axis name finds its rank handle with ``current``.
+
+``ThreadGroup.run`` runs one op of torch's vectorized CPU math (a
+``sqrt``) on the calling thread once per process before it starts the
+rank threads.  That library initializes itself on first use, and a first
+use from several threads at once can return an inexact result on one of
+them (seen with torch 2.13's CPU build: ``sqrt`` 216 ulp off in about 1
+process in 200 with 3 threads racing, 1 in 20 with 16), which broke the
+gradient sync's relative-eb scale on one rank.
 """
 from __future__ import annotations
 
@@ -93,6 +105,21 @@ def current(axis_name):
     return handle
 
 
+_CPU_MATH_READY = False
+_CPU_MATH_LOCK = threading.Lock()
+
+
+def _init_cpu_math() -> None:
+    """Initialize torch's vectorized CPU math on this thread, once per
+    process, before any rank thread can be first to use it (module
+    docstring)."""
+    global _CPU_MATH_READY
+    with _CPU_MATH_LOCK:
+        if not _CPU_MATH_READY:
+            torch.sqrt(torch.ones(8))
+            _CPU_MATH_READY = True
+
+
 def _zeros_like_all(tensors) -> tuple:
     return tuple(torch.zeros_like(t) for t in tensors)
 
@@ -139,6 +166,15 @@ class _ThreadRank:
         g._barrier.wait()
         return out
 
+    def all_gather(self, tensors) -> tuple:
+        g = self.group
+        g._slots[self.rank] = tuple(tensors)
+        g._barrier.wait()
+        out = tuple(torch.stack([g._slots[src][k] for src in range(self.size)])
+                    for k in range(len(tensors)))
+        g._barrier.wait()
+        return out
+
     def flags_across(self, *flags) -> tuple:
         g = self.group
         g._slots[self.rank] = torch.stack([f.to(torch.int32) for f in flags])
@@ -173,6 +209,7 @@ class ThreadGroup:
         any rank breaks the barrier for all and is re-raised here."""
         if len(inputs) != self.size:
             raise ValueError(f"need {self.size} per-rank inputs, got {len(inputs)}")
+        _init_cpu_math()
         self._barrier.reset()
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
@@ -246,6 +283,14 @@ class DistGroup:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return outs
+
+    def all_gather(self, tensors) -> tuple:
+        out = []
+        for t in tensors:
+            parts = [torch.empty_like(t) for _ in range(self.size)]
+            dist.all_gather(parts, t.contiguous())
+            out.append(torch.stack(parts))
+        return tuple(out)
 
     def flags_across(self, *flags) -> tuple:
         both = torch.stack([f.to(torch.int32) for f in flags])

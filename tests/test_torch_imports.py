@@ -2,7 +2,9 @@
 
 * Importing every ``repro_torch`` module and ``chip_smoke``, and running
   every collective of the port on the CPU (the data movers, the two-pass
-  codec, the two-kernel hop, every codec and ``codec="auto"`` included),
+  codec, the two-kernel hop, every codec and ``codec="auto"`` included;
+  the ``fallback`` policy with ``verify_streams`` under an injected
+  overflow and NaN, and a wire bitflip caught by its checksum),
   the gradient sync, the dense model's loss forward (both attention paths)
   and decode, the serve loop, and ``convert.params_from_jax`` on numpy
   input, leaves ``jax`` and the ``repro`` package out of ``sys.modules``
@@ -50,7 +52,7 @@ def test_modules_import_without_jax():
     assert "repro_torch.kernels.lorenzo" in mods and "repro_torch.convert" in mods
     for new in ("core.entropy", "kernels.entropy", "core.buckets", "core.grad_sync",
                 "kernels.flash_attn", "models.model", "launch.serve", "configs.registry",
-                "data.pipeline"):
+                "data.pipeline", "core.faults"):
         assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -69,6 +71,17 @@ def test_modules_import_without_jax():
         "    for op in ('allreduce', 'reduce_scatter', 'allgather', 'scatter',\n"
         "               'broadcast', 'all_to_all'):\n"
         "        transport.ThreadGroup(3, 'cpu').run(getattr(c, op), xs)\n"
+        "from repro_torch.core import faults\n"
+        "c = GZCommunicator('x', config=GZConfig(on_overflow='fallback', verify_streams=True,\n"
+        "                   algo='redoub'), axis_size=3, device='cpu')\n"
+        "for spec in (faults.FaultSpec('overflow', ranks=(1,)), faults.FaultSpec('nan'),\n"
+        "             faults.FaultSpec('bitflip', ranks=(2,), n=64)):\n"
+        "    with faults.inject(spec):\n"
+        "        for op in ('all_to_all', 'reduce_scatter', 'allgather', 'scatter',\n"
+        "                   'broadcast', 'allreduce'):\n"
+        "            res = transport.ThreadGroup(3, 'cpu').run(getattr(c, op), xs)\n"
+        "    assert bool(res[0].overflow | res[0].nonfinite)\n"
+        "    assert all(bool(torch.isfinite(r.value).all()) for r in res)\n"
         "from repro_torch.core import grad_sync\n"
         "for sync in (grad_sync.SyncConfig(), grad_sync.SyncConfig(gz=None)):\n"
         "    transport.ThreadGroup(3, 'cpu').run(lambda x: grad_sync.dp_allreduce_grads(\n"
