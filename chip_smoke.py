@@ -115,9 +115,24 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     ``verify_streams`` (warm walls in turns, device busy and the
     checksum's launches and device time from one profile each) and the
     fallback of a forced overflow beside its compressed call;
-13. checks that the all-to-all's backward on a one-card ``ThreadGroup``
+13. runs the integer ring and the two-level allreduce (phase ``hier``):
+    ``GZCommunicator(algo="intring")`` at 646 MB x 8 (every rank the same
+    bits, within N 1.05 eb, kernel 5 launched once a rank and kernels
+    1-4 never; profiled: kernel 5's device time beside the torch pack,
+    unpack and prefix-sum ops; host floor) and at 16 MB x 8 (bitwise the
+    port's CPU run on the same inputs; ``policy="accuracy"`` resolves
+    ``intring``); ``GZHierCommunicator`` on ``make_hier_mesh(2, 4)`` at
+    646 MB and ``A100_SLINGSHOT`` (hierarchical; the inter plan's
+    launches; wall and device busy beside the flat 8-rank composite
+    call), 4x2 at 16 MB, 2x4 at 16 MB on ``TPU_V5E`` (flat, bitwise the
+    8-rank ``GZCommunicator``), the hier fallback of a forced overflow
+    at 646 MB (bitwise the composite rank-order sum on every rank), and
+    the gradient sync of one minitron-8b layer over ``("local", "node")``
+    2x4 under ``lorenzo`` (every leaf within its bound, the bucket count,
+    the inter plan's wire bytes);
+14. checks that the all-to-all's backward on a one-card ``ThreadGroup``
     raises instead of hanging (phase ``c6``);
-14. holds the flash-attention kernel (kernel 11; bf16 on the tensor-core
+15. holds the flash-attention kernel (kernel 11; bf16 on the tensor-core
     route, f32 on the CUDA-core route, each counted) against its plain
     version at D = 32, 64 and 128, f32 and bf16, causal, causal with
     windows 64, 100, 128 and 1000, non-causal with Sq != Sk, ragged lengths
@@ -126,15 +141,15 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     and at the main path's shape (B=2, S=2048, H=32, D=128, bf16), timed
     there beside the plain version, SDPA and the bound, then checked and
     timed beside SDPA at B=8 S=2048 and B=2 S=8192 causal and S=4096
-    non-causal (phase ``model``, as are 15-17);
-15. runs this slice's main path, ``Model.loss_fn`` of minitron-8b at full
+    non-causal (phase ``model``, as are 16-18);
+16. runs this slice's main path, ``Model.loss_fn`` of minitron-8b at full
     width and depth (19.76 GB of bf16 weights from seed 0) on a B=2,
     S=2048 batch, through kernel 11 (32 launches, all on the tensor-core
     route) and through the chunked path (none), within 2e-3 of each other,
     profiled;
-16. compares the full-sequence logits through kernel 11 at S=128 with 128
+17. compares the full-sequence logits through kernel 11 at S=128 with 128
     ``decode_fn`` steps (rel <= 0.05);
-17. runs ``repro_torch.launch.serve.serve`` at full size (batch 4, 16
+18. runs ``repro_torch.launch.serve.serve`` at full size (batch 4, 16
     prompt and 32 generated tokens, cache 128) and prints its tokens per
     second.
 
@@ -145,7 +160,8 @@ purpose and are held by bits to the lossless result instead).
 
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
-``c6`` (13) and ``model`` (14-17); a partial run prints no result lines.
+``hier`` (13), ``c6`` (14) and ``model`` (15-18); a partial run prints no
+result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -1138,6 +1154,9 @@ def _expected_launches(plan, n):
         comp, dec, red = ENTROPY_KERNELS
     else:
         return e
+    if plan.op == "allreduce" and plan.algo == "intring":
+        e["quantize"] += n  # one quantization per rank; packs and sums are torch ops
+        return e
     chunked = plan.codec != "lorenzo"
     single_pass = plan.codec == "lorenzo" and plan.fused and plan.fused_hop
     p = plan.pipeline_chunks
@@ -1246,7 +1265,8 @@ def _profile(group, fn, xs, plan, intervals=None):
     the same schedule at 256 KB per rank, where the device work is
     negligible: the host's floor for this schedule.  The floor and the
     full-size wall are taken at the interpreter's default switch interval
-    and at each of ``intervals``."""
+    and at each of ``intervals``.  Returns (the profile's device events,
+    device busy ms, warm wall seconds, traced wall seconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1316,6 +1336,7 @@ def _profile(group, fn, xs, plan, intervals=None):
                 f"{min(walls[1:]) * 1e3:.1f} ms; at full size {full * 1e3:.1f} ms")
     finally:
         sys.setswitchinterval(default_interval)
+    return events, busy, warm, traced
 
 
 @contextlib.contextmanager
@@ -1864,6 +1885,16 @@ def run_entropy_allreduce(device, gen):
     return out
 
 
+def _sync_for(codec, bucket_bytes=None):
+    """The gradient sync's config: redoub, relative eb 1e-4, ``codec``,
+    16 MiB buckets unless ``bucket_bytes`` is given."""
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.grad_sync import SyncConfig
+
+    return SyncConfig(gz=GZConfig(eb=1e-4, algo="redoub", worst_case_budget=False,
+                                  codec=codec), bucket_bytes=bucket_bytes or BUCKET_BYTES)
+
+
 def _layer_grads(n, gen, device, shrink=1):
     """n per-rank gradient trees of the minitron-8b layer: seeded random
     walks, 1e-3 steps; ``shrink`` divides every leading dimension."""
@@ -1975,12 +2006,6 @@ def run_grad_sync(device, gen):
     import torch
 
     from repro_torch.core import transport
-    from repro_torch.core.collectives import GZConfig
-    from repro_torch.core.grad_sync import SyncConfig
-
-    def sync_for(codec, bucket_bytes=BUCKET_BYTES):
-        return SyncConfig(gz=GZConfig(eb=1e-4, algo="redoub", worst_case_budget=False,
-                                      codec=codec), bucket_bytes=bucket_bytes)
 
     n = 8
     torch.cuda.reset_peak_memory_stats()
@@ -1989,7 +2014,7 @@ def run_grad_sync(device, gen):
     if total != GRAD_SYNC_ELEMS:
         raise AssertionError(f"layer tree has {total} elements")
     group = transport.ThreadGroup(n, device)
-    sync = sync_for("lorenzo+entropy")
+    sync = _sync_for("lorenzo+entropy")
     res, launches, cold = _sync_once(group, trees, sync, device)
     plan, ledger, scale, err, ratio, st = _check_sync(
         "grad sync entropy", trees, res, sync, n, launches, device)
@@ -2025,7 +2050,7 @@ def run_grad_sync(device, gen):
     log(f"  wrapper calls in the profiled sync: {calls}")
     del events
     small = _layer_grads(n, gen, device, shrink=256)
-    small_sync = sync_for("lorenzo+entropy", BUCKET_BYTES // 256)
+    small_sync = _sync_for("lorenzo+entropy", BUCKET_BYTES // 256)
     walls = [_sync_once(group, small, small_sync, device)[2] for _ in range(3)]
     log(f"grad sync host floor: the same tree and buckets at 1/256 size "
         f"({sum(a.numel() for a in _flat_leaves(small[0]))} f32/rank), warm wall "
@@ -2034,7 +2059,7 @@ def run_grad_sync(device, gen):
 
     results = {}
     for codec in ("lorenzo", "lossless", "passthrough", "auto"):
-        s = sync_for(codec)
+        s = _sync_for(codec)
         res, launches, wall = _sync_once(group, trees, s, device)
         p, _, _, err, ratio, st = _check_sync(f"grad sync {codec}", trees, res, s, n,
                                               launches, device)
@@ -2423,7 +2448,339 @@ def _raise_message(comm, x):
 
 
 # ---------------------------------------------------------------------------
-# Phases 13-16: the dense model's forward and serving path, kernel 11
+# Phase hier: the integer ring and the two-level node x local allreduce
+# ---------------------------------------------------------------------------
+
+HIER_AXES = ("node", "local")
+# Device-event groups of the intring call's profile: kernel 5 and the
+# torch ops around it (bitpack's pack and unpack, the final prefix sum).
+INTRING_ROWS = (("kernel 5 (quantize_front_kernel)", r"quantize_front_kernel"),
+                ("pack scatter-add (index_add_)", r"index_add|indexFunc"),
+                ("unpack gathers (indexing)", r"index_elementwise|gather|index_kernel"),
+                ("prefix sum (cumsum)", r"scan|cumsum"),
+                ("reductions (amax)", r"reduce_kernel"),
+                ("copies and fills", r"copy|fill|Memcpy|Memset|CatArray"),
+                ("elementwise (shifts, xor, casts, adds)", r""))
+
+
+def _mesh_call(m, fn, xs):
+    """One call of ``fn`` on every rank of mesh ``m``, launch counts from
+    0.  Returns (results, launches, wall seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = m.run(fn, xs)
+    torch.cuda.synchronize()
+    return res, _launches(), time.perf_counter() - t0
+
+
+def _mesh_profile(m, fn, xs, label, check=None):
+    """Warm wall of ``fn`` on mesh ``m`` (the second of two calls), then
+    one call under torch.profiler: device busy and the top device rows.
+    ``check(events, launches)`` holds the trace's launch structure; a
+    trace that falls short of it (``ProfileShortfall``: the profiler lost
+    device events) is taken again, at most three times.  Returns (warm
+    wall seconds, device busy ms, device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _mesh_call(m, fn, xs)
+    _, _, warm = _mesh_call(m, fn, xs)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res, launches, traced = _mesh_call(m, fn, xs)
+        del res
+        events = _device_events(prof)
+        try:
+            if check is not None:
+                check(events, launches)
+            break
+        except ProfileShortfall as e:
+            log(f"{label}: {e}; taking the trace again")
+    else:
+        raise AssertionError(f"{label}: three traces fell short of the wrappers' counts")
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"{label} profile: warm wall {warm * 1e3:.1f} ms; traced wall {traced * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.count:>6} x {e.self_device_time_total / 1e3:8.2f} ms  {e.key[:120]}")
+    return warm, busy, events
+
+
+def _check_intring_launch_structure(events, launches):
+    """Every ``quantize`` call is one ``quantize_front_kernel`` launch and
+    the intring call launches no other kernel of the port."""
+    rows = _kernel_launches(events, LORENZO_SYMBOLS + "|" + ENTROPY_SYMBOLS)
+    _check_hop_launch_structure(rows, launches, "intring", dropped=0.05)
+
+
+def _intring_rows(events):
+    """Device ms and launches of the intring call by ``INTRING_ROWS`` group."""
+    out = {name: [0, 0.0] for name, _ in INTRING_ROWS}
+    for e in events:
+        for name, pattern in INTRING_ROWS:
+            if re.search(pattern, e.key):
+                out[name][0] += e.count
+                out[name][1] += e.self_device_time_total / 1e3
+                break
+    return out
+
+
+def _sum_exact(xs):
+    exact = None
+    for x in xs:
+        exact = x.double() if exact is None else exact.add_(x.double())
+    return exact
+
+
+def _within(label, res, exact, bound):
+    """Every rank's value within ``bound`` of ``exact``, no flag set.
+    Returns the largest error."""
+    err = max((r.value.double() - exact).abs().max().item() for r in res)
+    if not err <= bound:
+        raise AssertionError(f"{label}: error {err} exceeds the bound {bound}")
+    if any(bool(r.overflow) or bool(r.nonfinite) for r in res):
+        raise AssertionError(f"{label}: overflow or non-finite flag set")
+    return err
+
+
+def _hier_launches(hplan):
+    """The hier call's kernel launches over all ranks: the inter plan's
+    schedule over ``n_nodes`` ranks, once per local index (the intra
+    stages are exact torch folds and copies)."""
+    n_nodes, L = hplan.topology
+    return {k: v * L for k, v in _expected_launches(hplan.inter, n_nodes).items()}
+
+
+def run_hier(device):
+    """The integer ring and the two-level allreduce, through the port's
+    entry points on the card: ``GZCommunicator(algo="intring")`` at 646 MB
+    x 8 (every rank the same bits, within N 1.05 eb, kernel 5 once a
+    rank; profiled, host floor) and at 16 MB x 8 (bitwise the port's CPU
+    run; ``policy="accuracy"``); ``GZHierCommunicator`` on a 2x4
+    ``make_hier_mesh`` at 646 MB (hierarchical at ``A100_SLINGSHOT``,
+    beside the flat 8-rank composite call), 4x2 at 16 MB, 2x4 at 16 MB on
+    a flat fabric (bitwise the 8-rank ``GZCommunicator``), the hier
+    fallback of a forced overflow at 646 MB; the gradient sync of one
+    minitron-8b layer over ``("local", "node")`` 2x4.  Returns kernel 5's
+    launches in the 646 MB intring call."""
+    import torch
+
+    from repro_torch.core import buckets, cost_model, error_budget, grad_sync, transport
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.comm import GZCommunicator, GZHierCommunicator
+    from repro_torch.launch.mesh import ThreadMesh, make_hier_mesh
+
+    n, n_elems = 8, MAIN_BYTES // 4
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    xs = [_random_walk(n_elems, gen, device) for _ in range(n)]
+    exact = _sum_exact(xs)
+    top = exact.abs().max().item()
+    ring = ThreadMesh((n,), ("x",), device)
+
+    # intring at 646 MB x 8
+    intring = GZCommunicator("x", config=GZConfig(algo="intring"), axis_size=n, device=device)
+    plan = intring.plan("allreduce", (n_elems,))
+    torch.cuda.reset_peak_memory_stats()
+    res, launches, cold = _mesh_call(ring, intring.allreduce, xs)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _check_launches(plan, n, launches)
+    if _nonzero(launches) != {"quantize": n}:
+        raise AssertionError(f"intring launched {_nonzero(launches)}, expected quantize x {n}")
+    spread = sum(int((r.value.view(torch.int32) != res[0].value.view(torch.int32)).sum())
+                 for r in res)
+    bound = n * 1.05 * EB + 1e-6 * top
+    err = _within("intring 646 MB", res, exact, bound)
+    log(f"intring N={n} {MAIN_BYTES / 1e6:.0f} MB/rank: plan {plan.algo} wire_bytes "
+        f"{plan.wire_bytes} ratio {plan.ratio:.4f} capacity {plan.capacity_words} words; "
+        f"cold wall {cold * 1e3:.1f} ms; err {err:.3e} (bound N 1.05 eb + 1e-6 max = "
+        f"{bound:.3e}); ranks differing from rank 0 in {spread} elements; launches "
+        f"{_nonzero(launches)}; peak memory {peak:.1f} GB")
+    if spread:
+        raise AssertionError(f"intring ranks differ in {spread} elements")
+    del res
+    k5_launches = launches["quantize"]
+    warm, busy, events = _mesh_profile(ring, intring.allreduce, xs, "intring 646 MB",
+                                       _check_intring_launch_structure)
+    rows = _intring_rows(events)
+    log("intring device time by group: " + "; ".join(
+        f"{name} {c} launches {ms:.2f} ms ({100 * ms / max(busy, 1e-9):.1f} %)"
+        for name, (c, ms) in rows.items()))
+    small = GZCommunicator("x", config=plan.as_config(), axis_size=n, device=device)
+    tiny = [x[: 1 << 16].clone() for x in xs]
+    walls = [_mesh_call(ring, small.allreduce, tiny)[2] for _ in range(3)]
+    log(f"intring host floor: 256 KB/rank, N={n}: warm wall {min(walls[1:]) * 1e3:.1f} ms "
+        f"against {warm * 1e3:.1f} ms at 646 MB")
+    del tiny
+
+    # intring at 16 MB x 8: the card against the port's CPU run; the accuracy policy
+    m_elems = MOVER_BYTES // 4
+    xs16 = [_random_walk(m_elems, gen, device) for _ in range(n)]
+    exact16 = _sum_exact(xs16)
+    card, _, _ = _mesh_call(ring, intring.allreduce, xs16)
+    cpu_comm = GZCommunicator("x", config=GZConfig(algo="intring"), axis_size=n, device="cpu")
+    t0 = time.perf_counter()
+    cpu = ThreadMesh((n,), ("x",), "cpu").run(cpu_comm.allreduce, [x.cpu() for x in xs16])
+    cpu_s = time.perf_counter() - t0
+    mism = sum(int((a.value.cpu().view(torch.int32) != b.value.view(torch.int32)).sum())
+               for a, b in zip(card, cpu))
+    log(f"intring 16 MB x {n}: card vs the port's CPU run ({cpu_s:.1f} s on the host): "
+        f"mismatches {mism}")
+    if mism or any(bool(r.overflow) for r in cpu):
+        raise AssertionError(f"intring 16 MB: the card differs from the CPU run in {mism}")
+    accuracy = GZCommunicator("x", config=GZConfig(), policy="accuracy", axis_size=n,
+                              device=device)
+    p_acc = accuracy.plan("allreduce", (m_elems,))
+    acc, launches, wall = _mesh_call(ring, accuracy.allreduce, xs16)
+    err = _within("accuracy policy", acc, exact16, n * 1.05 * EB + 1e-6 *
+                  exact16.abs().max().item())
+    mism = _bitwise_mismatches(acc, card)
+    log(f"policy='accuracy' 16 MB x {n}: resolved {p_acc.algo}, wall {wall * 1e3:.1f} ms, "
+        f"err {err:.3e}, vs the intring run mismatches {mism}, launches {_nonzero(launches)}")
+    if p_acc.algo != "intring" or mism or _nonzero(launches) != {"quantize": n}:
+        raise AssertionError(f"accuracy policy: {p_acc.algo}, {mism} mismatches")
+    del card, cpu, acc
+
+    # hier 2x4 at 646 MB on the port's default point, beside the flat composite call
+    m24 = make_hier_mesh(2, 4, device=device)
+    hier = GZHierCommunicator("node", "local", config=GZConfig(),
+                              hw=cost_model.A100_SLINGSHOT, topology=(2, 4), device=device)
+    hplan = hier.plan((n_elems,))
+    if hplan.flat:
+        raise AssertionError("hier 2x4 at A100_SLINGSHOT resolved flat")
+    inter = hplan.inter
+    res, launches, cold = _mesh_call(m24, hier.allreduce, xs)
+    err = _within("hier 2x4 646 MB", res, exact, EB * 1.05 + 1e-6 * top)
+    if launches != _hier_launches(hplan):
+        raise AssertionError(f"hier launches {launches} != the inter plan's "
+                             f"{_hier_launches(hplan)}")
+    if {r.wire_bytes for r in res} != {hplan.inter_wire_bytes}:
+        raise AssertionError("hier wire bytes are not the inter plan's")
+    log(f"hier 2x4 {MAIN_BYTES / 1e6:.0f} MB/rank at {hier.hw.name}: flat={hplan.flat}; "
+        f"inter plan {inter.algo}/{inter.pipeline_chunks} codec {inter.codec} over "
+        f"{inter.axis_size} nodes at {inter.n_elems} f32 (eb_stage {inter.eb_stage:.3e}); "
+        f"inter_wire_bytes {hplan.inter_wire_bytes} (flat plan {hplan.flat_plan.algo}/"
+        f"{hplan.flat_plan.pipeline_chunks}: {hplan.flat_plan.wire_bytes}), intra "
+        f"{hplan.intra_wire_bytes}; modeled {hplan.t_model * 1e3:.3f} ms vs flat "
+        f"{hplan.t_flat * 1e3:.3f} ms; cold wall {cold * 1e3:.1f} ms; err {err:.3e}; "
+        f"launches {_nonzero(launches)} ({_nonzero(_expected_launches(inter, 2))} per node "
+        "pair)")
+    del res
+    h_warm, h_busy, _ = _mesh_profile(m24, hier.allreduce, xs, "hier 2x4 646 MB")
+    flat = GZCommunicator(HIER_AXES, config=GZConfig(), axis_size=n, device=device)
+    fplan = flat.plan("allreduce", (n_elems,))
+    if (fplan.algo, fplan.pipeline_chunks, fplan.wire_bytes) != (
+            hplan.flat_plan.algo, hplan.flat_plan.pipeline_chunks, hplan.flat_plan.wire_bytes):
+        raise AssertionError(f"flat composite plan {fplan} is not the HierPlan's flat plan")
+    res, launches, _ = _mesh_call(m24, flat.allreduce, xs)
+    _within("flat composite 646 MB", res, exact, EB * 1.05 + 1e-6 * top)
+    _check_launches(fplan, n, launches)
+    del res
+    f_warm, f_busy, _ = _mesh_profile(m24, flat.allreduce, xs, "flat composite 646 MB")
+    log(f"hier vs flat at 646 MB x 8 on one card: warm wall {h_warm * 1e3:.1f} vs "
+        f"{f_warm * 1e3:.1f} ms, device busy {h_busy:.1f} vs {f_busy:.1f} ms; inter-node "
+        f"wire {hplan.inter_wire_bytes} vs {fplan.wire_bytes} bytes a rank "
+        f"({fplan.wire_bytes / hplan.inter_wire_bytes:.2f}x less); one card has no "
+        "inter-node link, so the walls do not show the link asymmetry")
+
+    # the hier fallback of a forced overflow at 646 MB
+    hfb = GZHierCommunicator("node", "local",
+                             config=GZConfig(capacity_factor=0.02, on_overflow="fallback"),
+                             hw=cost_model.A100_SLINGSHOT, topology=(2, 4), device=device)
+    fbplan = hfb.plan((n_elems,))
+    res, launches, wall = _mesh_call(m24, hfb.allreduce, xs)
+    flags = {(bool(r.overflow), bool(r.nonfinite)) for r in res}
+    want = _fold(xs)
+    mism = sum(int((r.value.view(torch.int32) != want.view(torch.int32)).sum()) for r in res)
+    log(f"hier fallback 2x4 {MAIN_BYTES / 1e6:.0f} MB, capacity_factor 0.02: flat="
+        f"{fbplan.flat}; flags {flags}; vs the composite rank-order sum mismatches {mism}; "
+        f"wall {wall * 1e3:.1f} ms (hier call {h_warm * 1e3:.1f} ms warm); launches "
+        f"{_nonzero(launches)}")
+    if fbplan.flat or flags != {(True, False)} or mism or launches != _hier_launches(fbplan):
+        raise AssertionError("hier fallback: not flagged everywhere, not the exact sum, or "
+                             "not the compressed pass's launches")
+    del res, want, xs, exact
+
+    # 4x2 at 16 MB; 2x4 at 16 MB on a flat fabric
+    top16 = exact16.abs().max().item()
+    h42 = GZHierCommunicator("node", "local", config=GZConfig(),
+                             hw=cost_model.A100_SLINGSHOT, topology=(4, 2), device=device)
+    p42 = h42.plan((m_elems,))
+    res, launches, wall = _mesh_call(make_hier_mesh(4, 2, device=device), h42.allreduce, xs16)
+    err = _within("hier 4x2 16 MB", res, exact16, EB * 1.05 + 1e-6 * top16)
+    log(f"hier 4x2 16 MB/rank: flat={p42.flat} inter {p42.inter.algo}/"
+        f"{p42.inter.pipeline_chunks} over {p42.inter.axis_size} nodes; wall "
+        f"{wall * 1e3:.1f} ms; err {err:.3e}; launches {_nonzero(launches)}")
+    if p42.flat or launches != _hier_launches(p42):
+        raise AssertionError("hier 4x2: flat, or launches not the inter plan's")
+    htpu = GZHierCommunicator("node", "local", config=GZConfig(), hw=cost_model.TPU_V5E,
+                              topology=(2, 4), device=device)
+    ptpu = htpu.plan((m_elems,))
+    res, _, _ = _mesh_call(m24, htpu.allreduce, xs16)
+    plain = GZCommunicator("x", config=GZConfig(), hw=cost_model.TPU_V5E, axis_size=n,
+                           device=device)
+    ref, _, _ = _mesh_call(ring, plain.allreduce, xs16)
+    mism = _bitwise_mismatches(res, ref)
+    log(f"hier 2x4 16 MB/rank at {htpu.hw.name} (no link asymmetry): flat={ptpu.flat} "
+        f"({ptpu.flat_plan.algo}); vs the 8-rank GZCommunicator mismatches {mism}")
+    if not ptpu.flat or mism:
+        raise AssertionError("flat-fabric hier: not flat, or differs from the 8-rank call")
+    del res, ref, xs16, exact16
+
+    # the gradient sync of one minitron-8b layer over ("local", "node") 2x4
+    trees = _layer_grads(n, gen, device)
+    sync = _sync_for("lorenzo")
+    names = ("local", "node")
+
+    def body(t):
+        return grad_sync.dp_allreduce_grads_stats(t, names, sync, device=device)
+
+    res, launches, cold = _mesh_call(m24, body, trees)
+    leaves = [grad_sync.tree_flatten(t)[0] for t in trees]
+    ledger = buckets.ledger_for([a.shape for a in leaves[0]], sync.bucket_bytes)
+    gplan = m24.run(lambda _: grad_sync._hier_comm(names, sync, device).plan(
+        (ledger.bucket_elems,)), [None] * n)[0]
+    scale = m24.run(lambda t: grad_sync._tree_scale(
+        [a.reshape(-1) for a in grad_sync.tree_flatten(t)[0]],
+        transport.current(names)), trees)[0].item()
+    if gplan.flat:
+        raise AssertionError("grad sync 2x4: the bucket plan resolved flat")
+    hops = error_budget.lossy_hops(f"allreduce_{gplan.inter.algo}", gplan.inter.axis_size)
+    worst = 0.0
+    outs = [grad_sync.tree_flatten(out)[0] for out, _ in res]
+    for i in range(len(leaves[0])):
+        ex = _sum_exact([lv[i] for lv in leaves])
+        bound = hops * gplan.inter.eb_stage * scale + 1e-6 * ex.abs().max().item()
+        for r in range(n):
+            e = (outs[r][i].double() - ex).abs().max().item()
+            if not e <= bound:
+                raise AssertionError(f"grad sync 2x4: leaf {i} rank {r} error {e} > {bound}")
+            worst = max(worst, e / bound)
+        del ex
+    stats = [st for _, st in res]
+    want_launches = {k: v * ledger.n_buckets for k, v in _hier_launches(gplan).items()}
+    log(f"grad sync minitron-8b layer over {names} 2x4 (codec lorenzo): {ledger.n_buckets} "
+        f"buckets of {ledger.bucket_elems}; bucket plan flat={gplan.flat}, inter "
+        f"{gplan.inter.algo}/{gplan.inter.pipeline_chunks} over {gplan.inter.axis_size} "
+        f"nodes; scale {scale:.6e}; wire_bytes/rank {stats[0].wire_bytes} (inter plan "
+        f"{gplan.inter_wire_bytes} x {ledger.n_buckets}); cold wall {cold * 1e3:.1f} ms; "
+        f"worst error {100 * worst:.1f} % of its bound; launches {_nonzero(launches)}")
+    if any(bool(st.overflow) or bool(st.nonfinite) for st in stats) or \
+            {(st.n_buckets, st.wire_bytes) for st in stats} != \
+            {(ledger.n_buckets, gplan.inter_wire_bytes * ledger.n_buckets)} or \
+            launches != want_launches:
+        raise AssertionError(f"grad sync 2x4: flags, buckets, wire bytes or launches "
+                             f"{launches} != {want_launches}")
+    del res, outs, leaves
+    _mesh_profile(m24, body, trees, "grad sync 2x4")
+    del trees
+    torch.cuda.empty_cache()
+    return k5_launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 15-18: the dense model's forward and serving path, kernel 11
 # ---------------------------------------------------------------------------
 
 MODEL_ARCH = "minitron-8b"  # src/repro/configs/minitron_8b.py, full width and depth
@@ -2553,7 +2910,7 @@ def check_flash_kernel(device, gen):
                 f"{HBM_BYTES_PER_S / 1e12:g} TB/s)")
             del qt, kt, vt, lib
         del q, k, v, got, want, diff
-    log(f"kernel 11 routes over phase 13: {calls}")
+    log(f"kernel 11 routes over phase 15: {calls}")
     # How the bf16 kernel scales against SDPA beyond the model's shape:
     # checked against the plain version, then timed (median of 10).
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2604,15 +2961,15 @@ def _timed(fn):
 
 
 def run_model(device):
-    """Phases 14-16, this slice's main path.  14: ``Model.loss_fn`` of
+    """Phases 16-18, this slice's main path.  16: ``Model.loss_fn`` of
     minitron-8b at full width and depth (32 layers, 19.76 GB of bf16
     weights drawn from seed 0 on the card) on one ``SyntheticStream`` batch
     of B=2, S=2048, with ``use_flash_kernel`` True (kernel 11 launched once
     per layer, counted) and False (the chunked path, no launch): both
     finite, within 2e-3 relative of each other; walls, and the device busy
-    share and kernel 11's share of device time from one profiled call.  15:
+    share and kernel 11's share of device time from one profiled call.  17:
     the full-sequence logits through kernel 11 at S=128 against 128 steps
-    of ``decode_fn``, rel <= 0.05.  16: ``serve`` at full size (batch 4,
+    of ``decode_fn``, rel <= 0.05.  18: ``serve`` at full size (batch 4,
     16 + 32 tokens, cache 128).  Returns kernel 11's launches in the loss
     run."""
     import dataclasses
@@ -2646,7 +3003,7 @@ def run_model(device):
     batch = next(SyntheticStream(cfg, MODEL_BATCH, MODEL_SEQ, seed=SEED))
 
     with torch.inference_mode():
-        # 14: the loss forward, through kernel 11 and through the chunked path
+        # 16: the loss forward, through kernel 11 and through the chunked path
         _reset_launches()
         l1, cold1 = _timed(lambda: kmodel.loss_fn(params, batch))
         launches, routes = _launches(), dict(flash_attn.ROUTES)
@@ -2694,7 +3051,7 @@ def run_model(device):
         del prof, events, batch
         torch.cuda.empty_cache()
 
-        # 15: decode against prefill
+        # 17: decode against prefill
         rng = np.random.default_rng(SEED)
         tokens = torch.from_numpy(
             rng.integers(0, cfg.vocab, (2, PREFILL_SEQ)).astype(np.int32)).to(device)
@@ -2725,7 +3082,7 @@ def run_model(device):
         del want, got, cache, model, kmodel, params
         torch.cuda.empty_cache()
 
-    # 16: serving at full size
+    # 18: serving at full size
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         gen, serve_s = _timed(lambda: serve(SERVE_ARGV + (["--smoke"] if MODEL_SMOKE else [])
@@ -2744,7 +3101,8 @@ def run_model(device):
 # ---------------------------------------------------------------------------
 
 
-PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "c6", "model")
+PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
+          "model")
 
 
 def _record(records, name):
@@ -2847,6 +3205,11 @@ def main(argv=()) -> int:
 
     if "faults" in phases:
         run_faults(device, gen)
+
+    if "hier" in phases:
+        # This slice's paths: intring (kernel 5 once a rank) and the hier allreduce.
+        _record(records, "quantize")["launches"] = run_hier(device)
+        torch.cuda.empty_cache()
 
     if "c6" in phases:
         check_a2a_backward_on_threadgroup(device)

@@ -10,9 +10,10 @@ field by field:
     words, ``bitwidth``/``anchor`` int32, ``nwords`` int32, ``eb``
     float32) plus ``n`` and ``block``.  ``compressed_to_numpy`` also
     accepts the JAX package's container: it only reads the attributes.
-  * ``plan_fields(plan)`` — every field of a ``Plan`` (either package's)
-    as plain Python, with the route table and the fallback plan as
-    nested tuples.
+  * ``plan_fields(plan)`` — every field of a ``Plan`` or ``HierPlan``
+    (either package's) as plain Python, with the route table and the
+    fallback plan as nested tuples and a ``HierPlan``'s sub-plans as
+    nested dicts.
   * ``tree_from_numpy(tree, device)`` / ``tree_to_numpy(tree)`` — a
     gradient tree (nested dicts, lists and tuples of arrays) with numpy
     leaves as the same tree with tensor leaves on ``device``, and back.
@@ -89,7 +90,8 @@ def _schedule_tuple(s):
 
 
 def plan_fields(plan) -> dict:
-    """Every field of a ``Plan`` as comparable plain Python."""
+    """Every field of a ``Plan`` or ``HierPlan`` as comparable plain
+    Python (a ``HierPlan``'s sub-plans as their own fields)."""
     out = {}
     for f in dataclasses.fields(plan):
         v = getattr(plan, f.name)
@@ -97,6 +99,8 @@ def plan_fields(plan) -> dict:
             v = _schedule_tuple(v)
         elif f.name == "fallback" and v is not None:
             v = tuple(getattr(v, g.name) for g in dataclasses.fields(v))
+        elif f.name in ("inter", "flat_plan") and v is not None:
+            v = plan_fields(v)
         out[f.name] = v
     return out
 

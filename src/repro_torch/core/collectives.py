@@ -41,8 +41,12 @@ reference.  ``_execute_lossless`` is the uncompressed re-run of each op
 over the same transport (the communicator's ``fallback`` policy, in
 ``core/comm.py``).
 
-Outside this slice, and raising ``NotImplementedError`` that names the
-ROADMAP item: ``algo="intring"`` (A9).
+The integer ring (``algo="intring"``) quantizes once with the two-pass
+``quantize`` kernel and ring-reduces the Lorenzo delta codes in int32
+(``bitpack`` packs, unpacks and the final prefix sum stay torch ops, as
+they are jnp outside any Pallas kernel in the reference).  The two-level
+allreduce (``_execute_allreduce_hier``) runs on three handles of a mesh
+(``core/transport.py``): node, local and their node-major composite.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ from repro_torch.core import (
 from repro_torch.core.compressed import (
     Compressed, capacity_words_for, validate_capacity_factor,
 )
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 __all__ = ["GZConfig", "PIECE_QUANTUM", "plan_ring_pipeline_chunks"]
 
@@ -115,12 +119,6 @@ class GZConfig:
 
 def _is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
-
-
-def _require_slice(cfg: GZConfig) -> None:
-    """Raise for the knobs this port does not execute yet."""
-    if cfg.algo == "intring":
-        raise NotImplementedError("algo='intring' is not ported yet (ROADMAP A9)")
 
 
 def _false(device) -> torch.Tensor:
@@ -226,15 +224,20 @@ def _lossless_broadcast(x, g):
     return buf.reshape(x.shape).to(x.dtype)
 
 
+def _fold_scatter(x, g):
+    """Exact reduce-scatter of flat ``x``: rank r folds every rank's chunk
+    r in rank order (the bits of the reference's CPU ``psum_scatter``)."""
+    (parts,) = g.all_to_all((x.view(g.size, -1),))
+    return transport._fold(parts)
+
+
 def _execute_lossless(op, x, g, cfg: GZConfig, *, root: int = 0):
     """Uncompressed re-run of ``op`` on rank handle ``g`` (exact)."""
     n = g.size
     if op == "allreduce":
         return g.sum_across(_sanitize(x.to(torch.float32))).to(x.dtype)
     if op == "reduce_scatter":
-        # rank r folds every rank's chunk r, in rank order
-        (parts,) = g.all_to_all((_sanitize(x.to(torch.float32)).view(n, -1),))
-        return transport._fold(parts).to(x.dtype)
+        return _fold_scatter(_sanitize(x.to(torch.float32)), g).to(x.dtype)
     if op == "allgather":
         (parts,) = g.all_gather((_sanitize(x),))
         return parts.reshape((n * x.shape[0],) + tuple(x.shape[1:])) if x.dim() \
@@ -607,23 +610,128 @@ def _allreduce_ring(x, g, cfg: GZConfig):
     return acc[: x.shape[0]], overflow
 
 
+def _unzigzag_i32(u):
+    """int32 zigzag codes (uint32 bits) -> int32 deltas, in int32 with a
+    logical shift: ``(u >>> 1) ^ -(u & 1)``."""
+    return ((u >> 1) & 0x7FFFFFFF) ^ -(u & 1)
+
+
+def _allreduce_intring(x, g, cfg: GZConfig):
+    """Integer-domain ring allreduce (beyond the paper).
+
+    Quantize once, the only lossy step (one ``quantize`` over every
+    chunk, each padded to whole row-tiles), then ring reduce-scatter and
+    ring allgather the int32 Lorenzo delta codes with lossless repacking:
+    deltas and anchors add exactly (wrapping in int32, as the
+    reference's), so every rank gets the same bits on one quantization
+    grid, and ``anchor + cumsum(d)`` rebuilds the sum once at the end.
+    Each hop packs the chunk's zigzag codes at their per-block widths
+    (up to log2(step) bits wider per hop); a stream past ``cap`` words
+    sets the overflow flag.  Reduce-scatter step s is round s, allgather
+    step s round ``(n - 1) + s``."""
+    n, r = g.size, g.rank
+    dev = x.device
+    eb = ops.as_eb(cfg.eb, dev)
+    n_orig = x.shape[0]
+    B = ops.BLOCK
+    rows = ops.n_blocks_for(-(-n_orig // n))
+    chunk_n = rows * B
+    xf = torch.zeros(n * chunk_n, dtype=torch.float32, device=dev)
+    xf[:n_orig] = x
+    zig, _, anchor = ops.quantize(xf.view(-1, B), eb)
+    del xf
+    d = _unzigzag_i32(zig)
+    del zig
+    cap = capacity_words_for(chunk_n, cfg.capacity_factor, B)
+    perm = schedule.ring_perm(n)
+    guard = cfg.verify_streams
+
+    def rows_of(idx):
+        return slice(idx * rows, (idx + 1) * rows)
+
+    def pack_codes(idx):
+        dd = d[rows_of(idx)]
+        z = ref.as_u32((dd << 1) ^ (dd >> 31))
+        bw = ref.bitwidth_of(z.amax(dim=1))
+        packed, nwords = bitpack.pack(z, bw, cap)
+        return (packed, bw, anchor[rows_of(idx)].clone()), nwords
+
+    def unpack_codes(wire):
+        packed, bw, _ = wire
+        return _unzigzag_i32(bitpack.unpack(packed, bw, B))
+
+    overflow = _false(dev)
+    for s in range(n - 1):
+        wire, nwords = pack_codes((r - s) % n)
+        overflow = overflow | (nwords > cap)
+        wire, bad = _exchange_tensors(g, wire, perm, guard, s)
+        overflow = _or(overflow, bad)
+        at = rows_of((r - s - 1) % n)
+        d[at] += unpack_codes(wire)
+        anchor[at] += wire[2]
+    cur, nwords = pack_codes((r + 1) % n)
+    overflow = overflow | (nwords > cap)
+    for s in range(n - 1):
+        cur, bad = _exchange_tensors(g, cur, perm, guard, (n - 1) + s)
+        overflow = _or(overflow, bad)
+        at = rows_of((r - s) % n)
+        d[at] = unpack_codes(cur)
+        anchor[at] = cur[2]
+    q = torch.cumsum(d, dim=1, dtype=torch.int32)
+    del d
+    q += anchor[:, None]
+    out = q.to(torch.float32).mul_(ref.twoeb_of(eb)).view(-1)
+    return out[:n_orig], overflow
+
+
 def _execute_allreduce(x, g, cfg: GZConfig):
     """EXECUTE layer: run a fully-resolved allreduce schedule on rank
     handle ``g``.  Returns ``(out, local_overflow)``; the caller owns the
     cross-rank OR."""
-    _require_slice(cfg)
     shape, dtype = x.shape, x.dtype
     flat = x.reshape(-1).to(torch.float32)
     if cfg.algo == "redoub":
         out, ovf = _allreduce_redoub(flat, g, cfg)
     elif cfg.algo == "ring":
         out, ovf = _allreduce_ring(flat, g, cfg)
+    elif cfg.algo == "intring":
+        out, ovf = _allreduce_intring(flat, g, cfg)
     else:
         raise ValueError(
             f"unresolved allreduce algo {cfg.algo!r} reached the execute "
             "layer — resolve a Plan via GZCommunicator.plan first"
         )
     return out.reshape(shape).to(dtype), ovf
+
+
+def _execute_allreduce_hier(x, g_node, g_local, g_all, hplan):
+    """EXECUTE layer for the two-level (node x local) allreduce on a
+    mesh's node, local and composite ``(node, *local)`` handles;
+    ``hplan`` is a resolved ``comm.HierPlan``.
+
+    The flat branch is the ordinary allreduce over the composite handle
+    (ranks node-major) on ``hplan.flat_plan``.  The hierarchical branch
+    is an exact reduce-scatter over local (each local rank ends with one
+    node-reduced shard of ceil(D/L) elements), the compressed allreduce
+    of that shard over node on ``hplan.inter`` (the only lossy stage),
+    and an exact allgather over local; a stage whose axis has one rank
+    is skipped.  Returns ``(out, local_overflow)``."""
+    if hplan.flat:
+        return _execute_allreduce(x, g_all, hplan.flat_plan.as_config())
+    n_nodes, L = hplan.topology
+    shape, dtype = x.shape, x.dtype
+    flat = x.reshape(-1).to(torch.float32)
+    padded, _ = _pad_to_chunks(flat, L)
+    shard = _fold_scatter(padded, g_local) if L > 1 else padded
+    ovf = _false(x.device)
+    if n_nodes > 1:
+        shard, ovf = _execute_allreduce(shard, g_node, hplan.inter.as_config())
+    if L > 1:
+        (parts,) = g_local.all_gather((shard,))
+        padded = parts.reshape(-1)
+    else:
+        padded = shard
+    return padded[: flat.shape[0]].reshape(shape).to(dtype), ovf
 
 
 # ---------------------------------------------------------------------------
@@ -634,7 +742,6 @@ def _execute_allreduce(x, g, cfg: GZConfig):
 def _execute_reduce_scatter(x, g, cfg: GZConfig):
     """EXECUTE layer for the ring reduce-scatter: rank r returns the summed
     chunk r of the flat payload (``owner_offset=-1``)."""
-    _require_slice(cfg)
     n, r = g.size, g.rank
     if x.dim() != 1 or x.shape[0] % n != 0:
         raise ValueError(
@@ -666,7 +773,6 @@ def _execute_allgather(x, g, cfg: GZConfig):
     """EXECUTE layer for the ring allgather: compress the own chunk once,
     forward the compressed stream N-1 times; slot j of the result holds
     decompress(compress(x_j)) on every rank."""
-    _require_slice(cfg)
     n, r = g.size, g.rank
     comp = cfg.compressor()
     flat = x.reshape(-1).to(torch.float32)
@@ -863,7 +969,6 @@ def _execute_scatter(x_full, g, cfg: GZConfig, *, root: int = 0,
     ``_padded_reference=True`` walks the padded virtual tree instead
     (test oracle; the same bytes at every real rank).
     """
-    _require_slice(cfg)
     n, r = g.size, g.rank
     if root != 0:
         raise ValueError(
@@ -895,7 +1000,6 @@ def _execute_broadcast(x, g, cfg: GZConfig, *, root: int = 0):
     ``x`` as the reference does; only the root's stream travels, so only
     its overflow flag counts; a failed stream check counts on the rank
     that keeps the stream."""
-    _require_slice(cfg)
     n, r = g.size, g.rank
     if root != 0:
         raise ValueError(
@@ -926,7 +1030,6 @@ def _execute_all_to_all(x, g, cfg: GZConfig):
     own (``_compress_chunks``), the streams travel through the
     transport's ``all_to_all`` (unguarded, as in the reference), and each
     rank decompresses what it received, stacked in sender order."""
-    _require_slice(cfg)
     n = g.size
     if x.shape[0] % n != 0:
         raise ValueError(

@@ -11,7 +11,10 @@ cache, so a plan here equals the reference's field for field at the same
 What differs from the reference:
 
   * the default ``hw`` is ``cost_model.A100_SLINGSHOT``, the paper's GPU
-    point (the reference defaults to its TPU point);
+    point (the reference defaults to its TPU point), for
+    ``GZHierCommunicator`` too: its 48:1 link asymmetry resolves a
+    ``node x local`` topology with ``L > 1`` hierarchical where the
+    reference's default resolves it flat;
   * ranks are not a traced mesh axis but a rank handle from
     ``core/transport.py``: every op runs inside
     ``ThreadGroup.run(..., axis_name=...)`` or a ``DistGroup.bind(...)``,
@@ -32,7 +35,8 @@ What differs from the reference:
     read the replicated flags on the host (one sync per call); ``flag``
     adds nothing;
   * the health counters are counted on the host by rank 0 of each call,
-    under a lock (the rank threads of a ``ThreadGroup`` share them).
+    under a lock (the rank threads of a ``ThreadGroup`` share them);
+  * ``GZHierCommunicator.calibrate`` is not ported (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -51,9 +55,11 @@ from repro_torch.kernels import ops
 
 __all__ = [
     "Plan",
+    "HierPlan",
     "FallbackPlan",
     "CollectiveResult",
     "GZCommunicator",
+    "GZHierCommunicator",
     "select_allreduce",
     "select_allreduce_plan",
     "register_policy",
@@ -164,6 +170,50 @@ class Plan:
             verify_streams=self.verify_streams,
             codec=self.codec,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class HierPlan:
+    """A frozen, hashable plan for one two-level (node x local) allreduce
+    (the fields of ``repro.core.comm.HierPlan``; see there for each one).
+
+    ``topology`` is the full ``(n_nodes, gpus_per_node)`` tuple: 2x4 and
+    4x2 are different plans.  ``flat`` runs ``flat_plan`` over the
+    composite axis; otherwise an exact intra-node reduce-scatter, the
+    compressed ``inter`` allreduce of the shard across nodes (the whole
+    error budget) and an exact intra-node allgather.
+    ``inter_wire_bytes`` is the provisioned payload a rank ships across
+    node boundaries (on the flat path every send of a boundary rank
+    crosses: the flat plan's ``wire_bytes``)."""
+
+    op: str
+    topology: tuple
+    n_elems: int
+    nbytes: int
+    dtype: str
+    eb: float
+    flat: bool
+    inter: Optional[Plan]
+    flat_plan: Optional[Plan]
+    intra_wire_bytes: int
+    inter_wire_bytes: int
+    t_model: float
+    t_flat: float
+    policy: str
+    on_overflow: str = "flag"
+    verify_streams: bool = False
+    fallback: Optional[FallbackPlan] = None
+    codec: str = "lorenzo"
+    route_table: Optional[schedule.Schedule] = None
+
+    @property
+    def ratio(self) -> float:
+        """Inter-node wire reduction against what the flat path crosses."""
+        if self.flat:
+            return self.flat_plan.ratio
+        if not self.inter_wire_bytes:
+            return 1.0
+        return self.inter.ratio
 
 
 @dataclasses.dataclass(frozen=True)
@@ -479,7 +529,8 @@ register_policy("accuracy", _policy_accuracy)
 # ---------------------------------------------------------------------------
 
 _PLAN_CACHE: dict = {}
-_COMM_CACHE: dict = {}  # GZCommunicator.for_config
+_HIER_PLAN_CACHE: dict = {}
+_COMM_CACHE: dict = {}  # GZCommunicator.for_config, GZHierCommunicator.for_axes
 _PLAN_STATS = {"hits": 0, "misses": 0}
 _PLAN_STATS_BY_CODEC: dict = {}
 _PLAN_STATS_BY_OP: dict = {}
@@ -492,27 +543,34 @@ def _stat(table: dict, key: str, field: str) -> None:
 
 
 def plan_cache_stats() -> dict:
-    """{'hits', 'misses', 'entries', 'keys', 'by_codec', 'by_op'}."""
+    """{'hits', 'misses', 'entries', 'keys', 'hier_entries', 'hier_keys',
+    'by_codec', 'by_op'}: both caches, the breakdowns by the requested
+    codec (the last key field of both) and by op (the first)."""
     def breakdown(table, pos):
         return {
             k: {"hits": rec["hits"], "misses": rec["misses"],
-                "entries": sum(1 for key in _PLAN_CACHE if key[pos] == k)}
+                "entries": sum(1 for key in _PLAN_CACHE if key[pos] == k),
+                "hier_entries": sum(1 for key in _HIER_PLAN_CACHE if key[pos] == k)}
             for k, rec in table.items()
         }
 
-    return {
-        "hits": _PLAN_STATS["hits"],
-        "misses": _PLAN_STATS["misses"],
-        "entries": len(_PLAN_CACHE),
-        "keys": tuple(_PLAN_CACHE),
-        "by_codec": breakdown(_PLAN_STATS_BY_CODEC, -1),
-        "by_op": breakdown(_PLAN_STATS_BY_OP, 0),
-    }
+    with _PLAN_LOCK:
+        return {
+            "hits": _PLAN_STATS["hits"],
+            "misses": _PLAN_STATS["misses"],
+            "entries": len(_PLAN_CACHE),
+            "keys": tuple(_PLAN_CACHE),
+            "hier_entries": len(_HIER_PLAN_CACHE),
+            "hier_keys": tuple(_HIER_PLAN_CACHE),
+            "by_codec": breakdown(_PLAN_STATS_BY_CODEC, -1),
+            "by_op": breakdown(_PLAN_STATS_BY_OP, 0),
+        }
 
 
 def clear_plan_cache() -> None:
     with _PLAN_LOCK:
         _PLAN_CACHE.clear()
+        _HIER_PLAN_CACHE.clear()
         _COMM_CACHE.clear()
         _PLAN_STATS["hits"] = 0
         _PLAN_STATS["misses"] = 0
@@ -686,6 +744,97 @@ def _resolve_plan(
         return _PLAN_CACHE.setdefault(key, plan)
 
 
+def _resolve_hier_plan(
+    op, n_elems, dtype, topology, eb, *, policy, requested_algo,
+    requested_chunks, capacity_factor, worst_case_budget, fused, fused_hop,
+    ratio, hw, on_overflow="flag", verify_streams=False, codec="lorenzo",
+) -> HierPlan:
+    """The frozen two-level plan for ``topology = (n_nodes, L)``, memoized
+    on the full topology tuple (the reference's rule, step for step).
+
+    Flat when ``L == 1`` or the fabric has no link asymmetry, or when the
+    flat compressed allreduce over all N ranks (every link priced at the
+    inter terms) models no slower than ``cost_model.allreduce_hier_gz``;
+    the policy picks the inter stage by resolving an ordinary plan at the
+    shard size over ``n_nodes`` ranks, with the whole error budget."""
+    topology = (int(topology[0]), int(topology[1]))
+    key = (
+        op, n_elems * 4, str(dtype), topology, eb,
+        policy, requested_algo, requested_chunks, capacity_factor,
+        worst_case_budget, fused, fused_hop, ratio, hw,
+        on_overflow, verify_streams,
+        codec,  # last, as in the flat cache
+    )
+    with _PLAN_LOCK:
+        hit = _HIER_PLAN_CACHE.get(key)
+        field = "misses" if hit is None else "hits"
+        _PLAN_STATS[field] += 1
+        _stat(_PLAN_STATS_BY_CODEC, codec, field)
+        _stat(_PLAN_STATS_BY_OP, op, field)
+    if hit is not None:
+        return hit
+    if op != "allreduce":
+        raise ValueError(
+            f"hierarchical plans support op='allreduce' only; got {op!r}"
+        )
+    n_nodes, L = topology
+    N = n_nodes * L
+    nbytes = n_elems * 4
+    knobs = dict(
+        policy=policy, requested_algo=requested_algo,
+        requested_chunks=requested_chunks, capacity_factor=capacity_factor,
+        worst_case_budget=worst_case_budget, fused=fused,
+        fused_hop=fused_hop, ratio=ratio, hw=hw,
+        on_overflow=on_overflow, verify_streams=verify_streams,
+        codec=codec,
+    )
+    flat_plan = _resolve_plan(op, n_elems, dtype, N, eb, **knobs)
+    flat_ratio, flat_hw, _ = _codec_adjusted(flat_plan.codec, ratio, hw)
+    t_flat = _allreduce_model_time(
+        flat_plan.algo, nbytes, N, flat_ratio, flat_hw,
+        flat_plan.pipeline_chunks, flat_plan.fused_hop,
+    )
+    inter = None
+    t_hier = float("inf")
+    shard_elems = -(-n_elems // L)
+    if L > 1 and hw.link_asymmetry() > 1.0:
+        # only the inter-node stage is lossy: the exact intra stages get 0
+        eb_inter = error_budget.split_lossy(eb, (False, n_nodes > 1, False))[1]
+        if n_nodes > 1:
+            inter = _resolve_plan(op, shard_elems, dtype, n_nodes, eb_inter, **knobs)
+        inter_ratio, inter_hw, _ = _codec_adjusted(
+            inter.codec if inter else "lorenzo", ratio, hw)
+        t_hier = cost_model.allreduce_hier_gz(
+            nbytes, n_nodes, L, inter_ratio, inter_hw,
+            inter_algo=inter.algo if inter else "ring",
+            chunks=inter.pipeline_chunks if inter else 1,
+            fused_hop=inter.fused_hop if inter else fused_hop,
+        )
+    flat = t_flat <= t_hier
+    if flat:
+        inter = None
+        intra_wire = 0
+        inter_wire = flat_plan.wire_bytes  # a boundary rank: every send crosses
+        t_model = t_flat
+    else:
+        intra_wire = 2 * (L - 1) * shard_elems * 4
+        inter_wire = inter.wire_bytes if inter else 0
+        t_model = t_hier
+    plan = HierPlan(
+        op=op, topology=topology, n_elems=n_elems, nbytes=nbytes,
+        dtype=str(dtype), eb=eb, flat=flat, inter=inter, flat_plan=flat_plan,
+        intra_wire_bytes=intra_wire, inter_wire_bytes=inter_wire,
+        t_model=t_model, t_flat=t_flat, policy=policy,
+        on_overflow=on_overflow, verify_streams=verify_streams,
+        fallback=_fallback_plan(op, n_elems, N, hw),
+        codec=(flat_plan.codec if flat else (inter.codec if inter else "lorenzo")),
+        route_table=(flat_plan.route_table if flat else schedule.build_hier(
+            n_nodes, L, inter.algo if inter else "ring")),
+    )
+    with _PLAN_LOCK:
+        return _HIER_PLAN_CACHE.setdefault(key, plan)
+
+
 def _dtype_name(dtype) -> str:
     """'float32' for torch.float32, np.float32 or 'float32'."""
     if isinstance(dtype, torch.dtype):
@@ -784,6 +933,36 @@ def _degraded_message(what, overflow: bool, nonfinite: bool) -> str:
     )
 
 
+def _degrade(op, g, axis, x, out, ovf, policy, cfg, *, root: int = 0):
+    """The shared epilogue of every communicator call: OR the overflow
+    and non-finite flags across the ranks of ``g``, apply the degradation
+    ``policy``, count health under ``(op, repr(axis))``.  Returns ``(out,
+    overflow, nonfinite)``.
+
+    For scatter and broadcast only the root's payload is significant, so
+    only the root's non-finite bit counts.  ``x`` is the (possibly
+    poisoned) input the compressed schedule consumed: under ``fallback``
+    every rank re-runs the lossless schedule over it when the replicated
+    flags say the call degraded, so the result is the exact collective of
+    the sanitized input."""
+    if op not in ("scatter", "broadcast") or g.rank == root:
+        nf_loc = collectives._nonfinite_local(x)
+    else:
+        nf_loc = collectives._false(x.device)
+    overflow, nonfinite = g.flags_across(ovf, nf_loc)
+    if policy != "flag" or _HEALTH_ENABLED:
+        # the replicated flags: every rank takes the same branch
+        ovf_now, nf_now = bool(overflow), bool(nonfinite)
+        fell_back = policy == "fallback" and (ovf_now or nf_now)
+        if fell_back:
+            out = collectives._execute_lossless(op, x, g, cfg, root=root)
+        if _HEALTH_ENABLED and g.rank == 0:
+            _count_health((op, repr(axis)), ovf_now, nf_now, fell_back)
+        if policy == "raise" and (ovf_now or nf_now):
+            raise RuntimeError(_degraded_message(f"{op} over {axis!r}", ovf_now, nf_now))
+    return out, overflow, nonfinite
+
+
 # ---------------------------------------------------------------------------
 # The communicator
 # ---------------------------------------------------------------------------
@@ -874,37 +1053,6 @@ class GZCommunicator:
             codec=cfg.codec,
         )
 
-    def _finish(self, op, g, x, out, ovf, plan: Plan, cfg, *,
-                root: int = 0) -> CollectiveResult:
-        """The shared epilogue: OR the overflow and non-finite flags
-        across ranks, apply the plan's degradation policy, count health.
-
-        For scatter and broadcast only the root's payload is significant,
-        so only the root's non-finite bit counts.  ``x`` is the (possibly
-        poisoned) input the compressed schedule consumed: under
-        ``fallback`` every rank re-runs the lossless schedule over it when
-        the replicated flags say the call degraded, so the result is the
-        exact collective of the sanitized input."""
-        if op not in ("scatter", "broadcast") or g.rank == root:
-            nf_loc = collectives._nonfinite_local(x)
-        else:
-            nf_loc = collectives._false(x.device)
-        overflow, nonfinite = g.flags_across(ovf, nf_loc)
-        policy = plan.on_overflow
-        if policy != "flag" or _HEALTH_ENABLED:
-            # the replicated flags: every rank takes the same branch
-            ovf_now, nf_now = bool(overflow), bool(nonfinite)
-            fell_back = policy == "fallback" and (ovf_now or nf_now)
-            if fell_back:
-                out = collectives._execute_lossless(op, x, g, cfg, root=root)
-            if _HEALTH_ENABLED and g.rank == 0:
-                _count_health((op, repr(self.axis_name)), ovf_now, nf_now, fell_back)
-            if policy == "raise" and (ovf_now or nf_now):
-                raise RuntimeError(_degraded_message(
-                    f"{op} over {self.axis_name!r}", ovf_now, nf_now))
-        return CollectiveResult(out, overflow, nonfinite, plan.wire_bytes,
-                                plan.ratio)
-
     def _run(self, op, x, plan, group, execute, **kw) -> CollectiveResult:
         """The shared call path: device check, trivial axis, the input
         fault hook, plan, ``execute(x, g, config, **kw)``, the epilogue."""
@@ -920,7 +1068,9 @@ class GZCommunicator:
         plan = plan or self.plan(op, x.shape, x.dtype, group=g)
         cfg = plan.as_config()
         out, ovf = execute(x, g, cfg, **kw)
-        return self._finish(op, g, x, out, ovf, plan, cfg, **kw)
+        out, overflow, nonfinite = _degrade(op, g, self.axis_name, x, out, ovf,
+                                            plan.on_overflow, cfg, **kw)
+        return CollectiveResult(out, overflow, nonfinite, plan.wire_bytes, plan.ratio)
 
     def allreduce(self, x: torch.Tensor, *, plan: Optional[Plan] = None,
                   group=None) -> CollectiveResult:
@@ -962,6 +1112,151 @@ class GZCommunicator:
     def __repr__(self):
         return (
             f"GZCommunicator(axis={self.axis_name!r}, n={self._axis_size}, "
+            f"policy={self.policy!r}, eb={self.config.eb}, hw={self.hw.name}, "
+            f"device={self.device})"
+        )
+
+
+class GZHierCommunicator:
+    """Resolve-once communicator bound to a two-level ``node x local``
+    topology (the reference's ``GZHierCommunicator``).
+
+    ``node_axis`` is the slow inter-node axis; ``local_axis`` the fast
+    intra-node one, or a tuple of axes, all collapsed into "local" (the
+    gradient sync folds every non-node axis in).  Calls run as a rank of
+    a mesh (``ThreadGroup.run(..., axis_name=(node, local), shape=...)``
+    or ``DistMesh.bind()``) that binds the node, local and composite
+    ``(node, *local)`` handles.  ``topology`` may be given as ``(n_nodes,
+    gpus_per_node)`` or read from the bound handles per call.  The
+    default ``hw`` is the port's, ``cost_model.A100_SLINGSHOT``, which has
+    a link asymmetry: ``L > 1`` may resolve hierarchical where the
+    reference's default resolves flat.  ``CollectiveResult.wire_bytes``
+    is the inter-node wire.  ``calibrate`` waits for ROADMAP A12.
+    """
+
+    def __init__(
+        self,
+        node_axis,
+        local_axis,
+        *,
+        config=None,
+        policy: str = "auto",
+        hw: cost_model.Hardware = cost_model.A100_SLINGSHOT,
+        ratio: float = 20.0,
+        topology: Optional[tuple] = None,
+        device="cuda",
+        auto_depth: bool = False,
+    ):
+        self.node_axis = node_axis
+        self.local_axis = (tuple(local_axis) if isinstance(local_axis, (tuple, list))
+                           else local_axis)
+        self.config = config if config is not None else collectives.GZConfig()
+        if policy not in _POLICIES:
+            raise ValueError(
+                f"unknown policy {policy!r}; registered: {policy_names()}"
+            )
+        self.policy = policy
+        self.hw = hw
+        self.ratio = ratio
+        self._topology = tuple(topology) if topology is not None else None
+        self.device = transport.resolve_device(device)
+        self._auto_depth = auto_depth
+
+    @classmethod
+    def for_axes(cls, node_axis, local_axis, *, config=None, policy: str = "auto",
+                 hw: cost_model.Hardware = cost_model.A100_SLINGSHOT,
+                 ratio: float = 20.0, topology: Optional[tuple] = None,
+                 device="cuda", auto_depth: bool = False) -> "GZHierCommunicator":
+        """Memoized communicator: one instance per distinct (axes, knobs),
+        cleared with :func:`clear_plan_cache`."""
+        local = (tuple(local_axis) if isinstance(local_axis, (tuple, list))
+                 else local_axis)
+        topo = tuple(topology) if topology is not None else None
+        key = (cls, node_axis, local, config, policy, hw, ratio, topo,
+               str(transport.resolve_device(device)), auto_depth)
+        comm = _COMM_CACHE.get(key)
+        if comm is None:
+            comm = _COMM_CACHE[key] = cls(
+                node_axis, local, config=config, policy=policy, hw=hw, ratio=ratio,
+                topology=topo, device=device, auto_depth=auto_depth)
+        return comm
+
+    def _composite_axes(self) -> tuple:
+        local = (self.local_axis if isinstance(self.local_axis, tuple)
+                 else (self.local_axis,))
+        return (self.node_axis,) + local
+
+    def _handles(self):
+        """(node, local, composite) rank handles bound on this thread."""
+        g_node = transport.current(self.node_axis)
+        g_local = transport.current(self.local_axis)
+        g_all = transport.current(self._composite_axes())
+        topo = (g_node.size, g_local.size)
+        if self._topology is not None and topo != self._topology:
+            raise ValueError(
+                f"communicator bound to topology {self._topology}, but the mesh "
+                f"on {self._composite_axes()!r} is {topo}"
+            )
+        return g_node, g_local, g_all
+
+    def topology(self) -> tuple:
+        """``(n_nodes, gpus_per_node)``: the bound tuple, or the sizes of
+        the handles bound on this thread (never cached: one memoized
+        communicator replans across reshaped meshes)."""
+        if self._topology is not None:
+            return self._topology
+        g_node, g_local, _ = self._handles()
+        return (g_node.size, g_local.size)
+
+    def plan(self, shape, dtype=torch.float32) -> HierPlan:
+        """The frozen :class:`HierPlan` for an allreduce of ``shape`` (a
+        shape tuple or an element count) over the topology."""
+        n_elems = int(np.prod(shape)) if not isinstance(shape, int) else shape
+        cfg = self.config
+        requested_algo = None if cfg.algo == "auto" else cfg.algo
+        requested_chunks = cfg.pipeline_chunks
+        if self._auto_depth and requested_chunks == 1:
+            requested_chunks = 0
+        return _resolve_hier_plan(
+            "allreduce", n_elems, _dtype_name(dtype), self.topology(), cfg.eb,
+            policy=self.policy, requested_algo=requested_algo,
+            requested_chunks=requested_chunks,
+            capacity_factor=cfg.capacity_factor,
+            worst_case_budget=cfg.worst_case_budget, fused=cfg.fused,
+            fused_hop=cfg.fused_hop, ratio=self.ratio, hw=self.hw,
+            on_overflow=cfg.on_overflow, verify_streams=cfg.verify_streams,
+            codec=cfg.codec,
+        )
+
+    def allreduce(self, x: torch.Tensor, *, plan: Optional[HierPlan] = None
+                  ) -> CollectiveResult:
+        """Two-level compressed sum-allreduce of this rank's ``x`` over
+        ``node x local``.  The flags are OR-ed over the composite axis;
+        under ``fallback`` a degraded call is the exact rank-order sum over
+        the composite axis (the lossless twin of either branch)."""
+        if x.device.type != self.device.type:
+            raise ValueError(
+                f"communicator runs on {self.device}, got a tensor on {x.device}"
+            )
+        n_nodes, L = self.topology()
+        if n_nodes * L == 1:
+            zero = torch.zeros((), dtype=torch.bool, device=x.device)
+            return CollectiveResult(x, zero, zero, 0, 1.0)
+        g_node, g_local, g_all = self._handles()
+        axes = self._composite_axes()
+        x = faults.maybe_poison_input(x, g_all)
+        hplan = plan or self.plan(x.shape, x.dtype)
+        out, ovf = collectives._execute_allreduce_hier(x, g_node, g_local, g_all, hplan)
+        cfg = (hplan.flat_plan or hplan.inter).as_config()
+        out, overflow, nonfinite = _degrade("allreduce", g_all, axes, x, out, ovf,
+                                            hplan.on_overflow, cfg)
+        return CollectiveResult(out, overflow, nonfinite, hplan.inter_wire_bytes,
+                                hplan.ratio)
+
+    def __repr__(self):
+        return (
+            f"GZHierCommunicator(node={self.node_axis!r}, "
+            f"local={self.local_axis!r}, topology={self._topology}, "
             f"policy={self.policy!r}, eb={self.config.eb}, hw={self.hw.name}, "
             f"device={self.device})"
         )

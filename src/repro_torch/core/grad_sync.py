@@ -2,13 +2,15 @@
 
 The counterpart of the data-parallel half of ``repro.core.grad_sync``:
 ``dp_allreduce_grads{,_stats}`` sums a gradient tree (nested dicts,
-lists and tuples of tensors) across the ranks of one axis, called as a
-rank of a ``ThreadGroup`` or a ``DistGroup`` bound to that axis name.
+lists and tuples of tensors) across the ranks of one axis or of several,
+called as a rank of a ``ThreadGroup`` or ``DistGroup`` bound to that
+axis name, or of a mesh that binds those axes.
 
 The tree is tiled by a memoized ``BucketLedger`` (``core/buckets.py``)
 into equal ``SyncConfig.bucket_bytes`` payloads, and each bucket is one
-``GZCommunicator.allreduce``, issued last-layer-first (the reference's
-``lax.scan`` is a Python loop over the buckets in issue order).  Each
+``GZCommunicator.allreduce`` (or ``GZHierCommunicator.allreduce``),
+issued last-layer-first (the reference's ``lax.scan`` is a Python loop
+over the buckets in issue order).  Each
 bucket is gathered from the leaves, synced and written back into the
 output leaves on its own, so no stack of payloads is ever held.  With
 ``relative_eb`` the absolute eb is ``eb * RMS`` of the whole tree over
@@ -27,13 +29,22 @@ the lossless rank-order sum of its payload (bitwise the reference's
 recovery bucket), and ``SyncStats`` still reports the flags; under
 ``"raise"`` the sync raises.
 
+Several axis names resolve one two-level plan (``GZHierCommunicator``):
+the last axis is the slow inter-node one, every axis before it collapses
+into "local"; the ranks are a mesh that binds those axes and their
+composites (``core/transport.py``).  The relative-eb scale then folds
+over the composite of ``axis_names`` in their order (the reference's
+``psum`` over the tuple), the buckets go through the hier communicator,
+and ``SyncStats.wire_bytes`` counts its inter-node wire.
+
 The port's communicators plan at its default ``hw`` point
 (``cost_model.A100_SLINGSHOT``); the reference's at its own.  With an
 explicit algorithm and codec (the default ``SyncConfig``) both resolve
-the same schedule.  Several axis names (the reference's two-level hier
-plan) raise ``NotImplementedError`` (ROADMAP A9); the FSDP gather and
-reduce-scatter, with ``mark_degraded`` and the trainer's skip of a
-degraded step (``_skip_merge``), are not ported (ROADMAP A11).
+the same single-axis schedule; over several axes the port's point has a
+link asymmetry and may resolve hierarchical where the reference resolves
+flat.  The FSDP gather and reduce-scatter, with ``mark_degraded`` and the
+trainer's skip of a degraded step (``_skip_merge``), are not ported
+(ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -46,7 +57,7 @@ import torch
 from repro_torch.core import transport
 from repro_torch.core.buckets import ledger_for
 from repro_torch.core.collectives import GZConfig
-from repro_torch.core.comm import GZCommunicator
+from repro_torch.core.comm import GZCommunicator, GZHierCommunicator
 from repro_torch.kernels import ref
 
 __all__ = [
@@ -202,7 +213,8 @@ def _sum_squares(v: torch.Tensor) -> torch.Tensor:
 
 def _tree_scale(leaves_f32, g) -> torch.Tensor:
     """The relative-eb scale of a list of 1-D f32 leaves: per-leaf sums of
-    squares accumulated in leaf order, one ``sum_across`` over the ranks,
+    squares accumulated in leaf order, one ``sum_across`` over the ranks
+    of ``g`` (the composite of every synced axis),
     ``sqrt(ss * (1 / count))`` (XLA turns the reference's division by the
     constant count into that product), floored at 1e-30 and pinned to 1
     when not finite."""
@@ -235,19 +247,30 @@ def _comm(axis_name, sync: SyncConfig, device) -> GZCommunicator:
     return GZCommunicator.for_config(axis_name, cfg, device=device, auto_depth=True)
 
 
+def _hier_comm(axis_names, sync: SyncConfig, device) -> GZHierCommunicator:
+    """The memoized two-level communicator of a several-axis sync: the
+    last axis is the node axis, the others collapse into local; depth as
+    in :func:`_comm`.  Its topology is read from the bound handles per
+    call."""
+    node = axis_names[-1]
+    local = axis_names[0] if len(axis_names) == 2 else tuple(axis_names[:-1])
+    cfg = sync.gz
+    if sync.pipeline_chunks > 0:
+        cfg = dataclasses.replace(cfg, pipeline_chunks=sync.pipeline_chunks)
+        return GZHierCommunicator.for_axes(node, local, config=cfg, device=device)
+    return GZHierCommunicator.for_axes(node, local, config=cfg, device=device,
+                                       auto_depth=True)
+
+
 def _prepare(grads, axis_names, sync, device):
-    """(sync, axis, group, leaves, rebuild, shapes, dtypes, flat f32 leaves)."""
+    """(sync, axis names, group, leaves, rebuild, flat f32 leaves); the
+    group is the handle of the one axis, or of the composite of all."""
     sync = DEFAULT_SYNC if sync is None else sync
     axis_names = tuple(axis_names)
     if not axis_names:
         raise ValueError(
             "dp_allreduce_grads: axis_names is empty — pass the axis to sum "
             "over (a silent no-op here would skip gradient sync)"
-        )
-    if len(axis_names) > 1:
-        raise NotImplementedError(
-            f"dp_allreduce_grads over several axes {axis_names}: the two-level "
-            "(node x local) plan is not ported yet (ROADMAP A9)"
         )
     leaves, rebuild = tree_flatten(grads)
     if not leaves:
@@ -259,9 +282,18 @@ def _prepare(grads, axis_names, sync, device):
     for leaf in leaves:
         if leaf.device.type != device.type:
             raise ValueError(f"gradient sync runs on {device}, got a leaf on {leaf.device}")
-    g = transport.current(axis_names[0])
+    g = transport.current(axis_names[0] if len(axis_names) == 1 else axis_names)
     flat = [leaf.to(torch.float32).reshape(-1) for leaf in leaves]
-    return sync, axis_names[0], g, leaves, rebuild, flat
+    return sync, axis_names, g, leaves, rebuild, flat
+
+
+def _allreduce_fn(axis_names, g, sync, device):
+    """One bucket's collective: the single-axis communicator on ``g``, or
+    the two-level one over the bound mesh."""
+    if len(axis_names) == 1:
+        comm = _comm(axis_names[0], sync, device)
+        return lambda x: comm.allreduce(x, group=g)
+    return _hier_comm(axis_names, sync, device).allreduce
 
 
 def _finish_tree(out_flat, leaves, rebuild):
@@ -285,7 +317,8 @@ def _psum_tree_stats(flat, g):
 
 def dp_allreduce_grads_stats(grads, axis_names: Sequence[str],
                              sync: Optional[SyncConfig] = None, *, device="cuda"):
-    """Sum a gradient tree across the ranks of ``axis_names`` (one axis).
+    """Sum a gradient tree across the ranks of ``axis_names`` (one axis,
+    or several through the two-level plan).
 
     Returns ``(summed tree, SyncStats)``; callers divide by the rank
     count for a mean and should consult ``stats.degraded`` before applying
@@ -295,13 +328,13 @@ def dp_allreduce_grads_stats(grads, axis_names: Sequence[str],
     asks for "cpu").  Bitwise the reference's ``dp_allreduce_grads_stats``
     (module docstring).
     """
-    sync, axis, g, leaves, rebuild, flat = _prepare(grads, axis_names, sync, device)
+    sync, axis_names, g, leaves, rebuild, flat = _prepare(grads, axis_names, sync, device)
     if sync.gz is None:
         out, stats = _psum_tree_stats(flat, g)
         return _finish_tree(out, leaves, rebuild), stats
     scale = _tree_scale(flat, g) if sync.relative_eb else None
     ledger = ledger_for([leaf.shape for leaf in leaves], sync.bucket_bytes)
-    comm = _comm(axis, sync, device)
+    allreduce = _allreduce_fn(axis_names, g, sync, device)
     out = [torch.empty(math.prod(leaf.shape), dtype=torch.float32, device=leaf.device)
            for leaf in leaves]
     ovf = nf = torch.zeros((), dtype=torch.bool, device=flat[0].device)
@@ -310,7 +343,7 @@ def dp_allreduce_grads_stats(grads, axis_names: Sequence[str],
         payload = ledger.gather(flat, bucket)
         if scale is not None:
             payload = payload / scale  # zero padding stays zero
-        res = comm.allreduce(payload, group=g)
+        res = allreduce(payload)
         ovf, nf, wire = ovf | res.overflow, nf | res.nonfinite, res.wire_bytes
         synced = res.value * scale if scale is not None else res.value
         ledger.scatter(synced, bucket, out)
@@ -326,7 +359,7 @@ def _dp_allreduce_whole_tree_stats(grads, axis_names: Sequence[str],
     """REFERENCE: the whole-tree ravel and fixed-size chunk scan in ravel
     order, kept for the bitwise-equality contract with the bucketed path
     (the same scale, the same per-chunk collectives)."""
-    sync, axis, g, leaves, rebuild, flat = _prepare(grads, axis_names, sync, device)
+    sync, axis_names, g, leaves, rebuild, flat = _prepare(grads, axis_names, sync, device)
     if sync.gz is None:
         out, stats = _psum_tree_stats(flat, g)
         return _finish_tree(out, leaves, rebuild), stats
@@ -339,11 +372,11 @@ def _dp_allreduce_whole_tree_stats(grads, axis_names: Sequence[str],
     n_chunks = -(-n // chunk)
     padded = torch.zeros(n_chunks * chunk, dtype=torch.float32, device=whole.device)
     padded[:n] = whole
-    comm = _comm(axis, sync, device)
+    allreduce = _allreduce_fn(axis_names, g, sync, device)
     ovf = nf = torch.zeros((), dtype=torch.bool, device=whole.device)
     rows, wire = [], 0
     for row in padded.view(n_chunks, chunk):
-        res = comm.allreduce(row, group=g)
+        res = allreduce(row)
         ovf, nf, wire = ovf | res.overflow, nf | res.nonfinite, res.wire_bytes
         rows.append(res.value)
     out_flat = torch.cat(rows)[:n]

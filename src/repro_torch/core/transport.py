@@ -49,16 +49,34 @@ use from several threads at once can return an inexact result on one of
 them (seen with torch 2.13's CPU build: ``sqrt`` 216 ulp off in about 1
 process in 200 with 3 threads racing, 1 in 20 with 16), which broke the
 gradient sync's relative-eb scale on one rank.
+
+Meshes (the reference's ``jax.sharding.Mesh`` with named axes): ranks
+laid out over several named axes, first axis major (``rank = node * L +
+local`` on a ``("node", "local")`` mesh).  Every rank gets a handle for
+every ordered tuple of distinct axes: a single name (``"node"``: the
+ranks that share every other coordinate, ranked by that axis) and every
+composite tuple (``("node", "local")``: ranked first-axis major, the
+reference's tuple-axis ``axis_index``).  ``("local", "node")`` is a
+handle of its own, local-major, so a fold over it runs in the order the
+reference's ``psum`` over that tuple runs.  ``ThreadGroup.run(...,
+axis_name=("node", "local"), shape=(n_nodes, L))`` binds them on the
+rank threads, each (sub-)group with its own mailbox and barrier;
+:class:`DistMesh` builds them over ``torch.distributed`` sub-groups
+(``DistGroup(group=..., ranks=...)``).
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import threading
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["resolve_device", "ThreadGroup", "DistGroup", "bind", "current"]
+__all__ = ["resolve_device", "ThreadGroup", "DistGroup", "DistMesh", "mesh_groups",
+           "bind", "current"]
 
 _BOUND = threading.local()
 
@@ -139,13 +157,45 @@ def _sender_of(rank: int, perm):
     return None
 
 
-class _ThreadRank:
-    """One rank of a :class:`ThreadGroup`."""
+def mesh_groups(shape, axis_names) -> dict:
+    """Every handle of a mesh: ``{key: [members, ...]}`` for every ordered
+    tuple of distinct axes (``key`` the axis name, or the tuple of names),
+    each entry the global ranks of one group in its rank order, first
+    axis of the key major (the reference's ``pxla._axis_groups``).
+    Global ranks run over ``shape`` first axis major."""
+    shape, names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"mesh shape {shape} and axis names {names} do not match")
+    if any(s < 1 for s in shape):
+        raise ValueError(f"mesh extents must be >= 1, got {shape}")
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    out = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.permutations(range(len(names)), k):
+            moved = np.moveaxis(ranks, axes, range(k)).reshape(
+                math.prod(shape[a] for a in axes), -1)
+            key = names[axes[0]] if k == 1 else tuple(names[a] for a in axes)
+            out[key] = [tuple(int(r) for r in col) for col in moved.T]
+    return out
 
-    def __init__(self, group: "ThreadGroup", rank: int):
-        self.group = group
+
+class _Cell:
+    """One (sub-)group of thread ranks: a mailbox slot per rank and a
+    barrier."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._slots = [None] * size
+        self._barrier = threading.Barrier(size)
+
+
+class _ThreadRank:
+    """One rank of a :class:`ThreadGroup` (or of one of its sub-groups)."""
+
+    def __init__(self, cell: _Cell, rank: int):
+        self.group = cell
         self.rank = rank
-        self.size = group.size
+        self.size = cell.size
         self.thread = threading.current_thread()  # the rank's own thread
 
     def exchange(self, tensors, perm) -> tuple:
@@ -200,17 +250,31 @@ class ThreadGroup:
             raise ValueError(f"ThreadGroup needs n >= 1, got {n}")
         self.size = int(n)
         self.device = resolve_device(device)
-        self._slots = [None] * self.size
-        self._barrier = threading.Barrier(self.size)
 
-    def run(self, fn, inputs, *, axis_name="x") -> list:
-        """Call ``fn(inputs[r])`` as rank r on N threads, with the rank bound
-        to ``axis_name``; returns the N results in rank order.  An error on
-        any rank breaks the barrier for all and is re-raised here."""
+    def run(self, fn, inputs, *, axis_name="x", shape=None) -> list:
+        """Call ``fn(inputs[r])`` as rank r on N threads; returns the N
+        results in rank order.  With one axis name the rank is bound to
+        it.  With a tuple of names and their extents ``shape`` (product N)
+        the ranks form a mesh, first axis major, and every rank is bound
+        to every handle of ``mesh_groups`` (module docstring).  An error
+        on any rank breaks every barrier for all and is re-raised here."""
         if len(inputs) != self.size:
             raise ValueError(f"need {self.size} per-rank inputs, got {len(inputs)}")
+        if isinstance(axis_name, tuple):
+            if shape is None or math.prod(shape) != self.size:
+                raise ValueError(f"mesh {axis_name} needs extents whose product is "
+                                 f"{self.size}; got shape={shape}")
+            groups = mesh_groups(shape, axis_name)
+        else:
+            groups = {axis_name: [tuple(range(self.size))]}
+        cells, where = [], [[] for _ in range(self.size)]
+        for key, members in groups.items():
+            for ranks in members:
+                cell = _Cell(len(ranks))
+                cells.append(cell)
+                for i, r in enumerate(ranks):
+                    where[r].append((key, cell, i))
         _init_cpu_math()
-        self._barrier.reset()
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
         results = [None] * self.size
@@ -218,13 +282,16 @@ class ThreadGroup:
 
         def worker(r):
             try:
-                ctx = (torch.cuda.stream(stream) if stream is not None
-                       else contextlib.nullcontext())
-                with ctx, bind(axis_name, _ThreadRank(self, r)):
+                with contextlib.ExitStack() as stack:
+                    if stream is not None:
+                        stack.enter_context(torch.cuda.stream(stream))
+                    for key, cell, i in where[r]:
+                        stack.enter_context(bind(key, _ThreadRank(cell, i)))
                     results[r] = fn(inputs[r])
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 errors[r] = e
-                self._barrier.abort()
+                for cell in cells:  # a rank may wait in any group
+                    cell._barrier.abort()
 
         threads = [threading.Thread(target=worker, args=(r,)) for r in range(self.size)]
         for t in threads:
@@ -240,29 +307,49 @@ class ThreadGroup:
 
 
 class DistGroup:
-    """This process's rank of the default ``torch.distributed`` group."""
+    """This process's rank of a ``torch.distributed`` group: the default
+    group, or ``group`` (from ``dist.new_group``) with ``ranks`` the global
+    rank of each of its ranks in this handle's rank order (default: the
+    group's own, ascending).  Peers of every operation are handle ranks,
+    mapped to global ranks here."""
 
-    def __init__(self):
+    def __init__(self, group=None, ranks=None):
         if not dist.is_initialized():
             raise RuntimeError("DistGroup needs torch.distributed.init_process_group first")
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
+        self._pg = group
+        if ranks is None:
+            ranks = (range(dist.get_world_size()) if group is None
+                     else dist.get_process_group_ranks(group))
+        self._ranks = [int(r) for r in ranks]
+        self.rank = self._ranks.index(dist.get_rank())
+        self.size = len(self._ranks)
+        ascending = sorted(self._ranks)  # the group's own rank order
+        self._order = [ascending.index(r) for r in self._ranks]
         # The first NCCL operation must involve every rank; the redoub
         # fold round addresses only some of them.
-        dist.barrier()
+        dist.barrier(group=group)
 
     def bind(self, axis_name="x"):
         return bind(axis_name, self)
+
+    def _gather(self, t) -> list:
+        """Every rank's ``t``, in this handle's rank order."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self._pg)
+        return [parts[i] for i in self._order]
+
+    def _p2p(self, op, t, peer):
+        return dist.P2POp(op, t, self._ranks[peer], group=self._pg)
 
     def exchange(self, tensors, perm) -> tuple:
         dst = [r for s, r in perm if s == self.rank]
         src = _sender_of(self.rank, perm)
         ops = []
         if dst:
-            ops += [dist.P2POp(dist.isend, t.contiguous(), dst[0]) for t in tensors]
+            ops += [self._p2p(dist.isend, t.contiguous(), dst[0]) for t in tensors]
         if src is not None:
             out = tuple(torch.empty_like(t) for t in tensors)
-            ops += [dist.P2POp(dist.irecv, t, src) for t in out]
+            ops += [self._p2p(dist.irecv, t, src) for t in out]
         else:
             out = _zeros_like_all(tensors)
         if ops:
@@ -277,28 +364,54 @@ class DistGroup:
             out[self.rank] = t[self.rank]
             for peer in range(self.size):
                 if peer != self.rank:
-                    ops.append(dist.P2POp(dist.isend, t[peer].contiguous(), peer))
-                    ops.append(dist.P2POp(dist.irecv, out[peer], peer))
+                    ops.append(self._p2p(dist.isend, t[peer].contiguous(), peer))
+                    ops.append(self._p2p(dist.irecv, out[peer], peer))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
         return outs
 
     def all_gather(self, tensors) -> tuple:
-        out = []
-        for t in tensors:
-            parts = [torch.empty_like(t) for _ in range(self.size)]
-            dist.all_gather(parts, t.contiguous())
-            out.append(torch.stack(parts))
-        return tuple(out)
+        return tuple(torch.stack(self._gather(t)) for t in tensors)
 
     def flags_across(self, *flags) -> tuple:
         both = torch.stack([f.to(torch.int32) for f in flags])
-        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self._pg)
         return tuple((both > 0).unbind(0))
 
     def sum_across(self, x) -> torch.Tensor:
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x)
-        return _fold(parts)
+        return _fold(self._gather(x))
+
+
+class DistMesh:
+    """This process's ranks of a mesh over ``torch.distributed``: the
+    world's ranks laid out over ``axis_names`` with extents ``shape``,
+    first axis major, one ``DistGroup`` per handle of ``mesh_groups``.
+    Every process creates every sub-group, in the same order (the
+    library's rule), then its own handles in that order.  ``bind()``
+    binds all of them on this thread."""
+
+    def __init__(self, shape, axis_names):
+        if not dist.is_initialized():
+            raise RuntimeError("DistMesh needs torch.distributed.init_process_group first")
+        self.shape, self.axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+        self.size = math.prod(self.shape)
+        if self.size != dist.get_world_size():
+            raise ValueError(f"mesh {self.shape} needs {self.size} processes, the world "
+                             f"has {dist.get_world_size()}")
+        me = dist.get_rank()
+        mine = []
+        for key, members in mesh_groups(self.shape, self.axis_names).items():
+            for ranks in members:
+                pg = dist.new_group(sorted(ranks))
+                if me in ranks:
+                    mine.append((key, pg, ranks))
+        self.handles = {key: DistGroup(pg, ranks) for key, pg, ranks in mine}
+        self.rank = me
+
+    @contextlib.contextmanager
+    def bind(self):
+        with contextlib.ExitStack() as stack:
+            for key, handle in self.handles.items():
+                stack.enter_context(bind(key, handle))
+            yield self

@@ -7,7 +7,7 @@ devices (the reference) and through ``repro_torch``'s communicator on a
 must be bitwise equal, rank by rank, for:
 
   * the ``fallback`` policy under a forced capacity overflow: allreduce
-    (redoub, ring, ring at 2 pieces), reduce_scatter, allgather,
+    (redoub, ring, ring at 2 pieces, intring), reduce_scatter, allgather,
     scatter, broadcast and all_to_all;
   * ``flag`` mode on the same overflow (reports only);
   * the clean path under ``verify_streams`` (no flag, the compressed
@@ -68,6 +68,7 @@ CASES = {
     "allreduce_ring_fallback": ("allreduce", dict(OVF, algo="ring"), "rough", None),
     "allreduce_ring_p2_fallback": ("allreduce", dict(OVF, algo="ring", pipeline_chunks=2),
                                    "rough", None),
+    "allreduce_intring_fallback": ("allreduce", dict(OVF, algo="intring"), "rough", None),
     "allreduce_flag": ("allreduce", dict(OVF, algo="redoub", on_overflow="flag"), "rough",
                        None),
     "allreduce_redoub_clean_verify": ("allreduce", dict(OK, algo="redoub",

@@ -335,8 +335,17 @@ def test_flatten_order_and_errors():
         grad_sync.SyncConfig(gz=None).with_algo("ring")
     x = {"w": torch.ones(8)}
     group = transport.ThreadGroup(1, "cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        group.run(lambda t: grad_sync.dp_allreduce_grads(t, ("x", "y"), device="cpu"), [x])
+    # several axes run the two-level plan (ROADMAP A9) on a mesh binding them
+    trees = [{"w": torch.linspace(-1, 1, 3000) * (r + 1)} for r in range(4)]
+    res = transport.ThreadGroup(4, "cpu").run(
+        lambda t: grad_sync.dp_allreduce_grads_stats(t, ("x", "y"), device="cpu"), trees,
+        axis_name=("y", "x"), shape=(2, 2))
+    exact = sum(t["w"].double() for t in trees)
+    rms = float(torch.stack([t["w"].double() for t in trees]).pow(2).mean().sqrt())
+    for out, st in res:  # one lossy hop (redoub over the 2 nodes) at eb * RMS
+        assert not bool(st.degraded) and st.n_buckets == 1
+        err = float((out["w"].double() - exact).abs().max())
+        assert 0 < err <= 1.05 * 1e-4 * rms + 1e-6 * float(exact.abs().max())
     with pytest.raises(ValueError, match="axis_names is empty"):
         group.run(lambda t: grad_sync.dp_allreduce_grads(t, (), device="cpu"), [x])
     with pytest.raises(ValueError, match="empty gradient tree"):

@@ -11,6 +11,11 @@
 * The same holds for every codec of the registry and for
   ``codec="auto"`` under every policy (the resolved codec, the
   ``fused_hop`` downgrade and the plan's notes included).
+* Two-level ``HierPlan``s (every field, the sub-plans' too) are equal to
+  the reference's for the topologies 1x4, 4x1, 2x3, 3x2, 2x4 and 4x2,
+  every policy, every codec and both hardware points; the hier cache keys
+  on the full topology tuple and counts hits and misses as the
+  reference's does.
 * The port's copies of ``schedule``, ``error_budget`` and ``cost_model``
   give the reference's outputs on a sweep, so the copies cannot drift.
 """
@@ -173,7 +178,69 @@ def test_plan_cache_one_entry_per_key():
     stats = comm.plan_cache_stats()
     assert (stats["entries"], stats["hits"], stats["misses"]) == (2, 1, 2)
     assert stats["by_codec"]["lorenzo"]["entries"] == 2
-    assert stats["by_op"]["allreduce"] == {"hits": 1, "misses": 2, "entries": 2}
+    assert stats["by_op"]["allreduce"] == {"hits": 1, "misses": 2, "entries": 2,
+                                           "hier_entries": 0}
+
+
+TOPOLOGIES = ((1, 4), (4, 1), (2, 3), (3, 2), (2, 4), (4, 2))
+
+
+def _hier_plans(topo, n_elems, policy, hw, **cfg):
+    port_hw, ref_hw = HW[hw]
+    ours = comm.GZHierCommunicator("node", "local", config=GZConfig(**cfg), policy=policy,
+                                   hw=port_hw, topology=topo, device="cpu")
+    ref = jcomm.GZHierCommunicator("node", "local", config=JGZConfig(**cfg), policy=policy,
+                                   hw=ref_hw, topology=topo)
+    return ours.plan((n_elems,), torch.float32), ref.plan((n_elems,))
+
+
+@pytest.mark.parametrize("hw", sorted(HW))
+@pytest.mark.parametrize("policy", ["auto", "paper", "throughput", "accuracy"])
+def test_hier_plans_equal_reference(policy, hw):
+    """Every ``HierPlan`` field (``flat``, ``inter``, ``flat_plan``, the
+    intra and inter wire bytes, ``t_model``, ``t_flat``, ``codec``, the
+    route table, the fallback) equals the reference's for every topology,
+    codec and size; the hierarchical branch appears where the point has a
+    link asymmetry and L > 1."""
+    branches = set()
+    for topo in TOPOLOGIES:
+        for codec in ("lorenzo", "lorenzo+entropy", "lossless", "passthrough", "auto"):
+            for n_elems in (1000, 5000 * topo[1] + 37, 1 << 20, 646_000_000 // 4):
+                for cfg in ({}, dict(pipeline_chunks=2, on_overflow="fallback"),
+                            dict(fused=False, fused_hop=False, capacity_factor=1.2)):
+                    ours, ref = _hier_plans(topo, n_elems, policy, hw, codec=codec, **cfg)
+                    _assert_plans_equal(ours, ref)
+                    assert ours.ratio == ref.ratio
+                    branches.add(ours.flat)
+                    if hw == "tpu" or topo[1] == 1:
+                        assert ours.flat
+    assert branches == ({True} if hw == "tpu" else {True, False})
+
+
+def test_hier_plan_cache_keys_on_the_topology_tuple():
+    """2x3 and 3x2 are distinct entries (a cache keyed on the rank product
+    would reuse the wrong shard size); hits and misses are counted in the
+    totals, by codec and by op, as the reference counts them."""
+    stats = {}
+    for mod, cfg_cls, hw, kw in ((comm, GZConfig, cost_model.A100_SLINGSHOT,
+                                  {"device": "cpu"}),
+                                 (jcomm, JGZConfig, jcm.A100_SLINGSHOT, {})):
+        mod.clear_plan_cache()
+        plans = {}
+        for topo in ((2, 3), (3, 2), (2, 3)):
+            c = mod.GZHierCommunicator("node", "local", config=cfg_cls(codec="lossless"),
+                                       hw=hw, topology=topo, **kw)
+            plans.setdefault(topo, []).append(c.plan((4096,)))
+        assert plans[(2, 3)][0] is plans[(2, 3)][1]
+        assert plans[(2, 3)][0].inter.axis_size == 2
+        assert plans[(3, 2)][0].inter.axis_size == 3
+        st = mod.plan_cache_stats()
+        assert {k[3] for k in st["hier_keys"]} == {(2, 3), (3, 2)}
+        stats[mod.__name__] = {k: v for k, v in st.items() if k not in ("keys", "hier_keys")}
+    assert stats["repro_torch.core.comm"] == stats["repro.core.comm"]
+    st = stats["repro.core.comm"]
+    assert (st["hier_entries"], st["by_op"]["allreduce"]["hier_entries"]) == (2, 2)
+    assert st["by_codec"]["lossless"]["hier_entries"] == 2
 
 
 def test_config_validation_matches_reference():
@@ -200,21 +267,23 @@ def test_config_validation_matches_reference():
     (dict(verify_streams=True), None),
 ])
 def test_outside_the_slice_raises(cfg, item):
-    """Knobs outside the port raise naming their ROADMAP item; the
-    two-pass codec (``fused=False``), the ``fallback`` policy and
-    ``verify_streams`` (A8) run the allreduce and the reduce-scatter
-    within the bound.  A reduce-scatter plan is always ``ring``, so the
-    A9 knob does not stop it."""
+    """Knobs once outside the port now run the allreduce and the
+    reduce-scatter within the bound: ``intring`` (ported with ROADMAP
+    ``item`` A9; its bound is N eb, one quantization grid for N addends,
+    and every rank gets the same bits), the two-pass codec
+    (``fused=False``), the ``fallback`` policy and ``verify_streams``
+    (A8).  A reduce-scatter plan is always ``ring``, whatever the
+    allreduce's algorithm."""
     c = comm.GZCommunicator("x", config=GZConfig(**cfg), axis_size=2, device="cpu")
     xs = [torch.linspace(0, 1, 300), torch.ones(300)]
     group = transport.ThreadGroup(2, "cpu")
-    if item is None:
-        res = group.run(c.allreduce, xs)
-        assert (res[0].value - (xs[0] + 1)).abs().max() <= 1.05e-4
-        assert not any(bool(r.overflow) or bool(r.nonfinite) for r in res)
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            group.run(c.allreduce, xs)
+    res = group.run(c.allreduce, xs)
+    hops = 2 if item == "A9" else 1
+    assert (res[0].value - (xs[0] + 1)).abs().max() <= hops * 1.05e-4
+    assert not any(bool(r.overflow) or bool(r.nonfinite) for r in res)
+    if item == "A9":
+        assert c.plan("allreduce", (300,)).algo == "intring"
+        assert torch.equal(res[0].value, res[1].value)
     res = group.run(c.reduce_scatter, xs)
     for r in range(2):
         want = (xs[0] + 1)[r * 150:(r + 1) * 150]
