@@ -151,7 +151,29 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     ``decode_fn`` steps (rel <= 0.05);
 18. runs ``repro_torch.launch.serve.serve`` at full size (batch 4, 16
     prompt and 32 generated tokens, cache 128) and prints its tokens per
-    second.
+    second;
+19. runs this slice's main path, ``launch.training.make_train_step`` of
+    internlm2-20b at every published width (d_model 6144, 48 heads, 8 kv
+    heads, d_ff 16384, vocab 92544) with only the depth cut (48 -> 2
+    layers), on a ``ThreadMesh((2, 1), ("data", "model"))`` of the card,
+    ``fsdp=False``, the ring allreduce at eb 1e-4, remat ``"full"``, a
+    global batch of 2 x 512 tokens, for 3 steps (phase ``train``, as are
+    20-23): every step's loss finite, both ranks' params and AdamW state
+    equal by bits, no leaf's sync flagged, kernels 1, 3 and 4 launched as
+    every leaf's plan says (the wrappers' counts); one synced leaf within
+    the allreduce's bound of the exact rank-order sum; each step's wall,
+    then one more step profiled (device busy, the sync's share of it) and
+    the peak memory;
+20. holds one ``_sync_grads`` of seeded per-rank bf16 and f32 trees on 4
+    ranks of the card (kernels 1-4) against the same call on the CPU
+    (their plain versions): every leaf equal by bits, no flag set;
+21. forces an overflow (``core/faults.py``) under ``skip_on_overflow`` at
+    smoke size: the step is skipped with params and opt state equal by
+    bits to its inputs, and the next clean step applies;
+22. runs the train CLI (``launch.train.train``, smoke config, 12 steps,
+    ring) on the card: its final loss below its first;
+23. checks that kernel 11's entry points raise under grad on the card
+    (training takes the chunked path) and run under ``no_grad``.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -160,8 +182,8 @@ purpose and are held by bits to the lossless result instead).
 
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
-``hier`` (13), ``c6`` (14) and ``model`` (15-18); a partial run prints no
-result lines.
+``hier`` (13), ``c6`` (14), ``model`` (15-18) and ``train`` (19-23); a
+partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -3099,10 +3121,435 @@ def run_model(device):
 
 
 # ---------------------------------------------------------------------------
+# Phases 19-23: the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2-20b"  # src/repro/configs/internlm2_20b.py, every width as published
+TRAIN_LAYERS = 2  # the only cut: depth (48 layers); 2 fit the card beside 2 replicas
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 3  # the global batch over 2 data ranks
+TRAIN_EB = 1e-4
+TRAIN_CHECK_LEAF = ("blocks", "attn", "wo")  # the synced leaf held against the exact sum
+# (shape, dtype) of the per-rank trees of phase 20; every leaf at least 4
+# ring chunks of two 256-element blocks (a chunk padded to its block costs
+# the block's bit width in every padded slot, and a far smaller leaf
+# overflows the 0.6 capacity)
+TRAIN_SMOKE_SYNC = {
+    "embed": ((512, 128), "bfloat16"),
+    "blocks": {"wq": ((2, 128, 256), "bfloat16"), "ln1": ((2, 2048), "float32")},
+    "final_norm": ((2048,), "float32"),
+    "big": ((200_000,), "float32"),
+}
+TRAIN_CLI_ARGV = ["--smoke", "--steps", "12", "--batch", "4", "--seq", "64", "--lr", "1e-3",
+                  "--grad-gz", "ring"]
+
+
+def _tree_equal(a, b):
+    """Every leaf of two trees equal by bits (on the device)."""
+    import torch
+
+    from repro_torch.core.grad_sync import tree_flatten
+
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and bool(torch.equal(
+            x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+            y.view(torch.int16) if y.dtype == torch.bfloat16 else y))
+        for x, y in zip(la, lb))
+
+
+def _check_replicas(params, opt, label):
+    for r in range(1, len(params)):
+        if not (_tree_equal(params[0], params[r]) and _tree_equal(opt[0], opt[r])):
+            raise AssertionError(f"{label}: rank {r}'s params or opt state differ from rank 0's")
+
+
+@contextlib.contextmanager
+def _watched_sync(record):
+    """Wrap ``training._sync_grads`` for the train step: each call's
+    ``degraded`` flag into ``record["degraded"]``; each rank's input and
+    output of ``TRAIN_CHECK_LEAF`` into ``record["leaf"]`` while
+    ``record["keep_leaf"]``; each rank's arguments into
+    ``record["args"]`` while ``record["keep_args"]`` (to run the sync
+    again, alone, on the same gradients).  ``record["real"]`` is the
+    unwrapped function."""
+    from repro_torch.core import transport
+    from repro_torch.launch import training
+
+    real = record["real"] = training._sync_grads
+    lock = threading.Lock()
+
+    def leaf(tree):
+        for k in TRAIN_CHECK_LEAF:
+            tree = tree[k]
+        return tree
+
+    def wrapped(grads, specs, mesh_axes, grad_comms):
+        out, degraded = real(grads, specs, mesh_axes, grad_comms)
+        rank = transport.current("data").rank
+        with lock:
+            record["degraded"].append(degraded)
+            if record.get("keep_leaf"):
+                record["leaf"][rank] = (leaf(grads).float().clone(), leaf(out).float().clone())
+            if record.get("keep_args"):
+                record["args"][rank] = (grads, specs, mesh_axes, grad_comms)
+        return out, degraded
+
+    training._sync_grads = wrapped
+    try:
+        yield record
+    finally:
+        training._sync_grads = real
+
+
+def _train_plan_launches(setup, n):
+    """Kernel launches of one train step's gradient sync over all ranks:
+    every leaf's allreduce plan over ``data``, from the schedule."""
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.models.parallel import torch_dtype
+
+    comm = dict(setup.grad_comms)["data"]
+    total = dict.fromkeys(_launches(), 0)
+    for d in tree_flatten(setup.defs)[0]:
+        plan = comm.plan("allreduce", d.shape, torch_dtype(d.dtype))
+        for k, v in _expected_launches(plan, n).items():
+            total[k] += v
+    return total
+
+
+def _step_timed(step, params, opt, batch):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    torch.cuda.synchronize()
+    return params, opt, m, time.perf_counter() - t0
+
+
+def run_train_full_width(device):
+    """Phase 19: ``make_train_step`` of internlm2-20b at every published
+    width, depth cut to ``TRAIN_LAYERS``, on a ``ThreadMesh((2, 1))`` of
+    the card, ``fsdp=False``, the ring allreduce at eb 1e-4, remat
+    ``"full"``, a global batch of 2 x 512 tokens, ``TRAIN_STEPS`` steps and
+    one more under the profiler, then that step's gradient sync again,
+    alone, on the same gradients, under the profiler (its device busy over
+    the step's is the sync's share).  Checks every step: finite loss, both
+    ranks' params and opt state equal by bits, no leaf flagged, kernels
+    1-4 launched as every leaf's plan says; once: the synced
+    ``TRAIN_CHECK_LEAF`` within the allreduce's bound of the exact
+    rank-order sum.  Returns the kernels' launches over the
+    ``TRAIN_STEPS`` steps."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.core import error_budget
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch import shapes, training
+    from repro_torch.launch.mesh import ThreadMesh
+    from repro_torch.models.parallel import init_params
+    from repro_torch.optim.adamw import adamw_init
+
+    n = 2
+    full = registry.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    mesh = ThreadMesh((n, 1), ("data", "model"), device)
+    setup = training.make_setup(cfg, mesh, fsdp=False, remat="full",
+                                grad_gz=GZConfig(eb=TRAIN_EB, algo="ring"))
+    _, bspecs = shapes.train_specs(
+        cfg, shapes.InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh)
+    step = training.make_train_step(setup, bspecs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = [init_params(setup.defs, gen, device)]
+    params.append(tree_map(torch.clone, params[0]))
+    opt = [adamw_init(p) for p in params]
+    torch.cuda.synchronize()
+    n_params = sum(math.prod(d.shape) for d in tree_flatten(setup.defs)[0])
+    log(f"train {cfg.arch_id}: d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, vocab {cfg.vocab} as published; "
+        f"n_layers cut {full.n_layers} -> {cfg.n_layers}; {n_params} parameters a rank "
+        f"(bf16), {n} data ranks on one card, fsdp=False, grad_gz ring eb {TRAIN_EB}, "
+        f"remat full; params and AdamW state drawn and zeroed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    stream = SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    want = _train_plan_launches(setup, n)
+    record = {"degraded": [], "leaf": {}, "keep_leaf": True, "args": {}}
+    total = dict.fromkeys(_launches(), 0)
+    losses = []
+    with _watched_sync(record):
+        for s in range(TRAIN_STEPS):
+            batch = next(stream)
+            _reset_launches()
+            params, opt, m, wall = _step_timed(step, params, opt, batch)
+            launches = _launches()
+            loss = float(m["loss"])
+            losses.append(loss)
+            if not math.isfinite(loss) or not math.isfinite(float(m["gnorm"])):
+                raise AssertionError(f"train step {s}: loss {loss}, gnorm {float(m['gnorm'])}")
+            _check_replicas(params, opt, f"train step {s}")
+            if any(bool(d) for d in record["degraded"]) or len(record["degraded"]) != n:
+                raise AssertionError(f"train step {s}: a leaf's sync was flagged "
+                                     f"({[bool(d) for d in record['degraded']]})")
+            record["degraded"].clear()
+            if launches != want:
+                raise AssertionError(f"train step {s}: launches {_nonzero(launches)} != the "
+                                     f"plans' {_nonzero(want)}")
+            for k, v in launches.items():
+                total[k] += v
+            if record.pop("keep_leaf", False):
+                (g0, out0), (g1, out1) = record["leaf"][0], record["leaf"][1]
+                exact = g0.double() + g1.double()
+                plan = dict(setup.grad_comms)["data"].plan("allreduce", tuple(g0.shape),
+                                                          torch.bfloat16)
+                hops = error_budget.lossy_hops(f"allreduce_{plan.algo}", n)
+                # the allreduce's bound, then the cast of its f32 result to bf16
+                bound = hops * plan.eb_stage + 2.0 ** -8 * exact.abs().max().item()
+                err = max((o.double() - exact).abs().max().item() for o in (out0, out1))
+                if not err <= bound or not torch.equal(out0, out1):
+                    raise AssertionError(f"synced {'.'.join(TRAIN_CHECK_LEAF)}: error {err} "
+                                         f"> bound {bound}, or the ranks differ")
+                log(f"train synced leaf {'.'.join(TRAIN_CHECK_LEAF)} {tuple(g0.shape)}: max "
+                    f"error {err:.3e} vs the exact rank-order sum, bound {bound:.3e} "
+                    f"(plan {plan.algo}/{plan.pipeline_chunks}, eb_stage "
+                    f"{plan.eb_stage:.3e}); max |g| {exact.abs().max().item():.3e}")
+                del g0, g1, out0, out1, exact
+                record["leaf"].clear()
+            log(f"train step {s}: loss {loss:.6f} gnorm {float(m['gnorm']):.4f} lr "
+                f"{float(m['lr']):.3e}; wall {wall * 1e3:.1f} ms"
+                f"{' (cold)' if s == 0 else ' (warm)'}; launches {_nonzero(launches)}")
+        batch = next(stream)
+        record["keep_args"] = True
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            params, opt, m, traced = _step_timed(step, params, opt, batch)
+        record["keep_args"] = False
+        _check_replicas(params, opt, "profiled train step")
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    own_ms = sum(e.self_device_time_total for e in events if OWN_KERNEL.search(e.key)) / 1e3
+    log(f"train profile (one step): traced wall {traced * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %), kernels 1-4 {own_ms:.1f} ms; "
+        f"loss {float(m['loss']):.6f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+    del prof, events
+    # the profiled step's sync again, alone, on the same gradients
+    args = [record["args"][r] for r in range(n)]
+    record["args"].clear()
+    torch.cuda.synchronize()
+    _reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, sync_wall = _timed(lambda: mesh.run(lambda a: record["real"](*a), args))
+    if _launches() != want:
+        raise AssertionError(f"the sync alone launched {_nonzero(_launches())}, the plans say "
+                             f"{_nonzero(want)}")
+    del args
+    events = _device_events(prof)
+    sync_busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"train sync alone (the profiled step's gradients): traced wall "
+        f"{sync_wall * 1e3:.1f} ms, device busy {sync_busy:.1f} ms = "
+        f"{100 * sync_busy / max(busy, 1e-9):.1f} % of the step's device busy")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train peak memory: {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated, both "
+        f"ranks); losses {[round(x, 6) for x in losses]}; kernels over {TRAIN_STEPS} steps "
+        f"{_nonzero(total)}")
+    del params, opt, prof, events, m, step, setup
+    torch.cuda.empty_cache()
+    return total
+
+
+def _smoke_sync_trees(n, device):
+    """n per-rank trees of ``TRAIN_SMOKE_SYNC``: seeded f32 random walks of
+    1e-5 steps (numpy), cast to each leaf's dtype on ``device``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.parallel import torch_dtype
+
+    rng = np.random.default_rng(SEED)
+
+    def tree(spec):
+        if isinstance(spec, dict):
+            return {k: tree(v) for k, v in spec.items()}
+        shape, dtype = spec
+        walk = np.cumsum(rng.normal(0, 1e-5, math.prod(shape)).astype(np.float32))
+        return torch.from_numpy(walk.reshape(shape)).to(device).to(torch_dtype(dtype))
+
+    return [tree(TRAIN_SMOKE_SYNC) for _ in range(n)]
+
+
+def check_train_sync_vs_cpu(device):
+    """Phase 20: one ``training._sync_grads`` of the same seeded per-rank
+    bf16 and f32 trees on a 4-rank ``ThreadMesh`` of the card (the ring
+    allreduce at eb 1e-4 through kernels 1-4: at 4 ranks the ring has
+    intermediate hops) and of the CPU (their plain versions): every leaf
+    equal by bits, no rank's flag set."""
+    import torch
+
+    from repro_torch.convert import tree_map
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.comm import GZCommunicator
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.launch import training
+    from repro_torch.launch.mesh import ThreadMesh
+
+    n, axes = 4, ("data", "model")
+
+    def sync(dev):
+        comms = {"data": GZCommunicator.for_config("data", GZConfig(eb=TRAIN_EB, algo="ring"),
+                                                   axis_size=n, device=dev)}
+        trees = _smoke_sync_trees(n, dev)
+        specs = tree_map(lambda a: (None,) * a.dim(), trees[0])
+        torch.cuda.synchronize()
+        _reset_launches()
+        res = ThreadMesh((n, 1), axes, dev).run(
+            lambda t: training._sync_grads(t, specs, axes, comms), trees)
+        torch.cuda.synchronize()
+        return res, _launches()
+
+    card, launches = sync(device)
+    plain, _ = sync(torch.device("cpu"))
+    mism = 0
+    for (a, fa), (b, fb) in zip(card, plain):
+        for x, y in zip(tree_flatten(a)[0], tree_flatten(b)[0]):
+            x, y = x.cpu(), y
+            if x.dtype == torch.bfloat16:
+                x, y = x.view(torch.int16), y.view(torch.int16)
+            mism += int((x != y).sum())
+        if bool(fa) or bool(fb):
+            raise AssertionError(f"train sync flagged: card {bool(fa)}, CPU {bool(fb)}")
+    n_elems = sum(x.numel() for x in tree_flatten(plain[0][0])[0])
+    log(f"train sync on the card vs the CPU: {n} ranks, {n_elems} elements a rank (bf16 and "
+        f"f32 leaves), {mism} elements differ by bits; no flag on either; "
+        f"launches on the card {_nonzero(launches)}")
+    if mism:
+        raise AssertionError(f"train sync: {mism} elements differ between card and CPU")
+    for name in ("quantize_pack", "unpack_reduce_repack", "unpack_dequantize_reduce",
+                 "unpack_dequantize"):
+        if not launches[name]:
+            raise AssertionError(f"train sync on the card did not launch {name}")
+
+
+def check_train_skip(device):
+    """Phase 21: ``skip_on_overflow`` at smoke size on a 2-rank mesh of the
+    card: an overflow forced on rank 1 (``faults.FaultSpec("overflow")``)
+    under ``on_overflow="flag"`` skips the step (``metrics["skipped"]``,
+    params and opt state equal by bits to the step's inputs on both
+    ranks); the next, clean step applies."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.core import faults
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch import shapes, training
+    from repro_torch.launch.mesh import ThreadMesh
+    from repro_torch.models.parallel import init_params
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = registry.get(TRAIN_ARCH, smoke=True)
+    mesh = ThreadMesh((2, 1), ("data", "model"), device)
+    # eb 1e-2: no bucket of these gradients overflows unless forced to
+    setup = training.make_setup(cfg, mesh, fsdp=False, skip_on_overflow=True,
+                                grad_gz=GZConfig(eb=1e-2, algo="ring", on_overflow="flag"))
+    _, bspecs = shapes.train_specs(cfg, shapes.InputShape("t", 64, 4, "train"), mesh)
+    step = training.make_train_step(setup, bspecs)
+    p0 = init_params(setup.defs, torch.Generator(device=device).manual_seed(SEED), device)
+    params = [p0, tree_map(torch.clone, p0)]
+    opt = [adamw_init(p) for p in params]
+    before = tree_map(torch.clone, (params, opt))
+    stream = SyntheticStream(cfg, 4, 64, seed=SEED)
+    with faults.inject(faults.FaultSpec("overflow", ranks=(1,))):
+        params, opt, m = step(params, opt, next(stream))
+    kept = all(_tree_equal(params[r], before[0][r]) and _tree_equal(opt[r], before[1][r])
+               for r in range(2))
+    if not bool(m["skipped"]) or not kept:
+        raise AssertionError(f"forced overflow: skipped {bool(m['skipped'])}, state kept {kept}")
+    params, opt, m2 = step(params, opt, next(stream))
+    _check_replicas(params, opt, "the step after the skip")
+    if bool(m2["skipped"]) or int(opt[0]["step"]) != 1 or _tree_equal(params[0], before[0][0]):
+        raise AssertionError(f"the clean step after the skip: skipped {bool(m2['skipped'])}, "
+                             f"step {int(opt[0]['step'])}")
+    log(f"train skip: forced overflow on rank 1 -> skipped, params and opt state kept by bits "
+        f"on both ranks (loss {float(m['loss']):.6f}); next step applied (loss "
+        f"{float(m2['loss']):.6f}, step count {int(opt[0]['step'])})")
+
+
+def check_train_cli(device):
+    """Phase 22: ``repro_torch.launch.train.train`` on the card (smoke
+    config, 12 steps, ring): its final loss below its first."""
+    import io
+
+    from repro_torch.launch.train import train
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        losses, wall = _timed(lambda: train(TRAIN_CLI_ARGV + ["--device", str(device)]))
+    for line in out.getvalue().splitlines():
+        log(f"train cli: {line}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train cli: final loss {losses[-1]} not below {losses[0]}")
+    log(f"train cli: {len(losses)} steps in {wall:.2f} s")
+
+
+def check_flash_under_grad(device):
+    """Phase 23: kernel 11's entry points raise under grad on the card,
+    naming the chunked path; under ``no_grad`` the same call runs."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    q, k, v = (torch.randn(1, 256, 4, 64, device=device, dtype=torch.bfloat16,
+                           generator=torch.Generator(device=device).manual_seed(i))
+               for i in range(3))
+    for name in ("flash_attention", "flash_attention_bhsd", "flash_attention_kernel"):
+        fn = getattr(flash_attn, name)
+        a, b, c = (q, k, v) if name != "flash_attention_bhsd" else (
+            x.transpose(1, 2).reshape(4, 256, 64).contiguous() for x in (q, k, v))
+        try:
+            fn(a.requires_grad_(True), b, c)
+        except RuntimeError as e:
+            if "use_flash_kernel=False" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"flash_attn.{name} ran under grad")
+        a.requires_grad_(False)
+        with torch.no_grad():
+            if not bool(torch.isfinite(fn(a, b, c)).all()):
+                raise AssertionError(f"flash_attn.{name} under no_grad: non-finite output")
+    log("kernel 11 under grad: flash_attention, flash_attention_bhsd and "
+        "flash_attention_kernel raise on the card, naming use_flash_kernel=False; under "
+        "no_grad they run")
+
+
+def run_train(device):
+    """Phases 19-23 (module docstring).  Returns the kernels' launches of
+    phase 19's steps."""
+    t0 = time.perf_counter()
+    launches = run_train_full_width(device)
+    check_train_sync_vs_cpu(device)
+    check_train_skip(device)
+    check_train_cli(device)
+    check_flash_under_grad(device)
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model")
+          "model", "train")
 
 
 def _record(records, name):
@@ -3218,6 +3665,14 @@ def main(argv=()) -> int:
         # This slice's main path: the dense model's forward and serving.
         records.update(check_flash_kernel(device, gen))
         _record(records, "flash_attention")["launches"] = run_model(device)
+
+    if "train" in phases:
+        # This slice's main path: the train step with its compressed gradient
+        # sync (kernels 1, 3 and 4; at 2 ranks the ring has no intermediate hop,
+        # so kernel 2 keeps its count from the allreduce phase).
+        launches = run_train(device)
+        for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+            _record(records, name)["launches"] = launches[name]
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

@@ -22,6 +22,9 @@ field by field:
     ``ml_dtypes``' bfloat16, which ``torch.from_numpy`` refuses: they cross
     as their 16-bit patterns (``.view(np.int16)`` then
     ``.view(torch.bfloat16)``), bit for bit; f32 leaves cross as they are.
+  * ``opt_state_from_jax(state, device)`` — the AdamW state
+    (``{"mu", "nu", "step"}``: f32 moment trees and an int32 0-d step);
+    ``params_to_numpy`` takes it back.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from repro_torch.core.transport import resolve_device
 
 __all__ = ["compressed_to_numpy", "compressed_from_numpy", "plan_fields",
            "tree_map", "tree_from_numpy", "tree_to_numpy", "params_from_jax",
-           "params_to_numpy"]
+           "params_to_numpy", "opt_state_from_jax"]
 
 
 def _np(a) -> np.ndarray:
@@ -128,9 +131,9 @@ def tree_to_numpy(tree):
 
 
 def _param_tensor(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
-    if not a.flags.writeable:  # JAX's buffers are read-only; torch wants its own
-        a = a.copy()
+    a = np.asarray(a)  # a 0-d leaf (a step count) stays 0-d
+    if not (a.flags.c_contiguous and a.flags.writeable):  # JAX's buffers are
+        a = a.copy()  # read-only; torch wants its own
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
@@ -142,6 +145,17 @@ def params_from_jax(tree, device="cuda"):
     tensors on ``device``, bf16 bit for bit; CUDA without a card raises."""
     device = resolve_device(device)
     return tree_map(lambda a: _param_tensor(a, device), tree)
+
+
+def opt_state_from_jax(state, device="cuda") -> dict:
+    """The reference's AdamW state (numpy leaves) -> the port's, on
+    ``device``: ``mu`` and ``nu`` as f32 tensor trees, ``step`` a 0-d
+    int32 tensor."""
+    out = params_from_jax({k: state[k] for k in ("mu", "nu", "step")}, device)
+    if out["step"].shape != () or out["step"].dtype != torch.int32:
+        raise ValueError(f"step must be a 0-d int32, got {tuple(out['step'].shape)} "
+                         f"{out['step'].dtype}")
+    return out
 
 
 def _param_array(t) -> np.ndarray:

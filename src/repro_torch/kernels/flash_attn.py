@@ -26,6 +26,13 @@ tensor takes the plain version, a CUDA tensor the kernel of its dtype's
 route, which raises if it cannot build or launch (there is no fallback,
 and no route sends a call to the other).  Launches are counted in
 ``LAUNCHES["flash_attention"]`` and by route in ``ROUTES``.
+
+The kernel has no backward, and neither has the reference's (``jax.grad``
+through the Pallas kernel fails; the reference trains through the chunked
+path).  So every entry point raises when grad mode is on and q, k or v
+requires grad, on the card and on the CPU alike, instead of returning an
+output that autograd would treat as a constant.  Under ``torch.no_grad()``
+and ``torch.inference_mode()`` nothing changes.
 """
 from __future__ import annotations
 
@@ -73,6 +80,15 @@ def reset_launch_counts() -> None:
         for counts in (LAUNCHES, ROUTES):
             for k in counts:
                 counts[k] = 0
+
+
+def _refuse_grad(q, k, v) -> None:
+    """Raise when autograd would need a backward through kernel 11."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: kernel 11 has no backward (nor has the reference's "
+            "Pallas kernel); train through the chunked path (use_flash_kernel=False), "
+            "or call it under torch.no_grad() / torch.inference_mode() (ROADMAP A11)")
 
 
 def _scale(d: int) -> float:
@@ -164,7 +180,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
     """The CUDA kernel on (B, S, H, D) tensors: q (B, Sq, H, D), k and v
     (B, Sk, H, D), all f32 or all bf16, D in ``HEAD_DIMS``; bf16 runs on
     the tensor-core kernel, f32 on the CUDA-core one.  Raises on anything
-    it does not take and on a failed build or launch."""
+    it does not take, on a failed build or launch, and under grad."""
+    _refuse_grad(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -191,6 +208,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0):
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
     """q/k/v: (BH, S, D), batch*heads flattened.  Returns (BH, Sq, D)."""
+    _refuse_grad(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -203,6 +221,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, Sq, H, D); k/v: (B, Sk, H, D) (kv already head-repeated)."""
+    _refuse_grad(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":

@@ -1,1 +1,1 @@
-"""Entry points: greedy-decode serving."""
+"""Entry points: training (the train step, the trainer) and greedy-decode serving."""

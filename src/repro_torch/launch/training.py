@@ -1,0 +1,344 @@
+"""The train step and the serve step over a mesh of ranks: where gZCCL
+meets the training loop.
+
+The counterpart of ``repro.launch.training``.  The reference's step is one
+``shard_map`` body, jitted; here it is the same body run by every rank of
+a ``launch.mesh.ThreadMesh`` (``mesh.run``), eagerly:
+
+  * forward and backward (``torch.autograd.grad`` of ``loss_fn * scale``,
+    ``scale = 1 / (tp * n_dp)`` as in the reference), each layer
+    rematerialized when ``remat`` is not ``"none"``;
+  * ``_sync_grads``: every gradient leaf summed over each mesh axis absent
+    from its spec, through the axis's ``GZCommunicator`` (the compressed
+    allreduce: TPU kernels 1-4, or 8-10 under ``codec="lorenzo+entropy"``)
+    where ``grad_gz`` binds one, else by the exact rank-order
+    ``sum_across``; every leaf's NaN/Inf probe and every allreduce's
+    flags OR into ``degraded``;
+  * the loss averaged over the data-parallel axes, ``degraded`` made global
+    by an int sum over the whole mesh, the exact global gradient norm;
+  * AdamW, in place (``optim/adamw.py``); under ``skip_on_overflow`` a
+    degraded step keeps the old parameters and optimizer state
+    (``_skip_merge``, the reference's elementwise ``where``).
+
+Every rank holds its own replica of the parameters and the optimizer
+state, as each process of a data-parallel job does, and the trees cross
+``step`` as per-rank lists in rank order.  The allreduce gives every rank
+the same bits, so the replicas stay equal by bits; callers that care check
+it rather than assume it.
+
+What runs: data parallelism with the weights replicated (``fsdp=False``)
+over ``data`` (and ``pod``), and a one-rank mesh.  What raises, in
+``ParallelCtx``: ``fsdp=True`` with ``data > 1`` (the FSDP gather and its
+reduce-scatter backward, ROADMAP A11.6) and ``model > 1`` (tensor
+parallelism, A11.7).  The reference's FSDP gather compression
+(``fsdp_gz``) and its per-bucket overlap hooks (``overlap_sync``, A11.8)
+are not here yet.  All of these put collectives inside backward, and on
+CUDA every backward of a process runs on the device's one autograd
+thread, where the ranks of a one-card mesh can never meet (ROADMAP C6);
+they need a ``DistGroup`` over several cards.  The post-hoc sync here
+runs on the rank threads after backward returns, so it needs neither.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.convert import tree_map
+from repro_torch.core import transport
+from repro_torch.core.collectives import GZConfig
+from repro_torch.core.comm import GZCommunicator
+from repro_torch.core.grad_sync import tree_flatten
+from repro_torch.launch.mesh import mesh_axis_sizes
+from repro_torch.models.attention import KVCacheSpec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import Model
+from repro_torch.models.parallel import ParallelCtx, param_specs
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+__all__ = ["TrainSetup", "make_setup", "make_train_step", "make_serve_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainSetup:
+    cfg: ModelConfig
+    ctx: ParallelCtx
+    model: Model
+    mesh: object
+    defs: dict
+    specs: dict
+    opt: AdamWConfig
+    grad_gz: Optional[GZConfig]  # gz knobs for the dp-axis grad allreduce
+    # resolve-once communicators, one per data-parallel axis, bound to the
+    # mesh axis sizes at setup time; empty when gradient sync is exact
+    grad_comms: tuple = ()
+    # GradScaler-style degraded-step skip: a step whose gradient sync
+    # reports overflow or non-finite input keeps the OLD params and opt
+    # state and says so in metrics["skipped"].  Mostly useful with
+    # on_overflow="flag"; with "fallback" the values are already exact.
+    skip_on_overflow: bool = False
+
+
+def _strip_axis(spec: tuple, ax: str) -> tuple:
+    def strip(entry):
+        if entry == ax:
+            return None
+        if isinstance(entry, tuple):
+            kept = tuple(e for e in entry if e != ax)
+            return kept if kept else None
+        return entry
+
+    return tuple(strip(e) for e in spec)
+
+
+def make_setup(
+    cfg: ModelConfig,
+    mesh,
+    *,
+    opt: AdamWConfig = AdamWConfig(),
+    grad_gz: Optional[GZConfig] = None,
+    grad_policy: str = "auto",
+    remat: str = "full",
+    fsdp: bool = True,
+    skip_on_overflow: bool = False,
+) -> TrainSetup:
+    """The reference's ``make_setup`` on a ``ThreadMesh`` over
+    ``("data", "model")`` (or with ``"pod"``): ``fsdp=False`` replicates
+    the parameters over ``data``; ``grad_policy`` is the communicators'
+    plan policy when ``grad_gz`` leaves the algorithm open.  The model
+    and its communicators run on ``mesh.device``."""
+    sizes = mesh_axis_sizes(mesh)
+    dp_axes = tuple(ax for ax in mesh.axis_names if ax in ("pod", "data"))
+    grad_comms = ()
+    if grad_gz is not None:
+        grad_comms = tuple(
+            (ax, GZCommunicator.for_config(ax, grad_gz, policy=grad_policy,
+                                           axis_size=sizes.get(ax, 1), device=mesh.device))
+            for ax in dp_axes)
+    ctx = ParallelCtx(
+        tp_axis="model",
+        fsdp_axis="data",
+        dp_axes=dp_axes,
+        tp_size=sizes.get("model", 1),
+        fsdp_size=sizes.get("data", 1) if fsdp else 1,
+        remat=remat,
+    )
+    # An empty tree registers no weights: the model here only defines the
+    # parameters and computes with the trees the step is given.
+    model = Model(cfg, ctx, params={}, device=mesh.device)
+    defs = model.param_defs()
+    if not fsdp:
+        defs = tree_map(lambda d: dataclasses.replace(d, spec=_strip_axis(d.spec, "data")),
+                        defs)
+    return TrainSetup(
+        cfg=cfg, ctx=ctx, model=model, mesh=mesh, defs=defs, specs=param_specs(defs),
+        opt=opt, grad_gz=grad_gz, grad_comms=grad_comms,
+        skip_on_overflow=skip_on_overflow,
+    )
+
+
+def _axes_in_spec(spec) -> set:
+    out = set()
+    for entry in spec:
+        if isinstance(entry, tuple):
+            out.update(entry)
+        elif entry is not None:
+            out.add(entry)
+    return out
+
+
+def _leaf_specs(tree, specs) -> list:
+    """The spec of each leaf of ``tree``, in flatten order (``specs``
+    mirrors ``tree``, with a tuple spec where ``tree`` has a leaf)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _leaf_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [s for t, sp in zip(tree, specs) for s in _leaf_specs(t, sp)]
+    return [specs]
+
+
+def _handle(axes):
+    """This rank's handle over ``axes`` (one name, or the composite)."""
+    axes = tuple(axes)
+    return transport.current(axes[0] if len(axes) == 1 else axes)
+
+
+def _sync_grads(grads, specs, mesh_axes, grad_comms: dict):
+    """Sum each leaf over every mesh axis absent from its spec.
+
+    Axes with a bound communicator go through its compressed
+    ``allreduce`` (a bf16 leaf as the reference sends it: the
+    communicator works in f32 and casts back); the others take the exact
+    rank-order ``sum_across`` in f32.  Returns ``(grads, degraded)``, where
+    ``degraded`` (a 0-d bool tensor) ORs every leaf's NaN/Inf probe and
+    every allreduce's overflow and non-finite flags."""
+    leaves, rebuild = tree_flatten(grads)
+    flag = torch.zeros((), dtype=torch.bool, device=leaves[0].device)
+    out = []
+    for g, s in zip(leaves, _leaf_specs(grads, specs)):
+        present = _axes_in_spec(s)
+        flag = flag | ~torch.isfinite(g).all()
+        for ax in mesh_axes:
+            if ax in present:
+                continue
+            comm = grad_comms.get(ax)
+            if comm is not None:
+                res = comm.allreduce(g)
+                g = res.value
+                flag = flag | res.overflow | res.nonfinite
+            else:
+                # the reference's psum: XLA's CPU all-reduce of a bf16
+                # leaf sums in f32, in rank order, and rounds once
+                g = transport.current(ax).sum_across(g.to(torch.float32)).to(g.dtype)
+        out.append(g)
+    return rebuild(out), flag
+
+
+def _skip_merge(degraded, new_tree, old_tree):
+    """Keep ``old_tree`` where this step degraded (a 0-d bool tensor, the
+    same on every rank), else take ``new_tree``: the GradScaler-style skip,
+    elementwise as in the reference."""
+    new, rebuild = tree_flatten(new_tree)
+    old, _ = tree_flatten(old_tree)
+    return rebuild([torch.where(degraded, o, n) for n, o in zip(new, old)])
+
+
+def _global_grad_norm(grads, specs, sizes: dict) -> torch.Tensor:
+    """Exact global norm of the synced (logical) gradient: each leaf's
+    local f32 sum of squares over its replication factor, summed over the
+    whole mesh."""
+    leaves, _ = tree_flatten(grads)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    mesh_axes = list(sizes)
+    for g, s in zip(leaves, _leaf_specs(grads, specs)):
+        present = _axes_in_spec(s)
+        rep = math.prod(sizes[ax] for ax in mesh_axes if ax not in present)
+        total = total + torch.sum(torch.square(g.to(torch.float32))) / rep
+    for ax in mesh_axes:
+        total = transport.current(ax).sum_across(total)
+    return torch.sqrt(total)
+
+
+def _local(tree, specs, coord: dict, sizes: dict):
+    """This rank's block of each leaf of a global ``tree`` (numpy arrays or
+    tensors; views where the leaf allows), by its spec: a dim over axes
+    ``(a, b)`` is split into ``sizes[a] * sizes[b]`` equal blocks and the
+    rank takes block ``coord[a] * sizes[b] + coord[b]``."""
+    leaves, rebuild = tree_flatten(tree)
+    out = []
+    for x, spec in zip(leaves, _leaf_specs(tree, specs)):
+        index = []
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                index.append(slice(None))
+                continue
+            axes = entry if isinstance(entry, tuple) else (entry,)
+            n, i = 1, 0
+            for ax in axes:
+                n, i = n * sizes[ax], i * sizes[ax] + coord[ax]
+            if x.shape[dim] % n:
+                raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf does not split "
+                                 f"over {axes} ({n} ranks)")
+            size = x.shape[dim] // n
+            index.append(slice(i * size, (i + 1) * size))
+        out.append(x[tuple(index)])
+    return rebuild(out)
+
+
+def _coords(mesh) -> list:
+    """Each rank's coordinate per axis, ranks first-axis major."""
+    return [dict(zip(mesh.axis_names, c)) for c in np.ndindex(*mesh.shape)]
+
+
+def make_train_step(setup: TrainSetup, batch_specs):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  ``params`` and ``opt_state`` are lists of per-rank trees
+    in rank order (each updated in place, as the reference donates them);
+    ``batch`` is the global batch (numpy or tensors), split by
+    ``batch_specs``.  ``metrics`` are rank 0's ``loss``, ``gnorm``, ``lr``,
+    ``skipped`` and ``overlap_modeled`` (0-d tensors); every rank computes
+    the same values (rank-order sums over the mesh)."""
+    ctx, model, mesh = setup.ctx, setup.model, setup.mesh
+    sizes = mesh_axis_sizes(mesh)
+    mesh_axes = tuple(mesh.axis_names)
+    n_dp = math.prod(sizes[ax] for ax in ctx.dp_axes)
+    scale = 1.0 / (ctx.tp_size * n_dp)
+    specs = setup.specs
+    grad_comms = dict(setup.grad_comms)
+    coords = _coords(mesh)
+
+    def body(args):
+        params, opt_state, batch = args
+        leaves, rebuild = tree_flatten(params)
+        # Views of this rank's weights that autograd tracks; the update
+        # below writes the weights themselves once backward has returned.
+        # On CUDA, torch runs every backward of the process on the device's
+        # one autograd thread, so the ranks' backwards take turns there;
+        # nothing inside them waits on another rank (the sync comes after,
+        # on the rank threads), so they cannot deadlock.
+        req = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = model.loss_fn(rebuild(req), batch) * scale
+            grads = torch.autograd.grad(loss, req)
+        del req
+        grads, degraded = _sync_grads(rebuild(list(grads)), specs, mesh_axes, grad_comms)
+        loss = loss.detach() / scale
+        for ax in ctx.dp_axes:
+            loss = transport.current(ax).sum_across(loss) / sizes[ax]
+        # Each health bit covers its own dp axis only; make the skip
+        # predicate the same on every rank before it gates state.
+        degraded = _handle(mesh_axes).sum_across(degraded.to(torch.int32)) > 0
+        gnorm = _global_grad_norm(grads, specs, sizes)
+        if setup.skip_on_overflow:
+            old_params, old_opt = tree_map(torch.clone, params), tree_map(torch.clone, opt_state)
+        new_params, new_opt, om = adamw_update(params, grads, opt_state, setup.opt,
+                                               grad_norm=gnorm)
+        skipped = torch.zeros((), dtype=torch.bool, device=loss.device)
+        if setup.skip_on_overflow:
+            new_params = _skip_merge(degraded, new_params, old_params)
+            new_opt = _skip_merge(degraded, new_opt, old_opt)
+            skipped = degraded
+        # no overlap hooks yet (ROADMAP A11.8): the reference's value without them
+        metrics = {"loss": loss, "gnorm": om["gnorm"], "lr": om["lr"], "skipped": skipped,
+                   "overlap_modeled": torch.zeros((), dtype=torch.float32,
+                                                  device=loss.device)}
+        return new_params, new_opt, metrics
+
+    def step(params, opt_state, batch):
+        if len(params) != mesh.size or len(opt_state) != mesh.size:
+            raise ValueError(f"step takes one params and one opt_state tree per rank "
+                             f"({mesh.size}), got {len(params)} and {len(opt_state)}")
+        out = mesh.run(body, [(params[r], opt_state[r],
+                               _local(batch, batch_specs, coords[r], sizes))
+                              for r in range(mesh.size)])
+        return [o[0] for o in out], [o[1] for o in out], out[0][2]
+
+    return step
+
+
+def make_serve_step(setup: TrainSetup, cache_specs, tokens_spec, plan: KVCacheSpec):
+    """Returns ``step(params, cache, tokens, pos) -> (logits, cache)``:
+    one ``decode_fn`` step on every rank, each on its block of the global
+    ``tokens`` and ``cache`` (views, so the new k and v land in the global
+    cache), with ``params`` a list of per-rank trees.  The logits come back
+    whole, the ranks' blocks of the batch in rank order."""
+    model, mesh = setup.model, setup.mesh
+    sizes = mesh_axis_sizes(mesh)
+    coords = _coords(mesh)
+
+    def body(args):
+        params, cache, tokens, pos = args
+        logits, _ = model.decode_fn(params, cache, tokens, pos, plan)
+        return logits
+
+    def step(params, cache, tokens, pos):
+        outs = mesh.run(body, [(params[r], _local(cache, cache_specs, coords[r], sizes),
+                                _local(tokens, tokens_spec, coords[r], sizes), pos)
+                               for r in range(mesh.size)])
+        logits = torch.cat(outs, dim=0) if tokens_spec[0] is not None else outs[0]
+        return logits, cache
+
+    return step

@@ -151,8 +151,8 @@ def attention_train(h: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ParallelCtx
 class KVCacheSpec:
     """Decode cache layout: (B, S_local, kv_local, hd).  ``window`` > 0
     means ring-buffer semantics.  The context-parallel split of the
-    sequence (``cp_size > 1``) is not ported yet (ROADMAP A11, model-parallel
-    item) and raises."""
+    sequence (``cp_size > 1``) is not ported yet (ROADMAP A11.7) and
+    raises."""
 
     s_total: int
     cp_axis: str | None
@@ -163,7 +163,7 @@ class KVCacheSpec:
         if self.cp_size > 1:
             raise NotImplementedError(
                 "a context-parallel KV cache (cp_size > 1) is not ported yet: "
-                "ROADMAP A11, model-parallel item")
+                "ROADMAP A11.7")
 
     @property
     def s_local(self) -> int:

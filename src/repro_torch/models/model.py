@@ -10,8 +10,11 @@ names (``embed``, ``unembed``, ``final_norm``, ``blocks.attn.wq`` stacked
 reference's signatures and take a params tree (``Model.params()``, or
 ``convert.params_from_jax``), so tests call both packages alike.
 
-The reference's ``lax.scan`` over the stacked layers is a loop here;
-``ctx.remat`` has no effect without autograd.  Families other than dense
+The reference's ``lax.scan`` over the stacked layers is a loop here.
+Its ``jax.checkpoint`` of the scan body (``ctx.remat`` not ``"none"``)
+is ``torch.utils.checkpoint`` of each layer when grad mode is on: the
+layer's activations are recomputed in backward, with the same bits.
+Families other than dense
 (moe, MLA, ssm, hybrid, encdec, vlm, audio) raise ``NotImplementedError``:
 they are ROADMAP A15.
 """
@@ -23,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint
 
 from repro_torch.convert import tree_map
 from repro_torch.core.transport import resolve_device
@@ -147,9 +151,17 @@ class Model(nn.Module):
     def _backbone(self, h, params, *, positions, window=0, cross_kv=None):
         """Run the decoder stack over hidden states h: (h, aux = 0)."""
         cfg, ctx = self.cfg, self.ctx
+
+        def layer(hh, wl):
+            return blocks.dense_block(hh, wl, cfg, ctx, positions=positions, window=window)
+
+        remat = ctx.remat != "none" and torch.is_grad_enabled()
         for i in range(cfg.n_layers):
-            h = blocks.dense_block(h, _layer(params["blocks"], i), cfg, ctx,
-                                   positions=positions, window=window)
+            wl = _layer(params["blocks"], i)
+            if remat:
+                h = checkpoint.checkpoint(layer, h, wl, use_reentrant=False)
+            else:
+                h = layer(h, wl)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
     def loss_fn(self, params, batch) -> torch.Tensor:

@@ -1,10 +1,10 @@
 """Parallelism context + parameter-definition machinery.
 
-The counterpart of ``repro.models.parallel``.  This slice of the port runs
-the model on one card: ``ParallelCtx`` keeps the reference's fields, and
-``tp_size > 1`` or ``fsdp_size > 1`` raises (tensor parallelism and the
-FSDP gather are ROADMAP A11's training and model-parallel items), so
-``gather`` and ``tp_reduce`` are the identity.
+The counterpart of ``repro.models.parallel``.  ``ParallelCtx`` keeps the
+reference's fields; ``tp_size > 1`` (tensor parallelism, ROADMAP A11.7)
+and ``fsdp_size > 1`` (the FSDP gather, A11.6) raise, so ``gather`` and
+``tp_reduce`` are the identity.  Data parallelism with replicated
+weights (``launch/training.py``'s ``fsdp=False``) needs neither.
 
 ``ParamDef`` carries the GLOBAL shape, the reference's partition spec (a
 tuple of mesh axis names, ``None`` for a replicated dim) and an init.
@@ -23,7 +23,8 @@ import torch
 from repro_torch.convert import tree_map
 from repro_torch.core.transport import resolve_device
 
-__all__ = ["ParallelCtx", "ParamDef", "init_params", "param_shapes", "torch_dtype"]
+__all__ = ["ParallelCtx", "ParamDef", "init_params", "param_specs", "param_shapes",
+           "torch_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,19 +37,20 @@ class ParallelCtx:
     tp_size: int = 1
     fsdp_size: int = 1
     fsdp_sync: Optional[object] = None
-    # kept for the reference's signature; without autograd it has no effect
+    # remat policy for the per-layer loop ("none" | "full" | "dots"; the
+    # last two alike, as in the reference): Model._backbone checkpoints
+    # each layer when grad mode is on
     remat: str = "full"
     scan_unroll: int = 1
 
     def __post_init__(self):
         if self.tp_size > 1:
             raise NotImplementedError(
-                "tensor parallelism (tp_size > 1) is not ported yet: ROADMAP A11, "
-                "model-parallel item")
+                "tensor parallelism (tp_size > 1) is not ported yet: ROADMAP A11.7")
         if self.fsdp_size > 1:
             raise NotImplementedError(
                 "the FSDP parameter gather (fsdp_size > 1) is not ported yet: "
-                "ROADMAP A11, training slice")
+                "ROADMAP A11.6; train with fsdp=False (weights replicated over data)")
 
     def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """FSDP all-gather of a parameter along ``dim``: the identity at 1."""
@@ -97,6 +99,11 @@ def init_params(defs, generator: torch.Generator, device="cuda"):
     must live on that device.  CUDA without a card raises."""
     device = resolve_device(device)
     return tree_map(lambda d: d.initializer(generator, device), defs)
+
+
+def param_specs(defs):
+    """Each parameter's partition spec (a tuple of axis names and None)."""
+    return tree_map(lambda d: d.spec, defs)
 
 
 def param_shapes(defs):

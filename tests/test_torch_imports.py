@@ -6,8 +6,9 @@
   the ``fallback`` policy with ``verify_streams`` under an injected
   overflow and NaN, and a wire bitflip caught by its checksum),
   the gradient sync, the dense model's loss forward (both attention paths)
-  and decode, the serve loop, and ``convert.params_from_jax`` on numpy
-  input, leaves ``jax`` and the ``repro`` package out of ``sys.modules``
+  and decode, the serve loop, ``convert.params_from_jax`` on numpy input,
+  and the train CLI with a checkpoint, leaves ``jax``, ``ml_dtypes`` and
+  the ``repro`` package out of ``sys.modules``
   (in a fresh interpreter), and importing ``chip_smoke`` runs nothing.
 * No module of the port, nor ``chip_smoke.py``, imports ``jax`` or
   ``repro.*`` anywhere in its source (AST scan, function bodies too).
@@ -31,7 +32,9 @@ from repro_torch.core.comm import GZCommunicator
 from repro_torch.core.compressor import ErrorBoundedLorenzo
 from repro_torch.configs import registry
 from repro_torch.kernels import build
-from repro_torch.launch import serve
+from repro_torch.checkpoint import checkpoint
+from repro_torch.launch import serve, train
+from repro_torch.launch.mesh import ThreadMesh
 from repro_torch.models import parallel
 from repro_torch.models.model import Model
 
@@ -52,7 +55,8 @@ def test_modules_import_without_jax():
     assert "repro_torch.kernels.lorenzo" in mods and "repro_torch.convert" in mods
     for new in ("core.entropy", "kernels.entropy", "core.buckets", "core.grad_sync",
                 "kernels.flash_attn", "models.model", "launch.serve", "configs.registry",
-                "data.pipeline", "core.faults"):
+                "data.pipeline", "core.faults", "optim.adamw", "checkpoint.checkpoint",
+                "launch.shapes", "launch.training", "launch.train"):
         assert f"repro_torch.{new}" in mods
     code = (
         "import importlib, sys\n"
@@ -106,8 +110,14 @@ def test_modules_import_without_jax():
         "m.decode_fn(p, cache, batch['tokens'][:, :1], 0, spec)\n"
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    serve(['--smoke', '--device', 'cpu', '--gen', '2'])\n"
+        "import tempfile\n"
+        "from repro_torch.launch.train import train\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    train(['--smoke', '--device', 'cpu', '--steps', '2', '--batch', '2', '--seq',\n"
+        "           '16', '--grad-gz', 'ring', '--ckpt-dir', tempfile.mkdtemp(),\n"
+        "           '--ckpt-every', '1'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.'))\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes')\n"
         "print('BAD', bad)\n"
     )
     env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
@@ -160,6 +170,12 @@ def test_cuda_entry_points_raise_without_a_card():
         convert.params_from_jax({"w": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError, match="cuda"):
         serve.serve(["--smoke"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train(["--smoke"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        checkpoint.restore("/nonexistent", 1, {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        ThreadMesh((1, 1), ("data", "model"))
 
 
 def test_communicator_refuses_tensors_on_another_device():
