@@ -173,7 +173,20 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 22. runs the train CLI (``launch.train.train``, smoke config, 12 steps,
     ring) on the card: its final loss below its first;
 23. checks that kernel 11's entry points raise under grad on the card
-    (training takes the chunked path) and run under ``no_grad``.
+    (training takes the chunked path) and run under ``no_grad``;
+24. runs the ssm and hybrid families (phase ``ssm``): mamba2-780m (48
+    layers, d_model 1536, 48 SSD heads of 64, d_state 128; 858,472,704
+    parameters) and zamba2-2.7b (54 Mamba2 layers, d_model 2560, 80 SSD
+    heads, d_state 64, one shared attention+MLP block of 32 heads of 80
+    applied 9 times; 2,423,697,568 parameters), each at full width and
+    depth from seed 0 in bf16: ``Model.loss_fn`` at B=2, S=2048 (finite,
+    walls, one profiled call), the full-sequence logits against 320
+    ``decode_fn`` steps (two SSD chunks, the second padded; rel <= 0.05),
+    ``serve`` (mamba2-780m as its default ``--arch``); both smoke configs
+    with f32 weights on the card and on the CPU (losses within rel 1e-5:
+    no TF32); then phase 19's train step for mamba2-780m at full width
+    and full depth (its kernels 1, 3 and 4 counts go into the kernels
+    line).
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -182,8 +195,8 @@ purpose and are held by bits to the lossless result instead).
 
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
-``hier`` (13), ``c6`` (14), ``model`` (15-18) and ``train`` (19-23); a
-partial run prints no result lines.
+``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23) and
+``ssm`` (24); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -2972,6 +2985,51 @@ def _forward_logits(model, params, tokens):
     return vocab_parallel_logits(h, params["unembed"], model.ctx)
 
 
+def _decode_vs_prefill(model, params, tokens, prefill=None):
+    """The full-sequence logits of ``tokens`` (B, S) (through ``prefill``,
+    another model on the same weights, where given) against S steps of
+    ``model.decode_fn`` from a zero f32 cache: (max rel err over the
+    largest logit, prefill s, decode s, the cache's shapes)."""
+    import torch
+
+    from repro_torch.models.attention import KVCacheSpec
+
+    s = tokens.shape[1]
+    want, prefill_s = _timed(lambda: _forward_logits(prefill or model, params, tokens))
+    spec = KVCacheSpec(s_total=s, cp_axis=None, cp_size=1)
+    cache = {k: torch.zeros(v, dtype=torch.float32, device=tokens.device)
+             for k, v in model.cache_defs(tokens.shape[0], spec).items()}
+
+    def decode_all():
+        c = cache
+        out = []
+        for i in range(s):
+            logits, c = model.decode_fn(params, c, tokens[:, i:i + 1], i, spec)
+            out.append(logits[:, 0])
+        return torch.stack(out, dim=1)
+
+    got, decode_s = _timed(decode_all)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{model.cfg.arch_id}: non-finite decode logits")
+    rel = float((got - want).abs().max() / want.abs().max())
+    return rel, prefill_s, decode_s, {k: tuple(v.shape) for k, v in cache.items()}
+
+
+def _widths(cfg):
+    """A config's published widths, for the log."""
+    out = f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}"
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out += (f", {s.n_heads(cfg.d_model)} SSD heads of {s.head_dim}, d_state {s.d_state}, "
+                f"conv {s.conv_width}, chunk {s.chunk}")
+    if cfg.n_heads:
+        out += (f", {cfg.n_heads} attention heads ({cfg.n_kv_heads} kv) of {cfg.head_dim}, "
+                f"d_ff {cfg.d_ff}")
+    if cfg.attn_every:
+        out += f" (one shared attention+MLP block after every {cfg.attn_every} layers)"
+    return out + f", vocab {cfg.vocab}"
+
+
 def _timed(fn):
     import torch
 
@@ -3005,7 +3063,6 @@ def run_model(device):
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.kernels import flash_attn
     from repro_torch.launch.serve import serve
-    from repro_torch.models.attention import KVCacheSpec
     from repro_torch.models.model import Model
 
     cfg = registry.get(MODEL_ARCH, smoke=MODEL_SMOKE)
@@ -3073,35 +3130,21 @@ def run_model(device):
         del prof, events, batch
         torch.cuda.empty_cache()
 
-        # 17: decode against prefill
+        # 17: decode against prefill (the prefill through kernel 11)
         rng = np.random.default_rng(SEED)
         tokens = torch.from_numpy(
             rng.integers(0, cfg.vocab, (2, PREFILL_SEQ)).astype(np.int32)).to(device)
         _reset_launches()
-        want, prefill_s = _timed(lambda: _forward_logits(kmodel, params, tokens))
+        rel, prefill_s, decode_s, _ = _decode_vs_prefill(model, params, tokens, prefill=kmodel)
         if _launches()["flash_attention"] != cfg.n_layers:
-            raise AssertionError(f"prefill launched {_nonzero(_launches())}")
-        spec = KVCacheSpec(s_total=PREFILL_SEQ, cp_axis=None, cp_size=1)
-        cache = {k: torch.zeros(v, dtype=torch.float32, device=device)
-                 for k, v in model.cache_defs(2, spec).items()}
-
-        def decode_all():
-            c = cache
-            out = []
-            for i in range(PREFILL_SEQ):
-                logits, c = model.decode_fn(params, c, tokens[:, i:i + 1], i, spec)
-                out.append(logits[:, 0])
-            return torch.stack(out, dim=1)
-
-        got, decode_s = _timed(decode_all)
-        rel = float((got - want).abs().max() / want.abs().max())
+            raise AssertionError(f"prefill and decode launched {_nonzero(_launches())}")
         log(f"decode vs prefill {cfg.arch_id} B=2 S={PREFILL_SEQ}: max rel err {rel:.4e} "
             f"(bound 0.05); prefill through kernel 11 {prefill_s * 1e3:.1f} ms, "
             f"{PREFILL_SEQ} decode steps {decode_s * 1e3:.1f} ms "
             f"({decode_s * 1e3 / PREFILL_SEQ:.2f} ms/step)")
-        if not rel <= 0.05 or not bool(torch.isfinite(got).all()):
+        if not rel <= 0.05:
             raise AssertionError(f"decode/prefill mismatch: rel {rel}")
-        del want, got, cache, model, kmodel, params
+        del model, kmodel, params
         torch.cuda.empty_cache()
 
     # 18: serving at full size
@@ -3167,8 +3210,8 @@ def _check_replicas(params, opt, label):
 def _watched_sync(record):
     """Wrap ``training._sync_grads`` for the train step: each call's
     ``degraded`` flag into ``record["degraded"]``; each rank's input and
-    output of ``TRAIN_CHECK_LEAF`` into ``record["leaf"]`` while
-    ``record["keep_leaf"]``; each rank's arguments into
+    output of the leaf at the path ``record["check_leaf"]`` into
+    ``record["leaf"]`` while ``record["keep_leaf"]``; each rank's arguments into
     ``record["args"]`` while ``record["keep_args"]`` (to run the sync
     again, alone, on the same gradients).  ``record["real"]`` is the
     unwrapped function."""
@@ -3179,7 +3222,7 @@ def _watched_sync(record):
     lock = threading.Lock()
 
     def leaf(tree):
-        for k in TRAIN_CHECK_LEAF:
+        for k in record["check_leaf"]:
             tree = tree[k]
         return tree
 
@@ -3226,19 +3269,20 @@ def _step_timed(step, params, opt, batch):
     return params, opt, m, time.perf_counter() - t0
 
 
-def run_train_full_width(device):
-    """Phase 19: ``make_train_step`` of internlm2-20b at every published
-    width, depth cut to ``TRAIN_LAYERS``, on a ``ThreadMesh((2, 1))`` of
-    the card, ``fsdp=False``, the ring allreduce at eb 1e-4, remat
-    ``"full"``, a global batch of 2 x 512 tokens, ``TRAIN_STEPS`` steps and
-    one more under the profiler, then that step's gradient sync again,
-    alone, on the same gradients, under the profiler (its device busy over
-    the step's is the sync's share).  Checks every step: finite loss, both
-    ranks' params and opt state equal by bits, no leaf flagged, kernels
-    1-4 launched as every leaf's plan says; once: the synced
-    ``TRAIN_CHECK_LEAF`` within the allreduce's bound of the exact
-    rank-order sum.  Returns the kernels' launches over the
-    ``TRAIN_STEPS`` steps."""
+def run_train_full_width(device, arch=TRAIN_ARCH, layers=TRAIN_LAYERS,
+                         check_leaf=TRAIN_CHECK_LEAF):
+    """Phase 19 (and the ssm phase's train step): ``make_train_step`` of
+    ``arch`` at every published width, depth cut to ``layers`` (None: the
+    full depth), on a ``ThreadMesh((2, 1))`` of the card, ``fsdp=False``,
+    the ring allreduce at eb 1e-4, remat ``"full"``, a global batch of 2 x
+    512 tokens, ``TRAIN_STEPS`` steps and one more under the profiler, then
+    that step's gradient sync again, alone, on the same gradients, under
+    the profiler (its device busy over the step's is the sync's share).
+    Checks every step: finite loss, both ranks' params and opt state equal
+    by bits, no leaf flagged, kernels 1-4 launched as every leaf's plan
+    says; once: the synced leaf at ``check_leaf`` within the allreduce's
+    bound of the exact rank-order sum.  Returns the kernels' launches over
+    the ``TRAIN_STEPS`` steps."""
     import dataclasses
 
     import torch
@@ -3256,8 +3300,8 @@ def run_train_full_width(device):
     from repro_torch.optim.adamw import adamw_init
 
     n = 2
-    full = registry.get(TRAIN_ARCH)
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    full = registry.get(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers)
     mesh = ThreadMesh((n, 1), ("data", "model"), device)
     setup = training.make_setup(cfg, mesh, fsdp=False, remat="full",
                                 grad_gz=GZConfig(eb=TRAIN_EB, algo="ring"))
@@ -3273,15 +3317,16 @@ def run_train_full_width(device):
     opt = [adamw_init(p) for p in params]
     torch.cuda.synchronize()
     n_params = sum(math.prod(d.shape) for d in tree_flatten(setup.defs)[0])
-    log(f"train {cfg.arch_id}: d_model {cfg.d_model}, {cfg.n_heads} heads "
-        f"({cfg.n_kv_heads} kv), d_ff {cfg.d_ff}, vocab {cfg.vocab} as published; "
-        f"n_layers cut {full.n_layers} -> {cfg.n_layers}; {n_params} parameters a rank "
+    log(f"train {_widths(cfg)} as published; n_layers "
+        f"{f'cut {full.n_layers} -> ' if cfg.n_layers != full.n_layers else ''}"
+        f"{cfg.n_layers}; {n_params} parameters a rank "
         f"(bf16), {n} data ranks on one card, fsdp=False, grad_gz ring eb {TRAIN_EB}, "
         f"remat full; params and AdamW state drawn and zeroed in "
         f"{time.perf_counter() - t0:.2f} s")
     stream = SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
     want = _train_plan_launches(setup, n)
-    record = {"degraded": [], "leaf": {}, "keep_leaf": True, "args": {}}
+    record = {"degraded": [], "leaf": {}, "keep_leaf": True, "args": {},
+              "check_leaf": check_leaf}
     total = dict.fromkeys(_launches(), 0)
     losses = []
     with _watched_sync(record):
@@ -3314,9 +3359,9 @@ def run_train_full_width(device):
                 bound = hops * plan.eb_stage + 2.0 ** -8 * exact.abs().max().item()
                 err = max((o.double() - exact).abs().max().item() for o in (out0, out1))
                 if not err <= bound or not torch.equal(out0, out1):
-                    raise AssertionError(f"synced {'.'.join(TRAIN_CHECK_LEAF)}: error {err} "
+                    raise AssertionError(f"synced {'.'.join(check_leaf)}: error {err} "
                                          f"> bound {bound}, or the ranks differ")
-                log(f"train synced leaf {'.'.join(TRAIN_CHECK_LEAF)} {tuple(g0.shape)}: max "
+                log(f"train synced leaf {'.'.join(check_leaf)} {tuple(g0.shape)}: max "
                     f"error {err:.3e} vs the exact rank-order sum, bound {bound:.3e} "
                     f"(plan {plan.algo}/{plan.pipeline_chunks}, eb_stage "
                     f"{plan.eb_stage:.3e}); max |g| {exact.abs().max().item():.3e}")
@@ -3546,10 +3591,169 @@ def run_train(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 24: the ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+# full width and depth (src/repro/configs/mamba2_780m.py, zamba2_2_7b.py),
+# each with its parameter count and its serve arguments
+SSM_ARCHS = {
+    "mamba2-780m": (858_472_704, []),  # serve's default --arch
+    "zamba2-2.7b": (2_423_697_568, ["--arch", "zamba2-2.7b"]),
+}
+SSM_SMOKE = False
+SSM_BATCH, SSM_SEQ = 2, 2048  # 8 SSD chunks of 256
+SSM_PREFILL_SEQ = 320  # two chunks, the second padded
+SSM_F32_SEQ = 320  # the smoke configs in f32, card against CPU
+SSM_F32_TOL = 1e-5
+SSM_TRAIN_ARCH = "mamba2-780m"
+SSM_TRAIN_LEAF = ("blocks", "ssm", "w_out")
+SSM_DECODE_NOTE = ("the reference's jitted bf16 decode leaves its prefill by more than "
+                   "0.05 from about 12 layers on; scripts/ssm_decode_drift.py")
+
+
+def _ssm_forward(arch, n_want, serve_argv, device):
+    """``arch`` at full width and depth from seed 0 (bf16): the loss
+    forward at B=2, S=2048 (finite; cold and warm walls; busy share and
+    top device rows of one profiled call), the full-sequence logits against
+    ``SSM_PREFILL_SEQ`` steps of ``decode_fn`` (with the weights cast to
+    f32: rel <= 0.05; in bf16 logged), then ``serve`` with
+    ``serve_argv``."""
+    import io
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    cfg = registry.get(arch, smoke=SSM_SMOKE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _timed(lambda: Model(cfg, device=device, seed=SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != n_want:
+        raise AssertionError(f"{cfg.arch_id}: {n_params} parameters, expected {n_want}")
+    params = model.params()
+    log(f"ssm {_widths(cfg)}; {n_params} parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB) "
+        f"drawn from seed {SEED} in {init_s:.2f} s")
+    batch = next(SyntheticStream(cfg, SSM_BATCH, SSM_SEQ, seed=SEED))
+    with torch.inference_mode():
+        loss, cold = _timed(lambda: model.loss_fn(params, batch))
+        loss = float(loss)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{cfg.arch_id}: non-finite loss {loss}")
+        _, warm = _timed(lambda: model.loss_fn(params, batch))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, traced = _timed(lambda: model.loss_fn(params, batch))
+        events = _device_events(prof)
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        log(f"ssm loss forward {cfg.arch_id} B={SSM_BATCH} S={SSM_SEQ}: loss {loss:.6f} "
+            f"(ln(vocab) {math.log(cfg.vocab):.4f}); wall cold {cold * 1e3:.1f} ms, warm "
+            f"{warm * 1e3:.1f} ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        log(f"ssm profile {cfg.arch_id}: traced wall {traced * 1e3:.1f} ms, device busy "
+            f"{busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %); kernel launches "
+            f"{sum(e.count for e in events)}")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+        del prof, events, batch
+        torch.cuda.empty_cache()
+
+        # decode against prefill: two chunks, the second padded; gated with
+        # the weights in f32 (bf16's rounding drifts apart over the depth,
+        # in the reference as here: SSM_DECODE_NOTE), logged in bf16 too
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, SSM_PREFILL_SEQ)).astype(np.int32)).to(device)
+        rel16, *_ = _decode_vs_prefill(model, params, tokens)
+        params32 = tree_map(lambda t: t.to(torch.float32), params)
+        del model, params
+        torch.cuda.empty_cache()
+        model32 = Model(cfg, params=params32, device=device)
+        rel, prefill_s, decode_s, cache = _decode_vs_prefill(model32, params32, tokens)
+        log(f"ssm decode vs prefill {cfg.arch_id} B=2 S={SSM_PREFILL_SEQ}, f32 weights: max "
+            f"rel err {rel:.4e} (bound 0.05); bf16 weights: {rel16:.4e} (not gated: "
+            f"{SSM_DECODE_NOTE}); cache {cache}; f32 prefill {prefill_s * 1e3:.1f} ms, "
+            f"{SSM_PREFILL_SEQ} decode steps {decode_s * 1e3:.1f} ms "
+            f"({decode_s * 1e3 / SSM_PREFILL_SEQ:.2f} ms/step)")
+        if not rel <= 0.05:
+            raise AssertionError(f"{cfg.arch_id}: decode/prefill mismatch: rel {rel}")
+        del model32, params32
+        torch.cuda.empty_cache()
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen, serve_s = _timed(lambda: serve(serve_argv + (["--smoke"] if SSM_SMOKE else [])
+                                            + ["--device", str(device)]))
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"serve: {line}")
+    m = re.search(r"decoded (\d+) tokens x(\d+) in ([\d.]+)s", lines[0])
+    if not lines[0].startswith(f"arch={cfg.arch_id} ") or m is None or \
+            gen.shape != (int(m.group(2)), int(m.group(1))):
+        raise AssertionError(f"serve {serve_argv}: {lines[0]!r}, tokens {gen.shape}")
+    n_steps = 16 + 32  # serve's default --prompt-len and --gen
+    log(f"serve {cfg.arch_id}: {n_steps} decode steps of batch {gen.shape[0]}, "
+        f"{float(m.group(3)) * 1e3 / n_steps:.2f} ms/step; wall with model init "
+        f"{serve_s:.2f} s")
+    torch.cuda.empty_cache()
+
+
+def _check_ssm_f32_card_vs_cpu(device):
+    """Both smoke configs with f32 weights (drawn on the CPU from seed 0,
+    A_log, D and dt_bias then redrawn from a seeded normal so every SSD
+    term matters) and one batch, on the card and on the CPU: the two losses
+    within rel ``SSM_F32_TOL`` (the function is the same on both devices:
+    no TF32, no other route)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+
+    rng = np.random.default_rng(SEED)
+    for arch in SSM_ARCHS:
+        cfg = registry.get(arch, smoke=True)
+        params = tree_map(lambda t: t.to(torch.float32),
+                          Model(cfg, device="cpu", seed=SEED).params())
+        for name, mean in (("A_log", 0.0), ("D", 1.0), ("dt_bias", -1.0)):
+            leaf = params["blocks"]["ssm"][name]
+            leaf.copy_(torch.from_numpy(rng.normal(mean, 1.0, leaf.shape).astype(np.float32)))
+        batch = next(SyntheticStream(cfg, 2, SSM_F32_SEQ, seed=SEED))
+        on_card = tree_map(lambda t: t.to(device), params)
+        with torch.inference_mode():
+            cpu = float(Model(cfg, params=params, device="cpu").loss_fn(params, batch))
+            card = float(Model(cfg, params=on_card, device=device).loss_fn(on_card, batch))
+        rel = abs(card - cpu) / abs(cpu)
+        log(f"ssm f32 {cfg.arch_id} B=2 S={SSM_F32_SEQ}: loss on the card {card:.9f}, on the "
+            f"CPU {cpu:.9f}, rel {rel:.3e} (bound {SSM_F32_TOL:g})")
+        if not rel <= SSM_F32_TOL:
+            raise AssertionError(f"{cfg.arch_id} f32: card {card} vs CPU {cpu}, rel {rel}")
+
+
+def run_ssm(device):
+    """Phase 24 (module docstring).  Returns the kernels' launches of the
+    mamba2-780m train steps."""
+    t0 = time.perf_counter()
+    for arch, (n_params, serve_argv) in SSM_ARCHS.items():
+        _ssm_forward(arch, n_params, serve_argv, device)
+    _check_ssm_f32_card_vs_cpu(device)
+    launches = run_train_full_width(device, SSM_TRAIN_ARCH, None, SSM_TRAIN_LEAF)
+    log(f"ssm phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model", "train")
+          "model", "train", "ssm")
 
 
 def _record(records, name):
@@ -3671,6 +3875,13 @@ def main(argv=()) -> int:
         # sync (kernels 1, 3 and 4; at 2 ranks the ring has no intermediate hop,
         # so kernel 2 keeps its count from the allreduce phase).
         launches = run_train(device)
+        for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+            _record(records, name)["launches"] = launches[name]
+
+    if "ssm" in phases:
+        # This slice's main path: the ssm and hybrid families, and the
+        # mamba2-780m train step's gradient sync (kernels 1, 3 and 4).
+        launches = run_ssm(device)
         for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
             _record(records, name)["launches"] = launches[name]
 

@@ -1,15 +1,15 @@
-"""Serving entry point: batched greedy decode with a KV cache.
+"""Serving entry point: batched greedy decode with a KV/state cache.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --batch 4 --prompt-len 16 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 The counterpart of ``repro.launch.serve``: the same flags (plus
 ``--device``, default ``cuda``), the same decode-path prefill (the prompt
 goes through ``Model.decode_fn`` one token at a time, so there is one code
-path) and greedy loop, the same two printed lines.  The default ``--arch``
-is ``minitron-8b`` (the reference's is ``mamba2-780m``, whose SSM family
-is not ported yet: ROADMAP A15).
+path) and greedy loop, the same two printed lines, the same default
+``--arch`` (``mamba2-780m``).  The dense, ssm and hybrid families run;
+the others raise (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ __all__ = ["serve"]
 
 def serve(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="minitron-8b", choices=registry.arch_ids())
+    ap.add_argument("--arch", default="mamba2-780m", choices=registry.arch_ids())
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -12,9 +12,10 @@ with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 
 A decode batch that cannot fill the data axes makes the reference split
 the cache's context over ``data`` (``cp_size > 1``): here
-``KVCacheSpec`` raises for it (ROADMAP A11.7).  The dense family's cache
-(k and v) is the only one the port's ``Model`` defines; the other
-families' entries come with ROADMAP A15.
+``KVCacheSpec`` raises for it (ROADMAP A11.7).  The port's ``Model``
+defines the dense family's cache (k and v), the ssm family's (conv_x,
+conv_bc and the SSD state ssm, always f32) and the hybrid's (both); the
+MLA latent and the encoder output come with ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -97,7 +98,7 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
                  cache_dtype=torch.float32):
     """(cache leaves, cache specs, tokens, tokens spec, plan) for
     ``serve_step``, with GLOBAL shapes (the batch whole).  ``cache_dtype``
-    applies to k and v."""
+    applies to k and v; the conv and SSD states are f32."""
     sizes = mesh_axis_sizes(mesh)
     dp = dp_axes_of(mesh)
     dp_total = 1
@@ -108,13 +109,19 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
     local = model.cache_defs(shape.global_batch // dp_total, plan)
     cache, specs = {}, {}
     for k, shp in local.items():
-        if k not in ("k", "v"):
+        if k not in ("k", "v", "conv_x", "conv_bc", "ssm"):
             raise NotImplementedError(f"cache entry {k!r}: ROADMAP A15")
-        # (L, B, S_loc, kv_local, hd): the batch over dp, the kv heads over model
+        # the batch (dim 1) over dp; k and v's kv heads (dim 3), conv_x's
+        # channels (last) and the SSD state's heads (dim 2) over model
         shp = list(shp)
+        spec = [None] * len(shp)
         shp[1] *= dp_total
-        shp[3] *= tp
-        cache[k] = _meta(tuple(shp), cache_dtype)
-        specs[k] = (None, _axes_entry(dp), None, "model", None)
+        spec[1] = _axes_entry(dp)
+        tp_dim = {"k": 3, "v": 3, "conv_x": len(shp) - 1, "ssm": 2}.get(k)
+        if tp_dim is not None:
+            shp[tp_dim] *= tp
+            spec[tp_dim] = "model"
+        cache[k] = _meta(tuple(shp), cache_dtype if k in ("k", "v") else torch.float32)
+        specs[k] = tuple(spec)
     tokens = _meta((shape.global_batch, 1), torch.int32)
     return cache, specs, tokens, (_axes_entry(dp), None), plan

@@ -1,20 +1,21 @@
-"""Per-block ParamDef trees and apply functions of the dense family.
+"""Per-block ParamDef trees and apply functions of the dense, ssm and
+hybrid families.
 
-The counterpart of the dense half of ``repro.models.blocks``.  Shapes are
-GLOBAL; the specs keep the reference's TP ("model") and FSDP ("data")
-placement for when those axes are ported.  A leading L dim (stacked
-layers) is added by ``model.py``.
+The counterpart of ``repro.models.blocks`` for those families (the MoE
+and MLA blocks are ROADMAP A15).  Shapes are GLOBAL; the specs keep the
+reference's TP ("model") and FSDP ("data") placement for when those axes
+are ported.  A leading L dim (stacked layers) is added by ``model.py``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.parallel import ParallelCtx, ParamDef
 
-__all__ = ["attn_defs", "mlp_defs", "norm_def", "dense_block"]
+__all__ = ["attn_defs", "mlp_defs", "ssm_defs", "norm_def", "dense_block", "ssm_block"]
 
 
 def _pd(shape, spec, init="scaled", dtype="bfloat16"):
@@ -38,6 +39,27 @@ def mlp_defs(cfg: ModelConfig) -> dict:
         "wi": _pd((d, ff), ("data", "model")),
         "wg": _pd((d, ff), ("data", "model")),
         "wo": _pd((ff, d), ("model", "data")),
+    }
+
+
+def ssm_defs(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    h = s.n_heads(d)
+    w = s.conv_width
+    return {
+        "w_z": _pd((d, di), ("data", "model")),
+        "w_x": _pd((d, di), ("data", "model")),
+        "w_bc": _pd((d, 2 * s.d_state), ("data", None)),
+        "w_dt": _pd((d, h), ("data", "model")),
+        "conv_x": _pd((w, di), (None, "model")),
+        "conv_bc": _pd((w, 2 * s.d_state), (None, None)),
+        "A_log": _pd((h,), ("model",), init="zeros", dtype="float32"),
+        "D": _pd((h,), ("model",), init="ones", dtype="float32"),
+        "dt_bias": _pd((h,), ("model",), init="zeros", dtype="float32"),
+        "norm": _pd((di,), ("model",), init="ones"),
+        "w_out": _pd((di, d), ("model", "data")),
     }
 
 
@@ -84,3 +106,8 @@ def dense_block(h, w, cfg: ModelConfig, ctx: ParallelCtx, *, positions,
         h = h + c
     m = _mlp(rms_norm(h, w["ln2"], cfg.norm_eps), w["mlp"], ctx)
     return h + m
+
+
+def ssm_block(h, w, cfg: ModelConfig, ctx: ParallelCtx):
+    """Pre-norm Mamba2 block."""
+    return h + ssm.ssm_train(rms_norm(h, w["ln1"], cfg.norm_eps), w["ssm"], cfg, ctx)

@@ -1,11 +1,14 @@
-"""Model assembly for the dense family: parameter tree, loss forward, and
-one-token decode.
+"""Model assembly for the dense, ssm and hybrid families: parameter
+trees, loss forward, and one-token decode.
 
-The counterpart of ``repro.models.model`` for dense GQA decoders
-(minitron-8b, internlm2-20b, deepseek-67b) on one card.  ``Model`` is an
-``nn.Module`` whose parameters are registered under the reference tree's
-names (``embed``, ``unembed``, ``final_norm``, ``blocks.attn.wq`` stacked
-(L, d, H*hd), ...), so a JAX parameter tree and this module's
+The counterpart of ``repro.models.model`` on one card for dense GQA
+decoders (minitron-8b, internlm2-20b, deepseek-67b), the Mamba2/SSD stack
+(mamba2-780m) and the zamba2 hybrid (zamba2-2.7b: Mamba2 layers with ONE
+shared attention+MLP block after every ``attn_every`` of them).
+``Model`` is an ``nn.Module`` whose parameters are registered under the
+reference tree's names (``embed``, ``unembed``, ``final_norm``,
+``blocks.attn.wq`` stacked (L, d, H*hd), ``blocks.ssm.A_log``,
+``shared_attn.mlp.wi``, ...), so a JAX parameter tree and this module's
 ``state_dict`` map one to one.  ``loss_fn`` and ``decode_fn`` keep the
 reference's signatures and take a params tree (``Model.params()``, or
 ``convert.params_from_jax``), so tests call both packages alike.
@@ -14,9 +17,10 @@ The reference's ``lax.scan`` over the stacked layers is a loop here.
 Its ``jax.checkpoint`` of the scan body (``ctx.remat`` not ``"none"``)
 is ``torch.utils.checkpoint`` of each layer when grad mode is on: the
 layer's activations are recomputed in backward, with the same bits.
-Families other than dense
-(moe, MLA, ssm, hybrid, encdec, vlm, audio) raise ``NotImplementedError``:
-they are ROADMAP A15.
+Decode writes the new k/v rows and the new conv and SSD states into the
+cache's tensors in place (the reference returns updated copies).
+The other families (moe, MLA, encdec, vlm, audio) raise
+``NotImplementedError``: they are ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from torch.utils import checkpoint
 
 from repro_torch.convert import tree_map
 from repro_torch.core.transport import resolve_device
-from repro_torch.models import attention, blocks
+from repro_torch.models import attention, blocks, ssm as ssm_mod
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -45,14 +49,16 @@ from repro_torch.models.parallel import ParallelCtx, ParamDef, init_params
 
 __all__ = ["Model"]
 
+_PORTED = ("dense", "ssm", "hybrid")
+
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration whose family this port does not run yet."""
-    if cfg.family != "dense" or cfg.mla is not None or cfg.n_prefix:
+    if cfg.family not in _PORTED or cfg.mla is not None or cfg.n_prefix:
         kind = "MLA" if cfg.mla is not None else cfg.family
         raise NotImplementedError(
             f"{cfg.arch_id}: the {kind} family is not ported yet (ROADMAP A15); "
-            "the port runs the dense GQA family")
+            f"the port runs the {', '.join(_PORTED)} families")
 
 
 def _stack(defs, L: int):
@@ -97,7 +103,7 @@ def _tree_of(module: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """The dense GQA decoder.
+    """A dense, ssm or hybrid decoder.
 
     ``params``: a tree of tensors (the reference's names and shapes) to
     register; without one, the parameters are drawn from ``seed`` on
@@ -126,7 +132,7 @@ class Model(nn.Module):
 
     # ---------------- parameter definitions ----------------
 
-    def _block_defs(self) -> dict:
+    def _dense_defs(self) -> dict:
         cfg, tp = self.cfg, self.ctx.tp_size
         return {
             "ln1": blocks.norm_def(cfg),
@@ -135,34 +141,68 @@ class Model(nn.Module):
             "mlp": blocks.mlp_defs(cfg),
         }
 
+    def _block_defs(self) -> dict:
+        if self.cfg.family == "dense":
+            return self._dense_defs()
+        return {"ln1": blocks.norm_def(self.cfg), "ssm": blocks.ssm_defs(self.cfg)}
+
     def param_defs(self) -> dict:
         cfg = self.cfg
         v = cfg.padded_vocab()
         d = cfg.d_model
-        return {
+        defs = {
             "embed": ParamDef((v, d), ("model", "data"), init="normal"),
             "unembed": ParamDef((d, v), ("data", "model"), init="scaled"),
             "final_norm": blocks.norm_def(cfg),
             "blocks": _stack(self._block_defs(), cfg.n_layers),
         }
+        if cfg.family == "hybrid" and cfg.attn_every:
+            # zamba2: ONE shared attention+mlp block applied every k layers
+            defs["shared_attn"] = self._dense_defs()
+        return defs
 
     # ---------------- full-sequence forward / loss ----------------
 
-    def _backbone(self, h, params, *, positions, window=0, cross_kv=None):
-        """Run the decoder stack over hidden states h: (h, aux = 0)."""
-        cfg, ctx = self.cfg, self.ctx
-
-        def layer(hh, wl):
-            return blocks.dense_block(hh, wl, cfg, ctx, positions=positions, window=window)
-
-        remat = ctx.remat != "none" and torch.is_grad_enabled()
-        for i in range(cfg.n_layers):
-            wl = _layer(params["blocks"], i)
+    def _layers(self, h, stacked, layer, index):
+        """Apply ``layer`` with the stacked weights of each layer in
+        ``index``, in order, each checkpointed under grad when remat is on."""
+        remat = self.ctx.remat != "none" and torch.is_grad_enabled()
+        for i in index:
+            wl = _layer(stacked, i)
             if remat:
                 h = checkpoint.checkpoint(layer, h, wl, use_reentrant=False)
             else:
                 h = layer(h, wl)
+        return h
+
+    def _backbone(self, h, params, *, positions, window=0, cross_kv=None):
+        """Run the decoder stack over hidden states h: (h, aux = 0)."""
+        cfg, ctx = self.cfg, self.ctx
+        if cfg.family == "dense":
+            h = self._layers(h, params["blocks"], lambda hh, wl: blocks.dense_block(
+                hh, wl, cfg, ctx, positions=positions, window=window), range(cfg.n_layers))
+        elif cfg.family == "ssm":
+            h = self._layers(h, params["blocks"], self._ssm_layer, range(cfg.n_layers))
+        else:
+            h = self._hybrid_train(h, params, positions=positions, window=window)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def _ssm_layer(self, h, wl):
+        return blocks.ssm_block(h, wl, self.cfg, self.ctx)
+
+    def _hybrid_train(self, h, params, *, positions, window=0):
+        """Groups of ``attn_every`` ssm layers, each followed by the shared
+        dense block (not checkpointed, as in the reference), then the
+        remainder."""
+        cfg, ctx = self.cfg, self.ctx
+        k = cfg.attn_every
+        n_groups = cfg.n_layers // k
+        for g in range(n_groups):
+            h = self._layers(h, params["blocks"], self._ssm_layer, range(g * k, (g + 1) * k))
+            h = blocks.dense_block(h, params["shared_attn"], cfg, ctx, positions=positions,
+                                   window=window)
+        return self._layers(h, params["blocks"], self._ssm_layer,
+                            range(n_groups * k, cfg.n_layers))
 
     def loss_fn(self, params, batch) -> torch.Tensor:
         """batch: tokens (B,S), labels (B,S) [-1 = masked], numpy or tensors."""
@@ -186,27 +226,69 @@ class Model(nn.Module):
     # ---------------- decode (one token) ----------------
 
     def cache_defs(self, batch_local: int, spec: KVCacheSpec) -> dict:
-        """Cache shapes: k and v, each (L, B, S_local, kv_local, hd)."""
+        """LOCAL cache shapes.  dense: k and v, each (L, B, S_local,
+        kv_local, hd); ssm: conv_x (L, B, W-1, di), conv_bc (L, B, W-1, 2n)
+        and ssm (L, B, H, p, n); hybrid: the ssm entries plus k and v with
+        one lead row per shared-attention application."""
+        cfg, tp = self.cfg, self.ctx.tp_size
+        L = cfg.n_layers
+        kvl = attention.kv_local_heads(cfg, tp)
+        if cfg.family == "dense":
+            shape = (L, batch_local, spec.s_local, kvl, cfg.head_dim)
+            return {"k": shape, "v": shape}
+        conv, state = ssm_mod.ssm_state_shapes(cfg, tp, batch_local)
+        di_l = cfg.ssm.d_inner(cfg.d_model) // tp
+        out = {"conv_x": (L,) + conv[:-1] + (di_l,),
+               "conv_bc": (L,) + conv[:-1] + (2 * cfg.ssm.d_state,),
+               "ssm": (L,) + state}
+        if cfg.family == "hybrid":
+            shape = (L // cfg.attn_every, batch_local, spec.s_local, kvl, cfg.head_dim)
+            out["k"], out["v"] = shape, shape
+        return out
+
+    def _attn_mlp_decode(self, h, w, cache_k, cache_v, pos, spec):
+        cfg, ctx = self.cfg, self.ctx
+        a, _, _ = attention.attention_decode(
+            rms_norm(h, w["ln1"], cfg.norm_eps), w["attn"], cache_k, cache_v, pos, cfg,
+            ctx, spec)
+        h = h + a
+        return h + blocks._mlp(rms_norm(h, w["ln2"], cfg.norm_eps), w["mlp"], ctx)
+
+    def _ssm_decode(self, h, wl, cache, i):
+        """Layer ``i``'s one-token SSD step; its new conv and SSD states
+        are written into the cache's rows ``i``."""
         cfg = self.cfg
-        kvl = attention.kv_local_heads(cfg, self.ctx.tp_size)
-        shape = (cfg.n_layers, batch_local, spec.s_local, kvl, cfg.head_dim)
-        return {"k": shape, "v": shape}
+        cx, cbc, cs = cache["conv_x"][i], cache["conv_bc"][i], cache["ssm"][i]
+        y, nconv, nssm = ssm_mod.ssm_decode(
+            rms_norm(h, wl["ln1"], cfg.norm_eps), wl["ssm"], torch.cat([cx, cbc], dim=-1),
+            cs, cfg, self.ctx)
+        di_l = cx.shape[-1]
+        cx.copy_(nconv[..., :di_l])
+        cbc.copy_(nconv[..., di_l:])
+        cs.copy_(nssm)
+        return h + y
 
     def decode_fn(self, params, cache, tokens, pos, spec: KVCacheSpec):
         """One decode step.  tokens: (B, 1) ints; pos: the absolute position
         (an int).  Returns (logits (B, 1, V_pad) f32, new_cache); the new
-        token's k and v are written into ``cache``'s tensors in place."""
+        token's k and v and the new conv and SSD states are written into
+        ``cache``'s tensors in place."""
         cfg, ctx = self.cfg, self.ctx
         dev = params["embed"].device
         h = embed_lookup(_as_tensor(tokens, dev), params["embed"], ctx)
         pos = int(pos)
-        for i in range(cfg.n_layers):
-            wl = _layer(params["blocks"], i)
-            a, _, _ = attention.attention_decode(
-                rms_norm(h, wl["ln1"], cfg.norm_eps), wl["attn"], cache["k"][i],
-                cache["v"][i], pos, cfg, ctx, spec)
-            h = h + a
-            h = h + blocks._mlp(rms_norm(h, wl["ln2"], cfg.norm_eps), wl["mlp"], ctx)
+        if cfg.family == "dense":
+            for i in range(cfg.n_layers):
+                h = self._attn_mlp_decode(h, _layer(params["blocks"], i), cache["k"][i],
+                                          cache["v"][i], pos, spec)
+        else:
+            k = cfg.attn_every if cfg.family == "hybrid" else 0
+            for i in range(cfg.n_layers):
+                h = self._ssm_decode(h, _layer(params["blocks"], i), cache, i)
+                if k and (i + 1) % k == 0:  # the shared block after each group
+                    g = i // k
+                    h = self._attn_mlp_decode(h, params["shared_attn"], cache["k"][g],
+                                              cache["v"][g], pos, spec)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         logits = vocab_parallel_logits(h, params["unembed"], ctx)
         return gather_logits(logits, ctx), dict(cache)

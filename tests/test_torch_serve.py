@@ -20,8 +20,8 @@ CPU.
   flash kernel's path) at rel 0.05, the bound of
   ``tests/test_prefill_decode_consistency.py``, with a full cache and with a
   ring-buffer ``window`` cache shorter than the sequence.
-* ``serve([... "--smoke", "--device", "cpu"])`` runs and prints the
-  reference's two lines.
+* ``serve(["--arch", "minitron-8b", "--smoke", "--device", "cpu", ...])``
+  runs and prints the reference's two lines.
 """
 import dataclasses
 import io
@@ -147,8 +147,8 @@ def test_decode_matches_jax_prefill():
 def test_serve_runs_on_the_cpu_and_prints():
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        gen = serve.serve(["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len",
-                           "5", "--gen", "6", "--cache-len", "16"])
+        gen = serve.serve(["--arch", "minitron-8b", "--smoke", "--device", "cpu", "--batch",
+                           "2", "--prompt-len", "5", "--gen", "6", "--cache-len", "16"])
     lines = out.getvalue().splitlines()
     assert len(lines) == 2
     assert lines[0].startswith("arch=minitron-smoke decoded 7 tokens x2 in ")
@@ -157,14 +157,15 @@ def test_serve_runs_on_the_cpu_and_prints():
     assert ((0 <= gen) & (gen < 512)).all()
 
 
-def test_serve_is_deterministic_and_matches_the_model():
-    argv = ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "4",
-            "--gen", "3", "--cache-len", "16", "--seed", "5"]
+@pytest.mark.parametrize("arch", ["minitron-8b", "mamba2-780m", "zamba2-2.7b"])
+def test_serve_is_deterministic_and_matches_the_model(arch):
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "4", "--gen", "3", "--cache-len", "16", "--seed", "5"]
     with contextlib.redirect_stdout(io.StringIO()):
         a, b = serve.serve(argv), serve.serve(argv)
     np.testing.assert_array_equal(a, b)
     # the same loop by hand on the same seed's model
-    cfg = registry.get("minitron-8b", smoke=True)
+    cfg = registry.get(arch, smoke=True)
     model = Model(cfg, ParallelCtx(), device="cpu", seed=5)
     prompt = np.random.default_rng(5).integers(0, cfg.vocab, (2, 4)).astype(np.int32)
     spec = KVCacheSpec(s_total=16, cp_axis=None, cp_size=1)
@@ -179,6 +180,14 @@ def test_serve_is_deterministic_and_matches_the_model():
     np.testing.assert_array_equal(a, np.stack(out, axis=1))
 
 
+def test_serve_defaults_to_the_reference_arch():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.serve(["--smoke", "--device", "cpu", "--batch", "1", "--prompt-len", "2",
+                     "--gen", "1", "--cache-len", "4"])
+    assert out.getvalue().startswith("arch=mamba2-smoke decoded 2 tokens x1 in ")
+
+
 def test_serve_refuses_unported_families():
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        serve.serve(["--arch", "mamba2-780m", "--smoke", "--device", "cpu"])
+        serve.serve(["--arch", "minicpm3-4b", "--smoke", "--device", "cpu"])
