@@ -185,8 +185,20 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     ``serve`` (mamba2-780m as its default ``--arch``); both smoke configs
     with f32 weights on the card and on the CPU (losses within rel 1e-5:
     no TF32); then phase 19's train step for mamba2-780m at full width
-    and full depth (its kernels 1, 3 and 4 counts go into the kernels
-    line).
+    and full depth;
+25. runs the MLA family (phase ``mla``): minicpm3-4b (62 layers, d_model
+    2560, 40 heads, q_lora 768, kv_lora 256, qk_nope 64, qk_rope 32, v 64,
+    d_ff 6400, vocab 73448 padded to 73728; 4,263,272,960 parameters) at
+    full width and depth from seed 0 in bf16: ``Model.loss_fn`` at B=2,
+    S=2048 (finite, walls, one profiled call with its bf16 and f32 GEMM
+    time, one layer's attention and MLP timed apart), the full-sequence
+    logits against 320 ``decode_fn`` steps in bf16 and with f32 weights
+    (rel <= 0.05 in both), ``serve --arch minicpm3-4b``; the smoke config
+    with f32 weights on the card and on the CPU through the chunked and
+    the dense route (losses within rel 1e-5: no TF32); then phase 19's
+    train step for minicpm3-4b at full width, depth cut 62 -> 28 (its
+    kernels 1, 3 and 4 counts go into the kernels line, replacing phase
+    24's).
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -195,8 +207,8 @@ purpose and are held by bits to the lossless result instead).
 
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
-``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23) and
-``ssm`` (24); a partial run prints no result lines.
+``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
+(24) and ``mla`` (25); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -3611,6 +3623,66 @@ SSM_DECODE_NOTE = ("the reference's jitted bf16 decode leaves its prefill by mor
                    "0.05 from about 12 layers on; scripts/ssm_decode_drift.py")
 
 
+def _profiled_loss(tag, model, params, batch, detail=lambda events, busy: ""):
+    """``model.loss_fn`` on ``batch`` under inference mode: finite; the cold
+    and warm walls and the peak memory; the busy share, ``detail``'s text
+    and the top device rows of one profiled call.  Returns the warm wall
+    (s) and the profile's device busy (ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = model.cfg
+    b, s = batch["tokens"].shape
+    with torch.inference_mode():
+        loss, cold = _timed(lambda: model.loss_fn(params, batch))
+        loss = float(loss)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{cfg.arch_id}: non-finite loss {loss}")
+        _, warm = _timed(lambda: model.loss_fn(params, batch))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, traced = _timed(lambda: model.loss_fn(params, batch))
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"{tag} loss forward {cfg.arch_id} B={b} S={s}: loss {loss:.6f} "
+        f"(ln(vocab) {math.log(cfg.vocab):.4f}); wall cold {cold * 1e3:.1f} ms, warm "
+        f"{warm * 1e3:.1f} ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"{tag} profile {cfg.arch_id}: traced wall {traced * 1e3:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %); kernel launches "
+        f"{sum(e.count for e in events)}{detail(events, busy)}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+    del prof, events
+    torch.cuda.empty_cache()
+    return warm, busy
+
+
+def _serve_steps(cfg, serve_argv, smoke, device):
+    """``serve`` with ``serve_argv`` (and ``--smoke``) on ``device``: its
+    lines, its tokens' shape checked, its ms a decode step."""
+    import io
+
+    import torch
+
+    from repro_torch.launch.serve import serve
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen, serve_s = _timed(lambda: serve(serve_argv + (["--smoke"] if smoke else [])
+                                            + ["--device", str(device)]))
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"serve: {line}")
+    m = re.search(r"decoded (\d+) tokens x(\d+) in ([\d.]+)s", lines[0])
+    if not lines[0].startswith(f"arch={cfg.arch_id} ") or m is None or \
+            gen.shape != (int(m.group(2)), int(m.group(1))):
+        raise AssertionError(f"serve {serve_argv}: {lines[0]!r}, tokens {gen.shape}")
+    n_steps = 16 + 32  # serve's default --prompt-len and --gen
+    log(f"serve {cfg.arch_id}: {n_steps} decode steps of batch {gen.shape[0]}, "
+        f"{float(m.group(3)) * 1e3 / n_steps:.2f} ms/step; wall with model init "
+        f"{serve_s:.2f} s")
+    torch.cuda.empty_cache()
+
+
 def _ssm_forward(arch, n_want, serve_argv, device):
     """``arch`` at full width and depth from seed 0 (bf16): the loss
     forward at B=2, S=2048 (finite; cold and warm walls; busy share and
@@ -3618,16 +3690,12 @@ def _ssm_forward(arch, n_want, serve_argv, device):
     ``SSM_PREFILL_SEQ`` steps of ``decode_fn`` (with the weights cast to
     f32: rel <= 0.05; in bf16 logged), then ``serve`` with
     ``serve_argv``."""
-    import io
-
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import registry
     from repro_torch.convert import tree_map
     from repro_torch.data.pipeline import SyntheticStream
-    from repro_torch.launch.serve import serve
     from repro_torch.models.model import Model
 
     cfg = registry.get(arch, smoke=SSM_SMOKE)
@@ -3641,28 +3709,9 @@ def _ssm_forward(arch, n_want, serve_argv, device):
     log(f"ssm {_widths(cfg)}; {n_params} parameters "
         f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB) "
         f"drawn from seed {SEED} in {init_s:.2f} s")
-    batch = next(SyntheticStream(cfg, SSM_BATCH, SSM_SEQ, seed=SEED))
+    _profiled_loss("ssm", model, params,
+                   next(SyntheticStream(cfg, SSM_BATCH, SSM_SEQ, seed=SEED)))
     with torch.inference_mode():
-        loss, cold = _timed(lambda: model.loss_fn(params, batch))
-        loss = float(loss)
-        if not math.isfinite(loss):
-            raise AssertionError(f"{cfg.arch_id}: non-finite loss {loss}")
-        _, warm = _timed(lambda: model.loss_fn(params, batch))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, traced = _timed(lambda: model.loss_fn(params, batch))
-        events = _device_events(prof)
-        busy = sum(e.self_device_time_total for e in events) / 1e3
-        log(f"ssm loss forward {cfg.arch_id} B={SSM_BATCH} S={SSM_SEQ}: loss {loss:.6f} "
-            f"(ln(vocab) {math.log(cfg.vocab):.4f}); wall cold {cold * 1e3:.1f} ms, warm "
-            f"{warm * 1e3:.1f} ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        log(f"ssm profile {cfg.arch_id}: traced wall {traced * 1e3:.1f} ms, device busy "
-            f"{busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %); kernel launches "
-            f"{sum(e.count for e in events)}")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-            log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
-        del prof, events, batch
-        torch.cuda.empty_cache()
-
         # decode against prefill: two chunks, the second padded; gated with
         # the weights in f32 (bf16's rounding drifts apart over the depth,
         # in the reference as here: SSM_DECODE_NOTE), logged in bf16 too
@@ -3684,23 +3733,7 @@ def _ssm_forward(arch, n_want, serve_argv, device):
             raise AssertionError(f"{cfg.arch_id}: decode/prefill mismatch: rel {rel}")
         del model32, params32
         torch.cuda.empty_cache()
-
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        gen, serve_s = _timed(lambda: serve(serve_argv + (["--smoke"] if SSM_SMOKE else [])
-                                            + ["--device", str(device)]))
-    lines = out.getvalue().splitlines()
-    for line in lines:
-        log(f"serve: {line}")
-    m = re.search(r"decoded (\d+) tokens x(\d+) in ([\d.]+)s", lines[0])
-    if not lines[0].startswith(f"arch={cfg.arch_id} ") or m is None or \
-            gen.shape != (int(m.group(2)), int(m.group(1))):
-        raise AssertionError(f"serve {serve_argv}: {lines[0]!r}, tokens {gen.shape}")
-    n_steps = 16 + 32  # serve's default --prompt-len and --gen
-    log(f"serve {cfg.arch_id}: {n_steps} decode steps of batch {gen.shape[0]}, "
-        f"{float(m.group(3)) * 1e3 / n_steps:.2f} ms/step; wall with model init "
-        f"{serve_s:.2f} s")
-    torch.cuda.empty_cache()
+    _serve_steps(cfg, serve_argv, SSM_SMOKE, device)
 
 
 def _check_ssm_f32_card_vs_cpu(device):
@@ -3750,10 +3783,199 @@ def run_ssm(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 25: the MLA family
+# ---------------------------------------------------------------------------
+
+# full width and depth (src/repro/configs/minicpm3_4b.py): 62 layers, d_model
+# 2560, 40 heads, q_lora 768, kv_lora 256, qk_nope 64, qk_rope 32, v 64,
+# d_ff 6400, vocab 73448 padded to 73728
+MLA_ARCH = "minicpm3-4b"
+MLA_PARAMS = 4_263_272_960
+MLA_SMOKE = False
+MLA_BATCH, MLA_SEQ = 2, 2048  # two latent chunks of mla_chunk 1024
+MLA_PREFILL_SEQ = 320  # one chunk: the whole cache
+MLA_F32_SEQ = 320
+MLA_F32_CHUNKS = (128, 0)  # three chunks, the last padded; the dense route
+MLA_F32_TOL = 1e-5
+# the only cut: depth (62 layers).  Peak 60.69 GB at 24 layers, ~2.02 GB a
+# layer (both ranks); 28 keep it near 69 GB, ~16 GB inside the card
+MLA_TRAIN_LAYERS = 28
+MLA_TRAIN_LEAF = ("blocks", "mla", "wo")
+MLA_SERVE_ARGV = ["--arch", MLA_ARCH]
+
+
+def _mla_attention_gflop(cfg, b, s):
+    """The f32 latent attention's GFLOP in one layer's chunked forward:
+    per chunk the nope and rope logits and the latent values over every
+    (query, key) pair, then the absorb and the v up-projection."""
+    m = cfg.mla
+    h = cfg.n_heads
+    chunk = min(cfg.mla_chunk or s, s)
+    keys = -(-s // chunk) * chunk
+    pairs = b * h * s * keys
+    flop = 2 * pairs * (m.kv_lora_rank + m.qk_rope_head_dim + m.kv_lora_rank)
+    flop += 2 * b * s * h * m.kv_lora_rank * (m.qk_nope_head_dim + m.v_head_dim)
+    return flop / 1e9
+
+
+def _gemm_split(events):
+    """Device ms of the profile's f32 GEMMs (cuBLAS's CUDA-core kernels,
+    ``f32f32`` and ``sgemm`` in their names), its bf16 GEMMs (the other
+    GEMMs: tensor cores, ``nvjet`` on Hopper) and everything else."""
+    out = {"f32 GEMM": 0.0, "bf16 GEMM": 0.0, "other": 0.0}
+    for e in events:
+        name = e.key.lower()
+        kind = "other"
+        if "f32f32" in name or "sgemm" in name:
+            kind = "f32 GEMM"
+        elif "gemm" in name or "nvjet" in name:
+            kind = "bf16 GEMM"
+        out[kind] += e.self_device_time_total / 1e3
+    return out
+
+
+def _mla_layer_split(model, params, device):
+    """One layer's ``mla_train`` (the f32 latent attention and its bf16
+    projections) and ``_mlp`` at the forward's shape, warm (second call),
+    timed apart: (attention s, mlp s)."""
+    import torch
+
+    from repro_torch.models import blocks, mla
+    from repro_torch.models.model import _layer
+
+    cfg, ctx = model.cfg, model.ctx
+    wl = _layer(params["blocks"], 0)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    h = torch.randn((MLA_BATCH, MLA_SEQ, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    positions = torch.arange(MLA_SEQ, device=device)
+    for _ in range(2):
+        _, attn_s = _timed(lambda: mla.mla_train(h, wl["mla"], cfg, ctx, positions=positions))
+    for _ in range(2):
+        _, mlp_s = _timed(lambda: blocks._mlp(h, wl["mlp"], ctx))
+    return attn_s, mlp_s
+
+
+def _mla_forward(device):
+    """minicpm3-4b at full width and depth from seed 0 (bf16): the loss
+    forward at B=2, S=2048 (``_profiled_loss``, with the f32 and bf16
+    GEMMs' device time; one layer's attention and MLP timed apart), the
+    full-sequence logits against ``MLA_PREFILL_SEQ`` steps of ``decode_fn``
+    in bf16 and with the weights cast to f32 (rel <= 0.05 in both), then
+    ``serve --arch minicpm3-4b``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+
+    cfg = registry.get(MLA_ARCH, smoke=MLA_SMOKE)
+    m = cfg.mla
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _timed(lambda: Model(cfg, device=device, seed=SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != MLA_PARAMS:
+        raise AssertionError(f"{cfg.arch_id}: {n_params} parameters, expected {MLA_PARAMS}")
+    params = model.params()
+    log(f"mla {_widths(cfg)}; MLA q_lora {m.q_lora_rank}, kv_lora {m.kv_lora_rank}, qk_nope "
+        f"{m.qk_nope_head_dim}, qk_rope {m.qk_rope_head_dim}, v {m.v_head_dim}, mla_chunk "
+        f"{cfg.mla_chunk}; vocab padded to {cfg.padded_vocab()}; {n_params} parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB) "
+        f"drawn from seed {SEED} in {init_s:.2f} s")
+    warm, _ = _profiled_loss(
+        "mla", model, params, next(SyntheticStream(cfg, MLA_BATCH, MLA_SEQ, seed=SEED)),
+        lambda events, busy: "".join(
+            f"; {k} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f} %)"
+            for k, v in _gemm_split(events).items()))
+    with torch.inference_mode():
+        attn_s, mlp_s = _mla_layer_split(model, params, device)
+        gflop = _mla_attention_gflop(cfg, MLA_BATCH, MLA_SEQ)
+        log(f"mla one layer at B={MLA_BATCH} S={MLA_SEQ}, warm: mla_train "
+            f"{attn_s * 1e3:.2f} ms ({gflop:.1f} GFLOP of f32 latent attention: "
+            f"{gflop / attn_s / 1e3:.1f} TFLOP/s over the call), mlp {mlp_s * 1e3:.2f} ms; "
+            f"x {cfg.n_layers} layers = "
+            f"{cfg.n_layers * attn_s * 1e3:.1f} + {cfg.n_layers * mlp_s * 1e3:.1f} ms of the "
+            f"{warm * 1e3:.1f} ms forward")
+
+        # decode against prefill (one chunk: the whole cache), in bf16, then
+        # with the weights cast to f32
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, MLA_PREFILL_SEQ)).astype(np.int32)).to(device)
+        rel16, prefill16_s, decode16_s, _ = _decode_vs_prefill(model, params, tokens)
+        params32 = tree_map(lambda t: t.to(torch.float32), params)
+        del model, params
+        torch.cuda.empty_cache()
+        model32 = Model(cfg, params=params32, device=device)
+        rel, prefill_s, decode_s, cache = _decode_vs_prefill(model32, params32, tokens)
+        log(f"mla decode vs prefill {cfg.arch_id} B=2 S={MLA_PREFILL_SEQ}: bf16 weights max "
+            f"rel err {rel16:.4e} (bound 0.05; prefill {prefill16_s * 1e3:.1f} ms, "
+            f"{MLA_PREFILL_SEQ} decode steps {decode16_s * 1e3:.1f} ms = "
+            f"{decode16_s * 1e3 / MLA_PREFILL_SEQ:.2f} ms/step); "
+            f"f32 weights {rel:.4e} (bound 0.05; prefill {prefill_s * 1e3:.1f} ms, "
+            f"{decode_s * 1e3 / MLA_PREFILL_SEQ:.2f} ms/step); cache {cache}")
+        if not (rel <= 0.05 and rel16 <= 0.05):
+            raise AssertionError(f"{cfg.arch_id}: decode/prefill mismatch: f32 rel {rel}, "
+                                 f"bf16 rel {rel16}")
+        del model32, params32
+        torch.cuda.empty_cache()
+    _serve_steps(cfg, MLA_SERVE_ARGV, MLA_SMOKE, device)
+
+
+def _check_mla_f32_card_vs_cpu(device):
+    """The smoke config with f32 weights (drawn on the CPU from seed 0) and
+    one batch, on the card and on the CPU, through the chunked route (three
+    chunks, the last padded) and the dense one: the two losses within rel
+    ``MLA_F32_TOL`` (the function is the same on both devices: no TF32)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+
+    smoke = registry.get(MLA_ARCH, smoke=True)
+    params = tree_map(lambda t: t.to(torch.float32),
+                      Model(smoke, device="cpu", seed=SEED).params())
+    on_card = tree_map(lambda t: t.to(device), params)
+    batch = next(SyntheticStream(smoke, 2, MLA_F32_SEQ, seed=SEED))
+    for chunk in MLA_F32_CHUNKS:
+        cfg = dataclasses.replace(smoke, mla_chunk=chunk)
+        with torch.inference_mode():
+            cpu = float(Model(cfg, params=params, device="cpu").loss_fn(params, batch))
+            card = float(Model(cfg, params=on_card, device=device).loss_fn(on_card, batch))
+        rel = abs(card - cpu) / abs(cpu)
+        log(f"mla f32 {cfg.arch_id} mla_chunk {chunk} B=2 S={MLA_F32_SEQ}: loss on the card "
+            f"{card:.9f}, on the CPU {cpu:.9f}, rel {rel:.3e} (bound {MLA_F32_TOL:g})")
+        if not rel <= MLA_F32_TOL:
+            raise AssertionError(f"{cfg.arch_id} f32 chunk {chunk}: card {card} vs CPU {cpu}, "
+                                 f"rel {rel}")
+
+
+def run_mla(device):
+    """Phase 25 (module docstring).  Returns the kernels' launches of the
+    minicpm3-4b train steps."""
+    t0 = time.perf_counter()
+    _mla_forward(device)
+    _check_mla_f32_card_vs_cpu(device)
+    launches = run_train_full_width(device, MLA_ARCH, MLA_TRAIN_LAYERS, MLA_TRAIN_LEAF)
+    per_rank = {k: v / (2 * TRAIN_STEPS) for k, v in _nonzero(launches).items()}
+    log(f"mla train step: both ranks' params and AdamW state equal by bits after every step, "
+        f"no leaf flagged; kernel launches a step and rank {per_rank}")
+    log(f"mla phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model", "train", "ssm")
+          "model", "train", "ssm", "mla")
 
 
 def _record(records, name):
@@ -3882,6 +4104,13 @@ def main(argv=()) -> int:
         # This slice's main path: the ssm and hybrid families, and the
         # mamba2-780m train step's gradient sync (kernels 1, 3 and 4).
         launches = run_ssm(device)
+        for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+            _record(records, name)["launches"] = launches[name]
+
+    if "mla" in phases:
+        # This slice's main path: the MLA family, and the minicpm3-4b train
+        # step's gradient sync (kernels 1, 3 and 4).
+        launches = run_mla(device)
         for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
             _record(records, name)["launches"] = launches[name]
 

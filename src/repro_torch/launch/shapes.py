@@ -13,9 +13,10 @@ with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 A decode batch that cannot fill the data axes makes the reference split
 the cache's context over ``data`` (``cp_size > 1``): here
 ``KVCacheSpec`` raises for it (ROADMAP A11.7).  The port's ``Model``
-defines the dense family's cache (k and v), the ssm family's (conv_x,
+defines the dense family's cache (k and v), MLA's (mla: the latent and
+rope-key rows, f32, replicated over model), the ssm family's (conv_x,
 conv_bc and the SSD state ssm, always f32) and the hybrid's (both); the
-MLA latent and the encoder output come with ROADMAP A15.
+encoder output comes with ROADMAP A15.
 """
 from __future__ import annotations
 
@@ -98,7 +99,8 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
                  cache_dtype=torch.float32):
     """(cache leaves, cache specs, tokens, tokens spec, plan) for
     ``serve_step``, with GLOBAL shapes (the batch whole).  ``cache_dtype``
-    applies to k and v; the conv and SSD states are f32."""
+    applies to k and v; the MLA latent and the conv and SSD states are
+    f32."""
     sizes = mesh_axis_sizes(mesh)
     dp = dp_axes_of(mesh)
     dp_total = 1
@@ -109,10 +111,11 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
     local = model.cache_defs(shape.global_batch // dp_total, plan)
     cache, specs = {}, {}
     for k, shp in local.items():
-        if k not in ("k", "v", "conv_x", "conv_bc", "ssm"):
+        if k not in ("k", "v", "mla", "conv_x", "conv_bc", "ssm"):
             raise NotImplementedError(f"cache entry {k!r}: ROADMAP A15")
         # the batch (dim 1) over dp; k and v's kv heads (dim 3), conv_x's
-        # channels (last) and the SSD state's heads (dim 2) over model
+        # channels (last) and the SSD state's heads (dim 2) over model (the
+        # MLA latent has no model dim: it is replicated over TP)
         shp = list(shp)
         spec = [None] * len(shp)
         shp[1] *= dp_total

@@ -1,8 +1,8 @@
-"""Per-block ParamDef trees and apply functions of the dense, ssm and
-hybrid families.
+"""Per-block ParamDef trees and apply functions of the dense (GQA and
+MLA), ssm and hybrid families.
 
 The counterpart of ``repro.models.blocks`` for those families (the MoE
-and MLA blocks are ROADMAP A15).  Shapes are GLOBAL; the specs keep the
+block is ROADMAP A15).  Shapes are GLOBAL; the specs keep the
 reference's TP ("model") and FSDP ("data") placement for when those axes
 are ported.  A leading L dim (stacked layers) is added by ``model.py``.
 """
@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, ssm
+from repro_torch.models import attention, mla, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.parallel import ParallelCtx, ParamDef
 
-__all__ = ["attn_defs", "mlp_defs", "ssm_defs", "norm_def", "dense_block", "ssm_block"]
+__all__ = ["attn_defs", "mlp_defs", "ssm_defs", "mla_defs", "norm_def", "dense_block",
+           "ssm_block", "mla_block"]
 
 
 def _pd(shape, spec, init="scaled", dtype="bfloat16"):
@@ -60,6 +61,21 @@ def ssm_defs(cfg: ModelConfig) -> dict:
         "dt_bias": _pd((h,), ("model",), init="zeros", dtype="float32"),
         "norm": _pd((di,), ("model",), init="ones"),
         "w_out": _pd((di, d), ("model", "data")),
+    }
+
+
+def mla_defs(cfg: ModelConfig, tp: int) -> dict:
+    m = cfg.mla
+    d = cfg.d_model
+    hp = cfg.padded_heads(tp)
+    return {
+        "wq_a": _pd((d, m.q_lora_rank), ("data", None)),
+        "wq_b": _pd((m.q_lora_rank, hp * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                    (None, "model")),
+        "wkv_a": _pd((d, m.kv_lora_rank + m.qk_rope_head_dim), ("data", None)),
+        "wkv_b": _pd((m.kv_lora_rank, hp * (m.qk_nope_head_dim + m.v_head_dim)),
+                     (None, "model")),
+        "wo": _pd((hp * m.v_head_dim, d), ("model", "data")),
     }
 
 
@@ -111,3 +127,10 @@ def dense_block(h, w, cfg: ModelConfig, ctx: ParallelCtx, *, positions,
 def ssm_block(h, w, cfg: ModelConfig, ctx: ParallelCtx):
     """Pre-norm Mamba2 block."""
     return h + ssm.ssm_train(rms_norm(h, w["ln1"], cfg.norm_eps), w["ssm"], cfg, ctx)
+
+
+def mla_block(h, w, cfg: ModelConfig, ctx: ParallelCtx, *, positions):
+    """Pre-norm MLA + SwiGLU MLP block."""
+    h = h + mla.mla_train(rms_norm(h, w["ln1"], cfg.norm_eps), w["mla"], cfg, ctx,
+                          positions=positions)
+    return h + _mlp(rms_norm(h, w["ln2"], cfg.norm_eps), w["mlp"], ctx)

@@ -1,15 +1,17 @@
-"""Model assembly for the dense, ssm and hybrid families: parameter
-trees, loss forward, and one-token decode.
+"""Model assembly for the dense (GQA and MLA), ssm and hybrid families:
+parameter trees, loss forward, and one-token decode.
 
 The counterpart of ``repro.models.model`` on one card for dense GQA
-decoders (minitron-8b, internlm2-20b, deepseek-67b), the Mamba2/SSD stack
-(mamba2-780m) and the zamba2 hybrid (zamba2-2.7b: Mamba2 layers with ONE
-shared attention+MLP block after every ``attn_every`` of them).
+decoders (minitron-8b, internlm2-20b, deepseek-67b), the dense decoder
+with Multi-head Latent Attention (minicpm3-4b: ``cfg.mla`` set), the
+Mamba2/SSD stack (mamba2-780m) and the zamba2 hybrid (zamba2-2.7b: Mamba2
+layers with ONE shared attention+MLP block after every ``attn_every`` of
+them).
 ``Model`` is an ``nn.Module`` whose parameters are registered under the
 reference tree's names (``embed``, ``unembed``, ``final_norm``,
-``blocks.attn.wq`` stacked (L, d, H*hd), ``blocks.ssm.A_log``,
-``shared_attn.mlp.wi``, ...), so a JAX parameter tree and this module's
-``state_dict`` map one to one.  ``loss_fn`` and ``decode_fn`` keep the
+``blocks.attn.wq`` stacked (L, d, H*hd), ``blocks.mla.wkv_b``,
+``blocks.ssm.A_log``, ``shared_attn.mlp.wi``, ...), so a JAX parameter
+tree and this module's ``state_dict`` map one to one.  ``loss_fn`` and ``decode_fn`` keep the
 reference's signatures and take a params tree (``Model.params()``, or
 ``convert.params_from_jax``), so tests call both packages alike.
 
@@ -17,9 +19,9 @@ The reference's ``lax.scan`` over the stacked layers is a loop here.
 Its ``jax.checkpoint`` of the scan body (``ctx.remat`` not ``"none"``)
 is ``torch.utils.checkpoint`` of each layer when grad mode is on: the
 layer's activations are recomputed in backward, with the same bits.
-Decode writes the new k/v rows and the new conv and SSD states into the
-cache's tensors in place (the reference returns updated copies).
-The other families (moe, MLA, encdec, vlm, audio) raise
+Decode writes the new k/v rows, latent rows and conv and SSD states into
+the cache's tensors in place (the reference returns updated copies).
+The other families (moe, encdec, vlm, audio) raise
 ``NotImplementedError``: they are ROADMAP A15.
 """
 from __future__ import annotations
@@ -34,7 +36,7 @@ from torch.utils import checkpoint
 
 from repro_torch.convert import tree_map
 from repro_torch.core.transport import resolve_device
-from repro_torch.models import attention, blocks, ssm as ssm_mod
+from repro_torch.models import attention, blocks, mla as mla_mod, ssm as ssm_mod
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -54,11 +56,10 @@ _PORTED = ("dense", "ssm", "hybrid")
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for a configuration whose family this port does not run yet."""
-    if cfg.family not in _PORTED or cfg.mla is not None or cfg.n_prefix:
-        kind = "MLA" if cfg.mla is not None else cfg.family
+    if cfg.family not in _PORTED or cfg.n_prefix:
         raise NotImplementedError(
-            f"{cfg.arch_id}: the {kind} family is not ported yet (ROADMAP A15); "
-            f"the port runs the {', '.join(_PORTED)} families")
+            f"{cfg.arch_id}: the {cfg.family} family is not ported yet (ROADMAP A15); "
+            f"the port runs the {', '.join(_PORTED)} families (dense with GQA or MLA)")
 
 
 def _stack(defs, L: int):
@@ -103,7 +104,7 @@ def _tree_of(module: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """A dense, ssm or hybrid decoder.
+    """A dense (GQA or MLA), ssm or hybrid decoder.
 
     ``params``: a tree of tensors (the reference's names and shapes) to
     register; without one, the parameters are drawn from ``seed`` on
@@ -142,9 +143,13 @@ class Model(nn.Module):
         }
 
     def _block_defs(self) -> dict:
-        if self.cfg.family == "dense":
+        cfg = self.cfg
+        if cfg.mla is not None:
+            return {"ln1": blocks.norm_def(cfg), "ln2": blocks.norm_def(cfg),
+                    "mla": blocks.mla_defs(cfg, self.ctx.tp_size), "mlp": blocks.mlp_defs(cfg)}
+        if cfg.family == "dense":
             return self._dense_defs()
-        return {"ln1": blocks.norm_def(self.cfg), "ssm": blocks.ssm_defs(self.cfg)}
+        return {"ln1": blocks.norm_def(cfg), "ssm": blocks.ssm_defs(cfg)}
 
     def param_defs(self) -> dict:
         cfg = self.cfg
@@ -178,7 +183,10 @@ class Model(nn.Module):
     def _backbone(self, h, params, *, positions, window=0, cross_kv=None):
         """Run the decoder stack over hidden states h: (h, aux = 0)."""
         cfg, ctx = self.cfg, self.ctx
-        if cfg.family == "dense":
+        if cfg.mla is not None:
+            h = self._layers(h, params["blocks"], lambda hh, wl: blocks.mla_block(
+                hh, wl, cfg, ctx, positions=positions), range(cfg.n_layers))
+        elif cfg.family == "dense":
             h = self._layers(h, params["blocks"], lambda hh, wl: blocks.dense_block(
                 hh, wl, cfg, ctx, positions=positions, window=window), range(cfg.n_layers))
         elif cfg.family == "ssm":
@@ -227,11 +235,14 @@ class Model(nn.Module):
 
     def cache_defs(self, batch_local: int, spec: KVCacheSpec) -> dict:
         """LOCAL cache shapes.  dense: k and v, each (L, B, S_local,
-        kv_local, hd); ssm: conv_x (L, B, W-1, di), conv_bc (L, B, W-1, 2n)
-        and ssm (L, B, H, p, n); hybrid: the ssm entries plus k and v with
-        one lead row per shared-attention application."""
+        kv_local, hd); MLA: mla (L, B, S_total, kv_lora + rope_dim), the
+        latent and rope-key rows; ssm: conv_x (L, B, W-1, di), conv_bc
+        (L, B, W-1, 2n) and ssm (L, B, H, p, n); hybrid: the ssm entries
+        plus k and v with one lead row per shared-attention application."""
         cfg, tp = self.cfg, self.ctx.tp_size
         L = cfg.n_layers
+        if cfg.mla is not None:
+            return {"mla": (L, batch_local, spec.s_total, mla_mod.mla_cache_dims(cfg))}
         kvl = attention.kv_local_heads(cfg, tp)
         if cfg.family == "dense":
             shape = (L, batch_local, spec.s_local, kvl, cfg.head_dim)
@@ -271,13 +282,20 @@ class Model(nn.Module):
     def decode_fn(self, params, cache, tokens, pos, spec: KVCacheSpec):
         """One decode step.  tokens: (B, 1) ints; pos: the absolute position
         (an int).  Returns (logits (B, 1, V_pad) f32, new_cache); the new
-        token's k and v and the new conv and SSD states are written into
-        ``cache``'s tensors in place."""
+        token's k and v (or latent row) and the new conv and SSD states are
+        written into ``cache``'s tensors in place."""
         cfg, ctx = self.cfg, self.ctx
         dev = params["embed"].device
         h = embed_lookup(_as_tensor(tokens, dev), params["embed"], ctx)
         pos = int(pos)
-        if cfg.family == "dense":
+        if cfg.mla is not None:
+            for i in range(cfg.n_layers):
+                wl = _layer(params["blocks"], i)
+                a, _ = mla_mod.mla_decode(rms_norm(h, wl["ln1"], cfg.norm_eps), wl["mla"],
+                                          cache["mla"][i], pos, cfg, ctx)
+                h = h + a
+                h = h + blocks._mlp(rms_norm(h, wl["ln2"], cfg.norm_eps), wl["mlp"], ctx)
+        elif cfg.family == "dense":
             for i in range(cfg.n_layers):
                 h = self._attn_mlp_decode(h, _layer(params["blocks"], i), cache["k"][i],
                                           cache["v"][i], pos, spec)
