@@ -198,7 +198,28 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     the dense route (losses within rel 1e-5: no TF32); then phase 19's
     train step for minicpm3-4b at full width, depth cut 62 -> 28 (its
     kernels 1, 3 and 4 counts go into the kernels line, replacing phase
-    24's).
+    24's);
+26. runs the Mixture-of-Experts family (phase ``moe``) at full width, the
+    depth cut only as far as the card's memory forces (``MOE_CUTS``):
+    phi3.5-moe-42b-a6.6b (d_model 4096, 32 heads over 8 kv of 128, 16
+    experts of d_ff 6400, top-2, capacity factor 1.25, vocab 32064 padded
+    to 32256; 32 layers of 1,300,307,968 parameters), bf16 from seed 0:
+    ``Model.loss_fn`` at B=2, S=2048 through kernel 11 (one launch a
+    layer, counted: these go into the kernels line, replacing phase 16's)
+    and through the chunked path, within 2e-3 of each other, profiled (the
+    f32 expert GEMMs against the bf16 GEMMs and the rest); 128
+    ``decode_fn`` steps against the full-sequence logits at capacity
+    factor n_experts / top_k (nothing drops) and at 1.25 (the dropped
+    share and the gap), logged; ``serve --arch phi3.5-moe-42b-a6.6b
+    --smoke`` on the card and ``serve``'s greedy loop (batch 4, 16 + 32
+    tokens) at the cut depth; the decode check again with f32 weights at
+    12 layers, rel <= 0.05 (the gate: bf16 drifts with depth in the
+    reference too, ``MOE_DECODE_NOTE``); llama4-scout-17b-a16e (top-1;
+    d_model 5120, 40 heads, d_ff 8192, vocab 202048) at the cut depth:
+    the loss forward, profiled; both smoke configs with f32 weights on the
+    card and on the CPU (losses within rel 1e-5); then phase 19's train
+    step for phi3.5-moe at full width, depth cut 32 -> 1 (its kernels 1, 3
+    and 4 counts go into the kernels line, replacing phase 25's).
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -208,7 +229,8 @@ purpose and are held by bits to the lossless result instead).
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
-(24) and ``mla`` (25); a partial run prints no result lines.
+(24), ``mla`` (25) and ``moe`` (26); a partial run prints no result
+lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -3002,12 +3024,20 @@ def _decode_vs_prefill(model, params, tokens, prefill=None):
     another model on the same weights, where given) against S steps of
     ``model.decode_fn`` from a zero f32 cache: (max rel err over the
     largest logit, prefill s, decode s, the cache's shapes)."""
+    want, prefill_s = _timed(lambda: _forward_logits(prefill or model, params, tokens))
+    got, decode_s, cache = _decode_logits(model, params, tokens)
+    rel = float((got - want).abs().max() / want.abs().max())
+    return rel, prefill_s, decode_s, cache
+
+
+def _decode_logits(model, params, tokens):
+    """S steps of ``model.decode_fn`` over ``tokens`` (B, S) from a zero f32
+    cache: (logits (B, S, V), seconds, the cache's shapes)."""
     import torch
 
     from repro_torch.models.attention import KVCacheSpec
 
     s = tokens.shape[1]
-    want, prefill_s = _timed(lambda: _forward_logits(prefill or model, params, tokens))
     spec = KVCacheSpec(s_total=s, cp_axis=None, cp_size=1)
     cache = {k: torch.zeros(v, dtype=torch.float32, device=tokens.device)
              for k, v in model.cache_defs(tokens.shape[0], spec).items()}
@@ -3023,8 +3053,7 @@ def _decode_vs_prefill(model, params, tokens, prefill=None):
     got, decode_s = _timed(decode_all)
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{model.cfg.arch_id}: non-finite decode logits")
-    rel = float((got - want).abs().max() / want.abs().max())
-    return rel, prefill_s, decode_s, {k: tuple(v.shape) for k, v in cache.items()}
+    return got, decode_s, {k: tuple(v.shape) for k, v in cache.items()}
 
 
 def _widths(cfg):
@@ -3972,10 +4001,351 @@ def run_mla(device):
 
 
 # ---------------------------------------------------------------------------
+# Phase 26: the Mixture-of-Experts family
+# ---------------------------------------------------------------------------
+
+# full width (src/repro/configs/phi3_5_moe_42b.py, llama4_scout_17b_a16e.py);
+# neither fits 80 GB whole (phi3.5-moe 83.75 GB of bf16 weights), so depth
+# is cut, only as far as memory forces: (layers, parameters a layer, the
+# rest: embed, unembed, final_norm)
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_SCOUT = "llama4-scout-17b-a16e"
+# (the forward's peak at 24 layers 65.53 GB, 2.60 GB a layer; llama4-scout's
+# at 12 layers 63.99 GB, 4.15 GB a layer: ~4 GB kept inside the card)
+MOE_CUTS = {
+    MOE_ARCH: (29, 1_300_307_968, 264_245_248),  # of 32 layers
+    MOE_SCOUT: (15, 2_076_272_640, 2_070_942_720),  # of 48 layers
+}
+MOE_SMOKE = False
+MOE_BATCH, MOE_SEQ = 2, 2048  # 4096 tokens: phi3.5-moe's capacity 640 slots an expert
+MOE_PREFILL_SEQ = 128
+MOE_F32_LAYERS = 12  # the f32-weight decode check: 62.4 GB of f32 weights
+MOE_DECODE_NOTE = ("the reference's jitted bf16 decode leaves its prefill by 0.17 from 8 "
+                   "layers on at d_model 128, nothing dropped; scripts/ssm_decode_drift.py "
+                   "--archs phi3.5-moe-42b-a6.6b")
+MOE_F32_SEQ = 128
+MOE_F32_TOL = 1e-5
+MOE_TRAIN_LAYERS = 1  # 1.565 B parameters a rank; 2 layers would need ~93 GB
+MOE_TRAIN_LEAF = ("blocks", "moe", "wo")
+
+
+def _moe_cfg(arch, **kw):
+    """``arch`` at full width, depth cut to ``MOE_CUTS`` (the smoke config
+    with ``MOE_SMOKE``), with the fields in ``kw``."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    cfg = registry.get(arch, smoke=MOE_SMOKE)
+    layers = cfg.n_layers if MOE_SMOKE else MOE_CUTS[arch][0]
+    return dataclasses.replace(cfg, n_layers=layers, **kw)
+
+
+def _moe_model(arch, device, **kw):
+    """The cut model from seed 0 (bf16), its parameter count checked."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+
+    cfg = _moe_cfg(arch, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _timed(lambda: Model(cfg, device=device, seed=SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    full = registry.get(arch, smoke=MOE_SMOKE)
+    if not MOE_SMOKE:
+        layers, per_layer, rest = MOE_CUTS[arch]
+        if n_params != layers * per_layer + rest:
+            raise AssertionError(f"{cfg.arch_id}: {n_params} parameters, expected "
+                                 f"{layers} x {per_layer} + {rest}")
+    log(f"moe {_widths(full)}, {cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+        f"{cfg.capacity_factor}; vocab padded to {cfg.padded_vocab()}; n_layers cut "
+        f"{full.n_layers} -> {cfg.n_layers}; {n_params} parameters "
+        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB bf16) "
+        f"drawn from seed {SEED} in {init_s:.2f} s")
+    return model, model.params()
+
+
+def _moe_detail(cfg):
+    """``_profiled_loss``'s detail for a moe forward at B, S = MOE_BATCH,
+    MOE_SEQ: the f32 GEMMs' (the three expert contractions a layer, each
+    (E, cap, d) x (E, d, ff), and the f32 unembed), the bf16 GEMMs' and
+    the other device ms, and the f32 GEMMs' TFLOP/s."""
+    from repro_torch.models.moe import moe_capacity
+
+    t = MOE_BATCH * MOE_SEQ
+    experts = 3 * 2 * cfg.n_experts * moe_capacity(t, cfg) * cfg.d_model * cfg.d_ff / 1e9
+    unembed = 2 * t * cfg.d_model * cfg.padded_vocab() / 1e9
+    gflop = experts * cfg.n_layers + unembed
+
+    def detail(events, busy):
+        split = _gemm_split(events)
+        return "".join(f"; {k} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f} %)"
+                       for k, v in split.items()) + \
+            (f"; f32 GEMM work {gflop:.0f} GFLOP (the experts {experts:.0f} a layer, the "
+             f"unembed {unembed:.0f}): {gflop / max(split['f32 GEMM'], 1e-9):.1f} TFLOP/s")
+
+    return detail
+
+
+@contextlib.contextmanager
+def _counting_drops(record):
+    """Append (dropped, slots) of each ``moe_route`` call to ``record``."""
+    from repro_torch.models import moe
+
+    real = moe.moe_route
+
+    def wrapped(x, router, cfg, cap):
+        r = real(x, router, cfg, cap)
+        record.append((int((~r["keep"]).sum()), r["keep"].numel()))
+        return r
+
+    moe.moe_route = wrapped
+    try:
+        yield record
+    finally:
+        moe.moe_route = real
+
+
+def _moe_decode_vs_prefill(model, params, tokens, device):
+    """Decode steps against the full-sequence forward at ``capacity_factor
+    = n_experts / top_k`` (cap = B·S: no slot drops, the same function as
+    decode, whose B tokens fit cap 8 at any factor), and at the config's
+    1.25 (its dropped share logged; not gated).  Returns (rel at the
+    no-drop capacity, rel at 1.25, dropped, slots, decode s)."""
+    import dataclasses
+
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    nodrop = Model(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k),
+                   params=params, device=device)
+    got, decode_s, _ = _decode_logits(nodrop, params, tokens)
+    drops = []
+    with _counting_drops(drops):
+        want = _forward_logits(nodrop, params, tokens)
+    if any(d for d, _ in drops):
+        raise AssertionError(f"{cfg.arch_id}: the no-drop prefill dropped {drops}")
+    rel = float((got - want).abs().max() / want.abs().max())
+    drops.clear()
+    with _counting_drops(drops):
+        want125 = _forward_logits(model, params, tokens)
+    rel125 = float((got - want125).abs().max() / want125.abs().max())
+    return rel, rel125, sum(d for d, _ in drops), sum(n for _, n in drops), decode_s
+
+
+@contextlib.contextmanager
+def _registry_cut(arch, layers):
+    """``registry.get(arch)`` (full size) returns the config cut to
+    ``layers``: ``serve`` at full width on one card."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    real = registry.get
+
+    def get(arch_id, *, smoke=False):
+        cfg = real(arch_id, smoke=smoke)
+        return dataclasses.replace(cfg, n_layers=layers) if arch_id == arch and not smoke \
+            else cfg
+
+    registry.get = get
+    try:
+        yield
+    finally:
+        registry.get = real
+
+
+def _moe_forward(device):
+    """phi3.5-moe at full width, the stated depth (``MOE_CUTS``), bf16 from
+    seed 0: the loss forward at B=2, S=2048 through kernel 11 (one launch a
+    layer, counted, all on the tensor-core route) and through the chunked
+    path (none), within 2e-3·max(|l0|, 1) (C7); walls; busy and the f32
+    expert GEMMs' device ms beside the bf16 GEMMs and the rest, from one
+    profiled call (``_profiled_loss``); decode against prefill at S=128
+    (``_moe_decode_vs_prefill``; logged: bf16 drifts with depth in the
+    reference too, ``MOE_DECODE_NOTE``; ``_moe_f32_decode`` gates).
+    Returns kernel 11's launches in the loss forward, the bf16 decode rel
+    and the model's depth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models.model import Model
+
+    model, params = _moe_model(MOE_ARCH, device)
+    cfg = model.cfg
+    kmodel = Model(dataclasses.replace(cfg, use_flash_kernel=True), params=params,
+                   device=device)
+    batch = next(SyntheticStream(cfg, MOE_BATCH, MOE_SEQ, seed=SEED))
+    with torch.inference_mode():
+        _reset_launches()
+        l1, cold1 = _timed(lambda: kmodel.loss_fn(params, batch))
+        launches, routes = _launches(), dict(flash_attn.ROUTES)
+        _reset_launches()
+        l0, cold0 = _timed(lambda: model.loss_fn(params, batch))
+        chunked = _launches()
+        l1, l0 = float(l1), float(l0)
+        if _nonzero(launches) != {"flash_attention": cfg.n_layers} or \
+                routes != {"tensor_core_bf16": cfg.n_layers, "cuda_core_f32": 0}:
+            raise AssertionError(f"moe loss forward with the kernel launched "
+                                 f"{_nonzero(launches)}, routes {routes}; expected "
+                                 f"flash_attention x {cfg.n_layers} on the bf16 route")
+        if _nonzero(chunked):
+            raise AssertionError(f"moe chunked loss forward launched {_nonzero(chunked)}")
+        if not (math.isfinite(l0) and math.isfinite(l1)) or \
+                abs(l1 - l0) > 2e-3 * max(abs(l0), 1.0):
+            raise AssertionError(f"moe loss with kernel 11 {l1} vs chunked {l0}")
+        _, warm0 = _timed(lambda: model.loss_fn(params, batch))
+        log(f"moe loss forward {cfg.arch_id} B={MOE_BATCH} S={MOE_SEQ}: with kernel 11 "
+            f"{l1:.6f}, chunked {l0:.6f} (|diff| {abs(l1 - l0):.3e}, bound "
+            f"{2e-3 * max(abs(l0), 1.0):.3e}); launches {_nonzero(launches)}, routes {routes}; "
+            f"chunked path wall cold {cold0 * 1e3:.1f} ms, warm {warm0 * 1e3:.1f} ms")
+    _profiled_loss("moe (kernel 11)", kmodel, params, batch, _moe_detail(cfg))
+    del kmodel, batch
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, MOE_PREFILL_SEQ)).astype(np.int32)).to(device)
+        rel, rel125, dropped, slots, decode_s = _moe_decode_vs_prefill(model, params, tokens,
+                                                                       device)
+    log(f"moe decode vs prefill {cfg.arch_id} B=2 S={MOE_PREFILL_SEQ}, bf16 weights: at "
+        f"capacity factor {cfg.n_experts / cfg.top_k:g} (nothing drops) max rel err "
+        f"{rel:.4e} (not gated: {MOE_DECODE_NOTE}); at the config's {cfg.capacity_factor} "
+        f"the prefill drops {dropped} of {slots} slots ({100 * dropped / slots:.2f} %) and "
+        f"the gap is {rel125:.4e} (not gated); {MOE_PREFILL_SEQ} decode steps "
+        f"{decode_s * 1e3:.1f} ms ({decode_s * 1e3 / MOE_PREFILL_SEQ:.2f} ms/step)")
+    del model, params
+    torch.cuda.empty_cache()
+    return launches["flash_attention"], rel, cfg.n_layers
+
+
+def _moe_f32_decode(device, rel16):
+    """phi3.5-moe with f32 weights (drawn in bf16 from seed 0, then cast
+    leaf by leaf) at ``MOE_F32_LAYERS``: decode against prefill at the
+    no-drop capacity, rel <= 0.05 (the gate, as C17 allows: bf16 drifts
+    with depth in the reference too)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import Model
+
+    cfg = _moe_cfg(MOE_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=min(MOE_F32_LAYERS, cfg.n_layers))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params32 = Model(cfg, device=device, seed=SEED).params()
+
+    def cast(tree):  # leaf by leaf: the bf16 and f32 copies never whole at once
+        for k, v in tree.items():
+            tree[k] = cast(v) if isinstance(v, dict) else v.detach().to(torch.float32)
+        return tree
+
+    cast(params32)
+    model = Model(cfg, params=params32, device=device)
+    with torch.inference_mode():
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, MOE_PREFILL_SEQ)).astype(np.int32)).to(device)
+        rel, rel125, dropped, slots, decode_s = _moe_decode_vs_prefill(model, params32, tokens,
+                                                                       device)
+    log(f"moe decode vs prefill {cfg.arch_id} at {cfg.n_layers} layers, f32 weights: max rel "
+        f"err {rel:.4e} at the no-drop capacity (bound 0.05, gated; bf16 at the cut depth "
+        f"{rel16:.4e}, logged); at {cfg.capacity_factor} {dropped} of {slots} slots dropped, "
+        f"gap {rel125:.4e}; {decode_s * 1e3 / MOE_PREFILL_SEQ:.2f} ms/step; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if not rel <= 0.05:
+        raise AssertionError(f"{cfg.arch_id}: decode/prefill mismatch in f32: rel {rel}")
+    del model, params32
+    torch.cuda.empty_cache()
+
+
+def _moe_scout_forward(device):
+    """llama4-scout (top-1: no gate renormalisation; d_model 5120, 40
+    heads, d_ff 8192, vocab 202048) at full width and the stated depth,
+    bf16 from seed 0: the loss forward at B=2, S=2048, finite; walls, busy
+    and the GEMM split of one profiled call."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticStream
+
+    model, params = _moe_model(MOE_SCOUT, device)
+    _profiled_loss("moe", model, params,
+                   next(SyntheticStream(model.cfg, MOE_BATCH, MOE_SEQ, seed=SEED)),
+                   _moe_detail(model.cfg))
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def _check_moe_f32_card_vs_cpu(device):
+    """Both smoke configs with f32 weights (drawn on the CPU from seed 0)
+    and one batch, on the card and on the CPU: the two losses within rel
+    ``MOE_F32_TOL`` (the function is the same on both devices: no TF32;
+    the routing the same)."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+
+    for arch in MOE_CUTS:
+        cfg = registry.get(arch, smoke=True)
+        params = tree_map(lambda t: t.to(torch.float32),
+                          Model(cfg, device="cpu", seed=SEED).params())
+        on_card = tree_map(lambda t: t.to(device), params)
+        batch = next(SyntheticStream(cfg, 2, MOE_F32_SEQ, seed=SEED))
+        with torch.inference_mode():
+            cpu = float(Model(cfg, params=params, device="cpu").loss_fn(params, batch))
+            card = float(Model(cfg, params=on_card, device=device).loss_fn(on_card, batch))
+        rel = abs(card - cpu) / abs(cpu)
+        log(f"moe f32 {cfg.arch_id} B=2 S={MOE_F32_SEQ}: loss on the card {card:.9f}, on the "
+            f"CPU {cpu:.9f}, rel {rel:.3e} (bound {MOE_F32_TOL:g})")
+        if not rel <= MOE_F32_TOL:
+            raise AssertionError(f"{cfg.arch_id} f32: card {card} vs CPU {cpu}, rel {rel}")
+
+
+def run_moe(device):
+    """Phase 26 (module docstring).  Returns kernel 11's launches in the
+    phi3.5-moe loss forward and the kernels' launches of the train
+    steps."""
+    import torch
+
+    from repro_torch.configs import registry
+
+    t0 = time.perf_counter()
+    flash, rel16, layers = _moe_forward(device)
+    # serving: the entry point on the card (smoke), then its greedy loop at
+    # full width and the stated depth (32 layers need two cards: A11.7)
+    _serve_steps(registry.get(MOE_ARCH, smoke=True), ["--arch", MOE_ARCH], True, device)
+    torch.cuda.reset_peak_memory_stats()
+    with _registry_cut(MOE_ARCH, layers):
+        _serve_steps(_moe_cfg(MOE_ARCH), ["--arch", MOE_ARCH], MOE_SMOKE, device)
+    log(f"moe serve peak memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    _moe_f32_decode(device, rel16)
+    _moe_scout_forward(device)
+    _check_moe_f32_card_vs_cpu(device)
+    launches = run_train_full_width(device, MOE_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_LEAF)
+    per_rank = {k: v / (2 * TRAIN_STEPS) for k, v in _nonzero(launches).items()}
+    log(f"moe train step: both ranks' params and AdamW state equal by bits after every step, "
+        f"no leaf flagged; kernel launches a step and rank {per_rank}")
+    log(f"moe phase: {time.perf_counter() - t0:.1f} s")
+    return flash, launches
+
+
+# ---------------------------------------------------------------------------
 
 
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model", "train", "ssm", "mla")
+          "model", "train", "ssm", "mla", "moe")
 
 
 def _record(records, name):
@@ -4111,6 +4481,14 @@ def main(argv=()) -> int:
         # This slice's main path: the MLA family, and the minicpm3-4b train
         # step's gradient sync (kernels 1, 3 and 4).
         launches = run_mla(device)
+        for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+            _record(records, name)["launches"] = launches[name]
+
+    if "moe" in phases:
+        # This slice's main path: the MoE family's forward through kernel 11,
+        # and the phi3.5-moe train step's gradient sync (kernels 1, 3 and 4).
+        flash, launches = run_moe(device)
+        _record(records, "flash_attention")["launches"] = flash
         for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
             _record(records, name)["launches"] = launches[name]
 

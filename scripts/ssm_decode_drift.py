@@ -1,12 +1,17 @@
 """How far token-by-token decode drifts from the full-sequence forward in
-the ssm and hybrid families, in the JAX package and in the port, by depth.
+the ssm and hybrid families (or any of ``--archs``: the moe configs at a
+capacity where no slot drops), in the JAX package and in the port, by
+depth.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/ssm_decode_drift.py \
-        [--layers 2,12,48] [--seq 64] [--d-model 128]
+        [--archs mamba2-780m,zamba2-2.7b] [--layers 2,12,48] [--seq 64] \
+        [--d-model 128]
 
-For each family's smoke config widened to ``--d-model`` and deepened to
-each of ``--layers``, weights from seed 0 (bf16, and the same cast to
-f32), a (2, ``--seq``) batch of tokens: the max over positions and vocab
+For each config's smoke version widened to ``--d-model`` and deepened to
+each of ``--layers`` (a moe config's ``capacity_factor`` set to
+``n_experts / top_k``: prefill and decode then route alike, and no slot
+drops), weights from seed 0 (bf16, and the same cast to f32), a (2,
+``--seq``) batch of tokens: the max over positions and vocab
 of |decode - prefill| over the largest prefill logit, for the reference
 (both paths jitted, as ``tests/test_prefill_decode_consistency.py`` runs
 them) and for the port (eager, on the CPU).  One line per case.  A CPU
@@ -48,6 +53,8 @@ def _cfg(arch, n_layers, d_model):
     if cfg.n_heads:
         kw.update(n_heads=d_model // 32, n_kv_heads=d_model // 32, head_dim=32,
                   d_ff=2 * d_model)
+    if cfg.family == "moe":
+        kw.update(capacity_factor=cfg.n_experts / cfg.top_k)
     return dataclasses.replace(cfg, **kw)
 
 
@@ -95,12 +102,13 @@ def _port(cfg, params, tokens):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--archs", default="mamba2-780m,zamba2-2.7b")
     ap.add_argument("--layers", default="2,12,48")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--d-model", type=int, default=128)
     args = ap.parse_args(argv)
     tokens = np.random.default_rng(0).integers(0, 512, (2, args.seq)).astype(np.int32)
-    for arch in ("mamba2-780m", "zamba2-2.7b"):
+    for arch in args.archs.split(","):
         for n_layers in (int(x) for x in args.layers.split(",")):
             cfg = _cfg(arch, n_layers, args.d_model)
             params = jparallel.init_params(jmodel.Model(cfg, JCTX).param_defs(),

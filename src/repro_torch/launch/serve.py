@@ -8,8 +8,8 @@ The counterpart of ``repro.launch.serve``: the same flags (plus
 ``--device``, default ``cuda``), the same decode-path prefill (the prompt
 goes through ``Model.decode_fn`` one token at a time, so there is one code
 path) and greedy loop, the same two printed lines, the same default
-``--arch`` (``mamba2-780m``).  The dense (GQA and MLA), ssm and hybrid
-families run; the others raise (ROADMAP A15).
+``--arch`` (``mamba2-780m``).  The dense (GQA and MLA), moe, ssm and
+hybrid families run; the others raise (ROADMAP A15).
 """
 from __future__ import annotations
 

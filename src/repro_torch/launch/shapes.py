@@ -13,10 +13,10 @@ with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 A decode batch that cannot fill the data axes makes the reference split
 the cache's context over ``data`` (``cp_size > 1``): here
 ``KVCacheSpec`` raises for it (ROADMAP A11.7).  The port's ``Model``
-defines the dense family's cache (k and v), MLA's (mla: the latent and
-rope-key rows, f32, replicated over model), the ssm family's (conv_x,
-conv_bc and the SSD state ssm, always f32) and the hybrid's (both); the
-encoder output comes with ROADMAP A15.
+defines the dense and moe families' cache (k and v), MLA's (mla: the
+latent and rope-key rows, f32, replicated over model), the ssm family's
+(conv_x, conv_bc and the SSD state ssm, always f32) and the hybrid's
+(both); the encoder output comes with ROADMAP A15.
 """
 from __future__ import annotations
 

@@ -1,22 +1,22 @@
 """Per-block ParamDef trees and apply functions of the dense (GQA and
-MLA), ssm and hybrid families.
+MLA), moe, ssm and hybrid families.
 
-The counterpart of ``repro.models.blocks`` for those families (the MoE
-block is ROADMAP A15).  Shapes are GLOBAL; the specs keep the
-reference's TP ("model") and FSDP ("data") placement for when those axes
-are ported.  A leading L dim (stacked layers) is added by ``model.py``.
+The counterpart of ``repro.models.blocks`` for those families.  Shapes
+are GLOBAL; the specs keep the reference's TP ("model") and FSDP ("data")
+placement for when those axes are ported.  A leading L dim (stacked
+layers) is added by ``model.py``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, mla, ssm
+from repro_torch.models import attention, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.parallel import ParallelCtx, ParamDef
 
-__all__ = ["attn_defs", "mlp_defs", "ssm_defs", "mla_defs", "norm_def", "dense_block",
-           "ssm_block", "mla_block"]
+__all__ = ["attn_defs", "mlp_defs", "moe_defs", "ssm_defs", "mla_defs", "norm_def",
+           "dense_block", "moe_block", "ssm_block", "mla_block"]
 
 
 def _pd(shape, spec, init="scaled", dtype="bfloat16"):
@@ -40,6 +40,16 @@ def mlp_defs(cfg: ModelConfig) -> dict:
         "wi": _pd((d, ff), ("data", "model")),
         "wg": _pd((d, ff), ("data", "model")),
         "wo": _pd((ff, d), ("model", "data")),
+    }
+
+
+def moe_defs(cfg: ModelConfig) -> dict:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": _pd((d, e), ("data", None)),
+        "wi": _pd((e, d, ff), ("model", "data", None)),
+        "wg": _pd((e, d, ff), ("model", "data", None)),
+        "wo": _pd((e, ff, d), ("model", None, "data")),
     }
 
 
@@ -122,6 +132,22 @@ def dense_block(h, w, cfg: ModelConfig, ctx: ParallelCtx, *, positions,
         h = h + c
     m = _mlp(rms_norm(h, w["ln2"], cfg.norm_eps), w["mlp"], ctx)
     return h + m
+
+
+def moe_block(h, w, cfg: ModelConfig, ctx: ParallelCtx, *, positions, causal=True,
+              window=0):
+    """Pre-norm attention + MoE FFN block: (h, the router's aux loss).
+
+    ``cfg.moe_dispatch_gz_eb`` routes the expert-parallel dispatch through
+    a compressed all-to-all, which exists only at tp > 1 (ROADMAP A11.7):
+    at tp = 1 the reference builds a communicator that ``moe_ffn`` never
+    uses, so here the setting changes nothing."""
+    h = h + attention.attention_train(
+        rms_norm(h, w["ln1"], cfg.norm_eps), w["attn"], cfg, ctx,
+        positions=positions, causal=causal, window=window,
+    )
+    m, aux = moe.moe_ffn(rms_norm(h, w["ln2"], cfg.norm_eps), w["moe"], cfg, ctx)
+    return h + m, aux
 
 
 def ssm_block(h, w, cfg: ModelConfig, ctx: ParallelCtx):

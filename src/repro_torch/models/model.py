@@ -1,17 +1,20 @@
-"""Model assembly for the dense (GQA and MLA), ssm and hybrid families:
-parameter trees, loss forward, and one-token decode.
+"""Model assembly for the dense (GQA and MLA), moe, ssm and hybrid
+families: parameter trees, loss forward, and one-token decode.
 
 The counterpart of ``repro.models.model`` on one card for dense GQA
 decoders (minitron-8b, internlm2-20b, deepseek-67b), the dense decoder
 with Multi-head Latent Attention (minicpm3-4b: ``cfg.mla`` set), the
+Mixture-of-Experts decoders (phi3.5-moe-42b-a6.6b, llama4-scout-17b-a16e:
+GQA attention and a routed expert FFN, ``models/moe.py``), the
 Mamba2/SSD stack (mamba2-780m) and the zamba2 hybrid (zamba2-2.7b: Mamba2
 layers with ONE shared attention+MLP block after every ``attn_every`` of
 them).
 ``Model`` is an ``nn.Module`` whose parameters are registered under the
 reference tree's names (``embed``, ``unembed``, ``final_norm``,
 ``blocks.attn.wq`` stacked (L, d, H*hd), ``blocks.mla.wkv_b``,
-``blocks.ssm.A_log``, ``shared_attn.mlp.wi``, ...), so a JAX parameter
-tree and this module's ``state_dict`` map one to one.  ``loss_fn`` and ``decode_fn`` keep the
+``blocks.moe.wi`` (L, E, d, ff), ``blocks.ssm.A_log``,
+``shared_attn.mlp.wi``, ...), so a JAX parameter tree and this module's
+``state_dict`` map one to one.  ``loss_fn`` and ``decode_fn`` keep the
 reference's signatures and take a params tree (``Model.params()``, or
 ``convert.params_from_jax``), so tests call both packages alike.
 
@@ -19,9 +22,11 @@ The reference's ``lax.scan`` over the stacked layers is a loop here.
 Its ``jax.checkpoint`` of the scan body (``ctx.remat`` not ``"none"``)
 is ``torch.utils.checkpoint`` of each layer when grad mode is on: the
 layer's activations are recomputed in backward, with the same bits.
-Decode writes the new k/v rows, latent rows and conv and SSD states into
-the cache's tensors in place (the reference returns updated copies).
-The other families (moe, encdec, vlm, audio) raise
+The moe layers' router aux losses are summed over the layers, as the
+reference's scan sums them, and ``loss_fn`` adds ``MOE_AUX_COEF`` times
+their mean.  Decode writes the new k/v rows, latent rows and conv and
+SSD states into the cache's tensors in place (the reference returns
+updated copies).  The other families (encdec, vlm, audio) raise
 ``NotImplementedError``: they are ROADMAP A15.
 """
 from __future__ import annotations
@@ -36,7 +41,7 @@ from torch.utils import checkpoint
 
 from repro_torch.convert import tree_map
 from repro_torch.core.transport import resolve_device
-from repro_torch.models import attention, blocks, mla as mla_mod, ssm as ssm_mod
+from repro_torch.models import attention, blocks, mla as mla_mod, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -49,9 +54,10 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.parallel import ParallelCtx, ParamDef, init_params
 
-__all__ = ["Model"]
+__all__ = ["Model", "MOE_AUX_COEF"]
 
-_PORTED = ("dense", "ssm", "hybrid")
+MOE_AUX_COEF = 0.01
+_PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -104,7 +110,7 @@ def _tree_of(module: nn.Module) -> dict:
 
 
 class Model(nn.Module):
-    """A dense (GQA or MLA), ssm or hybrid decoder.
+    """A dense (GQA or MLA), moe, ssm or hybrid decoder.
 
     ``params``: a tree of tensors (the reference's names and shapes) to
     register; without one, the parameters are drawn from ``seed`` on
@@ -149,6 +155,9 @@ class Model(nn.Module):
                     "mla": blocks.mla_defs(cfg, self.ctx.tp_size), "mlp": blocks.mlp_defs(cfg)}
         if cfg.family == "dense":
             return self._dense_defs()
+        if cfg.family == "moe":
+            return {"ln1": blocks.norm_def(cfg), "ln2": blocks.norm_def(cfg),
+                    "attn": blocks.attn_defs(cfg, self.ctx.tp_size), "moe": blocks.moe_defs(cfg)}
         return {"ln1": blocks.norm_def(cfg), "ssm": blocks.ssm_defs(cfg)}
 
     def param_defs(self) -> dict:
@@ -168,21 +177,34 @@ class Model(nn.Module):
 
     # ---------------- full-sequence forward / loss ----------------
 
-    def _layers(self, h, stacked, layer, index):
+    def _layers(self, h, stacked, layer, index, with_aux=False):
         """Apply ``layer`` with the stacked weights of each layer in
-        ``index``, in order, each checkpointed under grad when remat is on."""
+        ``index``, in order, each checkpointed under grad when remat is on.
+        ``with_aux``: ``layer`` returns (h, aux); returns (h, the sum of
+        the auxs)."""
         remat = self.ctx.remat != "none" and torch.is_grad_enabled()
+        auxs = []
         for i in index:
             wl = _layer(stacked, i)
             if remat:
-                h = checkpoint.checkpoint(layer, h, wl, use_reentrant=False)
+                out = checkpoint.checkpoint(layer, h, wl, use_reentrant=False)
             else:
-                h = layer(h, wl)
-        return h
+                out = layer(h, wl)
+            if with_aux:
+                h, aux = out
+                auxs.append(aux)
+            else:
+                h = out
+        return (h, torch.sum(torch.stack(auxs))) if with_aux else h
 
     def _backbone(self, h, params, *, positions, window=0, cross_kv=None):
-        """Run the decoder stack over hidden states h: (h, aux = 0)."""
+        """Run the decoder stack over hidden states h: (h, aux), aux the
+        moe layers' summed router losses (0 for the other families)."""
         cfg, ctx = self.cfg, self.ctx
+        if cfg.family == "moe":
+            return self._layers(h, params["blocks"], lambda hh, wl: blocks.moe_block(
+                hh, wl, cfg, ctx, positions=positions, window=window), range(cfg.n_layers),
+                with_aux=True)
         if cfg.mla is not None:
             h = self._layers(h, params["blocks"], lambda hh, wl: blocks.mla_block(
                 hh, wl, cfg, ctx, positions=positions), range(cfg.n_layers))
@@ -219,24 +241,28 @@ class Model(nn.Module):
         tokens = _as_tensor(batch["tokens"], dev)
         h = embed_lookup(tokens, params["embed"], ctx)
         positions = torch.arange(h.shape[1], device=dev)
-        h, _ = self._backbone(h, params, positions=positions,
-                              window=cfg.sliding_window if cfg.sliding_window else 0)
+        h, aux = self._backbone(h, params, positions=positions,
+                                window=cfg.sliding_window if cfg.sliding_window else 0)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         labels = _as_tensor(batch["labels"], dev)
         mask = (labels >= 0).to(torch.float32)
         labels = torch.clamp(labels, min=0)
         if cfg.loss_chunk:
-            return chunked_vocab_xent(h, params["unembed"], labels, mask, ctx,
+            loss = chunked_vocab_xent(h, params["unembed"], labels, mask, ctx,
                                       chunk=cfg.loss_chunk)
-        logits = vocab_parallel_logits(h, params["unembed"], ctx)
-        return vocab_parallel_xent(logits, labels, ctx, mask=mask)
+        else:
+            logits = vocab_parallel_logits(h, params["unembed"], ctx)
+            loss = vocab_parallel_xent(logits, labels, ctx, mask=mask)
+        if cfg.family == "moe":
+            loss = loss + MOE_AUX_COEF * aux / cfg.n_layers
+        return loss
 
     # ---------------- decode (one token) ----------------
 
     def cache_defs(self, batch_local: int, spec: KVCacheSpec) -> dict:
-        """LOCAL cache shapes.  dense: k and v, each (L, B, S_local,
-        kv_local, hd); MLA: mla (L, B, S_total, kv_lora + rope_dim), the
-        latent and rope-key rows; ssm: conv_x (L, B, W-1, di), conv_bc
+        """LOCAL cache shapes.  dense and moe: k and v, each (L, B,
+        S_local, kv_local, hd); MLA: mla (L, B, S_total, kv_lora +
+        rope_dim), the latent and rope-key rows; ssm: conv_x (L, B, W-1, di), conv_bc
         (L, B, W-1, 2n) and ssm (L, B, H, p, n); hybrid: the ssm entries
         plus k and v with one lead row per shared-attention application."""
         cfg, tp = self.cfg, self.ctx.tp_size
@@ -244,7 +270,7 @@ class Model(nn.Module):
         if cfg.mla is not None:
             return {"mla": (L, batch_local, spec.s_total, mla_mod.mla_cache_dims(cfg))}
         kvl = attention.kv_local_heads(cfg, tp)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             shape = (L, batch_local, spec.s_local, kvl, cfg.head_dim)
             return {"k": shape, "v": shape}
         conv, state = ssm_mod.ssm_state_shapes(cfg, tp, batch_local)
@@ -263,7 +289,10 @@ class Model(nn.Module):
             rms_norm(h, w["ln1"], cfg.norm_eps), w["attn"], cache_k, cache_v, pos, cfg,
             ctx, spec)
         h = h + a
-        return h + blocks._mlp(rms_norm(h, w["ln2"], cfg.norm_eps), w["mlp"], ctx)
+        x = rms_norm(h, w["ln2"], cfg.norm_eps)
+        if "moe" in w:  # the moe family's layers; the B tokens routed as a batch
+            return h + moe_mod.moe_ffn(x, w["moe"], cfg, ctx)[0]
+        return h + blocks._mlp(x, w["mlp"], ctx)
 
     def _ssm_decode(self, h, wl, cache, i):
         """Layer ``i``'s one-token SSD step; its new conv and SSD states
@@ -295,7 +324,7 @@ class Model(nn.Module):
                                           cache["mla"][i], pos, cfg, ctx)
                 h = h + a
                 h = h + blocks._mlp(rms_norm(h, wl["ln2"], cfg.norm_eps), wl["mlp"], ctx)
-        elif cfg.family == "dense":
+        elif cfg.family in ("dense", "moe"):
             for i in range(cfg.n_layers):
                 h = self._attn_mlp_decode(h, _layer(params["blocks"], i), cache["k"][i],
                                           cache["v"][i], pos, spec)

@@ -10,11 +10,17 @@ weights (``launch/training.py``'s ``fsdp=False``) needs neither.
 tuple of mesh axis names, ``None`` for a replicated dim) and an init.
 ``init_params`` draws the same distributions from a ``torch.Generator``;
 it does not reproduce JAX's random bits (tests carry weights across with
-``convert.params_from_jax`` instead).
+``convert.params_from_jax`` instead).  A leaf of more than ``SLAB``
+elements (the moe configs' stacked experts: 12 B elements at 29 layers)
+is drawn slab by slab along its first dim: an f32 draw of it whole would
+need twice its bf16 bytes beside it.  Every leaf of the other models run
+on the card (minitron-8b's 2.1 B-element MLP stacks the largest) is below
+``SLAB`` and drawn whole.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -24,7 +30,9 @@ from repro_torch.convert import tree_map
 from repro_torch.core.transport import resolve_device
 
 __all__ = ["ParallelCtx", "ParamDef", "init_params", "param_specs", "param_shapes",
-           "torch_dtype"]
+           "torch_dtype", "SLAB"]
+
+SLAB = 1 << 32  # elements: a larger leaf is drawn one slab of dim 0 at a time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,12 +88,22 @@ class ParamDef:
             return torch.zeros(self.shape, dtype=dt, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dt, device=device)
-        x = torch.randn(self.shape, generator=generator, dtype=torch.float32,
-                        device=device)
         if self.init == "scaled":
             fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
-            return x.mul_(float(np.float32(1.0 / np.sqrt(fan_in)))).to(dt)
-        return x.mul_(self.scale).to(dt)
+            scale = float(np.float32(1.0 / np.sqrt(fan_in)))
+        else:
+            scale = self.scale
+
+        def draw(shape):
+            x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+            return x.mul_(scale).to(dt)
+
+        if math.prod(self.shape) <= SLAB:
+            return draw(self.shape)
+        out = torch.empty(self.shape, dtype=dt, device=device)
+        for i in range(self.shape[0]):
+            out[i] = draw(self.shape[1:])
+        return out
 
 
 def torch_dtype(name: str) -> torch.dtype:

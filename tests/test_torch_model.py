@@ -335,8 +335,7 @@ def test_model_seeds():
     assert not torch.equal(a["blocks.attn.wq"], c["blocks.attn.wq"])
 
 
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "seamless-m4t-medium",
-                                  "internvl2-26b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A15"):
         Model(registry.get(arch, smoke=True), CTX, device="cpu")

@@ -529,7 +529,8 @@ def _fake_mesh(shape):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 1), (16, 16), (4, 2)])
 @pytest.mark.parametrize("arch", ["minitron-8b", "internlm2-20b", "seamless-m4t-medium",
-                                  "internvl2-26b"])
+                                  "internvl2-26b", "phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
 def test_train_specs_match_the_reference(arch, mesh_shape):
     for smoke in (True, False):
         mesh = _fake_mesh(mesh_shape)
@@ -549,7 +550,8 @@ def test_train_specs_match_the_reference(arch, mesh_shape):
 
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 1), (16, 1), (256, 1)])
 @pytest.mark.parametrize("arch", ["minitron-8b", "internlm2-20b", "deepseek-67b", "mamba2-780m",
-                                  "zamba2-2.7b", "minicpm3-4b"])
+                                  "zamba2-2.7b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+                                  "llama4-scout-17b-a16e"])
 def test_decode_plan_and_specs_match_the_reference(arch, mesh_shape):
     mesh = _fake_mesh(mesh_shape)
     cfg, jcfg = registry.get(arch), jregistry.get(arch)
