@@ -219,7 +219,37 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     the loss forward, profiled; both smoke configs with f32 weights on the
     card and on the CPU (losses within rel 1e-5); then phase 19's train
     step for phi3.5-moe at full width, depth cut 32 -> 1 (its kernels 1, 3
-    and 4 counts go into the kernels line, replacing phase 25's).
+    and 4 counts go into the kernels line, replacing phase 25's);
+27. runs the encoder-decoder family (phase ``encdec``): kernel 11 at its
+    four shapes (H=16, D=64: the forward's encoder 1024 x 1024 non-causal,
+    decoder 2048 causal and cross attention 2048 x 1024 at B=2 in bf16,
+    and a decode step's cross attention, one query row over 1024 frames
+    at B=4, in bf16 and f32) against its plain version on the route its
+    dtype takes (counted), timed beside SDPA and the bound; then
+    seamless-m4t-medium (12 encoder and 12 decoder layers, d_model 1024,
+    16 heads of 64, d_ff 4096, vocab 256206 padded to 256512, 1024 encoder
+    frames; 978,384,896 parameters) at full width and depth from seed 0 in
+    bf16: ``Model.loss_fn`` at B=2, S=2048 with (2, 1024, 1024) encoder
+    frames through kernel 11 (36 launches: 12 non-causal, 12 causal, 12
+    cross; these go into the kernels line, replacing phase 26's) and
+    through the chunked path, within 2e-3 of each other, profiled (the f32
+    unembed, the bf16 GEMMs and kernel 11); the full-sequence logits at
+    S=128 against 128 ``decode_fn`` steps with the prefill's encoder
+    output in the cache's ``enc_out``, both through kernel 11 (12 launches
+    a step), in bf16 and in f32 (rel <= 0.05 in both); ``serve --arch
+    seamless-m4t-medium``; the smoke config in f32 on the card and on the
+    CPU (losses within rel 1e-5); then phase 19's train step for
+    seamless-m4t-medium at full width and depth (its kernels 1, 3 and 4
+    counts go into the kernels line, replacing phase 26's);
+28. runs the prefix-frontend family (phase ``vlm``): internvl2-26b (48
+    layers, d_model 6144, 48 heads over 8 kv of 128, d_ff 16384, vocab
+    92553 padded to 92672, 256 prefix positions; 19,862,722,560
+    parameters) at full width and depth from seed 0 in bf16:
+    ``Model.loss_fn`` at B=2 over 256 prefix and 1792 text positions
+    through kernel 11 (48 launches) and through the chunked path, within
+    2e-3, profiled; the full-sequence logits of 128 text tokens against
+    128 ``decode_fn`` steps (rel <= 0.05); ``serve --arch internvl2-26b``;
+    the smoke config in f32 on the card and on the CPU.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -229,8 +259,8 @@ purpose and are held by bits to the lossless result instead).
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
-(24), ``mla`` (25) and ``moe`` (26); a partial run prints no result
-lines.
+(24), ``mla`` (25), ``moe`` (26), ``encdec`` (27) and ``vlm`` (28); a
+partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -275,6 +305,7 @@ REPLACES = {
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attn_sm90.cu"  # the bf16 route
 FLASH_BF16_KERNEL = "flash_fwd_wgmma_kernel"
 BF16_FLOPS_PER_S = 989.4e12  # H100 SXM dense bf16 tensor-core peak, data sheet
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, data sheet
 MAIN_BYTES = 646_000_000  # per rank (allreduce) / at the root (scatter): Figs. 10, 12
 SCATTER_WIRE_BYTES = 343_566_440  # benchmarks/BENCH_scatter.json, N = 8
 MOVER_BYTES = 16_000_000  # per rank: the data movers and the two-pass paths
@@ -3006,33 +3037,49 @@ def check_flash_kernel(device, gen):
     return {"flash_attention": record}
 
 
-def _forward_logits(model, params, tokens):
+def _forward_logits(model, params, tokens, cross_kv=None):
     """Full-sequence logits at every position (the prefill reference of
-    tests/test_prefill_decode_consistency.py)."""
+    tests/test_prefill_decode_consistency.py); ``cross_kv``: the encdec
+    encoder's output."""
     import torch
 
     from repro_torch.models.layers import embed_lookup, rms_norm, vocab_parallel_logits
 
     h = embed_lookup(tokens, params["embed"], model.ctx)
-    h, _ = model._backbone(h, params, positions=torch.arange(h.shape[1], device=h.device))
+    h, _ = model._backbone(h, params, positions=torch.arange(h.shape[1], device=h.device),
+                           cross_kv=cross_kv)
     h = rms_norm(h, params["final_norm"], model.cfg.norm_eps)
     return vocab_parallel_logits(h, params["unembed"], model.ctx)
 
 
-def _decode_vs_prefill(model, params, tokens, prefill=None):
+def _decode_vs_prefill(model, params, tokens, prefill=None, enc_input=None):
     """The full-sequence logits of ``tokens`` (B, S) (through ``prefill``,
-    another model on the same weights, where given) against S steps of
-    ``model.decode_fn`` from a zero f32 cache: (max rel err over the
-    largest logit, prefill s, decode s, the cache's shapes)."""
-    want, prefill_s = _timed(lambda: _forward_logits(prefill or model, params, tokens))
-    got, decode_s, cache = _decode_logits(model, params, tokens)
+    another model on the same weights, where given; encdec: after its
+    encoder over ``enc_input``) against S steps of ``model.decode_fn`` from
+    a zero f32 cache (encdec: the prefill's encoder output in its
+    ``enc_out``): (max rel err over the largest logit, prefill s, decode s,
+    the cache's shapes, kernel 11's launches in the prefill and in the
+    steps)."""
+    prefill = prefill or model
+
+    def forward():
+        enc = None if enc_input is None else prefill._encode(params, enc_input)
+        return _forward_logits(prefill, params, tokens, enc), enc
+
+    n0 = _launches()["flash_attention"]
+    (want, enc_out), prefill_s = _timed(forward)
+    n1 = _launches()["flash_attention"]
+    got, decode_s, cache = _decode_logits(model, params, tokens, enc_out)
+    launches = (n1 - n0, _launches()["flash_attention"] - n1)
     rel = float((got - want).abs().max() / want.abs().max())
-    return rel, prefill_s, decode_s, cache
+    return rel, prefill_s, decode_s, cache, launches
 
 
-def _decode_logits(model, params, tokens):
+def _decode_logits(model, params, tokens, enc_out=None):
     """S steps of ``model.decode_fn`` over ``tokens`` (B, S) from a zero f32
-    cache: (logits (B, S, V), seconds, the cache's shapes)."""
+    cache (encdec: ``enc_out``, the prefill's encoder output, copied into
+    the cache's f32 ``enc_out``): (logits (B, S, V), seconds, the cache's
+    shapes)."""
     import torch
 
     from repro_torch.models.attention import KVCacheSpec
@@ -3041,6 +3088,8 @@ def _decode_logits(model, params, tokens):
     spec = KVCacheSpec(s_total=s, cp_axis=None, cp_size=1)
     cache = {k: torch.zeros(v, dtype=torch.float32, device=tokens.device)
              for k, v in model.cache_defs(tokens.shape[0], spec).items()}
+    if enc_out is not None:
+        cache["enc_out"].copy_(enc_out)
 
     def decode_all():
         c = cache
@@ -3068,6 +3117,10 @@ def _widths(cfg):
                 f"d_ff {cfg.d_ff}")
     if cfg.attn_every:
         out += f" (one shared attention+MLP block after every {cfg.attn_every} layers)"
+    if cfg.n_enc_layers:
+        out += f", {cfg.n_enc_layers} encoder layers over {cfg.n_prefix} frames"
+    elif cfg.n_prefix:
+        out += f", {cfg.n_prefix} prefix positions before the text"
     return out + f", vocab {cfg.vocab}"
 
 
@@ -3176,7 +3229,7 @@ def run_model(device):
         tokens = torch.from_numpy(
             rng.integers(0, cfg.vocab, (2, PREFILL_SEQ)).astype(np.int32)).to(device)
         _reset_launches()
-        rel, prefill_s, decode_s, _ = _decode_vs_prefill(model, params, tokens, prefill=kmodel)
+        rel, prefill_s, decode_s, *_ = _decode_vs_prefill(model, params, tokens, prefill=kmodel)
         if _launches()["flash_attention"] != cfg.n_layers:
             raise AssertionError(f"prefill and decode launched {_nonzero(_launches())}")
         log(f"decode vs prefill {cfg.arch_id} B=2 S={PREFILL_SEQ}: max rel err {rel:.4e} "
@@ -3752,7 +3805,7 @@ def _ssm_forward(arch, n_want, serve_argv, device):
         del model, params
         torch.cuda.empty_cache()
         model32 = Model(cfg, params=params32, device=device)
-        rel, prefill_s, decode_s, cache = _decode_vs_prefill(model32, params32, tokens)
+        rel, prefill_s, decode_s, cache, _ = _decode_vs_prefill(model32, params32, tokens)
         log(f"ssm decode vs prefill {cfg.arch_id} B=2 S={SSM_PREFILL_SEQ}, f32 weights: max "
             f"rel err {rel:.4e} (bound 0.05); bf16 weights: {rel16:.4e} (not gated: "
             f"{SSM_DECODE_NOTE}); cache {cache}; f32 prefill {prefill_s * 1e3:.1f} ms, "
@@ -3863,6 +3916,68 @@ def _gemm_split(events):
     return out
 
 
+def _family_detail(events, busy):
+    """``_profiled_loss``'s detail: the device ms of the f32 GEMMs (the
+    unembed), the bf16 GEMMs, kernel 11 and the rest."""
+    split = _gemm_split(events)
+    flash = sum(e.self_device_time_total for e in events if FLASH_BF16_KERNEL in e.key) / 1e3
+    split["other"] -= flash
+    split["kernel 11"] = flash
+    return "".join(f"; {k} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f} %)"
+                   for k, v in split.items())
+
+
+def _family_loss(model, params, launches_want, detail=None):
+    """``Model.loss_fn`` on one ``SyntheticStream`` batch at B=2, S=2048
+    through kernel 11 (``launches_want`` launches, all on the tensor-core
+    route) and through the chunked path (none), within 2e-3·max(|l0|, 1)
+    (C7); the chunked wall; then the kernel path profiled
+    (``_profiled_loss`` with ``detail``; default: the f32 and bf16 GEMMs'
+    and kernel 11's device ms).  Returns kernel 11's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    kmodel = Model(dataclasses.replace(cfg, use_flash_kernel=True), params=params,
+                   device=params["embed"].device)
+    batch = next(SyntheticStream(cfg, MODEL_BATCH, MODEL_SEQ, seed=SEED))
+    with torch.inference_mode():
+        _reset_launches()
+        l1 = float(kmodel.loss_fn(params, batch))
+        launches, routes = _launches(), dict(flash_attn.ROUTES)
+        _reset_launches()
+        l0, cold0 = _timed(lambda: model.loss_fn(params, batch))
+        chunked = _launches()
+        l0 = float(l0)
+        if _nonzero(launches) != {"flash_attention": launches_want} or \
+                routes != {"tensor_core_bf16": launches_want, "cuda_core_f32": 0}:
+            raise AssertionError(f"{cfg.arch_id} loss forward with the kernel launched "
+                                 f"{_nonzero(launches)}, routes {routes}; expected "
+                                 f"flash_attention x {launches_want} on the bf16 route")
+        if _nonzero(chunked):
+            raise AssertionError(f"{cfg.arch_id} chunked loss forward launched "
+                                 f"{_nonzero(chunked)}")
+        if not (math.isfinite(l0) and math.isfinite(l1)) or \
+                abs(l1 - l0) > 2e-3 * max(abs(l0), 1.0):
+            raise AssertionError(f"{cfg.arch_id} loss with kernel 11 {l1} vs chunked {l0}")
+        _, warm0 = _timed(lambda: model.loss_fn(params, batch))
+        shapes = {k: tuple(v.shape) for k, v in batch.items()}
+        log(f"{cfg.family} loss forward {cfg.arch_id} {shapes}: with kernel 11 {l1:.6f}, "
+            f"chunked {l0:.6f} (|diff| {abs(l1 - l0):.3e}, bound "
+            f"{2e-3 * max(abs(l0), 1.0):.3e}); launches {_nonzero(launches)}, routes "
+            f"{routes}; chunked path wall cold {cold0 * 1e3:.1f} ms, warm {warm0 * 1e3:.1f} ms")
+    _profiled_loss(f"{cfg.family} (kernel 11)", kmodel, params, batch,
+                   detail or _family_detail)
+    del kmodel, batch
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
 def _mla_layer_split(model, params, device):
     """One layer's ``mla_train`` (the f32 latent attention and its bf16
     projections) and ``_mlp`` at the forward's shape, warm (second call),
@@ -3934,12 +4049,12 @@ def _mla_forward(device):
         rng = np.random.default_rng(SEED)
         tokens = torch.from_numpy(
             rng.integers(0, cfg.vocab, (2, MLA_PREFILL_SEQ)).astype(np.int32)).to(device)
-        rel16, prefill16_s, decode16_s, _ = _decode_vs_prefill(model, params, tokens)
+        rel16, prefill16_s, decode16_s, *_ = _decode_vs_prefill(model, params, tokens)
         params32 = tree_map(lambda t: t.to(torch.float32), params)
         del model, params
         torch.cuda.empty_cache()
         model32 = Model(cfg, params=params32, device=device)
-        rel, prefill_s, decode_s, cache = _decode_vs_prefill(model32, params32, tokens)
+        rel, prefill_s, decode_s, cache, _ = _decode_vs_prefill(model32, params32, tokens)
         log(f"mla decode vs prefill {cfg.arch_id} B=2 S={MLA_PREFILL_SEQ}: bf16 weights max "
             f"rel err {rel16:.4e} (bound 0.05; prefill {prefill16_s * 1e3:.1f} ms, "
             f"{MLA_PREFILL_SEQ} decode steps {decode16_s * 1e3:.1f} ms = "
@@ -4017,14 +4132,14 @@ MOE_CUTS = {
     MOE_SCOUT: (15, 2_076_272_640, 2_070_942_720),  # of 48 layers
 }
 MOE_SMOKE = False
-MOE_BATCH, MOE_SEQ = 2, 2048  # 4096 tokens: phi3.5-moe's capacity 640 slots an expert
+# 4096 tokens, as every forward's (``_family_loss``): phi3.5-moe's capacity 640
+# slots an expert
+MOE_BATCH, MOE_SEQ = MODEL_BATCH, MODEL_SEQ
 MOE_PREFILL_SEQ = 128
 MOE_F32_LAYERS = 12  # the f32-weight decode check: 62.4 GB of f32 weights
 MOE_DECODE_NOTE = ("the reference's jitted bf16 decode leaves its prefill by 0.17 from 8 "
                    "layers on at d_model 128, nothing dropped; scripts/ssm_decode_drift.py "
                    "--archs phi3.5-moe-42b-a6.6b")
-MOE_F32_SEQ = 128
-MOE_F32_TOL = 1e-5
 MOE_TRAIN_LAYERS = 1  # 1.565 B parameters a rank; 2 layers would need ~93 GB
 MOE_TRAIN_LEAF = ("blocks", "moe", "wo")
 
@@ -4041,30 +4156,17 @@ def _moe_cfg(arch, **kw):
     return dataclasses.replace(cfg, n_layers=layers, **kw)
 
 
-def _moe_model(arch, device, **kw):
-    """The cut model from seed 0 (bf16), its parameter count checked."""
-    import torch
-
+def _moe_model(arch, device):
+    """The cut model from seed 0 (bf16), its parameter count checked
+    (``_family_model``)."""
     from repro_torch.configs import registry
-    from repro_torch.models.model import Model
 
-    cfg = _moe_cfg(arch, **kw)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    model, init_s = _timed(lambda: Model(cfg, device=device, seed=SEED))
-    n_params = sum(p.numel() for p in model.parameters())
-    full = registry.get(arch, smoke=MOE_SMOKE)
-    if not MOE_SMOKE:
-        layers, per_layer, rest = MOE_CUTS[arch]
-        if n_params != layers * per_layer + rest:
-            raise AssertionError(f"{cfg.arch_id}: {n_params} parameters, expected "
-                                 f"{layers} x {per_layer} + {rest}")
-    log(f"moe {_widths(full)}, {cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
-        f"{cfg.capacity_factor}; vocab padded to {cfg.padded_vocab()}; n_layers cut "
-        f"{full.n_layers} -> {cfg.n_layers}; {n_params} parameters "
-        f"({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB bf16) "
-        f"drawn from seed {SEED} in {init_s:.2f} s")
-    return model, model.params()
+    cfg = _moe_cfg(arch)
+    layers, per_layer, rest = MOE_CUTS[arch]
+    return _family_model(
+        cfg, None if MOE_SMOKE else layers * per_layer + rest, device,
+        f"; n_layers cut {registry.get(arch, smoke=MOE_SMOKE).n_layers} -> {cfg.n_layers}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor {cfg.capacity_factor}")
 
 
 def _moe_detail(cfg):
@@ -4160,54 +4262,18 @@ def _registry_cut(arch, layers):
 def _moe_forward(device):
     """phi3.5-moe at full width, the stated depth (``MOE_CUTS``), bf16 from
     seed 0: the loss forward at B=2, S=2048 through kernel 11 (one launch a
-    layer, counted, all on the tensor-core route) and through the chunked
-    path (none), within 2e-3·max(|l0|, 1) (C7); walls; busy and the f32
-    expert GEMMs' device ms beside the bf16 GEMMs and the rest, from one
-    profiled call (``_profiled_loss``); decode against prefill at S=128
+    layer) and through the chunked path (``_family_loss``, with the f32
+    expert GEMMs' device ms and TFLOP/s); decode against prefill at S=128
     (``_moe_decode_vs_prefill``; logged: bf16 drifts with depth in the
     reference too, ``MOE_DECODE_NOTE``; ``_moe_f32_decode`` gates).
     Returns kernel 11's launches in the loss forward, the bf16 decode rel
     and the model's depth."""
-    import dataclasses
-
     import numpy as np
     import torch
 
-    from repro_torch.data.pipeline import SyntheticStream
-    from repro_torch.kernels import flash_attn
-    from repro_torch.models.model import Model
-
     model, params = _moe_model(MOE_ARCH, device)
     cfg = model.cfg
-    kmodel = Model(dataclasses.replace(cfg, use_flash_kernel=True), params=params,
-                   device=device)
-    batch = next(SyntheticStream(cfg, MOE_BATCH, MOE_SEQ, seed=SEED))
-    with torch.inference_mode():
-        _reset_launches()
-        l1, cold1 = _timed(lambda: kmodel.loss_fn(params, batch))
-        launches, routes = _launches(), dict(flash_attn.ROUTES)
-        _reset_launches()
-        l0, cold0 = _timed(lambda: model.loss_fn(params, batch))
-        chunked = _launches()
-        l1, l0 = float(l1), float(l0)
-        if _nonzero(launches) != {"flash_attention": cfg.n_layers} or \
-                routes != {"tensor_core_bf16": cfg.n_layers, "cuda_core_f32": 0}:
-            raise AssertionError(f"moe loss forward with the kernel launched "
-                                 f"{_nonzero(launches)}, routes {routes}; expected "
-                                 f"flash_attention x {cfg.n_layers} on the bf16 route")
-        if _nonzero(chunked):
-            raise AssertionError(f"moe chunked loss forward launched {_nonzero(chunked)}")
-        if not (math.isfinite(l0) and math.isfinite(l1)) or \
-                abs(l1 - l0) > 2e-3 * max(abs(l0), 1.0):
-            raise AssertionError(f"moe loss with kernel 11 {l1} vs chunked {l0}")
-        _, warm0 = _timed(lambda: model.loss_fn(params, batch))
-        log(f"moe loss forward {cfg.arch_id} B={MOE_BATCH} S={MOE_SEQ}: with kernel 11 "
-            f"{l1:.6f}, chunked {l0:.6f} (|diff| {abs(l1 - l0):.3e}, bound "
-            f"{2e-3 * max(abs(l0), 1.0):.3e}); launches {_nonzero(launches)}, routes {routes}; "
-            f"chunked path wall cold {cold0 * 1e3:.1f} ms, warm {warm0 * 1e3:.1f} ms")
-    _profiled_loss("moe (kernel 11)", kmodel, params, batch, _moe_detail(cfg))
-    del kmodel, batch
-    torch.cuda.empty_cache()
+    flash = _family_loss(model, params, cfg.n_layers, _moe_detail(cfg))
 
     with torch.inference_mode():
         rng = np.random.default_rng(SEED)
@@ -4223,7 +4289,7 @@ def _moe_forward(device):
         f"{decode_s * 1e3:.1f} ms ({decode_s * 1e3 / MOE_PREFILL_SEQ:.2f} ms/step)")
     del model, params
     torch.cuda.empty_cache()
-    return launches["flash_attention"], rel, cfg.n_layers
+    return flash, rel, cfg.n_layers
 
 
 def _moe_f32_decode(device, rel16):
@@ -4285,34 +4351,6 @@ def _moe_scout_forward(device):
     torch.cuda.empty_cache()
 
 
-def _check_moe_f32_card_vs_cpu(device):
-    """Both smoke configs with f32 weights (drawn on the CPU from seed 0)
-    and one batch, on the card and on the CPU: the two losses within rel
-    ``MOE_F32_TOL`` (the function is the same on both devices: no TF32;
-    the routing the same)."""
-    import torch
-
-    from repro_torch.configs import registry
-    from repro_torch.convert import tree_map
-    from repro_torch.data.pipeline import SyntheticStream
-    from repro_torch.models.model import Model
-
-    for arch in MOE_CUTS:
-        cfg = registry.get(arch, smoke=True)
-        params = tree_map(lambda t: t.to(torch.float32),
-                          Model(cfg, device="cpu", seed=SEED).params())
-        on_card = tree_map(lambda t: t.to(device), params)
-        batch = next(SyntheticStream(cfg, 2, MOE_F32_SEQ, seed=SEED))
-        with torch.inference_mode():
-            cpu = float(Model(cfg, params=params, device="cpu").loss_fn(params, batch))
-            card = float(Model(cfg, params=on_card, device=device).loss_fn(on_card, batch))
-        rel = abs(card - cpu) / abs(cpu)
-        log(f"moe f32 {cfg.arch_id} B=2 S={MOE_F32_SEQ}: loss on the card {card:.9f}, on the "
-            f"CPU {cpu:.9f}, rel {rel:.3e} (bound {MOE_F32_TOL:g})")
-        if not rel <= MOE_F32_TOL:
-            raise AssertionError(f"{cfg.arch_id} f32: card {card} vs CPU {cpu}, rel {rel}")
-
-
 def run_moe(device):
     """Phase 26 (module docstring).  Returns kernel 11's launches in the
     phi3.5-moe loss forward and the kernels' launches of the train
@@ -4332,7 +4370,8 @@ def run_moe(device):
     log(f"moe serve peak memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     _moe_f32_decode(device, rel16)
     _moe_scout_forward(device)
-    _check_moe_f32_card_vs_cpu(device)
+    for arch in MOE_CUTS:  # f32 weights, cfg.dtype as the config has it (bf16)
+        _check_f32_card_vs_cpu(arch, device, dtype=None)
     launches = run_train_full_width(device, MOE_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_LEAF)
     per_rank = {k: v / (2 * TRAIN_STEPS) for k, v in _nonzero(launches).items()}
     log(f"moe train step: both ranks' params and AdamW state equal by bits after every step, "
@@ -4342,10 +4381,254 @@ def run_moe(device):
 
 
 # ---------------------------------------------------------------------------
+# Phases 27-28: the encoder-decoder and prefix-frontend families
+# ---------------------------------------------------------------------------
+
+# full width and depth (src/repro/configs/seamless_m4t_medium.py): 12
+# encoder and 12 decoder layers, d_model 1024, 16 heads of 64, d_ff 4096,
+# vocab 256206 padded to 256512, 1024 encoder frames
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_PARAMS = 978_384_896
+ENCDEC_SMOKE = False
+ENCDEC_PREFILL_SEQ = 128
+ENCDEC_TRAIN_LEAF = ("blocks", "cross", "wo")
+# kernel 11 at the encdec path's shapes (H=16, D=64): the forward's three,
+# then a decode step's cross attention (one query row over every encoder
+# frame, serve's batch) on both routes: (label, B, Sq, Sk, causal, dtypes)
+ENCDEC_FLASH_SHAPES = (("encoder", 2, 1024, 1024, False, ("bfloat16",)),
+                       ("decoder", 2, 2048, 2048, True, ("bfloat16",)),
+                       ("cross", 2, 2048, 1024, False, ("bfloat16",)),
+                       ("decode cross", 4, 1, 1024, False, ("bfloat16", "float32")))
+# full width and depth (src/repro/configs/internvl2_26b.py): 48 layers,
+# d_model 6144, 48 heads over 8 kv of 128, d_ff 16384, vocab 92553 padded
+# to 92672, 256 prefix positions before the text (internlm2-20b's tree)
+VLM_ARCH = "internvl2-26b"
+VLM_PARAMS = 19_862_722_560
+VLM_SMOKE = False
+VLM_PREFILL_SEQ = 128
+FAMILY_F32_SEQ = 128
+FAMILY_F32_TOL = 1e-5
+
+
+def _family_model(cfg, n_want, device, note=""):
+    """The model of ``cfg``, bf16 from seed 0, on a freed card; its
+    parameter count checked against ``n_want`` (where given); ``note``
+    goes into the log line after the widths."""
+    import torch
+
+    from repro_torch.models.model import Model
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = _timed(lambda: Model(cfg, device=device, seed=SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_want is not None and n_params != n_want:
+        raise AssertionError(f"{cfg.arch_id}: {n_params} parameters, expected {n_want}")
+    log(f"{cfg.family} {_widths(cfg)}{note}; vocab padded to {cfg.padded_vocab()}; {n_params} "
+        f"parameters ({sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f}"
+        f" GB bf16) drawn from seed {SEED} in {init_s:.2f} s")
+    return model, model.params()
+
+
+def _check_encdec_flash_shapes(device):
+    """Kernel 11 at the encdec path's shapes (``ENCDEC_FLASH_SHAPES``), in
+    each dtype given: against its plain version (``FLASH_TOL``) on the
+    route the dtype takes (counted), then timed (median of 20 event pairs
+    around 10 calls) beside SDPA, the plain version (median of 3 calls)
+    and the bound (4·D FLOPs a (query, key) pair that sees its key at the
+    dtype's peak, 989.4 TFLOP/s in bf16, 67 in f32; q, k, v and o once
+    at 3.35 TB/s)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, d = 16, 64
+    cases = [(label, b, sq, sk, causal, dtype)
+             for label, b, sq, sk, causal, dtypes in ENCDEC_FLASH_SHAPES for dtype in dtypes]
+    for label, b, sq, sk, causal, dtype in cases:
+        route = "tensor_core_bf16" if dtype == "bfloat16" else "cuda_core_f32"
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device=device).to(dt)
+                   for s in (sq, sk, sk))
+        flash_attn.reset_launch_counts()
+        got = flash_attn.flash_attention(q, k, v, causal=causal)
+        routes = dict(flash_attn.ROUTES)
+        want = flash_attn.flash_attention_plain(q, k, v, causal=causal)
+        tol = FLASH_TOL[dtype]
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        if routes != {"tensor_core_bf16": 0, "cuda_core_f32": 0, route: 1}:
+            raise AssertionError(f"flash_attention [{label} {dtype}] took routes {routes}")
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention [{label} {dtype}] disagrees with its plain "
+                                 f"version: {bad} outside")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        flops = 4 * b * h * d * (sq * (sq + 1) // 2 if causal else sq * sk)
+        nbytes = q.element_size() * b * h * d * (2 * sq + 2 * sk)
+        peak = BF16_FLOPS_PER_S if dtype == "bfloat16" else F32_FLOPS_PER_S
+        bound = max(flops / peak, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = _median_ms(lambda: flash_attn.flash_attention(q, k, v, causal=causal), 20, 10)
+        lib_ms = _median_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), 20, 10)
+        plain_ms = _median_ms(
+            lambda: flash_attn.flash_attention_plain(q, k, v, causal=causal), 3)
+        log(f"kernel 11 at the encdec {label} shape B={b} Sq={sq} Sk={sk} H={h} D={d} {dtype} "
+            f"causal={causal}, {route} route: max |err| vs plain {float(diff.max()):.3e} "
+            f"(atol = rtol = {tol:g}); kernel {ms:.4f} ms, SDPA {lib_ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB; {100 * bound / ms:.1f} % of the bound)")
+        del q, k, v, qt, kt, vt, got, want, diff
+    torch.cuda.empty_cache()
+
+
+def _encdec_decode(model, params, device):
+    """seamless-m4t-medium's full-sequence logits at S=128 (1024 encoder
+    frames) against 128 ``decode_fn`` steps, both through kernel 11, in bf16
+    and with the weights and ``cfg.dtype`` in f32: rel <= 0.05 in both;
+    kernel 11 launched once a decoder layer in each step (the cross
+    attention, Sq = 1 over Sk = 1024)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    batch = next(SyntheticStream(cfg, 2, ENCDEC_PREFILL_SEQ, seed=SEED))
+    tokens = torch.from_numpy(batch["tokens"]).to(device)
+    enc_input = torch.from_numpy(batch["enc_input"]).to(device)
+    pre_want = cfg.n_enc_layers + 2 * cfg.n_layers
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        p = params if dtype == "bfloat16" else tree_map(lambda t: t.to(torch.float32), params)
+        kmodel = Model(dataclasses.replace(cfg, dtype=dtype, use_flash_kernel=True), params=p,
+                       device=device)
+        _reset_launches()
+        with torch.inference_mode():
+            rel, prefill_s, decode_s, _, (pre, dec) = _decode_vs_prefill(
+                kmodel, p, tokens, enc_input=enc_input)
+        if (pre, dec) != (pre_want, ENCDEC_PREFILL_SEQ * cfg.n_layers):
+            raise AssertionError(f"{cfg.arch_id} {dtype}: kernel 11 launched {pre} times in "
+                                 f"the prefill, {dec} in the decode steps")
+        out[dtype] = rel
+        log(f"encdec decode vs prefill {cfg.arch_id} B=2 S={ENCDEC_PREFILL_SEQ} S_enc "
+            f"{cfg.n_prefix}, {dtype} weights and cfg.dtype: max rel err {rel:.4e} (bound "
+            f"0.05); prefill {prefill_s * 1e3:.1f} ms ({pre} kernel 11 launches), "
+            f"{ENCDEC_PREFILL_SEQ} decode steps {decode_s * 1e3:.1f} ms "
+            f"({decode_s * 1e3 / ENCDEC_PREFILL_SEQ:.2f} ms/step, "
+            f"{dec // ENCDEC_PREFILL_SEQ} kernel 11 launches a step)")
+        del p, kmodel
+        torch.cuda.empty_cache()
+    if not all(r <= 0.05 for r in out.values()):
+        raise AssertionError(f"{cfg.arch_id}: decode/prefill mismatch {out}")
+
+
+def _check_f32_card_vs_cpu(arch, device, dtype="float32"):
+    """``arch``'s smoke config with f32 weights (drawn on the CPU from seed
+    0), ``cfg.dtype`` set to ``dtype`` (None: the config's), and one batch,
+    on the card and on the CPU: the two losses within rel
+    ``FAMILY_F32_TOL`` (the function is the same on both devices: no
+    TF32)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+
+    cfg = registry.get(arch, smoke=True)
+    cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+    params = tree_map(lambda t: t.to(torch.float32), Model(cfg, device="cpu", seed=SEED).params())
+    on_card = tree_map(lambda t: t.to(device), params)
+    prefix = cfg.n_prefix if cfg.family in ("vlm", "audio") else 0
+    batch = next(SyntheticStream(cfg, 2, FAMILY_F32_SEQ + prefix, seed=SEED))
+    with torch.inference_mode():
+        cpu = float(Model(cfg, params=params, device="cpu").loss_fn(params, batch))
+        card = float(Model(cfg, params=on_card, device=device).loss_fn(on_card, batch))
+    rel = abs(card - cpu) / abs(cpu)
+    log(f"{cfg.family} f32 {cfg.arch_id} {({k: tuple(v.shape) for k, v in batch.items()})}: "
+        f"loss on the card {card:.9f}, on the CPU {cpu:.9f}, rel {rel:.3e} (bound "
+        f"{FAMILY_F32_TOL:g})")
+    if not rel <= FAMILY_F32_TOL:
+        raise AssertionError(f"{cfg.arch_id} f32: card {card} vs CPU {cpu}, rel {rel}")
+
+
+def run_encdec(device):
+    """Phase 27 (module docstring).  Returns kernel 11's launches in the
+    seamless-m4t-medium loss forward and the kernels' launches of its train
+    steps."""
+    import torch
+
+    from repro_torch.configs import registry
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    _check_encdec_flash_shapes(device)
+    model, params = _family_model(registry.get(ENCDEC_ARCH, smoke=ENCDEC_SMOKE), ENCDEC_PARAMS,
+                                  device)
+    cfg = model.cfg
+    flash = _family_loss(model, params, cfg.n_enc_layers + 2 * cfg.n_layers)
+    _encdec_decode(model, params, device)
+    del model, params
+    torch.cuda.empty_cache()
+    _serve_steps(cfg, ["--arch", ENCDEC_ARCH], ENCDEC_SMOKE, device)
+    _check_f32_card_vs_cpu(ENCDEC_ARCH, device)
+    launches = run_train_full_width(device, ENCDEC_ARCH, None, ENCDEC_TRAIN_LEAF)
+    per_rank = {k: v / (2 * TRAIN_STEPS) for k, v in _nonzero(launches).items()}
+    log(f"encdec train step: both ranks' params and AdamW state equal by bits after every "
+        f"step, no leaf flagged; kernel launches a step and rank {per_rank}")
+    log(f"encdec phase: {time.perf_counter() - t0:.1f} s")
+    return flash, launches
+
+
+def run_vlm(device):
+    """Phase 28 (module docstring)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model, params = _family_model(registry.get(VLM_ARCH, smoke=VLM_SMOKE), VLM_PARAMS, device)
+    cfg = model.cfg
+    _family_loss(model, params, cfg.n_layers)
+    # decode against prefill over text tokens (the reference's decode has
+    # no prefix path), the prefill through kernel 11
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (2, VLM_PREFILL_SEQ)).astype(np.int32)).to(device)
+    kmodel = Model(dataclasses.replace(cfg, use_flash_kernel=True), params=params,
+                   device=device)
+    with torch.inference_mode():
+        rel, prefill_s, decode_s, cache, _ = _decode_vs_prefill(model, params, tokens,
+                                                                prefill=kmodel)
+    log(f"vlm decode vs prefill {cfg.arch_id} B=2 S={VLM_PREFILL_SEQ} text tokens, bf16: max "
+        f"rel err {rel:.4e} (bound 0.05); prefill through kernel 11 {prefill_s * 1e3:.1f} ms, "
+        f"{VLM_PREFILL_SEQ} decode steps {decode_s * 1e3:.1f} ms "
+        f"({decode_s * 1e3 / VLM_PREFILL_SEQ:.2f} ms/step); cache {cache}")
+    if not rel <= 0.05:
+        raise AssertionError(f"{cfg.arch_id}: decode/prefill mismatch: rel {rel}")
+    del model, kmodel, params
+    torch.cuda.empty_cache()
+    _serve_steps(cfg, ["--arch", VLM_ARCH], VLM_SMOKE, device)
+    _check_f32_card_vs_cpu(VLM_ARCH, device)
+    log(f"vlm phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model", "train", "ssm", "mla", "moe")
+          "model", "train", "ssm", "mla", "moe", "encdec", "vlm")
 
 
 def _record(records, name):
@@ -4491,6 +4774,18 @@ def main(argv=()) -> int:
         _record(records, "flash_attention")["launches"] = flash
         for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
             _record(records, name)["launches"] = launches[name]
+
+    if "encdec" in phases:
+        # This slice's main path: the encoder-decoder's forward through kernel
+        # 11's non-causal and cross modes, and the seamless-m4t-medium train
+        # step's gradient sync (kernels 1, 3 and 4).
+        flash, launches = run_encdec(device)
+        _record(records, "flash_attention")["launches"] = flash
+        for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+            _record(records, name)["launches"] = launches[name]
+
+    if "vlm" in phases:
+        run_vlm(device)
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

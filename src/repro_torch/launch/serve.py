@@ -8,8 +8,10 @@ The counterpart of ``repro.launch.serve``: the same flags (plus
 ``--device``, default ``cuda``), the same decode-path prefill (the prompt
 goes through ``Model.decode_fn`` one token at a time, so there is one code
 path) and greedy loop, the same two printed lines, the same default
-``--arch`` (``mamba2-780m``).  The dense (GQA and MLA), moe, ssm and
-hybrid families run; the others raise (ROADMAP A15).
+``--arch`` (``mamba2-780m``).  Every family runs; the encdec family's
+cached encoder output is drawn from the seed's generator before the
+prompt, as the reference draws it (the frontend is a stub), so the prompt
+tokens are the reference's.
 """
 from __future__ import annotations
 
@@ -48,6 +50,9 @@ def serve(argv=None):
     rng = np.random.default_rng(args.seed)
     cache = {k: torch.zeros(v, dtype=torch.float32, device=device)
              for k, v in shapes.items()}
+    if "enc_out" in cache:
+        cache["enc_out"] = torch.from_numpy(
+            rng.normal(0, 1, shapes["enc_out"]).astype(np.float32)).to(device)
     params = model.params()
     prompt = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     prompt = torch.from_numpy(prompt).to(device)

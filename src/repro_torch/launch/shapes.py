@@ -13,10 +13,11 @@ with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 A decode batch that cannot fill the data axes makes the reference split
 the cache's context over ``data`` (``cp_size > 1``): here
 ``KVCacheSpec`` raises for it (ROADMAP A11.7).  The port's ``Model``
-defines the dense and moe families' cache (k and v), MLA's (mla: the
-latent and rope-key rows, f32, replicated over model), the ssm family's
-(conv_x, conv_bc and the SSD state ssm, always f32) and the hybrid's
-(both); the encoder output comes with ROADMAP A15.
+defines the dense, vlm, audio and moe families' cache (k and v), MLA's
+(mla: the latent and rope-key rows, f32, replicated over model), the ssm
+family's (conv_x, conv_bc and the SSD state ssm, always f32), the
+hybrid's (both) and the encdec's (k, v and the encoder's output enc_out,
+f32, its batch on dim 0).
 """
 from __future__ import annotations
 
@@ -99,8 +100,8 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
                  cache_dtype=torch.float32):
     """(cache leaves, cache specs, tokens, tokens spec, plan) for
     ``serve_step``, with GLOBAL shapes (the batch whole).  ``cache_dtype``
-    applies to k and v; the MLA latent and the conv and SSD states are
-    f32."""
+    applies to k and v; the MLA latent, the conv and SSD states and the
+    encoder's output are f32."""
     sizes = mesh_axis_sizes(mesh)
     dp = dp_axes_of(mesh)
     dp_total = 1
@@ -111,15 +112,17 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
     local = model.cache_defs(shape.global_batch // dp_total, plan)
     cache, specs = {}, {}
     for k, shp in local.items():
-        if k not in ("k", "v", "mla", "conv_x", "conv_bc", "ssm"):
-            raise NotImplementedError(f"cache entry {k!r}: ROADMAP A15")
-        # the batch (dim 1) over dp; k and v's kv heads (dim 3), conv_x's
-        # channels (last) and the SSD state's heads (dim 2) over model (the
-        # MLA latent has no model dim: it is replicated over TP)
+        if k not in ("k", "v", "mla", "conv_x", "conv_bc", "ssm", "enc_out"):
+            raise ValueError(f"cache entry {k!r}: not one of the reference's")
+        # the batch (dim 1; enc_out's dim 0) over dp; k and v's kv heads
+        # (dim 3), conv_x's channels (last) and the SSD state's heads (dim 2)
+        # over model (the MLA latent has no model dim: it is replicated over
+        # TP)
         shp = list(shp)
         spec = [None] * len(shp)
-        shp[1] *= dp_total
-        spec[1] = _axes_entry(dp)
+        b_dim = 0 if k == "enc_out" else 1
+        shp[b_dim] *= dp_total
+        spec[b_dim] = _axes_entry(dp)
         tp_dim = {"k": 3, "v": 3, "conv_x": len(shp) - 1, "ssm": 2}.get(k)
         if tp_dim is not None:
             shp[tp_dim] *= tp

@@ -335,10 +335,12 @@ def test_model_seeds():
     assert not torch.equal(a["blocks.attn.wq"], c["blocks.attn.wq"])
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-26b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        Model(registry.get(arch, smoke=True), CTX, device="cpu")
+def test_unknown_family_raises():
+    """Every family of the reference is ported; one it does not know raises
+    ValueError, as its ``_block_defs`` does."""
+    cfg = dataclasses.replace(registry.get("minitron-8b", smoke=True), family="retrieval")
+    with pytest.raises(ValueError, match="retrieval"):
+        Model(cfg, CTX, device="cpu")
 
 
 def test_model_parallel_contexts_raise():

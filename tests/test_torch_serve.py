@@ -189,6 +189,12 @@ def test_serve_defaults_to_the_reference_arch():
     assert out.getvalue().startswith("arch=mamba2-smoke decoded 2 tokens x1 in ")
 
 
-def test_serve_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        serve.serve(["--arch", "seamless-m4t-medium", "--smoke", "--device", "cpu"])
+@pytest.mark.parametrize("arch,arch_id", [("seamless-m4t-medium", "seamless-m4t-medium-smoke"),
+                                          ("internvl2-26b", "internvl2-smoke")])
+def test_serve_runs_the_encdec_and_vlm_families(arch, arch_id):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen = serve.serve(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                           "--prompt-len", "4", "--gen", "3", "--cache-len", "16"])
+    assert out.getvalue().startswith(f"arch={arch_id} decoded 4 tokens x2 in ")
+    assert gen.shape == (2, 4) and ((0 <= gen) & (gen < 512)).all()

@@ -551,7 +551,8 @@ def test_train_specs_match_the_reference(arch, mesh_shape):
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 1), (16, 1), (256, 1)])
 @pytest.mark.parametrize("arch", ["minitron-8b", "internlm2-20b", "deepseek-67b", "mamba2-780m",
                                   "zamba2-2.7b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e", "seamless-m4t-medium",
+                                  "internvl2-26b"])
 def test_decode_plan_and_specs_match_the_reference(arch, mesh_shape):
     mesh = _fake_mesh(mesh_shape)
     cfg, jcfg = registry.get(arch), jregistry.get(arch)
