@@ -130,8 +130,9 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     the gradient sync of one minitron-8b layer over ``("local", "node")``
     2x4 under ``lorenzo`` (every leaf within its bound, the bucket count,
     the inter plan's wire bytes);
-14. checks that the all-to-all's backward on a one-card ``ThreadGroup``
-    raises instead of hanging (phase ``c6``);
+14. checks that the all-to-all's backward and ``fsdp_all_gather``'s
+    backward (the reduce-scatter) on a one-card ``ThreadGroup`` raise
+    instead of hanging (phase ``c6``);
 15. holds the flash-attention kernel (kernel 11; bf16 on the tensor-core
     route, f32 on the CUDA-core route, each counted) against its plain
     version at D = 32, 64 and 128, f32 and bf16, causal, causal with
@@ -249,7 +250,30 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     through kernel 11 (48 launches) and through the chunked path, within
     2e-3, profiled; the full-sequence logits of 128 text tokens against
     128 ``decode_fn`` steps (rel <= 0.05); ``serve --arch internvl2-26b``;
-    the smoke config in f32 on the card and on the CPU.
+    the smoke config in f32 on the card and on the CPU;
+29. runs this slice's main path (phase ``fsdp``): phase 19's train step
+    (internlm2-20b at every published width, 2 layers, bf16 from seed 0,
+    2 ranks of the card, 2 x 512 tokens, remat ``"full"``) with the
+    weights sharded over ``data`` (``fsdp=True``; each rank its
+    ``_local`` block), ``fsdp_gz`` the reference's ring at eb 1e-4 and
+    the replicated norms synced through the ring at eb 1e-4, for 3 steps:
+    every step's loss finite, the ranks' replicated leaves and their
+    AdamW moments equal by bits, no gather, reduce-scatter or allreduce
+    flagged, kernels 1, 3 and 4 launched as every gather's,
+    reduce-scatter's and allreduce's plan says; at step 0 both ranks'
+    gathered weights equal by bits and within eb (plus one bf16
+    rounding) of the global weight, and the reduce-scattered
+    ``blocks.mlp.wo`` (gathered along dim 1) within the reduce-scatter's
+    bound of the exact rank-order sum of the recorded cotangents; then a
+    profiled fourth step, its gathers and reduce-scatters again alone
+    (their share of the step's device busy), the peak memory beside
+    phase 19's; then one step of the smoke config on 4 ranks of the
+    card, its launches counted from 0 and held against its gathers' and
+    reduce-scatters' plans, kernel 2 on every hop (that count goes into
+    the kernels line; kernels 1, 3 and 4's from the main path replace
+    phase 27's), whose gathers (of its shards) and reduce-scatters (of
+    its recorded cotangents) run again on the card and on the CPU (their
+    plain versions): equal by bits.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -259,8 +283,8 @@ purpose and are held by bits to the lossless result instead).
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
-(24), ``mla`` (25), ``moe`` (26), ``encdec`` (27) and ``vlm`` (28); a
-partial run prints no result lines.
+(24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28) and
+``fsdp`` (29); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -2253,6 +2277,51 @@ def check_a2a_backward_on_threadgroup(device):
         f"{time.perf_counter() - t0:.2f} s: {msg[:160]}")
     if "DistGroup" not in msg:
         raise AssertionError(f"all_to_all backward did not raise as expected: {msg}")
+    check_fsdp_backward_on_threadgroup(device)
+
+
+def check_fsdp_backward_on_threadgroup(device):
+    """ROADMAP C6 for the FSDP gather: ``fsdp_all_gather`` under grad on a
+    one-card ``ThreadMesh((2, 1))``; its backward (the reduce-scatter) runs
+    on the autograd engine's device thread and must raise, naming the
+    train step's route and DistGroup, within seconds, under a watchdog."""
+    import torch
+
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.grad_sync import SyncConfig, fsdp_all_gather
+    from repro_torch.launch.mesh import ThreadMesh
+
+    n = 2
+    sync = SyncConfig(gz=GZConfig(eb=FSDP_EB, algo="ring"), relative_eb=False)
+    xs = [torch.linspace(0, 1, 4096, device=device).reshape(64, 64) + r for r in range(n)]
+    outcome = []
+
+    def body(x):
+        x = x.clone().requires_grad_(True)
+        with torch.enable_grad():
+            fsdp_all_gather(x, "data", sync).sum().backward()
+        return x.grad
+
+    def watched():
+        try:
+            ThreadMesh((n, 1), ("data", "model"), device).run(body, xs)
+            outcome.append("backward succeeded")
+        except RuntimeError as e:
+            outcome.append(str(e))
+
+    t0 = time.perf_counter()
+    t = threading.Thread(target=watched, daemon=True)
+    t.start()
+    t.join(timeout=60)
+    if t.is_alive():
+        log("fsdp_all_gather backward on a one-card ThreadMesh: HUNG for 60 s")
+        sys.stdout.flush()
+        os._exit(1)  # the rank threads cannot be stopped; end the process
+    msg = outcome[0]
+    log(f"fsdp_all_gather backward on a one-card ThreadMesh: raised after "
+        f"{time.perf_counter() - t0:.2f} s: {msg[:200]}")
+    if "DistGroup" not in msg or "make_train_step" not in msg:
+        raise AssertionError(f"fsdp_all_gather backward did not raise as expected: {msg}")
 
 
 # ---------------------------------------------------------------------------
@@ -4627,8 +4696,491 @@ def run_vlm(device):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the FSDP train step
+# ---------------------------------------------------------------------------
+
+FSDP_EB = 1e-4  # the reference's fsdp_gz: GZConfig(eb, algo="ring") (src/repro/launch/dryrun.py)
+FSDP_CHECK_LEAF = ("blocks", "mlp", "wo")  # gathered along dim 1
+FSDP_SMOKE_N = 4  # ranks of the smoke check: the ring has N - 2 hops (kernel 2)
+FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ = 4, 64
+REPLICATED_PEAK_GB = 65.71  # phase 19's step with the weights replicated (PERF.md §5)
+
+
+def _leaf_paths(tree, prefix=()):
+    """Each leaf's key path, in ``tree_flatten``'s order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _leaf_paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def _fsdp_uses(setup):
+    """[(leaf number, data dim, number of gathers a step, the gathered
+    slice's shape)] of every sharded leaf: a leaf of the stacked layers is
+    gathered once a layer, along its slice's dim."""
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.launch import training
+
+    out = []
+    defs = tree_flatten(setup.defs)[0]
+    specs = training._leaf_specs(setup.defs, setup.specs)
+    for i, (d, spec, path) in enumerate(zip(defs, specs, _leaf_paths(setup.defs))):
+        dim = training._data_dim(spec, setup.ctx.fsdp_axis)
+        if dim is None:
+            continue
+        if path[0] in ("blocks", "enc_blocks"):
+            out.append((i, dim - 1, d.shape[0], tuple(d.shape[1:])))
+        else:
+            out.append((i, dim, 1, tuple(d.shape)))
+    return out
+
+
+def _fsdp_comm(sync, n, device):
+    """The communicator ``grad_sync`` plans the FSDP collectives with
+    (auto depth), sized to ``n`` ranks so that it plans off the ranks."""
+    from repro_torch.core.comm import GZCommunicator
+
+    return GZCommunicator.for_config("data", sync.gz, axis_size=n, device=device,
+                                     auto_depth=True)
+
+
+def _fsdp_plan_launches(setup, n, device):
+    """Kernel launches of one FSDP train step over all ranks, from the
+    schedules: every gather (``allgather`` of a rank's f32 slice) and
+    every reduce-scatter (of the gathered slice's cotangent) of every
+    sharded leaf, and the ``data`` allreduce of every replicated leaf."""
+    from repro_torch.core import grad_sync
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.launch import training
+    from repro_torch.models.parallel import torch_dtype
+
+    comm = _fsdp_comm(setup.ctx.fsdp_sync, n, device)
+    total = dict.fromkeys(_launches(), 0)
+    for _, _, uses, shape in _fsdp_uses(setup):
+        numel = math.prod(shape)
+        for plan in (comm.plan("allgather", numel // n), comm.plan("reduce_scatter", numel)):
+            for k, v in _expected_launches(plan, n).items():
+                total[k] += uses * v
+    gcomm = dict(setup.grad_comms).get("data")
+    specs = training._leaf_specs(setup.defs, setup.specs)
+    for d, spec in zip(tree_flatten(setup.defs)[0], specs):
+        if gcomm is not None and training._data_dim(spec, "data") is None:
+            for k, v in _expected_launches(gcomm.plan("allreduce", d.shape,
+                                                      torch_dtype(d.dtype)), n).items():
+                total[k] += v
+    return total
+
+
+@contextlib.contextmanager
+def _watched_fsdp(record):
+    """Wrap the FSDP step's pieces: every communicator call's degraded flag
+    into ``record["flags"]``; while ``record["keep_gathers"]``, each rank's
+    gathered weights by (rank, leaf, slice); for ``record["leaf"]`` (a
+    leaf number) each rank's recorded cotangents of slice 0 (f32) and its
+    reduce-scattered gradient of slice 0; while ``record["keep_records"]``,
+    each rank's recorded (dim, cotangent) pairs."""
+    from repro_torch.core.comm import GZCommunicator
+    from repro_torch.core.grad_sync import FsdpStep
+
+    run, gather, scatter = GZCommunicator._run, FsdpStep._gather, FsdpStep.reduce_scatter
+    lock = threading.Lock()
+
+    def watched_run(self, op, *a, **kw):
+        res = run(self, op, *a, **kw)
+        with lock:
+            record["flags"].append((op, res.overflow | res.nonfinite))
+        return res
+
+    def watched_gather(self, x, dim, key):
+        out = gather(self, x, dim, key)
+        if record.get("keep_gathers"):
+            leaf, index, _ = self._where[key]
+            with lock:
+                record["gathers"][(self.group.rank, leaf, index)] = self._memo[key]
+        return out
+
+    def watched_scatter(self, grads):
+        rank, leaf = self.group.rank, record.get("leaf")
+        mine = [(key, ct) for key, ct in self._records if self._where[key][:2] == (leaf, 0)]
+        if record.get("keep_records"):
+            with lock:
+                record["records"][rank] = [(key[-1], ct) for key, ct in self._records]
+        out = scatter(self, grads)
+        if mine:
+            with lock:
+                record["leaf_cts"][rank] = [ct.float() for _, ct in mine]
+                record["leaf_out"][rank] = out[leaf][0].float().clone()
+        return out
+
+    GZCommunicator._run, FsdpStep._gather = watched_run, watched_gather
+    FsdpStep.reduce_scatter = watched_scatter
+    try:
+        yield record
+    finally:
+        GZCommunicator._run, FsdpStep._gather = run, gather
+        FsdpStep.reduce_scatter = scatter
+
+
+def _check_fsdp_gathers(setup, whole, record, n, device):
+    """Both ranks' gathered weights equal by bits, each within the
+    allgather's eb (plus one bf16 rounding of the weight) of the global
+    weight's slice."""
+    import torch
+
+    from repro_torch.core import error_budget, grad_sync
+    from repro_torch.core.grad_sync import tree_flatten
+
+    comm = _fsdp_comm(setup.ctx.fsdp_sync, n, device)
+    leaves = tree_flatten(whole)[0]
+    worst, count = 0.0, 0
+    for leaf, dim, uses, shape in _fsdp_uses(setup):
+        plan = comm.plan("allgather", math.prod(shape) // n)
+        eb = error_budget.lossy_hops("allgather_ring", n) * plan.eb_stage
+        for index in range(uses) if leaves[leaf].dim() > len(shape) else [None]:
+            fulls = [record["gathers"][(r, leaf, index)] for r in range(n)]
+            w = leaves[leaf] if index is None else leaves[leaf][index]
+            w = (w.movedim(dim, 0) if dim else w).float()
+            if not all(_tree_equal(fulls[0], f) for f in fulls[1:]):
+                raise AssertionError(f"FSDP gather of leaf {leaf} slice {index}: the ranks differ")
+            over = ((fulls[0].float() - w).abs() - 2.0 ** -8 * w.abs()).max().item()
+            if not over <= eb:
+                raise AssertionError(f"FSDP gather of leaf {leaf} slice {index}: error past "
+                                     f"one bf16 rounding {over} > eb {eb}")
+            worst, count = max(worst, over), count + 1
+    return worst, count
+
+
+def _check_fsdp_leaf(setup, record, n, device):
+    """The reduce-scattered gradient of ``FSDP_CHECK_LEAF``'s first layer
+    on each rank within the reduce-scatter's bound of the exact rank-order
+    sum of the ranks' recorded cotangents."""
+    from repro_torch.core import error_budget, grad_sync
+
+    (ct0,), (ct1,) = record["leaf_cts"][0], record["leaf_cts"][1]
+    exact = ct0.double() + ct1.double()
+    plan = _fsdp_comm(setup.ctx.fsdp_sync, n, device).plan("reduce_scatter", exact.numel())
+    hops = error_budget.lossy_hops("reduce_scatter_ring", n)
+    dim = [u[1] for u in _fsdp_uses(setup) if u[0] == record["leaf"]][0]
+    rows = exact.shape[0] // n
+    err = 0.0
+    for r in range(n):
+        want = exact[r * rows:(r + 1) * rows]
+        want = want.movedim(0, dim) if dim else want
+        err = max(err, (record["leaf_out"][r].double() - want).abs().max().item())
+    # the reduce-scatter's bound, then the cast of its f32 result to bf16
+    bound = hops * plan.eb_stage + 2.0 ** -8 * exact.abs().max().item()
+    log(f"fsdp reduce-scattered {'.'.join(FSDP_CHECK_LEAF)} (layer 0, gathered along dim "
+        f"{dim}, cotangent {tuple(ct0.shape)}): max error {err:.3e} vs the exact rank-order "
+        f"sum, bound {bound:.3e} (plan {plan.algo}/{plan.pipeline_chunks}, eb_stage "
+        f"{plan.eb_stage:.3e}, {hops} lossy hops); max |g| {exact.abs().max().item():.3e}")
+    if not err <= bound:
+        raise AssertionError(f"reduce-scattered {FSDP_CHECK_LEAF}: error {err} > bound {bound}")
+
+
+def _fsdp_step_replicas(setup, params, opt, label):
+    """The ranks' replicated leaves and their AdamW moments equal by bits."""
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.launch import training
+
+    specs = training._leaf_specs(setup.defs, setup.specs)
+    rep = [i for i, s in enumerate(specs) if training._data_dim(s, "data") is None]
+    for r in range(1, len(params)):
+        for tree_a, tree_b in ((params[0], params[r]), (opt[0]["mu"], opt[r]["mu"]),
+                               (opt[0]["nu"], opt[r]["nu"])):
+            la, lb = tree_flatten(tree_a)[0], tree_flatten(tree_b)[0]
+            if not all(_tree_equal(la[i], lb[i]) for i in rep):
+                raise AssertionError(f"{label}: rank {r}'s replicated leaves or moments differ")
+        if int(opt[0]["step"]) != int(opt[r]["step"]):
+            raise AssertionError(f"{label}: the ranks' step counts differ")
+    return len(rep)
+
+
+def run_fsdp_full_width(device):
+    """Phase 29's main path (module docstring).  Returns the kernels'
+    launches over the ``TRAIN_STEPS`` steps."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.core import grad_sync, transport
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch import shapes, training
+    from repro_torch.launch.mesh import ThreadMesh
+    from repro_torch.models.parallel import init_params
+    from repro_torch.optim.adamw import adamw_init
+
+    n = 2
+    full = registry.get(TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    mesh = ThreadMesh((n, 1), ("data", "model"), device)
+    setup = training.make_setup(cfg, mesh, remat="full",
+                                fsdp_gz=GZConfig(eb=FSDP_EB, algo="ring"),
+                                grad_gz=GZConfig(eb=TRAIN_EB, algo="ring"))
+    if setup.ctx.fsdp_size != n:
+        raise AssertionError(f"fsdp_size {setup.ctx.fsdp_size}")
+    _, bspecs = shapes.train_specs(
+        cfg, shapes.InputShape("train", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh)
+    step = training.make_train_step(setup, bspecs)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    whole = init_params(setup.defs, gen, device)
+    sizes, coords = {"data": n, "model": 1}, training._coords(mesh)
+    params = [tree_map(torch.clone, training._local(whole, setup.specs, c, sizes))
+              for c in coords]
+    opt = [adamw_init(p) for p in params]
+    torch.cuda.synchronize()
+    uses = _fsdp_uses(setup)
+    n_global = sum(math.prod(d.shape) for d in
+                   grad_sync.tree_flatten(setup.defs)[0])
+    n_rank = sum(p.numel() for p in grad_sync.tree_flatten(params[0])[0])
+    log(f"fsdp {_widths(cfg)} as published; n_layers cut {full.n_layers} -> {cfg.n_layers}; "
+        f"{n_global} parameters, {n_rank} a rank (bf16), {len(uses)} sharded leaves, "
+        f"{sum(u[2] for u in uses)} gathers and reduce-scatters a step and rank; "
+        f"{n} data ranks on one card, fsdp_gz ring eb {FSDP_EB}, grad_gz ring eb "
+        f"{TRAIN_EB}, remat full; drawn and sharded in {time.perf_counter() - t0:.2f} s")
+    stream = SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    want = _fsdp_plan_launches(setup, n, device)
+    leaf_no = [i for i, p in enumerate(_leaf_paths(setup.defs)) if p == FSDP_CHECK_LEAF][0]
+    record = {"flags": [], "gathers": {}, "keep_gathers": True, "leaf": leaf_no,
+              "leaf_cts": {}, "leaf_out": {}, "records": {}}
+    sync_record = {"degraded": [], "check_leaf": FSDP_CHECK_LEAF}
+    total = dict.fromkeys(_launches(), 0)
+    losses, walls = [], []
+    with _watched_fsdp(record), _watched_sync(sync_record):
+        for s in range(TRAIN_STEPS):
+            batch = next(stream)
+            _reset_launches()
+            params, opt, m, wall = _step_timed(step, params, opt, batch)
+            launches = _launches()
+            loss = float(m["loss"])
+            losses.append(loss)
+            walls.append(wall)
+            if not math.isfinite(loss) or not math.isfinite(float(m["gnorm"])):
+                raise AssertionError(f"fsdp step {s}: loss {loss}, gnorm {float(m['gnorm'])}")
+            n_rep = _fsdp_step_replicas(setup, params, opt, f"fsdp step {s}")
+            flags = [op for op, f in record["flags"] if bool(f)]
+            calls = len(record["flags"])
+            if flags or any(bool(d) for d in sync_record["degraded"]):
+                raise AssertionError(f"fsdp step {s}: flagged collectives {flags}")
+            record["flags"].clear()
+            sync_record["degraded"].clear()
+            if launches != want:
+                raise AssertionError(f"fsdp step {s}: launches {_nonzero(launches)} != the "
+                                     f"plans' {_nonzero(want)}")
+            for k, v in launches.items():
+                total[k] += v
+            if s == 0:
+                worst, count = _check_fsdp_gathers(setup, whole, record, n, device)
+                log(f"fsdp gathers of step 0: {count} gathered slices equal by bits on both "
+                    f"ranks; worst error past one bf16 rounding {worst:.3e} (eb {FSDP_EB})")
+                _check_fsdp_leaf(setup, record, n, device)
+                record["keep_gathers"] = False
+                record.pop("leaf")
+                record["gathers"].clear()
+                record["leaf_cts"].clear()
+                record["leaf_out"].clear()
+                del whole
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            log(f"fsdp step {s}: loss {loss:.6f} gnorm {float(m['gnorm']):.4f} lr "
+                f"{float(m['lr']):.3e}; wall {wall * 1e3:.1f} ms"
+                f"{' (cold)' if s == 0 else ' (warm)'}; {calls} collectives, none flagged; "
+                f"{n_rep} replicated leaves and their moments equal on both ranks; launches "
+                f"{_nonzero(launches)}")
+        batch = next(stream)
+        record["keep_records"] = True
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            params, opt, m, traced = _step_timed(step, params, opt, batch)
+        record["keep_records"] = False
+        _fsdp_step_replicas(setup, params, opt, "profiled fsdp step")
+    peak = torch.cuda.max_memory_allocated()
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    own_ms = sum(e.self_device_time_total for e in events if OWN_KERNEL.search(e.key)) / 1e3
+    log(f"fsdp profile (one step): traced wall {traced * 1e3:.1f} ms, device busy {busy:.1f} "
+        f"ms ({100 * busy / (traced * 1e3):.1f} %), kernels 1-4 {own_ms:.1f} ms; loss "
+        f"{float(m['loss']):.6f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+    del prof, events
+    sync = setup.ctx.fsdp_sync
+
+    def gathers(p):
+        g = transport.current("data")
+        leaves = grad_sync.tree_flatten(p)[0]
+        for leaf, dim, count, shape in uses:
+            for index in range(count) if leaves[leaf].dim() > len(shape) else [None]:
+                x = leaves[leaf] if index is None else leaves[leaf][index]
+                grad_sync._fsdp_gather_impl(x.movedim(dim, 0) if dim else x, g, "data", sync)
+
+    def scatters(records):
+        g = transport.current("data")
+        for _, ct in records:
+            grad_sync._fsdp_reduce_scatter_impl(ct, g, "data", sync)
+
+    shares = {}
+    for name, fn, inputs in (("gathers", gathers, params),
+                             ("reduce-scatters", scatters,
+                              [record["records"][r] for r in range(n)])):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = _timed(lambda: mesh.run(fn, inputs))
+        alone = sum(e.self_device_time_total for e in _device_events(prof)) / 1e3
+        shares[name] = alone
+        log(f"fsdp {name} alone (the profiled step's): traced wall {wall * 1e3:.1f} ms, device "
+            f"busy {alone:.1f} ms = {100 * alone / max(busy, 1e-9):.1f} % of the step's busy")
+        del prof
+    record["records"].clear()
+    warm = walls[1:]
+    log(f"fsdp peak memory: {peak / 1e9:.2f} GB (torch.cuda.max_memory_allocated over the warm "
+        f"and profiled steps, both ranks) against phase 19's replicated "
+        f"{REPLICATED_PEAK_GB:.2f} GB; warm walls {[round(w * 1e3, 1) for w in warm]} ms; "
+        f"losses {[round(x, 6) for x in losses]}; launches a step {_nonzero(want)}")
+    del params, opt, m, step, setup
+    torch.cuda.empty_cache()
+    return total
+
+
+def check_fsdp_smoke_vs_cpu(device):
+    """Phase 29's four-rank check: one train step's forward and backward of
+    the smoke config on a ``ThreadMesh((4, 1))`` of the card, sharded,
+    ``fsdp_gz`` ring, its launches counted from 0 and held against its
+    gathers' and reduce-scatters' plans (kernel 2 on every hop); then
+    every leaf's gather (of the step's shards) and reduce-scatter (of the
+    step's recorded cotangents) again on the card and on the CPU (the
+    plain versions): equal by bits, the same flags, the launches as the
+    plans say.  Returns the step's launches."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.core import grad_sync, transport
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.core.grad_sync import FsdpStep
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch import shapes, training
+    from repro_torch.launch.mesh import ThreadMesh
+    from repro_torch.models.parallel import init_params
+
+    n, axes = FSDP_SMOKE_N, ("data", "model")
+    cfg = registry.get(TRAIN_ARCH, smoke=True)
+    mesh = ThreadMesh((n, 1), axes, device)
+    setup = training.make_setup(cfg, mesh, fsdp_gz=GZConfig(eb=FSDP_EB, algo="ring"))
+    _, bspecs = shapes.train_specs(
+        cfg, shapes.InputShape("t", FSDP_SMOKE_SEQ, FSDP_SMOKE_BATCH, "train"), mesh)
+    whole = init_params(setup.defs, torch.Generator(device=device).manual_seed(SEED), device)
+    sizes, coords = {"data": n, "model": 1}, training._coords(mesh)
+    params = [tree_map(torch.clone, training._local(whole, setup.specs, c, sizes))
+              for c in coords]
+    batch = next(SyntheticStream(cfg, FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ, seed=SEED))
+    kept, gathered = {}, {}
+    real = FsdpStep.reduce_scatter
+
+    def slice_of(self, key):
+        leaf, index, dim = self._where[key]
+        return (self._leaves[leaf] if index is None else self._leaves[leaf][index]), dim
+
+    def keeping(self, grads):
+        # the numel of every slice the forward gathered, and (shard slice,
+        # dim, cotangent) of every record, canonical order
+        gathered[self.group.rank] = [slice_of(self, key)[0].numel() for key in self._where]
+        calls = []
+        for key, ct in sorted(self._records, key=lambda kc: self._where[kc[0]][:2]):
+            x, dim = slice_of(self, key)
+            calls.append((x.detach(), dim, ct))
+        kept[self.group.rank] = calls
+        return real(self, grads)
+
+    FsdpStep.reduce_scatter = keeping
+    try:
+        torch.cuda.synchronize()
+        _reset_launches()
+        mesh.run(lambda a: training._loss_and_grads(setup.model, setup.ctx, a[0], setup.specs,
+                                                   a[1], 1.0 / n),
+                 [(params[r], training._local(batch, bspecs, coords[r], sizes))
+                  for r in range(n)])
+        torch.cuda.synchronize()
+        step_launches = _launches()
+    finally:
+        FsdpStep.reduce_scatter = real
+    sync = setup.ctx.fsdp_sync
+    comm = _fsdp_comm(sync, n, device)
+    # the step's own launches: one gather a slice in the forward (the
+    # recompute takes its result), one reduce-scatter a record after backward
+    step_want = dict.fromkeys(_launches(), 0)
+    plans = [comm.plan("allgather", numel) for numel in gathered[0]]
+    plans += [comm.plan("reduce_scatter", ct.numel()) for _, _, ct in kept[0]]
+    for plan in plans:
+        for k, v in _expected_launches(plan, n).items():
+            step_want[k] += v
+    log(f"fsdp smoke step on {n} ranks of the card: {len(gathered[0])} gathers and "
+        f"{len(kept[0])} reduce-scatters a rank; launches {_nonzero(step_launches)}, the "
+        f"plans' {_nonzero(step_want)}")
+    if step_launches != step_want or not step_launches["unpack_reduce_repack"]:
+        raise AssertionError(f"fsdp smoke step: launches {_nonzero(step_launches)} != the "
+                             f"plans' {_nonzero(step_want)}")
+
+    def replay(calls):
+        g = transport.current("data")
+        out = []
+        for x, dim, ct in calls:
+            full = grad_sync._fsdp_gather_impl(x.movedim(dim, 0) if dim else x, g, "data", sync)
+            rs, st = grad_sync._fsdp_reduce_scatter_impl(ct, g, "data", sync)
+            out.append((full, rs, bool(st.overflow), bool(st.nonfinite)))
+        return out
+
+    want = dict.fromkeys(_launches(), 0)
+    for x, dim, ct in kept[0]:
+        for plan in (comm.plan("allgather", x.numel()), comm.plan("reduce_scatter", ct.numel())):
+            for k, v in _expected_launches(plan, n).items():
+                want[k] += v
+    torch.cuda.synchronize()
+    _reset_launches()
+    card = mesh.run(replay, [kept[r] for r in range(n)])
+    torch.cuda.synchronize()
+    launches = _launches()
+    cpu = ThreadMesh((n, 1), axes, "cpu").run(
+        replay, [[(x.cpu(), dim, ct.cpu()) for x, dim, ct in kept[r]] for r in range(n)])
+    mism = flagged = 0
+    for rc, rp in zip(card, cpu):
+        for (fa, ra, oa, na), (fb, rb, ob, nb) in zip(rc, rp):
+            mism += int((fa.cpu().view(torch.int16) != fb.view(torch.int16)).sum())
+            mism += int((ra.cpu().view(torch.int16) != rb.view(torch.int16)).sum())
+            if (oa, na) != (ob, nb):
+                raise AssertionError("fsdp smoke: the card's and the CPU's flags differ")
+            flagged += oa or na
+    log(f"fsdp smoke on {n} ranks of the card vs the CPU: {len(kept[0])} gathers and "
+        f"reduce-scatters a rank on one step's shards and cotangents, {mism} elements differ "
+        f"by bits; {flagged} calls flagged on both; launches on the card {_nonzero(launches)}, "
+        f"the plans' {_nonzero(want)}")
+    if mism:
+        raise AssertionError(f"fsdp smoke: {mism} elements differ between card and CPU")
+    if launches != want or not launches["unpack_reduce_repack"]:
+        raise AssertionError(f"fsdp smoke: launches {_nonzero(launches)} != the plans' "
+                             f"{_nonzero(want)}")
+    return step_launches
+
+
+def run_fsdp(device):
+    """Phase 29 (module docstring).  Returns the kernels' launches of its
+    main path's steps and of the four-rank step."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = run_fsdp_full_width(device)
+    smoke = check_fsdp_smoke_vs_cpu(device)
+    log(f"fsdp phase: {time.perf_counter() - t0:.1f} s")
+    return launches, smoke
+
+
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model", "train", "ssm", "mla", "moe", "encdec", "vlm")
+          "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp")
 
 
 def _record(records, name):
@@ -4786,6 +5338,16 @@ def main(argv=()) -> int:
 
     if "vlm" in phases:
         run_vlm(device)
+
+    if "fsdp" in phases:
+        # This slice's main path: the train step over sharded weights, its
+        # compressed gathers (kernels 1 and 4), reduce-scatters (kernels 1
+        # and 3) and the replicated leaves' sync; kernel 2 from the
+        # four-rank step, where the ring has intermediate hops.
+        launches, smoke = run_fsdp(device)
+        for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+            _record(records, name)["launches"] = launches[name]
+        _record(records, "unpack_reduce_repack")["launches"] = smoke["unpack_reduce_repack"]
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

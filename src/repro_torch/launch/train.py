@@ -12,11 +12,15 @@ card, 1 with ``--device cpu``), ``model`` is 1.  On one device that is a
 one-rank mesh, whose communicators are the trivial ones, as in the
 reference on one device.
 
-The weights are replicated over ``data`` (``fsdp=False``; FSDP is ROADMAP
-A11.6), and the ranks are threads of a ``ThreadMesh`` on the one device
-``--device`` names: with ``data > 1`` that device holds ``data`` replicas
-of the weights and optimizer state.  Spreading the ranks over the cards
-waits for a ``DistGroup`` mesh.
+The weights are sharded over ``data`` (FSDP, ``make_setup``'s default, as
+in the reference): each rank holds its ``_local`` block of the initialized
+tree (a shard of each sharded leaf, a replica of the norms) and of the
+optimizer state.  The ranks are threads of a ``ThreadMesh`` on the one
+device ``--device`` names.  A checkpoint holds the global trees, put
+together from the ranks' blocks (``training._global``), as the
+reference's global arrays are, so either package restores the other's.
+Spreading the ranks over the cards waits for a ``DistGroup`` mesh
+(ROADMAP A11.8).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from repro_torch.core.transport import resolve_device
 from repro_torch.data.pipeline import SyntheticStream
 from repro_torch.launch.mesh import ThreadMesh, mesh_axis_sizes
 from repro_torch.launch.shapes import InputShape, train_specs
-from repro_torch.launch.training import make_setup, make_train_step
+from repro_torch.launch.training import _coords, _global, _local, make_setup, make_train_step
 from repro_torch.models.parallel import init_params
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
@@ -81,15 +85,17 @@ def train(argv=None):
     gz = GZConfig(eb=args.eb, algo=args.grad_gz) if args.grad_gz else None
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(args.steps // 20, 1))
-    setup = make_setup(cfg, mesh, opt=opt, grad_gz=gz, grad_policy=args.policy, fsdp=False)
+    setup = make_setup(cfg, mesh, opt=opt, grad_gz=gz, grad_policy=args.policy)
     shape = InputShape("cli", args.seq, args.batch, "train")
     _, bspecs = train_specs(cfg, shape, mesh)
     step_fn = make_train_step(setup, bspecs)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(setup.defs, gen, device)
-    # one replica per rank, as each process of a data-parallel job holds
-    params = [params] + [tree_map(torch.clone, params) for _ in range(mesh.size - 1)]
+    whole = init_params(setup.defs, gen, device)
+    sizes, coords = mesh_axis_sizes(mesh), _coords(mesh)
+    # each rank's own block, as each process of a data-parallel job holds
+    params = [tree_map(torch.clone, _local(whole, setup.specs, c, sizes)) for c in coords]
+    del whole
     opt_state = [adamw_init(p) for p in params]
     stream = SyntheticStream(cfg, args.batch, args.seq, seed=args.seed)
 
@@ -107,8 +113,10 @@ def train(argv=None):
             print(f"step {step:5d} loss {loss:.4f} gnorm {float(m['gnorm']):.3f} "
                   f"lr {float(m['lr']):.2e} ({dt:.1f}s)")
         if args.ckpt_dir and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
-            d = checkpoint.save(args.ckpt_dir, step + 1,
-                                {"params": params[0], "opt": opt_state[0]})
+            opt_specs = {"mu": setup.specs, "nu": setup.specs, "step": ()}
+            d = checkpoint.save(args.ckpt_dir, step + 1, {
+                "params": _global(params, setup.specs, coords, sizes),
+                "opt": _global(opt_state, opt_specs, coords, sizes)})
             print(f"  ckpt -> {d}")
     if not np.isfinite(losses).all():
         raise AssertionError("NaN loss")

@@ -8,8 +8,15 @@ a ``launch.mesh.ThreadMesh`` (``mesh.run``), eagerly:
   * forward and backward (``torch.autograd.grad`` of ``loss_fn * scale``,
     ``scale = 1 / (tp * n_dp)`` as in the reference), each layer
     rematerialized when ``remat`` is not ``"none"``;
+  * with FSDP (``fsdp=True``, the default, and ``data > 1``) the weights
+    are sharded over ``data``: every use of a sharded leaf gathers it
+    (``ParallelCtx.gather``; the compressed allgather, kernels 1 and 4,
+    under ``fsdp_gz``), and its gradient is the reduce-scatter of the
+    gathered weight's cotangent (kernels 1, 2 and 3 under ``fsdp_gz``),
+    NaN-marked when degraded under ``skip_on_overflow``;
   * ``_sync_grads``: every gradient leaf summed over each mesh axis absent
-    from its spec, through the axis's ``GZCommunicator`` (the compressed
+    from its spec (a sharded leaf's gradient is already summed over
+    ``data``), through the axis's ``GZCommunicator`` (the compressed
     allreduce: TPU kernels 1-4, or 8-10 under ``codec="lorenzo+entropy"``)
     where ``grad_gz`` binds one, else by the exact rank-order
     ``sum_across``; every leaf's NaN/Inf probe and every allreduce's
@@ -20,23 +27,36 @@ a ``launch.mesh.ThreadMesh`` (``mesh.run``), eagerly:
     degraded step keeps the old parameters and optimizer state
     (``_skip_merge``, the reference's elementwise ``where``).
 
-Every rank holds its own replica of the parameters and the optimizer
-state, as each process of a data-parallel job does, and the trees cross
-``step`` as per-rank lists in rank order.  The allreduce gives every rank
-the same bits, so the replicas stay equal by bits; callers that care check
-it rather than assume it.
+Every rank holds its own block of the parameters and of the optimizer
+state (``_local`` of the global tree by ``specs``: a shard of each
+sharded leaf, a replica of the others), as each process of a
+data-parallel job does, and the trees cross ``step`` as per-rank lists in
+rank order; ``_global`` puts the blocks back together.  The reductions
+give every rank the same bits, so the replicated leaves stay equal by
+bits; callers that care check it rather than assume it.
 
-What runs: data parallelism with the weights replicated (``fsdp=False``)
-over ``data`` (and ``pod``), and a one-rank mesh.  What raises, in
-``ParallelCtx``: ``fsdp=True`` with ``data > 1`` (the FSDP gather and its
-reduce-scatter backward, ROADMAP A11.6) and ``model > 1`` (tensor
-parallelism, A11.7).  The reference's FSDP gather compression
-(``fsdp_gz``) and its per-bucket overlap hooks (``overlap_sync``, A11.8)
-are not here yet.  All of these put collectives inside backward, and on
-CUDA every backward of a process runs on the device's one autograd
-thread, where the ranks of a one-card mesh can never meet (ROADMAP C6);
-they need a ``DistGroup`` over several cards.  The post-hoc sync here
-runs on the rank threads after backward returns, so it needs neither.
+No collective runs on the autograd thread.  On CUDA, torch runs every
+backward of the process on the device's one autograd thread, where the
+ranks of a one-card mesh could never meet in a collective (ROADMAP C6).
+So the FSDP reduce-scatters do not run inside backward, as
+``fsdp_all_gather``'s would: the step runs its forward under a
+``grad_sync.FsdpStep``, whose gathers run on the rank threads and are
+kept for remat's recompute (which the layer's checkpoint binds to the
+step on whatever thread it runs); the backward only records each gathered
+weight's cotangent; after ``torch.autograd.grad`` returns, each rank
+reduce-scatters its records and sums each leaf's blocks in autograd's
+order, which gives the in-backward route's bits.  The price is memory:
+the step holds every gathered weight and every such cotangent until
+backward ends (on one card all ranks share its memory anyway).  The
+step takes this route on every group, a ``DistGroup`` over several cards
+too, where the in-backward route would be safe and could free each
+gathered weight after its layer, as ZeRO-3 does; a train step over a
+``DistMesh`` (ROADMAP A11.8) must choose its route.  ``_sync_grads``
+runs after backward too.
+
+What raises, in ``ParallelCtx``: ``model > 1`` (tensor parallelism,
+ROADMAP A11.7).  The reference's per-bucket overlap hooks
+(``overlap_sync``, A11.8) are not here yet.
 """
 from __future__ import annotations
 
@@ -51,7 +71,7 @@ from repro_torch.convert import tree_map
 from repro_torch.core import transport
 from repro_torch.core.collectives import GZConfig
 from repro_torch.core.comm import GZCommunicator
-from repro_torch.core.grad_sync import tree_flatten
+from repro_torch.core.grad_sync import FsdpStep, SyncConfig, tree_flatten
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
@@ -99,6 +119,7 @@ def make_setup(
     mesh,
     *,
     opt: AdamWConfig = AdamWConfig(),
+    fsdp_gz: Optional[GZConfig] = None,
     grad_gz: Optional[GZConfig] = None,
     grad_policy: str = "auto",
     remat: str = "full",
@@ -106,10 +127,13 @@ def make_setup(
     skip_on_overflow: bool = False,
 ) -> TrainSetup:
     """The reference's ``make_setup`` on a ``ThreadMesh`` over
-    ``("data", "model")`` (or with ``"pod"``): ``fsdp=False`` replicates
-    the parameters over ``data``; ``grad_policy`` is the communicators'
-    plan policy when ``grad_gz`` leaves the algorithm open.  The model
-    and its communicators run on ``mesh.device``."""
+    ``("data", "model")`` (or with ``"pod"``): ``fsdp=True`` shards the
+    parameters over ``data`` (their specs keep ``"data"``), ``fsdp=False``
+    replicates them; ``fsdp_gz`` compresses the FSDP gathers and
+    reduce-scatters (absolute eb, NaN-marked when degraded under
+    ``skip_on_overflow``); ``grad_policy`` is the communicators' plan
+    policy when ``grad_gz`` leaves the algorithm open.  The model and its
+    communicators run on ``mesh.device``."""
     sizes = mesh_axis_sizes(mesh)
     dp_axes = tuple(ax for ax in mesh.axis_names if ax in ("pod", "data"))
     grad_comms = ()
@@ -118,12 +142,20 @@ def make_setup(
             (ax, GZCommunicator.for_config(ax, grad_gz, policy=grad_policy,
                                            axis_size=sizes.get(ax, 1), device=mesh.device))
             for ax in dp_axes)
+    fsdp_sync = None
+    if fsdp_gz:
+        # mark_degraded rides skip_on_overflow: the NaN mark of a degraded
+        # reduce-scatter is caught by _sync_grads' per-leaf probe; without
+        # a skip a NaN step would be worse than a flagged lossy one
+        fsdp_sync = SyncConfig(gz=fsdp_gz, relative_eb=False,
+                               mark_degraded=skip_on_overflow)
     ctx = ParallelCtx(
         tp_axis="model",
         fsdp_axis="data",
         dp_axes=dp_axes,
         tp_size=sizes.get("model", 1),
         fsdp_size=sizes.get("data", 1) if fsdp else 1,
+        fsdp_sync=fsdp_sync,
         remat=remat,
     )
     # An empty tree registers no weights: the model here only defines the
@@ -174,7 +206,9 @@ def _sync_grads(grads, specs, mesh_axes, grad_comms: dict):
     communicator works in f32 and casts back); the others take the exact
     rank-order ``sum_across`` in f32.  Returns ``(grads, degraded)``, where
     ``degraded`` (a 0-d bool tensor) ORs every leaf's NaN/Inf probe and
-    every allreduce's overflow and non-finite flags."""
+    every allreduce's overflow and non-finite flags.  A leaf sharded over
+    ``data`` arrives already reduce-scattered; the probe is what carries
+    its NaN mark (``SyncConfig.mark_degraded``) to the skip."""
     leaves, rebuild = tree_flatten(grads)
     flag = torch.zeros((), dtype=torch.bool, device=leaves[0].device)
     out = []
@@ -248,6 +282,65 @@ def _local(tree, specs, coord: dict, sizes: dict):
     return rebuild(out)
 
 
+def _global(trees, specs, coords: list, sizes: dict):
+    """The global tree from the ranks' blocks, the inverse of ``_local``:
+    each rank's block of each leaf written where ``_local`` took it (the
+    replicated dims whole; the replicas of a replicated leaf are equal,
+    so the last one written is every one's)."""
+    per_rank = [tree_flatten(t)[0] for t in trees]
+    _, rebuild = tree_flatten(trees[0])
+    out = []
+    for i, spec in enumerate(_leaf_specs(trees[0], specs)):
+        first = per_rank[0][i]
+        shape = list(first.shape)
+        for dim, entry in enumerate(spec):
+            if entry is not None:
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                shape[dim] *= math.prod(sizes[ax] for ax in axes)
+        whole = torch.empty(shape, dtype=first.dtype, device=first.device)
+        for r, coord in enumerate(coords):
+            # _local of a tensor is a view: the block is written through it
+            _local([whole], [spec], coord, sizes)[0].copy_(per_rank[r][i])
+        out.append(whole)
+    return rebuild(out)
+
+
+def _data_dim(spec, axis: str):
+    """The dim of ``spec`` that lies over ``axis``, or None."""
+    for dim, entry in enumerate(spec):
+        if entry == axis or (isinstance(entry, tuple) and axis in entry):
+            return dim
+    return None
+
+
+def _loss_and_grads(model, ctx: ParallelCtx, params, specs, batch, scale: float):
+    """One rank's ``loss * scale`` and the gradient of each leaf of its
+    ``params`` (flatten order), with no collective inside backward: under
+    FSDP the forward runs in a ``FsdpStep``, whose reduce-scatters run
+    here, on the rank thread, once backward has returned.  That holds
+    every gathered weight and cotangent until then, on any group: the
+    one-card rule, not yet a choice per group (module docstring)."""
+    leaves, rebuild = tree_flatten(params)
+    # Views of this rank's weights that autograd tracks; the update writes
+    # the weights themselves once backward has returned.  On CUDA, torch
+    # runs every backward of the process on the device's one autograd
+    # thread, so the ranks' backwards take turns there; nothing inside
+    # them waits on another rank, so they cannot deadlock.
+    req = [p.detach().requires_grad_(True) for p in leaves]
+    if ctx.fsdp_size == 1:
+        with torch.enable_grad():
+            loss = model.loss_fn(rebuild(req), batch) * scale
+            grads = torch.autograd.grad(loss, req)
+        return loss.detach(), list(grads)
+    dims = [_data_dim(s, ctx.fsdp_axis) for s in _leaf_specs(params, specs)]
+    fs = FsdpStep(ctx.fsdp_axis, ctx.fsdp_sync, req, dims)
+    with torch.enable_grad():
+        with fs.forward():
+            loss = model.loss_fn(rebuild(req), batch) * scale
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    return loss.detach(), fs.reduce_scatter(grads)
+
+
 def _coords(mesh) -> list:
     """Each rank's coordinate per axis, ranks first-axis major."""
     return [dict(zip(mesh.axis_names, c)) for c in np.ndindex(*mesh.shape)]
@@ -256,7 +349,8 @@ def _coords(mesh) -> list:
 def make_train_step(setup: TrainSetup, batch_specs):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``params`` and ``opt_state`` are lists of per-rank trees
-    in rank order (each updated in place, as the reference donates them);
+    in rank order, each rank's ``_local`` block of the global trees by
+    ``setup.specs`` (each updated in place, as the reference donates them);
     ``batch`` is the global batch (numpy or tensors), split by
     ``batch_specs``.  ``metrics`` are rank 0's ``loss``, ``gnorm``, ``lr``,
     ``skipped`` and ``overlap_modeled`` (0-d tensors); every rank computes
@@ -272,20 +366,10 @@ def make_train_step(setup: TrainSetup, batch_specs):
 
     def body(args):
         params, opt_state, batch = args
-        leaves, rebuild = tree_flatten(params)
-        # Views of this rank's weights that autograd tracks; the update
-        # below writes the weights themselves once backward has returned.
-        # On CUDA, torch runs every backward of the process on the device's
-        # one autograd thread, so the ranks' backwards take turns there;
-        # nothing inside them waits on another rank (the sync comes after,
-        # on the rank threads), so they cannot deadlock.
-        req = [p.detach().requires_grad_(True) for p in leaves]
-        with torch.enable_grad():
-            loss = model.loss_fn(rebuild(req), batch) * scale
-            grads = torch.autograd.grad(loss, req)
-        del req
-        grads, degraded = _sync_grads(rebuild(list(grads)), specs, mesh_axes, grad_comms)
-        loss = loss.detach() / scale
+        loss, grads = _loss_and_grads(model, ctx, params, specs, batch, scale)
+        grads, degraded = _sync_grads(tree_flatten(params)[1](grads), specs, mesh_axes,
+                                      grad_comms)
+        loss = loss / scale
         for ax in ctx.dp_axes:
             loss = transport.current(ax).sum_across(loss) / sizes[ax]
         # Each health bit covers its own dp axis only; make the skip

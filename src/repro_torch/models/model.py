@@ -26,7 +26,10 @@ call both packages alike.
 The reference's ``lax.scan`` over the stacked layers is a loop here.
 Its ``jax.checkpoint`` of the scan body (``ctx.remat`` not ``"none"``)
 is ``torch.utils.checkpoint`` of each layer when grad mode is on: the
-layer's activations are recomputed in backward, with the same bits.
+layer's activations are recomputed in backward, with the same bits, and
+a recompute inside an FSDP train step is bound to that step
+(``grad_sync.fsdp_recompute_context``), so its gathers take the
+forward's results.
 The moe layers' router aux losses are summed over the layers, as the
 reference's scan sums them, and ``loss_fn`` adds ``MOE_AUX_COEF`` times
 their mean.  Decode writes the new k/v rows, latent rows and conv and
@@ -45,6 +48,7 @@ from torch import nn
 from torch.utils import checkpoint
 
 from repro_torch.convert import tree_map
+from repro_torch.core.grad_sync import fsdp_recompute_context
 from repro_torch.core.transport import resolve_device
 from repro_torch.models import attention, blocks, mla as mla_mod, moe as moe_mod, ssm as ssm_mod
 from repro_torch.models.attention import KVCacheSpec
@@ -196,7 +200,9 @@ class Model(nn.Module):
         for i in index:
             wl = _layer(stacked, i)
             if remat:
-                out = checkpoint.checkpoint(layer, h, wl, use_reentrant=False)
+                # a recompute's FSDP gathers take the forward's results
+                out = checkpoint.checkpoint(layer, h, wl, use_reentrant=False,
+                                            context_fn=fsdp_recompute_context)
             else:
                 out = layer(h, wl)
             if with_aux:

@@ -1,10 +1,13 @@
 """Parallelism context + parameter-definition machinery.
 
 The counterpart of ``repro.models.parallel``.  ``ParallelCtx`` keeps the
-reference's fields; ``tp_size > 1`` (tensor parallelism, ROADMAP A11.7)
-and ``fsdp_size > 1`` (the FSDP gather, A11.6) raise, so ``gather`` and
-``tp_reduce`` are the identity.  Data parallelism with replicated
-weights (``launch/training.py``'s ``fsdp=False``) needs neither.
+reference's fields.  ``fsdp_size > 1`` shards the weights over
+``fsdp_axis`` (ZeRO-3): ``gather`` moves the leaf's sharded dim to the
+front, gathers it (``core/grad_sync.fsdp_gather``: the train step's
+``FsdpStep`` inside a step, else ``fsdp_all_gather``, whose backward is
+the reduce-scatter, optionally compressed through ``fsdp_sync``) and
+moves it back.  ``tp_size > 1`` (tensor parallelism, ROADMAP A11.7)
+raises, so ``tp_reduce`` is the identity.
 
 ``ParamDef`` carries the GLOBAL shape, the reference's partition spec (a
 tuple of mesh axis names, ``None`` for a replicated dim) and an init.
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import tree_map
+from repro_torch.core.grad_sync import SyncConfig, fsdp_gather
 from repro_torch.core.transport import resolve_device
 
 __all__ = ["ParallelCtx", "ParamDef", "init_params", "param_specs", "param_shapes",
@@ -44,7 +48,8 @@ class ParallelCtx:
     dp_axes: tuple = ("data",)
     tp_size: int = 1
     fsdp_size: int = 1
-    fsdp_sync: Optional[object] = None
+    # gZ compression on the FSDP gather / reduce-scatter path
+    fsdp_sync: Optional[SyncConfig] = None
     # remat policy for the per-layer loop ("none" | "full" | "dots"; the
     # last two alike, as in the reference): Model._backbone checkpoints
     # each layer when grad mode is on
@@ -55,14 +60,12 @@ class ParallelCtx:
         if self.tp_size > 1:
             raise NotImplementedError(
                 "tensor parallelism (tp_size > 1) is not ported yet: ROADMAP A11.7")
-        if self.fsdp_size > 1:
-            raise NotImplementedError(
-                "the FSDP parameter gather (fsdp_size > 1) is not ported yet: "
-                "ROADMAP A11.6; train with fsdp=False (weights replicated over data)")
 
     def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        """FSDP all-gather of a parameter along ``dim``: the identity at 1."""
-        return x
+        """FSDP all-gather of a parameter along ``dim`` (identity at 1)."""
+        if self.fsdp_size == 1:
+            return x
+        return fsdp_gather(x, dim, self.fsdp_axis, self.fsdp_sync)
 
     def tp_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Row-parallel output reduction: the identity at 1."""

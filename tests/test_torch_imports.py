@@ -142,6 +142,25 @@ def test_no_jax_or_reference_imports(path):
             assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
 
 
+def _all_of(path) -> set:
+    """A module's ``__all__``, read from its source (no import)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"{path} has no __all__")
+
+
+def test_grad_sync_exports_every_name_of_the_references():
+    # the FSDP gather and reduce-scatter (ROADMAP A11.6) included
+    want = _all_of(ROOT / "src" / "repro" / "core" / "grad_sync.py")
+    assert {"fsdp_all_gather", "fsdp_reduce_scatter", "fsdp_reduce_scatter_stats"} <= want
+    assert want <= set(grad_sync.__all__)
+    assert all(callable(getattr(grad_sync, name)) for name in grad_sync.__all__)
+    assert set(grad_sync.__all__) - want == {"tree_flatten", "FsdpStep", "fsdp_gather",
+                                                   "fsdp_recompute_context"}
+
+
 def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this check is for machines without CUDA")

@@ -347,9 +347,16 @@ def test_model_parallel_contexts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         parallel.ParallelCtx(tp_size=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        parallel.ParallelCtx(fsdp_size=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2)
+    # fsdp_size > 1 (ROADMAP A11.6) is ported: each rank's shard of dim 1
+    # gathers back into the whole weight (the exact gather: by bits)
+    from repro_torch.core import transport
+
+    ctx = parallel.ParallelCtx(fsdp_size=4)
+    w = torch.arange(96, dtype=torch.float32).reshape(8, 12).to(torch.bfloat16)
+    outs = transport.ThreadGroup(4, "cpu").run(
+        lambda shard: ctx.gather(shard, dim=1), list(w.split(3, dim=1)), axis_name="data")
+    assert all(torch.equal(o.view(torch.int16), w.view(torch.int16)) for o in outs)
 
 
 def test_configs_match_the_reference():

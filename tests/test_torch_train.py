@@ -66,8 +66,10 @@ gradients by bits; kernel 11's entry points raising under grad and
 working under ``no_grad``; the checkpoint round trip and the
 cross-package restore both ways; ``train_specs``, ``decode_plan`` and
 ``decode_specs`` against the reference's; the serve step; the CLI; the
-ROADMAP A11.6 and A11.7 settings raising with their names; the CLI on a
-host of two devices.
+ROADMAP A11.7 settings raising with their names and ``fsdp=True``'s
+sharded specs equal to the reference's; the CLI on a host of two devices,
+sharding the weights, its checkpoint the global trees that the reference
+restores by bits.
 """
 import contextlib
 import dataclasses
@@ -601,8 +603,16 @@ def test_serve_step_matches_decode_fn():
 
 def test_a11_settings_raise_with_their_names():
     cfg = registry.get("minitron-8b", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11.6"):
-        training.make_setup(cfg, ThreadMesh((2, 1), AXES, "cpu"))  # fsdp=True, data 2
+    # fsdp=True with data 2 (A11.6, ported) builds sharded specs equal to
+    # the reference's
+    from repro.launch import training as jtraining
+
+    setup = training.make_setup(cfg, ThreadMesh((2, 1), AXES, "cpu"))
+    jsetup = jtraining.make_setup(jregistry.get("minitron-8b", smoke=True), _fake_mesh((2, 1)))
+    assert setup.ctx.fsdp_size == jsetup.ctx.fsdp_size == 2
+    assert setup.specs == jax.tree.map(tuple, jsetup.specs, is_leaf=lambda x: isinstance(
+        x, jax.sharding.PartitionSpec))
+    assert setup.specs["blocks"]["mlp"]["wo"] == (None, "model", "data")
     with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
         training.make_setup(cfg, ThreadMesh((1, 2), AXES, "cpu"), fsdp=False)
     with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
@@ -633,20 +643,56 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert int(back["opt"]["step"]) == 4
 
 
-def test_train_cli_replicates_over_data_on_two_devices(monkeypatch):
-    # the mesh rule gives data 2 on a host of two devices; the CLI's setup
-    # must be one that runs there (weights replicated, not FSDP)
+def test_train_cli_replicates_over_data_on_two_devices(monkeypatch, tmp_path):
+    # the mesh rule gives data 2 on a host of two devices; the CLI shards the
+    # weights over it (FSDP), as the reference's does, and its checkpoint
+    # holds the global trees, which the reference restores by bits
     import importlib
 
     monkeypatch.setattr(importlib.import_module("repro_torch.launch.train"), "_device_count",
                         lambda device: 2)
     out = io.StringIO()
+    shards = {}
+    real = training.make_train_step
+
+    def keeping(setup, bspecs):
+        step = real(setup, bspecs)
+
+        def run(params, opt, batch):
+            params, opt, m = step(params, opt, batch)
+            shards.update(setup=setup, params=params, opt=opt)
+            return params, opt, m
+
+        return run
+
+    monkeypatch.setattr(importlib.import_module("repro_torch.launch.train"),
+                        "make_train_step", keeping)
     with contextlib.redirect_stdout(out):
         losses = train(["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2",
-                        "--seq", "32", "--grad-gz", "ring"])
+                        "--seq", "32", "--grad-gz", "ring", "--ckpt-dir", str(tmp_path),
+                        "--ckpt-every", "2"])
     assert out.getvalue().splitlines()[0] == (
         "arch=minitron-smoke params=0.4M mesh={'data': 2, 'model': 1} grad_gz=ring")
     assert len(losses) == 2 and np.isfinite(losses).all()
+    setup = shards["setup"]
+    assert setup.ctx.fsdp_size == 2
+    # each rank holds its own block: half of each sharded leaf
+    embed = [p["embed"] for p in shards["params"]]
+    assert tuple(embed[0].shape) == (setup.defs["embed"].shape[0],
+                                     setup.defs["embed"].shape[1] // 2)
+    coords, sizes = [{"data": r, "model": 0} for r in range(2)], {"data": 2, "model": 1}
+    whole = {"params": training._global(shards["params"], setup.specs, coords, sizes),
+             "opt": training._global(shards["opt"], {"mu": setup.specs, "nu": setup.specs,
+                                                     "step": ()}, coords, sizes)}
+    like = jax.tree.map(lambda a: np.zeros(a.shape, np.float32),
+                        convert.params_to_numpy(whole))
+    theirs = jcheckpoint.restore(str(tmp_path), 2, like)
+    ours = convert.params_to_numpy(whole)
+    for a, b in zip(jax.tree.leaves(ours), jax.tree.leaves(theirs)):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    back = checkpoint.restore(str(tmp_path), 2, whole, device="cpu")
+    assert _same_bits(back, whole)
 
 
 def test_cosine_schedule_bitwise():
