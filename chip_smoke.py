@@ -273,7 +273,33 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     the kernels line; kernels 1, 3 and 4's from the main path replace
     phase 27's), whose gathers (of its shards) and reduce-scatters (of
     its recorded cotangents) run again on the card and on the CPU (their
-    plain versions): equal by bits.
+    plain versions): equal by bits;
+30. runs tensor and expert parallelism (phase ``tp``), each model through
+    ``launch.training.make_setup`` on a ``ThreadMesh((1, tp), ("data",
+    "model"))`` of the card, every rank on its ``_local`` block of the
+    global bf16 weights from seed 0, at every published width with only
+    the depth cut (``TP_DENSE``, ``TP_MOE``): minitron-8b at tp = 4 (4 of
+    32 layers; 8 q heads and 2 kv heads a rank): ``Model.loss_fn`` at B=2,
+    S=2048 through kernel 11 (layers x ranks launches, counted from 0)
+    against tp = 1 on the same weights within 0.02 (the reference's
+    ``tests/_mp_model_parallel_child.py`` bound), every rank's loss equal,
+    walls and busy share from one profiled call; 32 ``make_serve_step``
+    steps at B=2 against tp = 1's ``decode_fn`` (the last step's gap
+    logged); then phi3.5-moe-42b-a6.6b at tp = 16 (2 of 32 layers; one
+    expert, 2 q heads and a kv head shared by 2 ranks a rank) at capacity
+    factor n_experts / top_k: the loss through the exact expert dispatch,
+    through the compressed one (``moe_dispatch_gz_eb`` 1e-4: kernel 5 once
+    and kernel 4 tp times a dispatch and rank, two dispatches a layer,
+    counted from 0 and held against that count, no call flagged) and at
+    tp = 1, the exact one within 0.05 of tp = 1 (the reference child's
+    MoE bound), the gaps and the dispatch's wire bytes beside its f32
+    payload's printed, both profiled; one ``make_serve_step`` step at B=4
+    < tp (the token-padding path) against tp = 1; at the config's 1.25 the
+    dropped share and the gap, logged; then kernel 11 on both paths'
+    captured payloads and kernels 5 and 4 on the captured dispatch payload
+    against their plain versions (their launches go into the kernels line,
+    replacing phase 27's for kernel 11, phase 13's for kernel 5 and phase
+    29's for kernel 4).
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -283,8 +309,8 @@ purpose and are held by bits to the lossless result instead).
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
-(24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28) and
-``fsdp`` (29); a partial run prints no result lines.
+(24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28), ``fsdp``
+(29) and ``tp`` (30); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -5179,8 +5205,387 @@ def run_fsdp(device):
     return launches, smoke
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: tensor and expert parallelism
+# ---------------------------------------------------------------------------
+
+# (arch, tp, layers): every published width; only the depth is cut, to keep
+# the phase near 90 s on a slow host
+TP_DENSE = ("minitron-8b", 4, 4)  # of 32 layers; 32 heads over 8 kv: 2 kv heads a rank
+TP_MOE = ("phi3.5-moe-42b-a6.6b", 16, 2)  # of 32 layers; 16 experts: one a rank
+TP_SMOKE = False
+TP_DECODE_STEPS = 32
+TP_MOE_DECODE_B = 4  # < tp: the token-padding path of the expert dispatch
+TP_DISPATCH_EB = 1e-4  # benchmarks/moe_a2a_ablation.py's eb
+# tests/_mp_model_parallel_child.py: the reference's own bounds between its
+# (1, 1) and (2, 4) meshes
+TP_RTOL = {"dense": 0.02, "moe": 0.05}
+TP_CODEC = ("quantize", "unpack_dequantize")  # the compressed all-to-all's kernels
+
+
+def _tp_cfg(spec, **kw):
+    """``spec``'s config at full width (the smoke config with
+    ``TP_SMOKE``), its depth cut, through kernel 11."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    arch, _, layers = spec
+    cfg = registry.get(arch, smoke=TP_SMOKE)
+    return dataclasses.replace(cfg, n_layers=cfg.n_layers if TP_SMOKE else layers,
+                               use_flash_kernel=True, **kw)
+
+
+def _tp_setup(cfg, tp, whole, device):
+    """``launch.training.make_setup`` on a ``ThreadMesh((1, tp))`` of the
+    card, and each rank's ``_local`` block (views) of the global tree."""
+    from repro_torch.launch import training
+    from repro_torch.launch.mesh import ThreadMesh
+
+    mesh = ThreadMesh((1, tp), ("data", "model"), device)
+    setup = training.make_setup(cfg, mesh, fsdp=False, remat="none")
+    sizes = {"data": 1, "model": tp}
+    return setup, [training._local(whole, setup.specs, c, sizes)
+                   for c in training._coords(mesh)]
+
+
+def _tp_losses(setup, params, batch):
+    """Every rank's ``loss_fn`` on its block, in rank order."""
+    import torch
+
+    def rank(p):
+        with torch.no_grad():
+            return setup.model.loss_fn(p, batch)
+
+    return [float(x) for x in setup.mesh.run(rank, params)]
+
+
+@contextlib.contextmanager
+def _first_flash_call(record):
+    """Keep the (q, k, v, causal) of rank 0's first kernel 11 call in
+    ``record`` (the phase's own payload for the check against plain)."""
+    from repro_torch.core import transport
+    from repro_torch.kernels import flash_attn
+
+    real = flash_attn.flash_attention
+
+    def wrapped(q, k, v, *, causal=True, window=0):
+        if not record and transport.current("model").rank == 0:
+            record.append((q.clone(), k.clone(), v.clone(), causal, window))
+        return real(q, k, v, causal=causal, window=window)
+
+    flash_attn.flash_attention = wrapped
+    try:
+        yield record
+    finally:
+        flash_attn.flash_attention = real
+
+
+@contextlib.contextmanager
+def _watched_dispatch(record, payload):
+    """Append (rank, wire bytes, f32 payload bytes, overflow, nonfinite) of
+    every compressed all-to-all to ``record``, and rank 0's first payload
+    to ``payload``."""
+    from repro_torch.core import transport
+    from repro_torch.core.comm import GZCommunicator
+
+    real = GZCommunicator.all_to_all
+    lock = threading.Lock()
+
+    def wrapped(self, x, **kw):
+        res = real(self, x, **kw)
+        rank = transport.current(self.axis_name).rank
+        with lock:
+            if rank == 0 and not payload:
+                payload.append(x.clone())
+            record.append((rank, res.wire_bytes, x.numel() * x.element_size(),
+                           bool(res.overflow), bool(res.nonfinite)))
+        return res
+
+    GZCommunicator.all_to_all = wrapped
+    try:
+        yield record
+    finally:
+        GZCommunicator.all_to_all = real
+
+
+def _tp_profile(tag, fn):
+    """The warm wall and the device busy of one profiled ``fn()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _, warm = _timed(fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, traced = _timed(fn)
+    events = _device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"{tag}: warm wall {warm * 1e3:.1f} ms; profiled wall {traced * 1e3:.1f} ms, device "
+        f"busy {busy:.1f} ms ({100 * busy / (traced * 1e3):.1f} %), "
+        f"{sum(e.count for e in events)} device rows")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.key[:72]:<72} {e.count:>5} x {e.self_device_time_total / 1e3:8.2f} ms")
+    del prof, events
+    torch.cuda.empty_cache()
+    return warm, busy
+
+
+def _tp_gate(what, losses, want, rtol):
+    """Every rank's loss finite and within ``rtol`` of ``want``; returns
+    the largest relative gap."""
+    gap = max(abs(x - want) for x in losses) / abs(want)
+    if not all(math.isfinite(x) for x in losses) or not gap <= rtol:
+        raise AssertionError(f"{what}: losses {losses} against {want} (rtol {rtol})")
+    return gap
+
+
+def _tp_dense(device):
+    """minitron-8b at tp = 4 (``TP_DENSE``): the loss forward through kernel
+    11 against tp = 1 on the same weights (rtol 0.02; every rank's loss
+    equal by bits), kernel 11 launched layers x ranks times, walls and busy
+    share; then ``TP_DECODE_STEPS`` steps of ``make_serve_step`` at B = 2,
+    the last step's logits against tp = 1's ``decode_fn`` (gap logged;
+    every rank's gathered logits equal).  Returns kernel 11's launches and
+    its captured payload."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch import shapes, training
+
+    arch, tp, _ = TP_DENSE
+    cfg = _tp_cfg(TP_DENSE)
+    model, whole = _family_model(cfg, None, device, f"; n_layers cut to {cfg.n_layers}, "
+                                 f"tp {tp}: {cfg.n_heads // tp} q heads and "
+                                 f"{max(cfg.n_kv_heads // tp, 1)} kv heads a rank")
+    batch = next(SyntheticStream(cfg, MODEL_BATCH, MODEL_SEQ, seed=SEED))
+    with torch.inference_mode():
+        want, one_s = _timed(lambda: float(model.loss_fn(whole, batch)))
+    setup, params = _tp_setup(cfg, tp, whole, device)
+    flash = []
+    _reset_launches()
+    with _first_flash_call(flash):
+        losses, cold = _timed(lambda: _tp_losses(setup, params, batch))
+    launches = _launches()["flash_attention"]
+    if launches != cfg.n_layers * tp:
+        raise AssertionError(f"tp {tp}: kernel 11 launched {launches} times, expected "
+                             f"{cfg.n_layers} layers x {tp} ranks")
+    gap = _tp_gate(f"{arch} tp {tp}", losses, want, TP_RTOL["dense"])
+    if len(set(losses)) != 1:
+        raise AssertionError(f"{arch} tp {tp}: the ranks' losses differ: {losses}")
+    log(f"tp {arch} B={MODEL_BATCH} S={MODEL_SEQ}: tp {tp} loss {losses[0]:.6f} against tp 1 "
+        f"{want:.6f}, rel gap {gap:.3e} (bound {TP_RTOL['dense']}); every rank's loss equal "
+        f"by bits; kernel 11 launched {launches} times ({cfg.n_layers} layers x {tp} ranks, "
+        f"H = {cfg.n_heads // tp}); cold wall {cold * 1e3:.1f} ms, tp 1 {one_s * 1e3:.1f} ms")
+    _tp_profile(f"tp {arch} tp {tp} loss forward", lambda: _tp_losses(setup, params, batch))
+
+    # decode through make_serve_step, from an empty cache
+    steps = TP_DECODE_STEPS
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (2, steps)).astype(np.int32)).to(device)
+    shape = shapes.InputShape("tp-decode", steps, 2, "decode")
+    cache, cspecs, _, tspec, plan = shapes.decode_specs(cfg, shape, setup.mesh, setup.model)
+    cache = {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in cache.items()}
+    step = training.make_serve_step(setup, cspecs, tspec, plan)
+
+    def decode_all():
+        out = None
+        for pos in range(steps):
+            out, _ = step(params, cache, toks[:, pos:pos + 1], pos)
+        return out
+
+    with torch.no_grad():
+        got, decode_s = _timed(decode_all)
+    with torch.inference_mode():
+        ref, ref_s, _ = _decode_logits(model, whole, toks)
+    ref = ref[:, -1:]
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{arch} tp {tp}: decode logits {tuple(got.shape)}, "
+                             f"tp 1 {tuple(ref.shape)}")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log(f"tp {arch} decode: {steps} make_serve_step steps at B=2, tp {tp}: "
+        f"{decode_s * 1e3 / steps:.2f} ms/step (tp 1 decode_fn {ref_s * 1e3 / steps:.2f} "
+        f"ms/step); the last step's logits {rel:.4e} from tp 1's (logged)")
+    del model, whole, params, setup, cache, step
+    torch.cuda.empty_cache()
+    return launches, flash[0]
+
+
+def _tp_moe(device):
+    """phi3.5-moe at tp = 16 (``TP_MOE``), at capacity factor n_experts /
+    top_k (nothing drops), with ``moe_dispatch_gz_eb`` = ``TP_DISPATCH_EB``:
+    the loss through the compressed dispatch (kernels 5 and 4 launched as
+    the code says: one ``quantize`` and tp ``unpack_dequantize`` a dispatch
+    and rank, two dispatches a layer), through the exact dispatch and at tp
+    = 1, the gaps printed, exact against tp = 1 within rtol 0.05; the
+    dispatch's wire bytes beside the f32 payload's; one decode step at B =
+    4 < tp (the token-padding path) against tp = 1; at the config's 1.25,
+    the dropped share and the gap.  Returns the compressed run's launches
+    and the captured payloads."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch import shapes, training
+    from repro_torch.models.model import Model
+
+    arch, tp, _ = TP_MOE
+    base = registry.get(arch, smoke=TP_SMOKE)
+    nodrop = base.n_experts / base.top_k
+    cfg = _tp_cfg(TP_MOE, capacity_factor=nodrop)
+    model, whole = _family_model(
+        cfg, None, device, f"; n_layers cut to {cfg.n_layers}, tp {tp}: "
+        f"{cfg.n_experts // tp} expert and {cfg.n_heads // tp} q heads a rank, one kv head "
+        f"shared by {tp // cfg.n_kv_heads} ranks, capacity factor {nodrop:g}")
+    batch = next(SyntheticStream(cfg, MODEL_BATCH, MODEL_SEQ, seed=SEED))
+    with torch.inference_mode():
+        want = float(model.loss_fn(whole, batch))
+    exact_setup, params = _tp_setup(cfg, tp, whole, device)
+    exact, exact_s = _timed(lambda: _tp_losses(exact_setup, params, batch))
+    gap = _tp_gate(f"{arch} tp {tp} exact", exact, want, TP_RTOL["moe"])
+
+    gz_cfg = dataclasses.replace(cfg, moe_dispatch_gz_eb=TP_DISPATCH_EB)
+    gz_setup, _ = _tp_setup(gz_cfg, tp, whole, device)
+    dispatch, payload, flash = [], [], []
+    _reset_launches()
+    with _watched_dispatch(dispatch, payload), _first_flash_call(flash):
+        gz, gz_s = _timed(lambda: _tp_losses(gz_setup, params, batch))
+    launches = _launches()
+    n_dispatch = cfg.n_layers * 2 * tp
+    want_launches = {"flash_attention": cfg.n_layers * tp, "quantize": n_dispatch,
+                     "unpack_dequantize": n_dispatch * tp}
+    got_launches = {k: launches[k] for k in want_launches}
+    others = {k: v for k, v in _nonzero(launches).items() if k not in want_launches}
+    if got_launches != want_launches or others:
+        raise AssertionError(f"tp {tp} compressed dispatch: launches {_nonzero(launches)}, "
+                             f"expected {want_launches}")
+    if len(dispatch) != n_dispatch or any(ovf or bad for _, _, _, ovf, bad in dispatch):
+        raise AssertionError(f"tp {tp}: {len(dispatch)} dispatches (expected {n_dispatch}), "
+                             f"flags {[(o, b) for _, _, _, o, b in dispatch]}")
+    gz_gap = _tp_gate(f"{arch} tp {tp} compressed", gz, want, TP_RTOL["moe"])
+    gz_exact = max(abs(a - b) for a, b in zip(gz, exact)) / max(abs(x) for x in exact)
+    wire = {w for _, w, _, _, _ in dispatch}
+    dense = {d for _, _, d, _, _ in dispatch}
+    log(f"tp {arch} B={MODEL_BATCH} S={MODEL_SEQ}, tp {tp}: rank losses exact dispatch "
+        f"{min(exact):.6f}..{max(exact):.6f}, compressed (eb {TP_DISPATCH_EB:g}) "
+        f"{min(gz):.6f}..{max(gz):.6f}, tp 1 {want:.6f}; rel gaps: exact vs tp 1 {gap:.3e} "
+        f"(bound {TP_RTOL['moe']}; each rank's aux term covers its token slice), compressed "
+        f"vs tp 1 {gz_gap:.3e}, compressed vs exact {gz_exact:.3e}; walls exact "
+        f"{exact_s * 1e3:.1f} ms, compressed {gz_s * 1e3:.1f} ms (cold)")
+    log(f"tp {arch} dispatch: {len(dispatch)} compressed all-to-alls ({cfg.n_layers} layers x "
+        f"2 x {tp} ranks), none flagged; wire bytes a call {sorted(wire)} against the f32 "
+        f"payload's {sorted(dense)} ({min(dense) / max(wire):.2f}x); kernel launches "
+        f"{got_launches} (as planned)")
+    _tp_profile(f"tp {arch} tp {tp} loss forward, compressed dispatch",
+                lambda: _tp_losses(gz_setup, params, batch))
+    _tp_profile(f"tp {arch} tp {tp} loss forward, exact dispatch",
+                lambda: _tp_losses(exact_setup, params, batch))
+
+    # one decode step at B = 4 < tp through make_serve_step
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (TP_MOE_DECODE_B, 1)).astype(np.int32)).to(device)
+    shape = shapes.InputShape("tp-decode", 8, TP_MOE_DECODE_B, "decode")
+    cache, cspecs, _, tspec, plan = shapes.decode_specs(cfg, shape, exact_setup.mesh,
+                                                        exact_setup.model)
+    cache = {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in cache.items()}
+    step = training.make_serve_step(exact_setup, cspecs, tspec, plan)
+    with torch.no_grad():
+        got, step_s = _timed(lambda: step(params, cache, toks, 0)[0])
+    with torch.inference_mode():
+        cache1 = {k: torch.zeros(v, dtype=torch.float32, device=device)
+                  for k, v in model.cache_defs(TP_MOE_DECODE_B, plan).items()}
+        ref, _ = model.decode_fn(whole, cache1, toks, 0, plan)
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{arch} tp {tp} decode: {tuple(got.shape)} vs "
+                             f"{tuple(ref.shape)}")
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log(f"tp {arch} decode step at B={TP_MOE_DECODE_B} < tp {tp} (the token slice padded "
+        f"to {tp} rows): {step_s * 1e3:.1f} ms; logits {rel:.4e} from tp 1's (logged)")
+
+    # at the config's capacity factor: slots drop
+    drops = []
+    cut_cfg = dataclasses.replace(cfg, capacity_factor=base.capacity_factor)
+    cut_setup, _ = _tp_setup(cut_cfg, tp, whole, device)
+    with _counting_drops(drops):
+        cut = _tp_losses(cut_setup, params, batch)
+    dropped, slots = sum(d for d, _ in drops), sum(n for _, n in drops)
+    cut_gap = max(abs(a - b) for a, b in zip(cut, exact)) / max(abs(x) for x in exact)
+    log(f"tp {arch} at capacity factor {base.capacity_factor}: {dropped} of {slots} slots "
+        f"dropped ({100 * dropped / max(slots, 1):.2f} %); rel gap to the no-drop losses "
+        f"{cut_gap:.3e} (logged)")
+    del model, whole, params, exact_setup, gz_setup, cut_setup, cache, cache1, step
+    torch.cuda.empty_cache()
+    return launches, payload[0], flash[0], gz_cfg
+
+
+def _tp_check_kernels(flash_payloads, a2a_x, gz_cfg, tp):
+    """Kernel 11 on the phase's two captured payloads (rank 0's first call
+    at each tp) and kernels 5 and 4 on the captured dispatch payload (rank
+    0's first: its tp chunks quantized together, each stream unpacked)
+    against their plain versions: kernel 11 within ``FLASH_TOL``, kernels 5
+    and 4 by bits.  These launches are not counted."""
+    import torch
+
+    from repro_torch.core import collectives
+    from repro_torch.kernels import flash_attn, lorenzo, ops
+    from repro_torch.models.blocks import dispatch_comm
+    from repro_torch.models.parallel import ParallelCtx
+
+    for q, k, v, causal, window in flash_payloads:
+        got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attn.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > tol + tol * want.float().abs()).sum())
+        log(f"tp: flash_attention vs plain on the phase's payload {tuple(q.shape)} (kv "
+            f"repeated from the rank's heads): max |err| {float(diff.max()):.3e}; {bad} of "
+            f"{got.numel()} outside atol = rtol = {tol:g}")
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError("tp: flash_attention disagrees with its plain version")
+    chunk_n = a2a_x.numel() // tp
+    rows = ops.n_blocks_for(chunk_n)
+    x2d = torch.zeros((tp, rows * ops.BLOCK), dtype=torch.float32, device=a2a_x.device)
+    x2d[:, :chunk_n] = a2a_x.reshape(tp, chunk_n)
+    x2d = x2d.view(tp * rows, ops.BLOCK)
+    eb = ops.as_eb(gz_cfg.moe_dispatch_gz_eb, a2a_x.device)
+    _compare("tp quantize", lorenzo.quantize(x2d, eb), lorenzo.quantize_plain(x2d, eb))
+    cfg = dispatch_comm(gz_cfg, ParallelCtx(tp_size=tp), a2a_x.device).config
+    packed, bw, anchor, ovf = collectives._compress_chunks(
+        a2a_x.reshape(tp, chunk_n), tp, chunk_n, cfg)
+    if bool(ovf):
+        raise AssertionError("tp: the captured dispatch payload overflows its capacity")
+    for i in range(tp):
+        args = (packed[i], bw[i], anchor[i], eb)
+        _compare(f"tp unpack_dequantize [chunk {i}]", (lorenzo.unpack_dequantize(*args),),
+                 (lorenzo.unpack_dequantize_plain(*args),))
+    log(f"tp: quantize and unpack_dequantize vs plain on the captured dispatch payload "
+        f"({tp} chunks of {chunk_n} f32, {rows} blocks each): mismatches 0")
+
+
+def run_tp(device, records):
+    """Phase 30 (module docstring).  Sets the kernels line's launches of
+    kernel 11 (both main paths) and of kernels 5 and 4 (the compressed
+    dispatch)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    flash_dense, payload_dense = _tp_dense(device)
+    launches, a2a_x, payload_moe, gz_cfg = _tp_moe(device)
+    _tp_check_kernels((payload_dense, payload_moe), a2a_x, gz_cfg, TP_MOE[1])
+    _record(records, "flash_attention")["launches"] = flash_dense + launches["flash_attention"]
+    for name in TP_CODEC:
+        _record(records, name)["launches"] = launches[name]
+    del payload_dense, payload_moe, a2a_x
+    torch.cuda.empty_cache()
+    log(f"tp phase: {time.perf_counter() - t0:.1f} s")
+
+
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp")
+          "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp", "tp")
 
 
 def _record(records, name):
@@ -5348,6 +5753,11 @@ def main(argv=()) -> int:
         for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
             _record(records, name)["launches"] = launches[name]
         _record(records, "unpack_reduce_repack")["launches"] = smoke["unpack_reduce_repack"]
+
+    if "tp" in phases:
+        # This slice's main paths: tensor parallelism (kernel 11 on each
+        # rank's heads) and the compressed expert dispatch (kernels 5 and 4).
+        run_tp(device, records)
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

@@ -22,7 +22,9 @@ rank with these members:
     ``psum`` of the reference), folded in rank order,
     ``((x_0 + x_1) + x_2) + ...``: every rank gets the same bits, the
     reference's CPU ``psum`` gives them too, and no library reduction
-    order plays a part.
+    order plays a part;
+  * ``max_across(x)`` — the elementwise max of every rank's ``x`` (the
+    ``pmax`` of the reference; a NaN on any rank gives NaN).
 
 Two groups provide handles:
 
@@ -36,8 +38,8 @@ Two groups provide handles:
     rank's reads.
   * :class:`DistGroup` — one rank per process over ``torch.distributed``:
     ``batch_isend_irecv`` for the exchange and the all-to-all,
-    ``all_reduce(MAX)`` for the flags, ``all_gather`` for the sum and the
-    gather.  NCCL on GPUs, gloo on the CPU.
+    ``all_reduce(MAX)`` for the flags, ``all_gather`` for the sum, the
+    max and the gather.  NCCL on GPUs, gloo on the CPU.
 
 A group is bound to an axis name per thread (``bind``); a communicator
 built for that axis name finds its rank handle with ``current``.
@@ -241,6 +243,14 @@ class _ThreadRank:
         g._barrier.wait()
         return out
 
+    def max_across(self, x) -> torch.Tensor:
+        g = self.group
+        g._slots[self.rank] = x
+        g._barrier.wait()
+        out = torch.stack(list(g._slots)).amax(dim=0)
+        g._barrier.wait()
+        return out
+
 
 class ThreadGroup:
     """N ranks as N threads of this process on one device."""
@@ -381,6 +391,9 @@ class DistGroup:
 
     def sum_across(self, x) -> torch.Tensor:
         return _fold(self._gather(x))
+
+    def max_across(self, x) -> torch.Tensor:
+        return torch.stack(self._gather(x)).amax(dim=0)
 
 
 class DistMesh:

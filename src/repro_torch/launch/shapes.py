@@ -12,7 +12,7 @@ with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 
 A decode batch that cannot fill the data axes makes the reference split
 the cache's context over ``data`` (``cp_size > 1``): here
-``KVCacheSpec`` raises for it (ROADMAP A11.7).  The port's ``Model``
+``KVCacheSpec`` raises for it (ROADMAP A11.7b).  The port's ``Model``
 defines the dense, vlm, audio and moe families' cache (k and v), MLA's
 (mla: the latent and rope-key rows, f32, replicated over model), the ssm
 family's (conv_x, conv_bc and the SSD state ssm, always f32), the

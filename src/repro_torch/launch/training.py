@@ -54,8 +54,14 @@ gathered weight after its layer, as ZeRO-3 does; a train step over a
 ``DistMesh`` (ROADMAP A11.8) must choose its route.  ``_sync_grads``
 runs after backward too.
 
-What raises, in ``ParallelCtx``: ``model > 1`` (tensor parallelism,
-ROADMAP A11.7).  The reference's per-bucket overlap hooks
+A mesh whose ``model`` axis is larger than 1 builds a tensor-parallel
+context (``ParallelCtx.tp_size``) for the forward and decode of the dense
+GQA and moe families (``Model``; the others raise, ROADMAP A11.7b): each
+rank runs ``model.loss_fn`` or ``make_serve_step``'s ``decode_fn`` on its
+``_local`` block.  ``make_train_step`` raises there: TP's backward reduces
+activation gradients in the middle of backward, which cannot meet on the
+device's one autograd thread (ROADMAP C6), and the TP train step over
+gloo is ROADMAP A11.7b.  The reference's per-bucket overlap hooks
 (``overlap_sync``, A11.8) are not here yet.
 """
 from __future__ import annotations
@@ -356,6 +362,11 @@ def make_train_step(setup: TrainSetup, batch_specs):
     ``skipped`` and ``overlap_modeled`` (0-d tensors); every rank computes
     the same values (rank-order sums over the mesh)."""
     ctx, model, mesh = setup.ctx, setup.model, setup.mesh
+    if ctx.tp_size > 1:
+        raise NotImplementedError(
+            f"the train step at tp_size {ctx.tp_size} is not ported yet: TP's backward "
+            "reduces activation gradients inside backward, where a one-card mesh's ranks "
+            "cannot meet (ROADMAP C6); ROADMAP A11.7b")
     sizes = mesh_axis_sizes(mesh)
     mesh_axes = tuple(mesh.axis_names)
     n_dp = math.prod(sizes[ax] for ax in ctx.dp_axes)
@@ -408,10 +419,13 @@ def make_serve_step(setup: TrainSetup, cache_specs, tokens_spec, plan: KVCacheSp
     one ``decode_fn`` step on every rank, each on its block of the global
     ``tokens`` and ``cache`` (views, so the new k and v land in the global
     cache), with ``params`` a list of per-rank trees.  The logits come back
-    whole, the ranks' blocks of the batch in rank order."""
+    whole, the ranks' blocks of the batch in rank order (every rank of a
+    ``model`` group holds its block's whole logits; the first one's are
+    taken)."""
     model, mesh = setup.model, setup.mesh
     sizes = mesh_axis_sizes(mesh)
     coords = _coords(mesh)
+    firsts = [r for r, c in enumerate(coords) if c.get("model", 0) == 0]
 
     def body(args):
         params, cache, tokens, pos = args
@@ -422,7 +436,8 @@ def make_serve_step(setup: TrainSetup, cache_specs, tokens_spec, plan: KVCacheSp
         outs = mesh.run(body, [(params[r], _local(cache, cache_specs, coords[r], sizes),
                                 _local(tokens, tokens_spec, coords[r], sizes), pos)
                                for r in range(mesh.size)])
-        logits = torch.cat(outs, dim=0) if tokens_spec[0] is not None else outs[0]
+        logits = torch.cat([outs[r] for r in firsts], dim=0) if tokens_spec[0] is not None \
+            else outs[0]
         return logits, cache
 
     return step

@@ -1,10 +1,19 @@
 """GQA attention: training forward (chunked flash or the flash kernel),
 prefill, and one-token decode.
 
-The counterpart of ``repro.models.attention`` on one card: q heads are not
-sharded (``tp_size`` is 1), so every rank-local quantity is the global one.
-The full-sequence path runs either the chunked online softmax below (the
-default, the reference's ``lax.scan`` as a loop over kv chunks) or, with
+The counterpart of ``repro.models.attention``, rank-centric.  At
+``tp_size > 1`` the q heads are sharded over the TP axis, padded to
+``cfg.padded_heads(tp)`` (weights whose extra heads have zero
+out-projection rows compute the unpadded function; ``init_params`` draws
+those rows like the others, as the reference's does): a rank holds its
+``hp / tp`` heads' columns of ``wq`` and rows of ``wo``, and the out-projection's partial sums are
+reduced over TP (``ParallelCtx.tp_reduce``).  ``wk`` and ``wv`` are
+replicated, and each rank uses only the kv heads its q heads need
+(``_local_kv``): a contiguous slice when ``n_kv >= tp``, else one head
+shared by a replication group of ``tp / n_kv`` ranks.  So the decode
+cache is sharded over TP on its kv dim.  The full-sequence path runs
+either the chunked online softmax below (the default, the reference's
+``lax.scan`` as a loop over kv chunks) or, with
 ``cfg.use_flash_kernel``, the flash-attention kernel
 (``kernels/flash_attn.py``: CUDA on the card, its plain version on the
 CPU).
@@ -27,8 +36,16 @@ NEG = -1e30
 
 
 def _local_kv(kv: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx) -> torch.Tensor:
-    """This rank's kv heads: all of them at tp = 1."""
-    return kv
+    """This rank's kv heads of the full set: (..., n_kv, hd) -> (...,
+    kv_local, hd)."""
+    tp, n_kv = ctx.tp_size, cfg.n_kv_heads
+    if tp == 1:
+        return kv
+    if n_kv >= tp:
+        kv_local = n_kv // tp
+        return kv.narrow(-2, ctx.tp_index() * kv_local, kv_local)
+    # replication groups: tp / n_kv ranks share one kv head
+    return kv.narrow(-2, ctx.tp_index() // (tp // n_kv), 1)
 
 
 def kv_local_heads(cfg: ModelConfig, tp: int) -> int:
@@ -149,10 +166,10 @@ def attention_train(h: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ParallelCtx
 
 @dataclasses.dataclass(frozen=True)
 class KVCacheSpec:
-    """Decode cache layout: (B, S_local, kv_local, hd).  ``window`` > 0
-    means ring-buffer semantics.  The context-parallel split of the
-    sequence (``cp_size > 1``) is not ported yet (ROADMAP A11.7) and
-    raises."""
+    """Decode cache layout: (B, S_local, kv_local, hd) per rank, the kv
+    heads sharded over TP.  ``window`` > 0 means ring-buffer semantics.
+    The context-parallel split of the sequence (``cp_size > 1``) is not
+    ported yet (ROADMAP A11.7b) and raises."""
 
     s_total: int
     cp_axis: str | None
@@ -163,7 +180,7 @@ class KVCacheSpec:
         if self.cp_size > 1:
             raise NotImplementedError(
                 "a context-parallel KV cache (cp_size > 1) is not ported yet: "
-                "ROADMAP A11.7")
+                "ROADMAP A11.7b")
 
     @property
     def s_local(self) -> int:
@@ -201,7 +218,8 @@ def attention_decode(h: torch.Tensor, w: dict, cache_k: torch.Tensor,
     v_new = _local_kv(v_new, cfg, ctx)
     kv_local = k_new.shape[-2]
 
-    # Which cache slot does this token land in (one rank holds them all)?
+    # Which cache slot does this token land in (every slot is this rank's:
+    # the sequence is not split, cp_size is 1)?
     s_local = spec.s_local
     slot = pos % spec.window if spec.window else pos
     if 0 <= slot < s_local:

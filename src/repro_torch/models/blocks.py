@@ -2,21 +2,25 @@
 MLA), moe, ssm and hybrid families.
 
 The counterpart of ``repro.models.blocks`` for those families.  Shapes
-are GLOBAL; the specs keep the reference's TP ("model") and FSDP ("data")
-placement for when those axes are ported.  A leading L dim (stacked
-layers) is added by ``model.py``.
+are GLOBAL and the specs the reference's TP ("model") and FSDP ("data")
+placement; the apply functions take a rank's LOCAL blocks (column-parallel
+``wq``/``wi``/``wg``, row-parallel ``wo`` with its partial sums reduced
+over TP, experts sharded over TP on their expert dim).  A leading L dim
+(stacked layers) is added by ``model.py``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.collectives import GZConfig
+from repro_torch.core.comm import GZCommunicator
 from repro_torch.models import attention, mla, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.parallel import ParallelCtx, ParamDef
 
 __all__ = ["attn_defs", "mlp_defs", "moe_defs", "ssm_defs", "mla_defs", "norm_def",
-           "dense_block", "moe_block", "ssm_block", "mla_block"]
+           "dense_block", "moe_block", "ssm_block", "mla_block", "dispatch_comm"]
 
 
 def _pd(shape, spec, init="scaled", dtype="bfloat16"):
@@ -139,15 +143,25 @@ def moe_block(h, w, cfg: ModelConfig, ctx: ParallelCtx, *, positions, causal=Tru
     """Pre-norm attention + MoE FFN block: (h, the router's aux loss).
 
     ``cfg.moe_dispatch_gz_eb`` routes the expert-parallel dispatch through
-    a compressed all-to-all, which exists only at tp > 1 (ROADMAP A11.7):
-    at tp = 1 the reference builds a communicator that ``moe_ffn`` never
-    uses, so here the setting changes nothing."""
+    the compressed all-to-all of the TP axis's communicator (memoized: one
+    for every layer, its plan resolved once a payload shape), at
+    capacity factor 0.8 as in the reference; ``moe_ffn`` uses it only at
+    tp > 1 with one expert a rank, so at tp = 1 it changes nothing."""
     h = h + attention.attention_train(
         rms_norm(h, w["ln1"], cfg.norm_eps), w["attn"], cfg, ctx,
         positions=positions, causal=causal, window=window,
     )
-    m, aux = moe.moe_ffn(rms_norm(h, w["ln2"], cfg.norm_eps), w["moe"], cfg, ctx)
+    m, aux = moe.moe_ffn(rms_norm(h, w["ln2"], cfg.norm_eps), w["moe"], cfg, ctx,
+                         dispatch_comm=dispatch_comm(cfg, ctx, h.device))
     return h + m, aux
+
+
+def dispatch_comm(cfg: ModelConfig, ctx: ParallelCtx, device):
+    """The communicator of ``cfg.moe_dispatch_gz_eb`` (None when it is 0)."""
+    if not cfg.moe_dispatch_gz_eb:
+        return None
+    return GZCommunicator.for_config(
+        ctx.tp_axis, GZConfig(eb=cfg.moe_dispatch_gz_eb, capacity_factor=0.8), device=device)
 
 
 def ssm_block(h, w, cfg: ModelConfig, ctx: ParallelCtx):

@@ -1,8 +1,13 @@
 """Shared layers: RMSNorm, RoPE, vocab-parallel embedding and loss.
 
-The counterpart of ``repro.models.layers``, function for function, on one
-card (``ParallelCtx`` sizes of 1, so the TP reductions are the identity).
-Every ``astype`` of the reference is kept as a ``.to``, and where JAX
+The counterpart of ``repro.models.layers``, function for function.  Each
+is rank-centric: at ``tp_size > 1`` the vocab is sharded over the TP axis
+(a rank holds v_local rows of the embedding from ``tp_index() * v_local``
+on, and those columns of the unembedding), the loss takes the row max and
+the partition sum over the ranks (``ParallelCtx.tp_max``/``tp_reduce``,
+the reference's ``lax.pmax``/``psum``) and decode's logits are gathered
+whole (``tp_all_gather``).  At 1 every TP step is the identity.  Every
+``astype`` of the reference is kept as a ``.to``, and where JAX
 promotes bf16 with f32 to f32 the cast is written out: torch keeps a
 tensor's dtype against a 0-d tensor, JAX does not.  Scalars enter as
 Python floats holding f32 values, never as host tensors copied to the
@@ -55,8 +60,9 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
 
 def embed_lookup(ids: torch.Tensor, w_embed: torch.Tensor,
                  ctx: ParallelCtx) -> torch.Tensor:
-    """Vocab-parallel embedding (one rank: the whole vocab).  Out-of-range
-    ids give zero rows, as in the reference."""
+    """Vocab-parallel embedding: ``w_embed`` is this rank's (v_local, d)
+    rows; ids outside them give zero rows, and the ranks' rows are summed
+    over TP."""
     w = ctx.gather(w_embed, dim=1)  # (v_local, d)
     v_local = w.shape[0]
     local_ids = ids.long() - ctx.tp_index() * v_local
@@ -75,11 +81,16 @@ def vocab_parallel_logits(h: torch.Tensor, w_unembed: torch.Tensor,
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
-    """Per-position -log softmax(logits)[label] (logsumexp shifted by the
-    row max, as the reference takes it)."""
+    """Per-position -log softmax(logits)[label] over TP-sharded logits
+    (logsumexp shifted by the row max, as the reference takes it; at
+    tp > 1 the max over the ranks, detached, and the partition sums
+    summed over them)."""
     v_local = logits.shape[-1]
     m = torch.amax(logits, dim=-1)
+    if ctx.tp_size > 1:
+        m = ctx.tp_max(m)
     z = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    z = ctx.tp_reduce(z)
     logz = torch.log(z) + m
     local_label = labels.long() - ctx.tp_index() * v_local
     valid = (local_label >= 0) & (local_label < v_local)
@@ -91,7 +102,8 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor, ctx: ParallelCtx) -> torch.
 def vocab_parallel_xent(logits_local: torch.Tensor, labels: torch.Tensor,
                         ctx: ParallelCtx, *, mask: torch.Tensor | None = None
                         ) -> torch.Tensor:
-    """Mean NLL over (masked) positions.  logits_local: (B, S, v) f32."""
+    """Mean NLL over (masked) positions, the same on every TP rank.
+    logits_local: (B, S, v_local) f32; labels: (B, S) global ids."""
     nll = _nll(logits_local, labels, ctx)
     if mask is not None:
         nll = nll * mask
@@ -122,5 +134,6 @@ def chunked_vocab_xent(h: torch.Tensor, w_unembed: torch.Tensor, labels: torch.T
 
 
 def gather_logits(logits_local: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
-    """All-gather TP-sharded logits into the full vocab: the identity at 1."""
-    return logits_local
+    """All-gather TP-sharded logits into the full vocab along the last dim
+    (decode only: the payload is (B, 1, v_local)); the identity at 1."""
+    return ctx.tp_all_gather(logits_local, logits_local.dim() - 1)

@@ -1,9 +1,9 @@
 """Model assembly for every family of the reference: parameter trees,
 loss forward, and one-token decode.
 
-The counterpart of ``repro.models.model`` on one card for dense GQA
-decoders (minitron-8b, internlm2-20b, deepseek-67b), the dense decoder
-with Multi-head Latent Attention (minicpm3-4b: ``cfg.mla`` set), the
+The counterpart of ``repro.models.model`` for dense GQA decoders
+(minitron-8b, internlm2-20b, deepseek-67b), the dense decoder with
+Multi-head Latent Attention (minicpm3-4b: ``cfg.mla`` set), the
 Mixture-of-Experts decoders (phi3.5-moe-42b-a6.6b, llama4-scout-17b-a16e:
 GQA attention and a routed expert FFN, ``models/moe.py``), the
 Mamba2/SSD stack (mamba2-780m), the zamba2 hybrid (zamba2-2.7b: Mamba2
@@ -22,6 +22,16 @@ parameter tree and this module's ``state_dict`` map one to one.
 ``loss_fn`` and ``decode_fn`` keep the reference's signatures and take a
 params tree (``Model.params()``, or ``convert.params_from_jax``), so tests
 call both packages alike.
+
+The parameter definitions are GLOBAL, the same shapes at every tensor-
+parallel size (the q heads padded to ``cfg.padded_heads(tp)``).  At
+``ctx.tp_size > 1`` (ROADMAP A11.7) ``loss_fn``, ``decode_fn`` and
+``cache_defs`` are rank-centric, as the reference's ``shard_map`` bodies:
+each rank of a mesh calls them with its LOCAL block of every leaf
+(``launch/training.py::_local`` of the global tree by the specs) and its
+own cache, and every rank gets the same loss and logits.  The dense GQA
+and moe families run there; the ssm, hybrid, MLA, encdec, vlm and audio
+families raise at tp > 1 (ROADMAP A11.7b).
 
 The reference's ``lax.scan`` over the stacked layers is a loop here.
 Its ``jax.checkpoint`` of the scan body (``ctx.remat`` not ``"none"``)
@@ -114,8 +124,9 @@ class Model(nn.Module):
     encdec, vlm or audio.
 
     ``params``: a tree of tensors (the reference's names and shapes) to
-    register; without one, the parameters are drawn from ``seed`` on
-    ``device`` (``init_params``).  ``device`` defaults to the card and
+    register; without one, the GLOBAL parameters are drawn from ``seed``
+    on ``device`` (``init_params``), which at tp > 1 a caller splits into
+    the ranks' blocks.  ``device`` defaults to the card and
     raises without one; pass ``device="cpu"`` to run the plain versions.
     """
 
@@ -124,6 +135,13 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.ctx = ctx if ctx is not None else ParallelCtx()
+        tp_ported = (cfg.family == "dense" and cfg.mla is None) or cfg.family == "moe"
+        if self.ctx.tp_size > 1 and not tp_ported:
+            kind = "MLA" if cfg.mla is not None else cfg.family
+            raise NotImplementedError(
+                f"tensor parallelism (tp_size {self.ctx.tp_size}) of the {kind} family is "
+                "not ported yet: ROADMAP A11.7b (the dense GQA and moe families run at "
+                "tp > 1)")
         dev = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)

@@ -1,8 +1,8 @@
 """Mixture-of-Experts FFN: top-k routing with capacity (Switch/GShard).
 
-The counterpart of ``repro.models.moe`` at one tensor rank, in plain
-torch ops (the reference's MoE is plain jnp, with no Pallas kernel).
-Every step keeps the reference's order and precision:
+The counterpart of ``repro.models.moe``, in plain torch ops (the
+reference's MoE is plain jnp, with no Pallas kernel).  Every step keeps
+the reference's order and precision:
 
   * router logits and softmax in f32 (the softmax written out, its max
     detached, as ``jax.nn.softmax``);
@@ -23,9 +23,25 @@ Every step keeps the reference's order and precision:
     frac_probs)``: the top-1 assignment share (no gradient) against the
     mean router probability.
 
-The expert-parallel dispatch (``tp_size > 1``: the token slice, the
-``all_to_all`` or a compressed ``dispatch_comm``, the ``all_gather``) is
-ROADMAP A11.7; ``ParallelCtx(tp_size > 1)`` raises.
+At ``tp_size > 1`` the experts are sharded over the TP axis (``E / tp``
+a rank) and the FFN is expert-parallel, as in the reference:
+
+  * the activations are replicated over TP, so each rank routes only its
+    slice of ``ceil(t / tp)`` tokens (zero rows pad the token range to a
+    multiple of tp, as at decode when B·S < tp), at the capacity of that
+    slice;
+  * the (E, cap, d) slots go to their experts' ranks, ``(E, cap, d) ->
+    (E/tp, tp·cap, d)``, each rank's slots in rank order along the
+    capacity dim, through the exact all-to-all
+    (``ParallelCtx.tp_all_to_all``) or, with ``dispatch_comm`` and one
+    expert a rank, through its compressed ``all_to_all`` on the (tp,
+    cap·d) view (one lossy hop, the codec kernels); the expert outputs
+    come back the same way;
+  * the ranks' token slices are gathered in rank order and cut to the
+    token count (``tp_all_gather``).
+
+The aux loss is the rank's own, over its token slice, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -92,29 +108,59 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, cap: int)
             "keep": keep, "gate_flat": gate_flat}
 
 
-def moe_ffn(h: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ParallelCtx):
-    """h: (B, S, d).  w: {"router": (d, E), "wi", "wg": (E, d, ff),
-    "wo": (E, ff, d)}.  Returns (out (B, S, d) in h's dtype, aux f32)."""
+def moe_ffn(h: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ParallelCtx,
+            dispatch_comm=None):
+    """h: (B, S, d), replicated over TP.  w: {"router": (d, E), "wi", "wg":
+    (E_local, d, ff), "wo": (E_local, ff, d)}, the experts this rank owns.
+    ``dispatch_comm``: a ``GZCommunicator`` bound to the TP axis for the
+    compressed dispatch (used at tp > 1 with one expert a rank).  Returns
+    (out (B, S, d) in h's dtype, aux f32)."""
     b, s, d = h.shape
-    e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    x = h.reshape(t, d)
+    e, k, tp = cfg.n_experts, cfg.top_k, ctx.tp_size
+    if e % tp:
+        raise ValueError(f"{e} experts do not divide over tp {tp}")
+    e_local = e // tp
+    t_full = b * s
+    x = h.reshape(t_full, d)
+    if tp > 1:  # this rank's token slice
+        t_pad = -(-t_full // tp) * tp
+        if t_pad != t_full:
+            x = torch.cat([x, torch.zeros((t_pad - t_full, d), dtype=x.dtype,
+                                          device=x.device)])
+        t = t_pad // tp
+        x = x[ctx.tp_index() * t:(ctx.tp_index() + 1) * t]
+    else:
+        t = t_full
     cap = moe_capacity(t, cfg)
     r = moe_route(x, ctx.gather(w["router"], dim=0), cfg, cap)
     e_flat, pos, keep = r["e_flat"], r["pos"], r["keep"]
     tok_idx = torch.arange(t * k, device=h.device) // k
     expert_in = torch.zeros((e, cap, d), dtype=F32, device=h.device).index_put(
         (e_flat, pos), x.to(F32)[tok_idx] * keep[:, None].to(F32), accumulate=True)
+    compressed = tp > 1 and dispatch_comm is not None and e_local == 1
+    if compressed:
+        expert_in = dispatch_comm.all_to_all(expert_in.reshape(tp, cap * d)).value
+    elif tp > 1:
+        expert_in = ctx.tp_all_to_all(expert_in.reshape(tp, e_local, cap, d)).movedim(0, 1)
+    expert_in = expert_in.reshape(e_local, tp * cap, d)
 
-    wi = ctx.gather(w["wi"], dim=1)  # (E, d, ff)
+    wi = ctx.gather(w["wi"], dim=1)  # (E_local, d, ff)
     wg = ctx.gather(w["wg"], dim=1)
-    wo = ctx.gather(w["wo"], dim=2)  # (E, ff, d)
+    wo = ctx.gather(w["wo"], dim=2)  # (E_local, ff, d)
     hmid = _silu(torch.bmm(expert_in, wg.to(F32)))
     hmid = hmid * torch.bmm(expert_in, wi.to(F32))
     expert_out = torch.bmm(hmid, wo.to(F32))
 
+    if compressed:
+        expert_out = dispatch_comm.all_to_all(expert_out.reshape(tp, cap * d)).value
+    elif tp > 1:
+        expert_out = ctx.tp_all_to_all(expert_out.reshape(e_local, tp, cap, d).movedim(1, 0))
+    expert_out = expert_out.reshape(e, cap, d)
+
     y_slots = expert_out[e_flat, pos]  # (t*k, d): the gather back
     y = (y_slots * r["gate_flat"][:, None]).reshape(t, k, d).sum(dim=1)
+    if tp > 1:  # the ranks' token slices, in rank order
+        y = ctx.tp_all_gather(y, 0)[:t_full]
     out = y.reshape(b, s, d)
 
     frac_tokens = torch.mean(F.one_hot(r["gate_idx"][:, 0], e).to(F32), dim=0)

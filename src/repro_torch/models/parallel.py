@@ -1,13 +1,32 @@
 """Parallelism context + parameter-definition machinery.
 
 The counterpart of ``repro.models.parallel``.  ``ParallelCtx`` keeps the
-reference's fields.  ``fsdp_size > 1`` shards the weights over
-``fsdp_axis`` (ZeRO-3): ``gather`` moves the leaf's sharded dim to the
-front, gathers it (``core/grad_sync.fsdp_gather``: the train step's
-``FsdpStep`` inside a step, else ``fsdp_all_gather``, whose backward is
-the reduce-scatter, optionally compressed through ``fsdp_sync``) and
-moves it back.  ``tp_size > 1`` (tensor parallelism, ROADMAP A11.7)
-raises, so ``tp_reduce`` is the identity.
+reference's fields.  Model code is rank-centric: it runs on every rank of
+a mesh (``launch/mesh.py``) with that rank's LOCAL blocks of the
+parameters, and reaches the other ranks through the handles bound on its
+thread (``core/transport.py``).
+
+  * ``fsdp_size > 1`` shards the weights over ``fsdp_axis`` (ZeRO-3):
+    ``gather`` moves the leaf's sharded dim to the front, gathers it
+    (``core/grad_sync.fsdp_gather``: the train step's ``FsdpStep`` inside
+    a step, else ``fsdp_all_gather``, whose backward is the
+    reduce-scatter, optionally compressed through ``fsdp_sync``) and
+    moves it back.
+  * ``tp_size > 1`` is Megatron-style tensor parallelism over ``tp_axis``
+    (ROADMAP A11.7): ``tp_reduce`` is the reference's ``lax.psum``, the
+    f32 sum of every rank's tensor in rank order rounded once to its
+    dtype (what XLA's CPU all-reduce gives); ``tp_max``, ``tp_all_to_all``
+    and ``tp_all_gather`` are its ``lax.pmax``, untiled ``lax.all_to_all``
+    and tiled ``lax.all_gather``; ``tp_index`` is the rank's coordinate on
+    ``tp_axis``.  Under grad, with an input that requires grad, each but
+    ``tp_max`` (whose result carries no gradient, as the reference stops
+    it) is an ``autograd.Function`` whose backward is the transposed
+    collective: the psum of the cotangent, the same all-to-all, the
+    reduce-scatter.  That backward runs only on the rank's own thread; on
+    a one-card ``ThreadGroup`` the autograd engine runs CUDA backward
+    nodes on its device thread, where the ranks could never meet
+    (ROADMAP C6), so there it raises instead of hanging or taking a wrong
+    gradient.  The TP train step is ROADMAP A11.7b.
 
 ``ParamDef`` carries the GLOBAL shape, the reference's partition spec (a
 tuple of mesh axis names, ``None`` for a replicated dim) and an init.
@@ -24,12 +43,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.convert import tree_map
+from repro_torch.core import transport
 from repro_torch.core.grad_sync import SyncConfig, fsdp_gather
 from repro_torch.core.transport import resolve_device
 
@@ -41,7 +62,7 @@ SLAB = 1 << 32  # elements: a larger leaf is drawn one slab of dim 0 at a time
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
-    """Static description of how the mesh axes are used (one card here)."""
+    """Static description of how the mesh axes are used."""
 
     tp_axis: str = "model"
     fsdp_axis: str = "data"
@@ -56,23 +77,87 @@ class ParallelCtx:
     remat: str = "full"
     scan_unroll: int = 1
 
-    def __post_init__(self):
-        if self.tp_size > 1:
-            raise NotImplementedError(
-                "tensor parallelism (tp_size > 1) is not ported yet: ROADMAP A11.7")
-
     def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """FSDP all-gather of a parameter along ``dim`` (identity at 1)."""
         if self.fsdp_size == 1:
             return x
         return fsdp_gather(x, dim, self.fsdp_axis, self.fsdp_sync)
 
+    def _tp_handle(self):
+        """This thread's rank of ``tp_axis``, checked against ``tp_size``."""
+        h = transport.current(self.tp_axis)
+        if h.size != self.tp_size:
+            raise ValueError(f"ParallelCtx(tp_size={self.tp_size}) but the group bound to "
+                             f"{self.tp_axis!r} has {h.size} ranks")
+        return h
+
+    def _tp_collective(self, x, what, fwd, bwd):
+        h = self._tp_handle()
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _TPCollective.apply(x, h, what, fwd, bwd)
+        return fwd(h, x)
+
     def tp_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Row-parallel output reduction: the identity at 1."""
-        return x
+        """Row-parallel output reduction (``lax.psum`` over ``tp_axis``):
+        the f32 sum in rank order, rounded once to ``x``'s dtype; the
+        identity at 1."""
+        if self.tp_size == 1:
+            return x
+        return self._tp_collective(x, "tp_reduce", _psum, _psum)
+
+    def tp_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over ``tp_axis`` (``lax.pmax``), no gradient."""
+        if self.tp_size == 1:
+            return x
+        return self._tp_handle().max_across(x.detach())
+
+    def tp_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.all_to_all`` over ``tp_axis``, untiled on dim 0: slot i of
+        the result is what rank i passed in its slot ``tp_index()``."""
+        return self._tp_collective(x, "tp_all_to_all", _all_to_all, _all_to_all)
+
+    def tp_all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``lax.all_gather(..., tiled=True)`` over ``tp_axis`` along
+        ``dim``: every rank's ``x`` concatenated in rank order."""
+        if self.tp_size == 1:
+            return x
+        return self._tp_collective(
+            x, "tp_all_gather", lambda h, t: torch.cat(h.all_gather((t,))[0].unbind(0), dim),
+            lambda h, g: _psum(h, g).chunk(h.size, dim)[h.rank])
 
     def tp_index(self) -> int:
-        return 0
+        """This rank's coordinate on ``tp_axis`` (0 at 1)."""
+        return self._tp_handle().rank if self.tp_size > 1 else 0
+
+
+def _psum(h, x):
+    return h.sum_across(x.to(torch.float32)).to(x.dtype)
+
+
+def _all_to_all(h, x):
+    return h.all_to_all((x.contiguous(),))[0]
+
+
+class _TPCollective(torch.autograd.Function):
+    """A TP collective with its transposed collective as the backward,
+    which runs only on the rank's own thread (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, handle, what, fwd, bwd):
+        ctx.handle, ctx.what, ctx.bwd = handle, what, bwd
+        return fwd(handle, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        thread = getattr(ctx.handle, "thread", None)
+        if thread is not None and thread is not threading.current_thread():
+            raise RuntimeError(
+                f"{ctx.what} backward of ThreadGroup rank {ctx.handle.rank} runs on thread "
+                f"{threading.current_thread().name!r}, not on the rank's own thread (the "
+                "autograd engine runs CUDA backward nodes on a device thread), so the "
+                "ranks' exchanges cannot meet; take tensor-parallel gradients through "
+                "DistGroup (one process per rank): the TP train step is ROADMAP A11.7b")
+        return ctx.bwd(ctx.handle, g), None, None, None, None
 
 
 @dataclasses.dataclass(frozen=True)

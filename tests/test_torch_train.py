@@ -613,8 +613,14 @@ def test_a11_settings_raise_with_their_names():
     assert setup.specs == jax.tree.map(tuple, jsetup.specs, is_leaf=lambda x: isinstance(
         x, jax.sharding.PartitionSpec))
     assert setup.specs["blocks"]["mlp"]["wo"] == (None, "model", "data")
+    # model 2 (A11.7) builds the tensor-parallel context for the forward;
+    # its train step raises (A11.7b)
+    mesh = ThreadMesh((1, 2), AXES, "cpu")
+    setup = training.make_setup(cfg, mesh, fsdp=False)
+    assert setup.ctx.tp_size == 2
+    _, bspecs = shapes.train_specs(cfg, shapes.InputShape("t", 16, 2, "train"), mesh)
     with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
-        training.make_setup(cfg, ThreadMesh((1, 2), AXES, "cpu"), fsdp=False)
+        training.make_train_step(setup, bspecs)
     with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
         KVCacheSpec(s_total=64, cp_axis="data", cp_size=2)
     setup = training.make_setup(cfg, ThreadMesh((1, 1), AXES, "cpu"))  # one rank: fine
