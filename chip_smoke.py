@@ -279,27 +279,49 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     "model"))`` of the card, every rank on its ``_local`` block of the
     global bf16 weights from seed 0, at every published width with only
     the depth cut (``TP_DENSE``, ``TP_MOE``): minitron-8b at tp = 4 (4 of
-    32 layers; 8 q heads and 2 kv heads a rank): ``Model.loss_fn`` at B=2,
-    S=2048 through kernel 11 (layers x ranks launches, counted from 0)
-    against tp = 1 on the same weights within 0.02 (the reference's
+    32 layers; 8 q heads and 2 kv heads a rank) through ``_tp_family``, as
+    phase 31's configs: ``Model.loss_fn`` at B=2, S=2048 through kernel 11
+    (layers x ranks launches, counted from 0) against tp = 1 on the same
+    weights within 0.02 (the reference's
     ``tests/_mp_model_parallel_child.py`` bound), every rank's loss equal,
     walls and busy share from one profiled call; 32 ``make_serve_step``
-    steps at B=2 against tp = 1's ``decode_fn`` (the last step's gap
-    logged); then phi3.5-moe-42b-a6.6b at tp = 16 (2 of 32 layers; one
-    expert, 2 q heads and a kv head shared by 2 ranks a rank) at capacity
-    factor n_experts / top_k: the loss through the exact expert dispatch,
-    through the compressed one (``moe_dispatch_gz_eb`` 1e-4: kernel 5 once
-    and kernel 4 tp times a dispatch and rank, two dispatches a layer,
-    counted from 0 and held against that count, no call flagged) and at
-    tp = 1, the exact one within 0.05 of tp = 1 (the reference child's
-    MoE bound), the gaps and the dispatch's wire bytes beside its f32
-    payload's printed, both profiled; one ``make_serve_step`` step at B=4
-    < tp (the token-padding path) against tp = 1; at the config's 1.25 the
-    dropped share and the gap, logged; then kernel 11 on both paths'
-    captured payloads and kernels 5 and 4 on the captured dispatch payload
-    against their plain versions (their launches go into the kernels line,
-    replacing phase 27's for kernel 11, phase 13's for kernel 5 and phase
-    29's for kernel 4).
+    steps at B=2 against tp = 1's ``decode_fn``, the last step's logits
+    within 0.15 of tp 1's (``TP_DECODE_RTOL``); then phi3.5-moe-42b-a6.6b
+    at tp = 16 (2 of 32 layers; one expert, 2 q heads and a kv head shared
+    by 2 ranks a rank) at capacity factor n_experts / top_k: the loss
+    through the exact expert dispatch, through the compressed one
+    (``moe_dispatch_gz_eb`` 1e-4: kernel 5 once and kernel 4 tp times a
+    dispatch and rank, two dispatches a layer, counted from 0 and held
+    against that count, no call flagged) and at tp = 1, the exact one
+    within 0.05 of tp = 1 (the reference child's MoE bound), the gaps and
+    the dispatch's wire bytes beside its f32 payload's printed, both
+    profiled; one ``make_serve_step`` step at B=4 < tp (the token-padding
+    path) against tp = 1 within 0.15; at the config's 1.25 the dropped
+    share and the gap, logged; every kernel 11 launch of both forwards
+    against its plain version on its own payload, and kernels 5 and 4 on
+    the captured dispatch payload against theirs (their launches go into
+    the kernels line, replacing phase 27's for kernel 11, phase 13's for
+    kernel 5 and phase 29's for kernel 4);
+31. runs tensor parallelism of the other families (phase
+    ``tp-families``), each row of ``TP_FAMILIES`` through ``_tp_family``
+    as phase 30's minitron-8b, at every published width with only the
+    depth cut: zamba2-2.7b at tp = 4 (12 of 54 layers, 2 shared
+    applications; 20 SSD heads, 8 q and 8 kv heads a rank; the shared
+    attention's D = 80 takes the chunked path), minicpm3-4b at tp = 8 (4
+    of 62 layers; 5 MLA heads a rank, the latent replicated),
+    seamless-m4t-medium at tp = 4 (every layer; 4 heads a rank in the
+    encoder, the decoder's self and its cross attention) and internvl2-26b
+    at tp = 16 (4 of 48 layers; 3 q heads a rank, a kv head shared by 2
+    ranks): the loss against tp = 1 within 0.02, every rank's loss equal,
+    kernel 11's launches counted from 0 and held against the plan
+    (seamless (12 + 12 + 12) x 4 = 144, internvl2 4 x 16 = 64) and every
+    launch against its plain version on its own local-head payload; the
+    warm wall and busy share from one profiled call; 32
+    ``make_serve_step`` steps at B=2 from an empty cache laid out by
+    ``launch.shapes.decode_specs`` (seamless: 12 x 4 cross attention
+    launches a step, each checked) against tp = 1's ``decode_fn``, the
+    last step's logits within 0.15 of tp 1's (kernel 11's launches of
+    this phase go into the kernels line, replacing phase 30's).
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -310,7 +332,8 @@ purpose and are held by bits to the lossless result instead).
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
 (24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28), ``fsdp``
-(29) and ``tp`` (30); a partial run prints no result lines.
+(29), ``tp`` (30) and ``tp-families`` (31); a partial run prints no result
+lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -5209,31 +5232,56 @@ def run_fsdp(device):
 # Phase 30: tensor and expert parallelism
 # ---------------------------------------------------------------------------
 
-# (arch, tp, layers): every published width; only the depth is cut, to keep
-# the phase near 90 s on a slow host
+# (arch, tp, layers or None for every layer): every published width; only
+# the depth is cut, to keep the phase near 90 s on a slow host
 TP_DENSE = ("minitron-8b", 4, 4)  # of 32 layers; 32 heads over 8 kv: 2 kv heads a rank
 TP_MOE = ("phi3.5-moe-42b-a6.6b", 16, 2)  # of 32 layers; 16 experts: one a rank
 TP_SMOKE = False
 TP_DECODE_STEPS = 32
+TP_TIMED_STEPS = 8  # a decode through kernel 11 is timed again without the checks
 TP_MOE_DECODE_B = 4  # < tp: the token-padding path of the expert dispatch
 TP_DISPATCH_EB = 1e-4  # benchmarks/moe_a2a_ablation.py's eb
 # tests/_mp_model_parallel_child.py: the reference's own bounds between its
 # (1, 1) and (2, 4) meshes
 TP_RTOL = {"dense": 0.02, "moe": 0.05}
+# the decode logits' max gap to tp 1 over their max |logit|: bf16 partial
+# sums give 5.9e-3 to 4.3e-2 on the H100; a misplaced cache block gives O(1)
+TP_DECODE_RTOL = 0.15
 TP_CODEC = ("quantize", "unpack_dequantize")  # the compressed all-to-all's kernels
 
 
 def _tp_cfg(spec, **kw):
     """``spec``'s config at full width (the smoke config with
-    ``TP_SMOKE``), its depth cut, through kernel 11."""
+    ``TP_SMOKE``), its depth cut, through kernel 11 where the family has it
+    and the head dim is one of the kernel's (zamba2-2.7b's shared attention
+    has D = 80 and takes the chunked path, as at tp = 1; MLA's latent
+    attention is plain torch)."""
     import dataclasses
 
     from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attn
 
     arch, _, layers = spec
     cfg = registry.get(arch, smoke=TP_SMOKE)
-    return dataclasses.replace(cfg, n_layers=cfg.n_layers if TP_SMOKE else layers,
-                               use_flash_kernel=True, **kw)
+    flash = cfg.mla is None and cfg.head_dim in flash_attn.HEAD_DIMS
+    if layers is not None and not TP_SMOKE:
+        kw["n_layers"] = layers
+    return dataclasses.replace(cfg, use_flash_kernel=flash, **kw)
+
+
+def _tp_decode_gate(what, got, ref):
+    """``got``'s logits finite, of ``ref``'s shape and within
+    ``TP_DECODE_RTOL`` of it (max gap over max |ref|); returns that gap."""
+    import torch
+
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: decode logits {tuple(got.shape)}, "
+                             f"tp 1 {tuple(ref.shape)}")
+    rel = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+    if not rel <= TP_DECODE_RTOL:
+        raise AssertionError(f"{what}: decode logits {rel:.4e} from tp 1's "
+                             f"(bound {TP_DECODE_RTOL})")
+    return rel
 
 
 def _tp_setup(cfg, tp, whole, device):
@@ -5261,24 +5309,57 @@ def _tp_losses(setup, params, batch):
 
 
 @contextlib.contextmanager
-def _first_flash_call(record):
-    """Keep the (q, k, v, causal) of rank 0's first kernel 11 call in
-    ``record`` (the phase's own payload for the check against plain)."""
-    from repro_torch.core import transport
+def _checked_flash(record):
+    """Run every kernel 11 call's inputs through its plain version as well
+    (no launch: the plain version is torch ops) and append (shape, dtype,
+    causal, max |err|, count outside ``FLASH_TOL``) to ``record``."""
+    import torch
+
     from repro_torch.kernels import flash_attn
 
     real = flash_attn.flash_attention
+    lock = threading.Lock()
 
     def wrapped(q, k, v, *, causal=True, window=0):
-        if not record and transport.current("model").rank == 0:
-            record.append((q.clone(), k.clone(), v.clone(), causal, window))
-        return real(q, k, v, causal=causal, window=window)
+        out = real(q, k, v, causal=causal, window=window)
+        want = flash_attn.flash_attention_plain(q, k, v, causal=causal, window=window)
+        tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+        diff = (out.float() - want.float()).abs()
+        bad = int((diff > tol + tol * want.float().abs()).sum()) + \
+            int((~torch.isfinite(out)).sum())
+        with lock:
+            record.append((tuple(q.shape), tuple(k.shape), str(q.dtype), causal,
+                           float(diff.max()), bad))
+        return out
 
     flash_attn.flash_attention = wrapped
     try:
         yield record
     finally:
         flash_attn.flash_attention = real
+
+
+def _tp_flash_verdict(tag, record, want):
+    """Hold the checked calls of ``record`` against the plan (``want``
+    launches) and their plain versions; log each payload shape's worst
+    error."""
+    from repro_torch.kernels import flash_attn
+
+    launches = flash_attn.LAUNCHES["flash_attention"]
+    if launches != want or len(record) != want:
+        raise AssertionError(f"{tag}: kernel 11 launched {launches} times ({len(record)} "
+                             f"checked), expected {want}")
+    by_shape = {}
+    for q, k, dtype, causal, err, bad in record:
+        n, worst, outside = by_shape.get((q, k, dtype, causal), (0, 0.0, 0))
+        by_shape[(q, k, dtype, causal)] = (n + 1, max(worst, err), outside + bad)
+    for (q, k, dtype, causal), (n, worst, outside) in sorted(by_shape.items()):
+        log(f"  {tag}: kernel 11 vs plain on the rank's payload q {q} k {k} {dtype} "
+            f"causal={causal}: {n} launches, max |err| {worst:.3e}, {outside} outside "
+            f"atol = rtol = {FLASH_TOL[dtype.removeprefix('torch.')]:g}")
+    if any(outside for _, _, outside in by_shape.values()):
+        raise AssertionError(f"{tag}: kernel 11 disagrees with its plain version")
+    return launches
 
 
 @contextlib.contextmanager
@@ -5338,76 +5419,120 @@ def _tp_gate(what, losses, want, rtol):
     return gap
 
 
-def _tp_dense(device):
-    """minitron-8b at tp = 4 (``TP_DENSE``): the loss forward through kernel
-    11 against tp = 1 on the same weights (rtol 0.02; every rank's loss
-    equal by bits), kernel 11 launched layers x ranks times, walls and busy
-    share; then ``TP_DECODE_STEPS`` steps of ``make_serve_step`` at B = 2,
-    the last step's logits against tp = 1's ``decode_fn`` (gap logged;
-    every rank's gathered logits equal).  Returns kernel 11's launches and
-    its captured payload."""
+def _tp_family_plan(cfg, tp):
+    """Kernel 11's launches on the path: (the loss forward's, a decode
+    step's).  Each rank calls it once for every attention of a layer that
+    goes through it: encdec's encoder, self and cross attention in the
+    forward and its cross attention in a decode step; the dense, moe and
+    vlm attention, and the hybrid's shared block, in the forward (their
+    decode attends against the cache in plain torch).  zamba2-2.7b's
+    shared block (D = 80) runs without kernel 11; the hybrid row counts
+    its smoke config (D = 32) under ``TP_SMOKE``."""
+    if not cfg.use_flash_kernel:
+        return 0, 0
+    if cfg.family == "encdec":
+        return (cfg.n_enc_layers + 2 * cfg.n_layers) * tp, cfg.n_layers * tp
+    if cfg.family == "hybrid":  # the shared block after each group of layers
+        return cfg.n_layers // cfg.attn_every * tp, 0
+    return cfg.n_layers * tp, 0
+
+
+def _tp_family(spec, device, phase):
+    """One config (``TP_DENSE`` or a row of ``TP_FAMILIES``) at tp on a
+    ``ThreadMesh((1, tp))`` of the card (``_tp_setup``): the loss forward
+    against tp = 1 on the same bf16 weights from seed 0 within
+    ``TP_RTOL["dense"]``, every rank's loss equal by bits, kernel 11's
+    launches counted from 0 and held against ``_tp_family_plan`` and each
+    against its plain version; the warm wall and busy share from one
+    profiled call; then ``TP_DECODE_STEPS`` steps of ``make_serve_step`` at
+    B = 2 from an empty cache (encdec: ``enc_out`` the tp = 1 encoder's
+    output of one batch), kernel 11 counted and checked the same way, the
+    last step's logits against tp = 1's ``decode_fn`` within
+    ``TP_DECODE_RTOL``; their ms a step, or, where kernel 11 ran in them,
+    that of ``TP_TIMED_STEPS`` steps without the checks.  ``phase`` tags
+    the log lines.  Returns kernel 11's launches."""
     import numpy as np
     import torch
 
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.launch import shapes, training
 
-    arch, tp, _ = TP_DENSE
-    cfg = _tp_cfg(TP_DENSE)
-    model, whole = _family_model(cfg, None, device, f"; n_layers cut to {cfg.n_layers}, "
-                                 f"tp {tp}: {cfg.n_heads // tp} q heads and "
-                                 f"{max(cfg.n_kv_heads // tp, 1)} kv heads a rank")
+    arch, tp, _ = spec
+    cfg = _tp_cfg(spec)
+    heads = []
+    if cfg.ssm is not None:
+        heads.append(f"{cfg.ssm.n_heads(cfg.d_model) // tp} SSD heads")
+    if cfg.n_heads:
+        heads.append(f"{cfg.padded_heads(tp) // tp} q heads")
+    if cfg.n_heads and cfg.mla is None:
+        heads.append(f"{max(cfg.n_kv_heads // tp, 1)} kv heads"
+                     + (f" (one shared by {tp // cfg.n_kv_heads} ranks)"
+                        if cfg.n_kv_heads < tp else ""))
+    model, whole = _family_model(
+        cfg, None, device, f"; {cfg.n_layers} layers, tp {tp}: {', '.join(heads)} a rank; "
+        f"kernel 11 {'on' if cfg.use_flash_kernel else 'off'}")
+    fwd_plan, step_plan = _tp_family_plan(cfg, tp)
     batch = next(SyntheticStream(cfg, MODEL_BATCH, MODEL_SEQ, seed=SEED))
     with torch.inference_mode():
         want, one_s = _timed(lambda: float(model.loss_fn(whole, batch)))
     setup, params = _tp_setup(cfg, tp, whole, device)
-    flash = []
+    record = []
     _reset_launches()
-    with _first_flash_call(flash):
+    with _checked_flash(record):
         losses, cold = _timed(lambda: _tp_losses(setup, params, batch))
-    launches = _launches()["flash_attention"]
-    if launches != cfg.n_layers * tp:
-        raise AssertionError(f"tp {tp}: kernel 11 launched {launches} times, expected "
-                             f"{cfg.n_layers} layers x {tp} ranks")
+    fwd = _tp_flash_verdict(f"{phase} {arch} forward", record, fwd_plan)
     gap = _tp_gate(f"{arch} tp {tp}", losses, want, TP_RTOL["dense"])
     if len(set(losses)) != 1:
         raise AssertionError(f"{arch} tp {tp}: the ranks' losses differ: {losses}")
-    log(f"tp {arch} B={MODEL_BATCH} S={MODEL_SEQ}: tp {tp} loss {losses[0]:.6f} against tp 1 "
-        f"{want:.6f}, rel gap {gap:.3e} (bound {TP_RTOL['dense']}); every rank's loss equal "
-        f"by bits; kernel 11 launched {launches} times ({cfg.n_layers} layers x {tp} ranks, "
-        f"H = {cfg.n_heads // tp}); cold wall {cold * 1e3:.1f} ms, tp 1 {one_s * 1e3:.1f} ms")
-    _tp_profile(f"tp {arch} tp {tp} loss forward", lambda: _tp_losses(setup, params, batch))
+    log(f"{phase} {arch} B={MODEL_BATCH} S={MODEL_SEQ}: tp {tp} loss {losses[0]:.6f} "
+        f"against tp 1 {want:.6f}, rel gap {gap:.3e} (bound {TP_RTOL['dense']}); every "
+        f"rank's loss equal by bits; kernel 11 launched {fwd} times (planned {fwd_plan}); "
+        f"cold wall {cold * 1e3:.1f} ms (every launch checked), tp 1 {one_s * 1e3:.1f} ms")
+    _tp_profile(f"{phase} {arch} tp {tp} loss forward",
+                lambda: _tp_losses(setup, params, batch))
 
     # decode through make_serve_step, from an empty cache
     steps = TP_DECODE_STEPS
     toks = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, (2, steps)).astype(np.int32)).to(device)
+    enc_out = None
+    if cfg.family == "encdec":
+        with torch.inference_mode():
+            enc_out = model._encode(whole, torch.from_numpy(batch["enc_input"][:2]).to(device))
     shape = shapes.InputShape("tp-decode", steps, 2, "decode")
     cache, cspecs, _, tspec, plan = shapes.decode_specs(cfg, shape, setup.mesh, setup.model)
-    cache = {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in cache.items()}
     step = training.make_serve_step(setup, cspecs, tspec, plan)
 
-    def decode_all():
+    def decode_all(n):
+        c = {k: torch.zeros(v.shape, dtype=v.dtype, device=device) for k, v in cache.items()}
+        if enc_out is not None:
+            c["enc_out"].copy_(enc_out)
         out = None
-        for pos in range(steps):
-            out, _ = step(params, cache, toks[:, pos:pos + 1], pos)
-        return out
+        for pos in range(n):
+            out, _ = step(params, c, toks[:, pos:pos + 1], pos)
+        return out, {k: tuple(v.shape) for k, v in c.items()}
 
-    with torch.no_grad():
-        got, decode_s = _timed(decode_all)
+    record = []
+    _reset_launches()
+    with _checked_flash(record), torch.no_grad():
+        (got, cache_shapes), decode_s = _timed(lambda: decode_all(steps))
+    dec = _tp_flash_verdict(f"{phase} {arch} decode", record, step_plan * steps)
+    timed = steps
+    if step_plan:  # time steps without the checks beside kernel 11
+        timed = TP_TIMED_STEPS
+        with torch.no_grad():
+            _, decode_s = _timed(lambda: decode_all(timed))
     with torch.inference_mode():
-        ref, ref_s, _ = _decode_logits(model, whole, toks)
-    ref = ref[:, -1:]
-    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{arch} tp {tp}: decode logits {tuple(got.shape)}, "
-                             f"tp 1 {tuple(ref.shape)}")
-    rel = float((got - ref).abs().max() / ref.abs().max())
-    log(f"tp {arch} decode: {steps} make_serve_step steps at B=2, tp {tp}: "
-        f"{decode_s * 1e3 / steps:.2f} ms/step (tp 1 decode_fn {ref_s * 1e3 / steps:.2f} "
-        f"ms/step); the last step's logits {rel:.4e} from tp 1's (logged)")
-    del model, whole, params, setup, cache, step
+        ref, ref_s, _ = _decode_logits(model, whole, toks, enc_out=enc_out)
+    rel = _tp_decode_gate(f"{arch} tp {tp}", got, ref[:, -1:])
+    log(f"{phase} {arch} decode: {steps} make_serve_step steps at B=2, tp {tp}: "
+        f"{decode_s * 1e3 / timed:.2f} ms/step over {timed} steps (tp 1 decode_fn "
+        f"{ref_s * 1e3 / steps:.2f} ms/step); kernel 11 launched {dec} times ({step_plan} a "
+        f"step); global cache {cache_shapes}; the last step's logits {rel:.4e} from tp 1's "
+        f"(bound {TP_DECODE_RTOL})")
+    del model, whole, params, setup, step, enc_out
     torch.cuda.empty_cache()
-    return launches, flash[0]
+    return fwd + dec
 
 
 def _tp_moe(device):
@@ -5419,8 +5544,9 @@ def _tp_moe(device):
     = 1, the gaps printed, exact against tp = 1 within rtol 0.05; the
     dispatch's wire bytes beside the f32 payload's; one decode step at B =
     4 < tp (the token-padding path) against tp = 1; at the config's 1.25,
-    the dropped share and the gap.  Returns the compressed run's launches
-    and the captured payloads."""
+    the dropped share and the gap.  Kernel 11's launches in the compressed
+    run are each held against the plain version.  Returns that run's
+    launches, its captured dispatch payload and the config."""
     import dataclasses
 
     import numpy as np
@@ -5429,7 +5555,6 @@ def _tp_moe(device):
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.launch import shapes, training
-    from repro_torch.models.model import Model
 
     arch, tp, _ = TP_MOE
     base = registry.get(arch, smoke=TP_SMOKE)
@@ -5450,7 +5575,7 @@ def _tp_moe(device):
     gz_setup, _ = _tp_setup(gz_cfg, tp, whole, device)
     dispatch, payload, flash = [], [], []
     _reset_launches()
-    with _watched_dispatch(dispatch, payload), _first_flash_call(flash):
+    with _watched_dispatch(dispatch, payload), _checked_flash(flash):
         gz, gz_s = _timed(lambda: _tp_losses(gz_setup, params, batch))
     launches = _launches()
     n_dispatch = cfg.n_layers * 2 * tp
@@ -5464,6 +5589,7 @@ def _tp_moe(device):
     if len(dispatch) != n_dispatch or any(ovf or bad for _, _, _, ovf, bad in dispatch):
         raise AssertionError(f"tp {tp}: {len(dispatch)} dispatches (expected {n_dispatch}), "
                              f"flags {[(o, b) for _, _, _, o, b in dispatch]}")
+    _tp_flash_verdict(f"tp {arch} compressed", flash, cfg.n_layers * tp)
     gz_gap = _tp_gate(f"{arch} tp {tp} compressed", gz, want, TP_RTOL["moe"])
     gz_exact = max(abs(a - b) for a, b in zip(gz, exact)) / max(abs(x) for x in exact)
     wire = {w for _, w, _, _, _ in dispatch}
@@ -5497,12 +5623,10 @@ def _tp_moe(device):
         cache1 = {k: torch.zeros(v, dtype=torch.float32, device=device)
                   for k, v in model.cache_defs(TP_MOE_DECODE_B, plan).items()}
         ref, _ = model.decode_fn(whole, cache1, toks, 0, plan)
-    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{arch} tp {tp} decode: {tuple(got.shape)} vs "
-                             f"{tuple(ref.shape)}")
-    rel = float((got - ref).abs().max() / ref.abs().max())
+    rel = _tp_decode_gate(f"{arch} tp {tp}", got, ref)
     log(f"tp {arch} decode step at B={TP_MOE_DECODE_B} < tp {tp} (the token slice padded "
-        f"to {tp} rows): {step_s * 1e3:.1f} ms; logits {rel:.4e} from tp 1's (logged)")
+        f"to {tp} rows): {step_s * 1e3:.1f} ms; logits {rel:.4e} from tp 1's (bound "
+        f"{TP_DECODE_RTOL})")
 
     # at the config's capacity factor: slots drop
     drops = []
@@ -5517,34 +5641,20 @@ def _tp_moe(device):
         f"{cut_gap:.3e} (logged)")
     del model, whole, params, exact_setup, gz_setup, cut_setup, cache, cache1, step
     torch.cuda.empty_cache()
-    return launches, payload[0], flash[0], gz_cfg
+    return launches, payload[0], gz_cfg
 
 
-def _tp_check_kernels(flash_payloads, a2a_x, gz_cfg, tp):
-    """Kernel 11 on the phase's two captured payloads (rank 0's first call
-    at each tp) and kernels 5 and 4 on the captured dispatch payload (rank
-    0's first: its tp chunks quantized together, each stream unpacked)
-    against their plain versions: kernel 11 within ``FLASH_TOL``, kernels 5
-    and 4 by bits.  These launches are not counted."""
+def _tp_check_kernels(a2a_x, gz_cfg, tp):
+    """Kernels 5 and 4 on the captured dispatch payload (rank 0's first:
+    its tp chunks quantized together, each stream unpacked) against their
+    plain versions, by bits.  These launches are not counted."""
     import torch
 
     from repro_torch.core import collectives
-    from repro_torch.kernels import flash_attn, lorenzo, ops
+    from repro_torch.kernels import lorenzo, ops
     from repro_torch.models.blocks import dispatch_comm
     from repro_torch.models.parallel import ParallelCtx
 
-    for q, k, v, causal, window in flash_payloads:
-        got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
-        want = flash_attn.flash_attention_plain(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
-        diff = (got.float() - want.float()).abs()
-        bad = int((diff > tol + tol * want.float().abs()).sum())
-        log(f"tp: flash_attention vs plain on the phase's payload {tuple(q.shape)} (kv "
-            f"repeated from the rank's heads): max |err| {float(diff.max()):.3e}; {bad} of "
-            f"{got.numel()} outside atol = rtol = {tol:g}")
-        if bad or not bool(torch.isfinite(got).all()):
-            raise AssertionError("tp: flash_attention disagrees with its plain version")
     chunk_n = a2a_x.numel() // tp
     rows = ops.n_blocks_for(chunk_n)
     x2d = torch.zeros((tp, rows * ops.BLOCK), dtype=torch.float32, device=a2a_x.device)
@@ -5573,19 +5683,48 @@ def run_tp(device, records):
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    flash_dense, payload_dense = _tp_dense(device)
-    launches, a2a_x, payload_moe, gz_cfg = _tp_moe(device)
-    _tp_check_kernels((payload_dense, payload_moe), a2a_x, gz_cfg, TP_MOE[1])
+    flash_dense = _tp_family(TP_DENSE, device, "tp")
+    launches, a2a_x, gz_cfg = _tp_moe(device)
+    _tp_check_kernels(a2a_x, gz_cfg, TP_MOE[1])
     _record(records, "flash_attention")["launches"] = flash_dense + launches["flash_attention"]
     for name in TP_CODEC:
         _record(records, name)["launches"] = launches[name]
-    del payload_dense, payload_moe, a2a_x
+    del a2a_x
     torch.cuda.empty_cache()
     log(f"tp phase: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: tensor parallelism of the other families
+# ---------------------------------------------------------------------------
+
+# as ``TP_DENSE``
+TP_FAMILIES = (
+    ("zamba2-2.7b", 4, 12),  # of 54: 2 shared applications; 80 SSD heads, 20 a rank
+    ("minicpm3-4b", 8, 4),  # of 62: 40 MLA heads, 5 a rank, no padding
+    ("seamless-m4t-medium", 4, None),  # 12 + 12: 16 heads, 4 a rank
+    ("internvl2-26b", 16, 4),  # of 48: 48 heads, 3 a rank; a kv head shared by 2 ranks
+)
+
+
+def run_tp_families(device, records):
+    """Phase 31 (module docstring).  Sets the kernels line's launches of
+    kernel 11 (this phase's forwards and decode steps)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    flash = 0
+    for spec in TP_FAMILIES:
+        flash += _tp_family(spec, device, "tp-families")
+    _record(records, "flash_attention")["launches"] = flash
+    log(f"tp-families phase: {time.perf_counter() - t0:.1f} s; kernel 11 launched {flash} "
+        f"times")
+
+
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
-          "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp", "tp")
+          "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp", "tp",
+          "tp-families")
 
 
 def _record(records, name):
@@ -5758,6 +5897,11 @@ def main(argv=()) -> int:
         # This slice's main paths: tensor parallelism (kernel 11 on each
         # rank's heads) and the compressed expert dispatch (kernels 5 and 4).
         run_tp(device, records)
+
+    if "tp-families" in phases:
+        # This slice's main path: tensor parallelism of the ssm, hybrid,
+        # MLA, encdec and vlm families (kernel 11 on each rank's heads).
+        run_tp_families(device, records)
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

@@ -13,11 +13,12 @@ with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 A decode batch that cannot fill the data axes makes the reference split
 the cache's context over ``data`` (``cp_size > 1``): here
 ``KVCacheSpec`` raises for it (ROADMAP A11.7b).  The port's ``Model``
-defines the dense, vlm, audio and moe families' cache (k and v), MLA's
-(mla: the latent and rope-key rows, f32, replicated over model), the ssm
-family's (conv_x, conv_bc and the SSD state ssm, always f32), the
-hybrid's (both) and the encdec's (k, v and the encoder's output enc_out,
-f32, its batch on dim 0).
+defines the dense, vlm, audio and moe families' cache (k and v, their kv
+heads over model), MLA's (mla: the latent and rope-key rows, f32,
+replicated over model), the ssm family's (conv_x, its channels over
+model; conv_bc, replicated; the SSD state ssm, its heads over model; all
+f32), the hybrid's (both) and the encdec's (k, v and the encoder's output
+enc_out, f32, its batch on dim 0, replicated over model).
 """
 from __future__ import annotations
 

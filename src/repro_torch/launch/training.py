@@ -55,13 +55,13 @@ gathered weight after its layer, as ZeRO-3 does; a train step over a
 runs after backward too.
 
 A mesh whose ``model`` axis is larger than 1 builds a tensor-parallel
-context (``ParallelCtx.tp_size``) for the forward and decode of the dense
-GQA and moe families (``Model``; the others raise, ROADMAP A11.7b): each
-rank runs ``model.loss_fn`` or ``make_serve_step``'s ``decode_fn`` on its
-``_local`` block.  ``make_train_step`` raises there: TP's backward reduces
-activation gradients in the middle of backward, which cannot meet on the
-device's one autograd thread (ROADMAP C6), and the TP train step over
-gloo is ROADMAP A11.7b.  The reference's per-bucket overlap hooks
+context (``ParallelCtx.tp_size``) for the forward and decode of every
+family (``Model``): each rank runs ``model.loss_fn`` or
+``make_serve_step``'s ``decode_fn`` on its ``_local`` block.
+``make_train_step`` raises there: TP's backward reduces activation
+gradients in the middle of backward, which cannot meet on the device's
+one autograd thread (ROADMAP C6), and the TP train step over gloo is
+ROADMAP A11.7b.  The reference's per-bucket overlap hooks
 (``overlap_sync``, A11.8) are not here yet.
 """
 from __future__ import annotations

@@ -29,9 +29,13 @@ parallel size (the q heads padded to ``cfg.padded_heads(tp)``).  At
 ``cache_defs`` are rank-centric, as the reference's ``shard_map`` bodies:
 each rank of a mesh calls them with its LOCAL block of every leaf
 (``launch/training.py::_local`` of the global tree by the specs) and its
-own cache, and every rank gets the same loss and logits.  The dense GQA
-and moe families run there; the ssm, hybrid, MLA, encdec, vlm and audio
-families raise at tp > 1 (ROADMAP A11.7b).
+own block of the cache, and every rank gets the same loss and logits.
+Every family runs there: the attention heads (GQA, MLA, the encoder's and
+the cross attention's) and the SSD heads are split over the ranks, and
+each row-parallel projection's partial sums are reduced over TP.  A
+cache entry with no ``model`` dim (the MLA latent, the SSD ``conv_bc``,
+``enc_out``) is the same on every rank: ranks that share one tensor for
+it write the same values into it.
 
 The reference's ``lax.scan`` over the stacked layers is a loop here.
 Its ``jax.checkpoint`` of the scan body (``ctx.remat`` not ``"none"``)
@@ -135,13 +139,6 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.ctx = ctx if ctx is not None else ParallelCtx()
-        tp_ported = (cfg.family == "dense" and cfg.mla is None) or cfg.family == "moe"
-        if self.ctx.tp_size > 1 and not tp_ported:
-            kind = "MLA" if cfg.mla is not None else cfg.family
-            raise NotImplementedError(
-                f"tensor parallelism (tp_size {self.ctx.tp_size}) of the {kind} family is "
-                "not ported yet: ROADMAP A11.7b (the dense GQA and moe families run at "
-                "tp > 1)")
         dev = resolve_device(device)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)

@@ -41,9 +41,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tp_mean_sq(y: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
-    """Mean of y**2 over the last dim as the reference takes it: the sum
-    (psum'd over TP, the identity at tp 1) over the count, not
-    ``torch.mean``."""
+    """Mean of y**2 over the (TP-sharded) last dim as the reference takes
+    it: the local f32 sum of squares, summed over the TP ranks in rank
+    order (``ctx.tp_reduce``, the identity at tp 1), over the global
+    count, not ``torch.mean``.  XLA's CPU ``psum`` may add the ranks'
+    partials in another order, so at tp > 1 this is the reference's value
+    within f32 rounding, not by bits."""
     ss = ctx.tp_reduce(torch.sum(y * y, dim=-1, keepdim=True))
     return ss / float(y.shape[-1] * ctx.tp_size)
 

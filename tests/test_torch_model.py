@@ -344,13 +344,12 @@ def test_unknown_family_raises():
 
 
 def test_model_parallel_contexts_raise():
-    # tp_size > 1 (ROADMAP A11.7) is ported for the dense GQA and moe
-    # families (tests/test_torch_tp.py); the others and the
-    # context-parallel cache raise (A11.7b)
-    parallel.ParallelCtx(tp_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11.7b"):
-        Model(registry.get("mamba2-780m", smoke=True), parallel.ParallelCtx(tp_size=2),
-              params={}, device="cpu")
+    # tp_size > 1 (ROADMAP A11.7) is ported for every family
+    # (tests/test_torch_tp.py, tests/test_torch_tp_families.py): a model
+    # of any family builds there; the context-parallel cache raises (A11.7b)
+    model = Model(registry.get("mamba2-780m", smoke=True), parallel.ParallelCtx(tp_size=2),
+                  params={}, device="cpu")
+    assert model.param_defs()["blocks"]["ssm"]["w_x"].spec == (None, "data", "model")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2)
     # fsdp_size > 1 (ROADMAP A11.6) is ported: each rank's shard of dim 1

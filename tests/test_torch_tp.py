@@ -56,9 +56,9 @@ Tolerances, relative to the largest value of the reference's result:
 A gloo ``DistMesh`` at tp = 2 (two processes, no JAX) runs the dense
 forward and decode, equal by bits to the ``ThreadMesh`` run, and a TP
 gradient (the backward's collectives on each process's own thread).  The
-refusals: tp > 1 for the ssm, hybrid, MLA, encdec and vlm families,
-``cp_size > 1``, ``make_train_step`` at tp > 1, and ``tp_reduce``'s
-backward off the rank's thread; each names ROADMAP A11.7b.
+refusals: ``cp_size > 1``, ``make_train_step`` at tp > 1, and
+``tp_reduce``'s backward off the rank's thread; each names ROADMAP A11.7b.
+The other families at tp > 1 are ``tests/test_torch_tp_families.py``'s.
 """
 import os
 import pathlib
@@ -276,14 +276,14 @@ def _jax_child(out_path: str) -> None:
 
 
 class _Child:
-    """The JAX child, started with the module's first test; its results
-    are read when a test first asks for them."""
+    """The JAX child (``script jax OUT``), started with the module's first
+    test; its results are read when a test first asks for them."""
 
-    def __init__(self, tmp):
+    def __init__(self, tmp, script=__file__):
         env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu"}
         env.pop("GZ_CHILD_DEVICES", None)
-        self._out = tmp / "tp.npz"
-        self._proc = subprocess.Popen([sys.executable, __file__, "jax", str(self._out)],
+        self._out = tmp / f"{pathlib.Path(script).stem}.npz"
+        self._proc = subprocess.Popen([sys.executable, script, "jax", str(self._out)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True, env=env)
         self._res = None
@@ -350,10 +350,10 @@ def _blocks(setup, whole) -> list:
 
 def port_losses(cfg, shape, whole, batch) -> np.ndarray:
     """Every rank's ``loss_fn`` on its block of ``whole`` and of the batch
-    (split over ``data``), in rank order."""
+    (split over ``data`` on dim 0), in rank order."""
     setup = _setup(cfg, shape)
     sizes = dict(zip(setup.mesh.axis_names, setup.mesh.shape))
-    bspecs = {k: ("data", None) for k in batch}
+    bspecs = {k: ("data",) + (None,) * (v.ndim - 1) for k, v in batch.items()}
     inputs = [(p, training._local(batch, bspecs, c, sizes))
               for p, c in zip(_blocks(setup, whole), training._coords(setup.mesh))]
     with torch.no_grad():
@@ -500,16 +500,6 @@ def test_tp_backward_off_the_ranks_thread_raises(what):
     with pytest.raises(RuntimeError, match="A11.7b") as err:
         torch.autograd.grad(loss, x)
     assert "DistGroup" in str(err.value) and what in str(err.value)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b", "minicpm3-4b",
-                                  "seamless-m4t-medium", "internvl2-26b"])
-def test_tp_of_unported_families_raises(arch):
-    cfg = registry.get(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="A11.7b"):
-        Model(cfg, parallel.ParallelCtx(tp_size=2), params={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11.7b"):
-        training.make_setup(cfg, ThreadMesh((1, 2), AXES, "cpu"))
 
 
 def test_cp_cache_and_tp_train_step_raise():
