@@ -193,7 +193,7 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     full width and depth from seed 0 in bf16: ``Model.loss_fn`` at B=2,
     S=2048 (finite, walls, one profiled call with its bf16 and f32 GEMM
     time, one layer's attention and MLP timed apart), the full-sequence
-    logits against 320 ``decode_fn`` steps in bf16 and with f32 weights
+    logits against 128 ``decode_fn`` steps in bf16 and with f32 weights
     (rel <= 0.05 in both), ``serve --arch minicpm3-4b``; the smoke config
     with f32 weights on the card and on the CPU through the chunked and
     the dense route (losses within rel 1e-5: no TF32); then phase 19's
@@ -284,7 +284,7 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     (layers x ranks launches, counted from 0) against tp = 1 on the same
     weights within 0.02 (the reference's
     ``tests/_mp_model_parallel_child.py`` bound), every rank's loss equal,
-    walls and busy share from one profiled call; 32 ``make_serve_step``
+    walls and busy share from one profiled call; 16 ``make_serve_step``
     steps at B=2 against tp = 1's ``decode_fn``, the last step's logits
     within 0.15 of tp 1's (``TP_DECODE_RTOL``); then phi3.5-moe-42b-a6.6b
     at tp = 16 (2 of 32 layers; one expert, 2 q heads and a kv head shared
@@ -316,12 +316,51 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     kernel 11's launches counted from 0 and held against the plan
     (seamless (12 + 12 + 12) x 4 = 144, internvl2 4 x 16 = 64) and every
     launch against its plain version on its own local-head payload; the
-    warm wall and busy share from one profiled call; 32
+    warm wall and busy share from one profiled call; 16
     ``make_serve_step`` steps at B=2 from an empty cache laid out by
     ``launch.shapes.decode_specs`` (seamless: 12 x 4 cross attention
     launches a step, each checked) against tp = 1's ``decode_fn``, the
     last step's logits within 0.15 of tp 1's (kernel 11's launches of
-    this phase go into the kernels line, replacing phase 30's).
+    this phase go into the kernels line, replacing phase 30's);
+32. runs the tensor-parallel train step (phase ``tp-train``): phase 29's
+    cell (internlm2-20b at every published width, 2 layers, bf16 from
+    seed 0, 2 x 512 tokens, remat ``"full"``, the chunked attention,
+    ``fsdp_gz`` and the norms' sync ring at eb 1e-4) on a ``(data 2,
+    model 2)`` mesh: tp 1's loss of the same global weights and first
+    batch, forward only, and the smoke config's step on a CPU
+    ``ThreadMesh((2, 2))``; then four processes of this script (started
+    with ``sys.executable``, never forked, each capped at 0.23 of the
+    card) form a gloo ``transport.DistMesh`` on the one card, each its
+    rank's ``_local`` block, and run 3 steps and a timed fourth of
+    ``make_train_step`` (every collective on a card tensor staged through
+    the host; TP's backward collectives on each process's autograd
+    thread, remat's recompute re-bound to the forward's handles); then
+    the smoke config in f32 with ``fsdp_gz``: one step's gathers and
+    reduce-scatters again alone on the card and on the host (the plain
+    versions); then one exact step of it.  Checks: finite losses; step
+    0's loss within 0.02 of tp 1's; the four processes' metrics equal by
+    bits; every leaf a spec replicates and its AdamW moments equal by bits
+    on the ranks that hold it, after every step; nothing flagged; kernels
+    1, 3 and 4 launched per process as the gathers', reduce-scatters' and
+    allreduces' plans say at the rank's shapes (kernel 2: none at data 2);
+    at step 0, at the rank's own shapes, every gathered weight (kernels 1
+    and 4) within the allgather's eb plus one bf16 rounding of its block
+    of the global weights and equal by bits on the ``data`` peers, the
+    layer-0 ``blocks.mlp.wo`` reduce-scatter (kernels 1 and 3) within its
+    bound of the exact sum of both ``data`` ranks' cotangents, and
+    ``final_norm``'s sync (the ``data`` ring, kernels 1 and 3, then the
+    exact ``model`` sum) within its bound of the exact sum of the four
+    ranks' gradients; the replay equal by bits between card and host,
+    the card's launches as its plans say; the exact smoke step's loss and
+    every synced gradient within 1e-5 (of each leaf's largest value) of
+    the CPU's.  Printed per process: the warm step's wall, its gloo
+    staging (ms and bytes, timed from after the queued device work), the
+    peak memory of the steps after step 0 and the loss gap; no
+    device-busy share (the processes time-slice the card).  A child that
+    fails or outlives its timeout fails the phase: the others are killed
+    and its log's tail printed.  Its kernels 1, 3 and 4 counts (the four
+    processes' first 3 steps) go into the kernels line, replacing phase
+    29's.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -332,8 +371,8 @@ purpose and are held by bits to the lossless result instead).
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
 (24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28), ``fsdp``
-(29), ``tp`` (30) and ``tp-families`` (31); a partial run prints no result
-lines.
+(29), ``tp`` (30), ``tp-families`` (31) and ``tp-train`` (32); a partial
+run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -3993,7 +4032,7 @@ MLA_ARCH = "minicpm3-4b"
 MLA_PARAMS = 4_263_272_960
 MLA_SMOKE = False
 MLA_BATCH, MLA_SEQ = 2, 2048  # two latent chunks of mla_chunk 1024
-MLA_PREFILL_SEQ = 320  # one chunk: the whole cache
+MLA_PREFILL_SEQ = 128  # one chunk: the whole cache
 MLA_F32_SEQ = 320
 MLA_F32_CHUNKS = (128, 0)  # three chunks, the last padded; the dense route
 MLA_F32_TOL = 1e-5
@@ -4793,31 +4832,43 @@ def _fsdp_comm(sync, n, device):
                                      auto_depth=True)
 
 
-def _fsdp_plan_launches(setup, n, device):
-    """Kernel launches of one FSDP train step over all ranks, from the
-    schedules: every gather (``allgather`` of a rank's f32 slice) and
-    every reduce-scatter (of the gathered slice's cotangent) of every
-    sharded leaf, and the ``data`` allreduce of every replicated leaf."""
-    from repro_torch.core import grad_sync
+def _fsdp_plan_launches(setup, sizes, device):
+    """Kernel launches of one FSDP train step on one rank, from the
+    schedules: every gather (``allgather`` of the rank's slice) and every
+    reduce-scatter (of the gathered slice's cotangent) of every leaf
+    sharded over ``data``, and the ``data`` allreduce of every leaf it
+    replicates, at the rank's local shapes (``sizes``: the mesh's axis
+    extents; a ``model`` extent above 1 splits them).  The ``data`` group's
+    ranks launch alike: ``_expected_launches`` counts over all of them."""
     from repro_torch.core.grad_sync import tree_flatten
     from repro_torch.launch import training
     from repro_torch.models.parallel import torch_dtype
 
+    n = sizes["data"]
     comm = _fsdp_comm(setup.ctx.fsdp_sync, n, device)
-    total = dict.fromkeys(_launches(), 0)
-    for _, _, uses, shape in _fsdp_uses(setup):
-        numel = math.prod(shape)
-        for plan in (comm.plan("allgather", numel // n), comm.plan("reduce_scatter", numel)):
-            for k, v in _expected_launches(plan, n).items():
-                total[k] += uses * v
     gcomm = dict(setup.grad_comms).get("data")
     specs = training._leaf_specs(setup.defs, setup.specs)
+    total = dict.fromkeys(_launches(), 0)
+
+    def split(entries):
+        return math.prod(sizes[ax] for ax in training._axes_in_spec(entries))
+
+    def add(plan, times=1):
+        for k, v in _expected_launches(plan, n).items():
+            total[k] += times * v
+
+    for leaf, _, uses, shape in _fsdp_uses(setup):
+        gathered = math.prod(shape) * n // split(specs[leaf])  # the rank's gathered slice
+        add(comm.plan("allgather", gathered // n), uses)
+        add(comm.plan("reduce_scatter", gathered), uses)
     for d, spec in zip(tree_flatten(setup.defs)[0], specs):
         if gcomm is not None and training._data_dim(spec, "data") is None:
-            for k, v in _expected_launches(gcomm.plan("allreduce", d.shape,
-                                                      torch_dtype(d.dtype)), n).items():
-                total[k] += v
-    return total
+            local = tuple(x // split((e,)) for x, e in zip(d.shape, spec))
+            add(gcomm.plan("allreduce", local, torch_dtype(d.dtype)))
+    if any(v % n for v in total.values()):
+        raise AssertionError(f"the plans' launches {_nonzero(total)} do not split over {n} "
+                             f"ranks")
+    return {k: v // n for k, v in total.items()}
 
 
 @contextlib.contextmanager
@@ -4871,24 +4922,24 @@ def _watched_fsdp(record):
 
 
 def _check_fsdp_gathers(setup, whole, record, n, device):
-    """Both ranks' gathered weights equal by bits, each within the
-    allgather's eb (plus one bf16 rounding of the weight) of the global
-    weight's slice."""
-    import torch
-
-    from repro_torch.core import error_budget, grad_sync
+    """The recorded ranks' gathered weights equal by bits, each within the
+    allgather's eb (plus one bf16 rounding of the weight) of its slice of
+    ``whole``: the weights before their split over ``data`` (the global
+    ones, or a tensor-parallel rank's block of them)."""
+    from repro_torch.core import error_budget
     from repro_torch.core.grad_sync import tree_flatten
 
     comm = _fsdp_comm(setup.ctx.fsdp_sync, n, device)
     leaves = tree_flatten(whole)[0]
+    ranks = sorted({r for r, _, _ in record["gathers"]})
     worst, count = 0.0, 0
     for leaf, dim, uses, shape in _fsdp_uses(setup):
-        plan = comm.plan("allgather", math.prod(shape) // n)
-        eb = error_budget.lossy_hops("allgather_ring", n) * plan.eb_stage
         for index in range(uses) if leaves[leaf].dim() > len(shape) else [None]:
-            fulls = [record["gathers"][(r, leaf, index)] for r in range(n)]
+            fulls = [record["gathers"][(r, leaf, index)] for r in ranks]
             w = leaves[leaf] if index is None else leaves[leaf][index]
             w = (w.movedim(dim, 0) if dim else w).float()
+            plan = comm.plan("allgather", w.numel() // n)
+            eb = error_budget.lossy_hops("allgather_ring", n) * plan.eb_stage
             if not all(_tree_equal(fulls[0], f) for f in fulls[1:]):
                 raise AssertionError(f"FSDP gather of leaf {leaf} slice {index}: the ranks differ")
             over = ((fulls[0].float() - w).abs() - 2.0 ** -8 * w.abs()).max().item()
@@ -4899,31 +4950,35 @@ def _check_fsdp_gathers(setup, whole, record, n, device):
     return worst, count
 
 
-def _check_fsdp_leaf(setup, record, n, device):
+def _check_fsdp_leaf(setup, record, n, device, label="fsdp"):
     """The reduce-scattered gradient of ``FSDP_CHECK_LEAF``'s first layer
-    on each rank within the reduce-scatter's bound of the exact rank-order
-    sum of the ranks' recorded cotangents."""
-    from repro_torch.core import error_budget, grad_sync
+    on each recorded rank within the reduce-scatter's bound of the exact
+    rank-order sum of the ``n`` ranks' recorded cotangents.  Returns the
+    error and the bound."""
+    from repro_torch.core import error_budget
 
-    (ct0,), (ct1,) = record["leaf_cts"][0], record["leaf_cts"][1]
-    exact = ct0.double() + ct1.double()
+    cts = [record["leaf_cts"][r][0] for r in range(n)]
+    exact = cts[0].double()
+    for ct in cts[1:]:
+        exact = exact + ct.double()
     plan = _fsdp_comm(setup.ctx.fsdp_sync, n, device).plan("reduce_scatter", exact.numel())
     hops = error_budget.lossy_hops("reduce_scatter_ring", n)
     dim = [u[1] for u in _fsdp_uses(setup) if u[0] == record["leaf"]][0]
     rows = exact.shape[0] // n
     err = 0.0
-    for r in range(n):
+    for r, out in record["leaf_out"].items():
         want = exact[r * rows:(r + 1) * rows]
         want = want.movedim(0, dim) if dim else want
-        err = max(err, (record["leaf_out"][r].double() - want).abs().max().item())
+        err = max(err, (out.double() - want).abs().max().item())
     # the reduce-scatter's bound, then the cast of its f32 result to bf16
     bound = hops * plan.eb_stage + 2.0 ** -8 * exact.abs().max().item()
-    log(f"fsdp reduce-scattered {'.'.join(FSDP_CHECK_LEAF)} (layer 0, gathered along dim "
-        f"{dim}, cotangent {tuple(ct0.shape)}): max error {err:.3e} vs the exact rank-order "
+    log(f"{label} reduce-scattered {'.'.join(FSDP_CHECK_LEAF)} (layer 0, gathered along dim "
+        f"{dim}, cotangent {tuple(cts[0].shape)}): max error {err:.3e} vs the exact rank-order "
         f"sum, bound {bound:.3e} (plan {plan.algo}/{plan.pipeline_chunks}, eb_stage "
         f"{plan.eb_stage:.3e}, {hops} lossy hops); max |g| {exact.abs().max().item():.3e}")
     if not err <= bound:
         raise AssertionError(f"reduce-scattered {FSDP_CHECK_LEAF}: error {err} > bound {bound}")
+    return err, bound
 
 
 def _fsdp_step_replicas(setup, params, opt, label):
@@ -4993,7 +5048,8 @@ def run_fsdp_full_width(device):
         f"{n} data ranks on one card, fsdp_gz ring eb {FSDP_EB}, grad_gz ring eb "
         f"{TRAIN_EB}, remat full; drawn and sharded in {time.perf_counter() - t0:.2f} s")
     stream = SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
-    want = _fsdp_plan_launches(setup, n, device)
+    want = {k: v * n for k, v in
+            _fsdp_plan_launches(setup, {"data": n, "model": 1}, device).items()}
     leaf_no = [i for i, p in enumerate(_leaf_paths(setup.defs)) if p == FSDP_CHECK_LEAF][0]
     record = {"flags": [], "gathers": {}, "keep_gathers": True, "leaf": leaf_no,
               "leaf_cts": {}, "leaf_out": {}, "records": {}}
@@ -5095,6 +5151,85 @@ def run_fsdp_full_width(device):
     return total
 
 
+@contextlib.contextmanager
+def _kept_fsdp_calls(kept, gathered):
+    """Wrap ``FsdpStep.reduce_scatter``: by the step's ``data`` rank, the
+    numel of every slice the forward gathered into ``gathered``, and
+    (shard slice, dim, cotangent) of every record, in canonical order,
+    into ``kept`` (to run them again alone: ``_fsdp_replay``)."""
+    from repro_torch.core.grad_sync import FsdpStep
+
+    real = FsdpStep.reduce_scatter
+
+    def slice_of(self, key):
+        leaf, index, dim = self._where[key]
+        return (self._leaves[leaf] if index is None else self._leaves[leaf][index]), dim
+
+    def keeping(self, grads):
+        gathered[self.group.rank] = [slice_of(self, key)[0].numel() for key in self._where]
+        calls = []
+        for key, ct in sorted(self._records, key=lambda kc: self._where[kc[0]][:2]):
+            x, dim = slice_of(self, key)
+            calls.append((x.detach(), dim, ct))
+        kept[self.group.rank] = calls
+        return real(self, grads)
+
+    FsdpStep.reduce_scatter = keeping
+    try:
+        yield
+    finally:
+        FsdpStep.reduce_scatter = real
+
+
+def _fsdp_replay(sync):
+    """A rank's body that runs kept calls (``_kept_fsdp_calls``) again on
+    the bound ``data`` handle: each shard's gather and each cotangent's
+    reduce-scatter, [(gathered, reduce-scattered, overflow, nonfinite)]."""
+    from repro_torch.core import grad_sync, transport
+
+    def replay(calls):
+        g = transport.current("data")
+        out = []
+        for x, dim, ct in calls:
+            full = grad_sync._fsdp_gather_impl(x.movedim(dim, 0) if dim else x, g, "data", sync)
+            rs, st = grad_sync._fsdp_reduce_scatter_impl(ct, g, "data", sync)
+            out.append((full, rs, bool(st.overflow), bool(st.nonfinite)))
+        return out
+
+    return replay
+
+
+def _fsdp_replay_plans(calls, comm, n):
+    """Kernel launches of one rank's kept calls run again over ``n``
+    ranks, summed over the ranks (``_expected_launches``)."""
+    want = dict.fromkeys(_launches(), 0)
+    for x, dim, ct in calls:
+        for plan in (comm.plan("allgather", x.numel()), comm.plan("reduce_scatter", ct.numel())):
+            for k, v in _expected_launches(plan, n).items():
+                want[k] += v
+    return want
+
+
+def _replays_differ(card, cpu):
+    """Elements that differ by bits between two runs of ``_fsdp_replay``
+    (by rank), and the calls flagged; flags that differ raise."""
+    import torch
+
+    def bits(t):
+        t = t.cpu()
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+    mism = flagged = 0
+    for rc, rp in zip(card, cpu):
+        for (fa, ra, oa, na), (fb, rb, ob, nb) in zip(rc, rp):
+            mism += int((bits(fa) != bits(fb)).sum())
+            mism += int((bits(ra) != bits(rb)).sum())
+            if (oa, na) != (ob, nb):
+                raise AssertionError("FSDP replay: the card's and the CPU's flags differ")
+            flagged += oa or na
+    return mism, flagged
+
+
 def check_fsdp_smoke_vs_cpu(device):
     """Phase 29's four-rank check: one train step's forward and backward of
     the smoke config on a ``ThreadMesh((4, 1))`` of the card, sharded,
@@ -5108,9 +5243,7 @@ def check_fsdp_smoke_vs_cpu(device):
 
     from repro_torch.configs import registry
     from repro_torch.convert import tree_map
-    from repro_torch.core import grad_sync, transport
     from repro_torch.core.collectives import GZConfig
-    from repro_torch.core.grad_sync import FsdpStep
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.launch import shapes, training
     from repro_torch.launch.mesh import ThreadMesh
@@ -5128,25 +5261,7 @@ def check_fsdp_smoke_vs_cpu(device):
               for c in coords]
     batch = next(SyntheticStream(cfg, FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ, seed=SEED))
     kept, gathered = {}, {}
-    real = FsdpStep.reduce_scatter
-
-    def slice_of(self, key):
-        leaf, index, dim = self._where[key]
-        return (self._leaves[leaf] if index is None else self._leaves[leaf][index]), dim
-
-    def keeping(self, grads):
-        # the numel of every slice the forward gathered, and (shard slice,
-        # dim, cotangent) of every record, canonical order
-        gathered[self.group.rank] = [slice_of(self, key)[0].numel() for key in self._where]
-        calls = []
-        for key, ct in sorted(self._records, key=lambda kc: self._where[kc[0]][:2]):
-            x, dim = slice_of(self, key)
-            calls.append((x.detach(), dim, ct))
-        kept[self.group.rank] = calls
-        return real(self, grads)
-
-    FsdpStep.reduce_scatter = keeping
-    try:
+    with _kept_fsdp_calls(kept, gathered):
         torch.cuda.synchronize()
         _reset_launches()
         mesh.run(lambda a: training._loss_and_grads(setup.model, setup.ctx, a[0], setup.specs,
@@ -5155,8 +5270,6 @@ def check_fsdp_smoke_vs_cpu(device):
                   for r in range(n)])
         torch.cuda.synchronize()
         step_launches = _launches()
-    finally:
-        FsdpStep.reduce_scatter = real
     sync = setup.ctx.fsdp_sync
     comm = _fsdp_comm(sync, n, device)
     # the step's own launches: one gather a slice in the forward (the
@@ -5174,20 +5287,8 @@ def check_fsdp_smoke_vs_cpu(device):
         raise AssertionError(f"fsdp smoke step: launches {_nonzero(step_launches)} != the "
                              f"plans' {_nonzero(step_want)}")
 
-    def replay(calls):
-        g = transport.current("data")
-        out = []
-        for x, dim, ct in calls:
-            full = grad_sync._fsdp_gather_impl(x.movedim(dim, 0) if dim else x, g, "data", sync)
-            rs, st = grad_sync._fsdp_reduce_scatter_impl(ct, g, "data", sync)
-            out.append((full, rs, bool(st.overflow), bool(st.nonfinite)))
-        return out
-
-    want = dict.fromkeys(_launches(), 0)
-    for x, dim, ct in kept[0]:
-        for plan in (comm.plan("allgather", x.numel()), comm.plan("reduce_scatter", ct.numel())):
-            for k, v in _expected_launches(plan, n).items():
-                want[k] += v
+    replay = _fsdp_replay(sync)
+    want = _fsdp_replay_plans(kept[0], comm, n)
     torch.cuda.synchronize()
     _reset_launches()
     card = mesh.run(replay, [kept[r] for r in range(n)])
@@ -5195,14 +5296,7 @@ def check_fsdp_smoke_vs_cpu(device):
     launches = _launches()
     cpu = ThreadMesh((n, 1), axes, "cpu").run(
         replay, [[(x.cpu(), dim, ct.cpu()) for x, dim, ct in kept[r]] for r in range(n)])
-    mism = flagged = 0
-    for rc, rp in zip(card, cpu):
-        for (fa, ra, oa, na), (fb, rb, ob, nb) in zip(rc, rp):
-            mism += int((fa.cpu().view(torch.int16) != fb.view(torch.int16)).sum())
-            mism += int((ra.cpu().view(torch.int16) != rb.view(torch.int16)).sum())
-            if (oa, na) != (ob, nb):
-                raise AssertionError("fsdp smoke: the card's and the CPU's flags differ")
-            flagged += oa or na
+    mism, flagged = _replays_differ(card, cpu)
     log(f"fsdp smoke on {n} ranks of the card vs the CPU: {len(kept[0])} gathers and "
         f"reduce-scatters a rank on one step's shards and cotangents, {mism} elements differ "
         f"by bits; {flagged} calls flagged on both; launches on the card {_nonzero(launches)}, "
@@ -5237,7 +5331,7 @@ def run_fsdp(device):
 TP_DENSE = ("minitron-8b", 4, 4)  # of 32 layers; 32 heads over 8 kv: 2 kv heads a rank
 TP_MOE = ("phi3.5-moe-42b-a6.6b", 16, 2)  # of 32 layers; 16 experts: one a rank
 TP_SMOKE = False
-TP_DECODE_STEPS = 32
+TP_DECODE_STEPS = 16  # the gate reads the last step's logits
 TP_TIMED_STEPS = 8  # a decode through kernel 11 is timed again without the checks
 TP_MOE_DECODE_B = 4  # < tp: the token-padding path of the expert dispatch
 TP_DISPATCH_EB = 1e-4  # benchmarks/moe_a2a_ablation.py's eb
@@ -5722,9 +5816,532 @@ def run_tp_families(device, records):
         f"times")
 
 
+# ---------------------------------------------------------------------------
+# Phase 32: the tensor-parallel train step, one process per rank
+# ---------------------------------------------------------------------------
+
+# phase 29's cell (internlm2-20b, every published width, depth 48 -> 2,
+# fsdp_gz and the norms' sync ring at eb 1e-4) at tp 2: NCCL puts no two
+# ranks of a group on one GPU and CUDA runs a process's backward on one
+# device thread, so the ranks are four processes over gloo (the card's
+# tensors staged through the host), each capped at a quarter of the card
+TP_TRAIN_MESH = (2, 2)  # (data, model)
+TP_TRAIN_MEMORY_FRACTION = 0.23
+TP_TRAIN_STEPS = 3  # and a timed fourth
+TP_TRAIN_RTOL = 0.02  # step 0's loss against tp 1's (tests/_mp_model_parallel_child.py)
+TP_TRAIN_SMOKE_RTOL = 1e-5  # the smoke step, card against the CPU (PERF.md section 2)
+TP_TRAIN_TIMEOUT = 420  # seconds, the children together
+TP_TRAIN_SMOKE = False  # the smoke config in place of internlm2-20b (a CPU rehearsal)
+TP_TRAIN_SYNC_LEAF = ("final_norm",)  # replicated on every rank: the data ring, the model sum
+
+
+def _tp_train_cfg(smoke):
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    if smoke:  # wide enough that no norm's compressed sync overflows
+        return dataclasses.replace(registry.get(TRAIN_ARCH, smoke=True), d_model=1024,
+                                   n_heads=8, n_kv_heads=4, d_ff=1024)
+    return dataclasses.replace(registry.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+
+
+def _tp_train_setup(cfg, mesh, gz, shape):
+    """The phase's setup on ``mesh`` and its batch specs at ``shape``
+    (batch, seq): weights sharded over ``data``, remat full; with ``gz``
+    the FSDP gathers and reduce-scatters and the norms' sync through the
+    ring at ``FSDP_EB`` / ``TRAIN_EB``, else exact."""
+    from repro_torch.core.collectives import GZConfig
+    from repro_torch.launch import shapes, training
+
+    setup = training.make_setup(
+        cfg, mesh, remat="full",
+        fsdp_gz=GZConfig(eb=FSDP_EB, algo="ring") if gz else None,
+        grad_gz=GZConfig(eb=TRAIN_EB, algo="ring") if gz else None)
+    _, bspecs = shapes.train_specs(cfg, shapes.InputShape("train", shape[1], shape[0], "train"),
+                                   mesh)
+    return setup, bspecs
+
+
+def _across(mesh, axis, t):
+    """Every rank's ``t`` over ``axis`` of this process's ``DistMesh``, in
+    the handle's rank order."""
+    from repro_torch.core import transport
+
+    (stacked,) = mesh.run(lambda x: transport.current(axis).all_gather((x,))[0], [t])
+    return list(stacked.unbind(0))
+
+
+def _tp_train_step0(setup, mesh, coord, sizes, record, sync_record, device):
+    """Step 0's checks of the kernels at the rank's own shapes, in one
+    process of the phase: every gathered weight within the allgather's eb
+    (plus one bf16 rounding) of the rank's tensor-parallel block of the
+    global weights (drawn again from ``SEED``); ``FSDP_CHECK_LEAF``'s
+    layer-0 reduce-scatter within its bound of the exact sum of both
+    ``data`` ranks' cotangents; ``TP_TRAIN_SYNC_LEAF``'s sync (the ``data``
+    ring, then the exact ``model`` sum) within its bound of the exact sum
+    of the four ranks' gradients.  Returns the numbers and a digest of
+    each gathered weight, for the parent to hold equal on the ``data``
+    peers."""
+    import torch
+
+    from repro_torch.core import error_budget
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.launch import training
+    from repro_torch.models.parallel import init_params, torch_dtype
+
+    n, rank = sizes["data"], mesh.rank
+    whole = init_params(setup.defs, torch.Generator(device=device).manual_seed(SEED), device)
+    block = training._local(whole, setup.specs, {**coord, "data": 0}, {**sizes, "data": 1})
+    worst, count = _check_fsdp_gathers(setup, block, record, n, device)
+    del whole, block
+    digests = {f"{leaf}/{index}": _digest(t) for (_, leaf, index), t in record["gathers"].items()}
+
+    ((_, (ct,)),) = record["leaf_cts"].items()
+    record["leaf_cts"] = {r: [c] for r, c in enumerate(_across(mesh, "data", ct))}
+    leaf_err, leaf_bound = _check_fsdp_leaf(setup, record, n, device,
+                                            label=f"tp-train rank {rank}")
+
+    ((g, synced),) = sync_record["leaf"].values()
+    sums = _across(mesh, "model", sum(x.double() for x in _across(mesh, "data", g)))
+    exact = sum(sums)
+    leaf_no = _leaf_paths(setup.defs).index(TP_TRAIN_SYNC_LEAF)
+    dtype = torch_dtype(tree_flatten(setup.defs)[0][leaf_no].dtype)
+    plan = dict(setup.grad_comms)["data"].plan("allreduce", tuple(g.shape), dtype)
+    hops = error_budget.lossy_hops(f"allreduce_{plan.algo}", n)
+    # each model rank's data ring and its cast to the leaf's dtype, then
+    # the exact model sum's cast
+    rounding = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -23
+    sync_bound = (sum(hops * plan.eb_stage + rounding * x.abs().max().item() for x in sums)
+                  + rounding * synced.abs().max().item())
+    sync_err = (synced.double() - exact).abs().max().item()
+    log(f"tp-train rank {rank} synced {'.'.join(TP_TRAIN_SYNC_LEAF)} {tuple(g.shape)}: max "
+        f"error {sync_err:.3e} vs the exact sum of the {n * sizes['model']} ranks, bound "
+        f"{sync_bound:.3e} (plan {plan.algo}/{plan.pipeline_chunks}, eb_stage "
+        f"{plan.eb_stage:.3e})")
+    if not sync_err <= sync_bound:
+        raise AssertionError(f"synced {TP_TRAIN_SYNC_LEAF}: error {sync_err} > bound "
+                             f"{sync_bound}")
+    return {"gathers": count, "gather_worst": worst, "gather_digests": digests,
+            "leaf_err": leaf_err, "leaf_bound": leaf_bound, "sync_err": sync_err,
+            "sync_bound": sync_bound}
+
+
+def _tp_train_replay(mesh, coord, sizes, device):
+    """The smoke config in f32 with ``fsdp_gz``: one step's forward and
+    backward, then its gathers and reduce-scatters again alone on the card
+    and on the host (the plain versions), through the same ``DistMesh``:
+    equal by bits, the same flags, the card's launches as the plans say."""
+    import torch
+
+    from repro_torch.convert import tree_map
+    from repro_torch.launch import training
+
+    n, cuda = sizes["data"], device.type == "cuda"
+    scfg, whole, batch = _tp_train_smoke_inputs()
+    setup, bspecs = _tp_train_setup(scfg, mesh, True, (FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ))
+    params = tree_map(lambda t: t.clone().to(device),
+                      training._local(whole, setup.specs, coord, sizes))
+    scale = 1.0 / (setup.ctx.tp_size * setup.ctx.fsdp_size)
+    kept, gathered = {}, {}
+    with _kept_fsdp_calls(kept, gathered):
+        mesh.run(lambda a: training._loss_and_grads(setup.model, setup.ctx, a[0], setup.specs,
+                                                   a[1], scale),
+                 [(params, training._local(batch, bspecs, coord, sizes))])
+    ((_, calls),) = kept.items()
+    sync = setup.ctx.fsdp_sync
+    replay = _fsdp_replay(sync)
+    want = {k: v // n for k, v in
+            _fsdp_replay_plans(calls, _fsdp_comm(sync, n, device), n).items()}
+    if cuda:
+        torch.cuda.synchronize()
+    _reset_launches()
+    card = mesh.run(replay, [calls])
+    if cuda:
+        torch.cuda.synchronize()
+    launches = _launches()
+    host = mesh.run(replay, [[(x.cpu(), dim, ct.cpu()) for x, dim, ct in calls]])
+    mism, flagged = _replays_differ(card, host)
+    log(f"tp-train rank {mesh.rank} replay ({scfg.arch_id}, f32, fsdp_gz): {len(calls)} "
+        f"gathers and reduce-scatters, {mism} elements differ by bits between card and host, "
+        f"{flagged} flagged on both; launches {_nonzero(launches)}, the plans' {_nonzero(want)}")
+    if mism or (cuda and launches != want):
+        raise AssertionError(f"tp-train replay: {mism} elements differ, launches "
+                             f"{_nonzero(launches)} against the plans' {_nonzero(want)}")
+    return {"calls": len(calls), "mism": mism, "flagged": flagged,
+            "launches": _nonzero(launches), "want": _nonzero(want)}
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    import torch
+
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _tp_train_child(rank, port, out_dir, device_name, smoke):
+    """One rank of the phase: its process's share of the card, the gloo
+    ``DistMesh``, ``TP_TRAIN_STEPS`` steps and a timed fourth of the
+    phase's cell, step 0's checks of the kernels at the rank's shapes
+    (``_tp_train_step0``), then the smoke config's replay
+    (``_tp_train_replay``) and one exact step of it in f32.  Writes
+    ``rank<r>.json`` (each step's metrics by their bits, wall, gloo
+    staging, launches against the plans, collectives flagged, digests of
+    the leaves a spec replicates and of their AdamW moments; step 0's and
+    the replay's checks; the peak memory of the steps after step 0) and
+    ``smoke<r>.npz`` (the exact step's loss and synced gradients)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.convert import tree_map
+    from repro_torch.core import transport
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.launch import training
+    from repro_torch.models.parallel import init_params
+    from repro_torch.optim.adamw import adamw_init
+
+    device = torch.device(device_name)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_per_process_memory_fraction(TP_TRAIN_MEMORY_FRACTION,
+                                                   torch.cuda.current_device())
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    n = math.prod(TP_TRAIN_MESH)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=n,
+                            rank=rank)
+    try:
+        mesh = transport.DistMesh(TP_TRAIN_MESH, ("data", "model"), device=device)
+        sizes = training.mesh_axis_sizes(mesh)
+        coord = training._coords(mesh)[rank]
+        cfg = _tp_train_cfg(smoke)
+        setup, bspecs = _tp_train_setup(cfg, mesh, True, (TRAIN_BATCH, TRAIN_SEQ))
+        step = training.make_train_step(setup, bspecs)
+        whole = init_params(setup.defs, torch.Generator(device=device).manual_seed(SEED),
+                            device)
+        params = tree_map(torch.clone, training._local(whole, setup.specs, coord, sizes))
+        del whole
+        if cuda:
+            torch.cuda.empty_cache()
+        opt = adamw_init(params)
+        sync()
+        specs = training._leaf_specs(setup.defs, setup.specs)
+        replicated = [i for i, s in enumerate(specs)
+                      if set(mesh.axis_names) - training._axes_in_spec(s)]
+        want = _fsdp_plan_launches(setup, sizes, device)
+        stream = SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+        leaf_no = _leaf_paths(setup.defs).index(FSDP_CHECK_LEAF)
+        record = {"flags": [], "gathers": {}, "keep_gathers": True, "leaf": leaf_no,
+                  "leaf_cts": {}, "leaf_out": {}, "records": {}}
+        sync_record = {"degraded": [], "check_leaf": TP_TRAIN_SYNC_LEAF, "keep_leaf": True,
+                       "leaf": {}}
+        out = {"rank": rank, "coord": coord, "steps": [],
+               "n_params": sum(p.numel() for p in tree_flatten(params)[0]),
+               "replicated": {str(i): sorted(training._axes_in_spec(specs[i]))
+                              for i in replicated}}
+        with _watched_fsdp(record), _watched_sync(sync_record):
+            for s in range(TP_TRAIN_STEPS + 1):
+                batch = next(stream)
+                _reset_launches()
+                staged0 = mesh.staged()
+                sync()
+                t0 = time.perf_counter()
+                (params,), (opt,), m = step([params], [opt], batch)
+                sync()
+                wall = time.perf_counter() - t0
+                staged = [a - b for a, b in zip(mesh.staged(), staged0)]
+                launches = _launches()
+                flagged = [op for op, f in record["flags"] if bool(f)]
+                flagged += ["sync"] * sum(bool(d) for d in sync_record["degraded"])
+                record["flags"].clear()
+                sync_record["degraded"].clear()
+                p_leaves, mu, nu = (tree_flatten(t)[0] for t in (params, opt["mu"], opt["nu"]))
+                out["steps"].append({
+                    "metrics": {k: float(v) for k, v in m.items()},
+                    "bits": {k: int(np.float32(float(v)).view(np.int32)) for k, v in m.items()},
+                    "wall_s": wall, "staged_bytes": int(staged[0]),
+                    "staged_s": float(staged[1]), "launches": _nonzero(launches),
+                    "launches_ok": launches == want or not cuda, "flagged": flagged,
+                    "digests": {str(i): [_digest(p_leaves[i]), _digest(mu[i]), _digest(nu[i])]
+                                for i in replicated},
+                    "opt_step": int(opt["step"])})
+                if s == 0:
+                    out["step0"] = _tp_train_step0(setup, mesh, coord, sizes, record,
+                                                   sync_record, device)
+                    record["keep_gathers"] = False
+                    record.pop("leaf")
+                    sync_record["keep_leaf"] = False
+                    for k in ("gathers", "leaf_cts", "leaf_out"):
+                        record[k].clear()
+                    sync_record["leaf"].clear()
+                    if cuda:
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats()
+        out["want"] = _nonzero(want)
+        out["peak_bytes"] = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
+        del params, opt, step, setup, m
+        if cuda:
+            torch.cuda.empty_cache()
+
+        out["replay"] = _tp_train_replay(mesh, coord, sizes, device)
+        # the smoke config in f32, exact collectives, one step's loss and
+        # synced gradients, for the parent to hold against the CPU's
+        scfg, whole, batch = _tp_train_smoke_inputs()
+        ssetup, sbspecs = _tp_train_setup(scfg, mesh, False, (FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ))
+        p = tree_map(lambda t: t.clone().to(device),
+                     training._local(whole, ssetup.specs, coord, sizes))
+        (loss, grads), = mesh.run(lambda a: _tp_train_smoke_step(ssetup, a), [
+            (p, training._local(batch, sbspecs, coord, sizes))])
+        np.savez(os.path.join(out_dir, f"smoke{rank}.npz"), loss=np.float32(loss),
+                 **{f"g{i}": g.cpu().numpy() for i, g in enumerate(grads)})
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_train_smoke_inputs():
+    """The smoke config in f32, its global weights (drawn on the CPU from
+    ``SEED``) and one global batch."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import tree_map
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+    from repro_torch.models.parallel import init_params
+
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH, smoke=True), dtype="float32")
+    defs = Model(cfg, params={}, device="cpu").param_defs()
+    whole = tree_map(lambda t: t.to(torch.float32),
+                     init_params(defs, torch.Generator().manual_seed(SEED), "cpu"))
+    return cfg, whole, next(SyntheticStream(cfg, FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ, seed=SEED))
+
+
+def _tp_train_smoke_step(setup, args):
+    """One rank's loss (unscaled) and synced gradients (flatten order) of
+    one train step, before AdamW."""
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.launch import training
+
+    params, batch = args
+    scale = 1.0 / (setup.ctx.tp_size * setup.ctx.fsdp_size)
+    loss, grads = training._loss_and_grads(setup.model, setup.ctx, params, setup.specs, batch,
+                                           scale)
+    grads, degraded = training._sync_grads(tree_flatten(params)[1](grads), setup.specs,
+                                           tuple(setup.mesh.axis_names), {})
+    if bool(degraded):
+        raise AssertionError("tp-train smoke step: an exact sync flagged a leaf")
+    return float(loss) / scale, [g.detach() for g in tree_flatten(grads)[0]]
+
+
+def _tp_train_reference_loss(device, smoke):
+    """tp 1's loss of the phase's global weights and first batch, forward
+    only (the chunked attention the train step takes), then freed."""
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticStream
+    from repro_torch.models.model import Model
+    from repro_torch.models.parallel import init_params
+
+    cfg = _tp_train_cfg(smoke)
+    model = Model(cfg, params={}, device=device)
+    whole = init_params(model.param_defs(), torch.Generator(device=device).manual_seed(SEED),
+                        device)
+    batch = next(SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED))
+    with torch.no_grad():
+        loss = float(Model(cfg, params=whole, device=device).loss_fn(whole, batch))
+    del whole, model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return loss
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tp_train_processes(device, out_dir, smoke):
+    """Start one child a rank (``sys.executable`` on this script, never a
+    fork) and wait for all of them; a child that fails or outlives
+    ``TP_TRAIN_TIMEOUT`` fails the phase, the others are killed and its
+    log's tail printed.  Returns the wall seconds."""
+    n = math.prod(TP_TRAIN_MESH)
+    port = _free_port()
+    logs = [open(os.path.join(out_dir, f"log{r}.txt"), "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-train-child",
+                               str(r), str(port), out_dir, str(device), str(int(smoke))],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(n)]
+    t0 = time.perf_counter()
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            if time.perf_counter() - t0 > TP_TRAIN_TIMEOUT:
+                failed = next(r for r, p in enumerate(procs) if p.poll() is None)
+                break
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            time.sleep(0.5)
+        if failed is None:
+            failed = next((r for r, p in enumerate(procs) if p.returncode != 0), None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    if failed is not None:
+        with open(os.path.join(out_dir, f"log{failed}.txt")) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"tp-train: rank {failed} failed (exit {procs[failed].returncode}, "
+                             f"{time.perf_counter() - t0:.1f} s); its log's tail:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def run_tp_train(device, records):
+    """Phase 32 (module docstring).  Sets the kernels line's launches of
+    kernels 1, 3 and 4 (the four processes' steps)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import training
+    from repro_torch.launch.mesh import ThreadMesh
+
+    t0 = time.perf_counter()
+    smoke = TP_TRAIN_SMOKE
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ref_loss = _tp_train_reference_loss(device, smoke)
+    cfg = _tp_train_cfg(smoke)
+    log(f"tp-train {_widths(cfg)} as published; n_layers cut 48 -> {cfg.n_layers}; mesh "
+        f"(data, model) {TP_TRAIN_MESH}: {math.prod(TP_TRAIN_MESH)} processes on one card over "
+        f"a gloo DistMesh, each capped at {TP_TRAIN_MEMORY_FRACTION} of the card; fsdp_gz ring "
+        f"eb {FSDP_EB}, norms' sync ring eb {TRAIN_EB}, remat full, chunked attention, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; tp 1's loss of the same weights and batch "
+        f"{ref_loss:.6f} ({time.perf_counter() - t0:.1f} s)")
+    # the smoke step's reference: the same step on a CPU ThreadMesh
+    scfg, whole, batch = _tp_train_smoke_inputs()
+    cmesh = ThreadMesh(TP_TRAIN_MESH, ("data", "model"), "cpu")
+    csetup, cbspecs = _tp_train_setup(scfg, cmesh, False, (FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ))
+    sizes, coords = training.mesh_axis_sizes(cmesh), training._coords(cmesh)
+    cpu = cmesh.run(lambda a: _tp_train_smoke_step(csetup, a), [
+        (training._local(whole, csetup.specs, c, sizes), training._local(batch, cbspecs, c,
+                                                                          sizes))
+        for c in coords])
+    out_dir = tempfile.mkdtemp(prefix="tp_train_")
+    try:
+        wall = _tp_train_processes(device, out_dir, smoke)
+        ranks = []
+        for r in range(len(coords)):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        smokes = [dict(np.load(os.path.join(out_dir, f"smoke{r}.npz")))
+                  for r in range(len(coords))]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    steps = TP_TRAIN_STEPS + 1
+    total = dict.fromkeys(_launches(), 0)
+    for s in range(steps):
+        bits = [rk["steps"][s]["bits"] for rk in ranks]
+        if any(b != bits[0] for b in bits):
+            raise AssertionError(f"tp-train step {s}: the processes' metrics differ: {bits}")
+        m = ranks[0]["steps"][s]["metrics"]
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])):
+            raise AssertionError(f"tp-train step {s}: loss {m['loss']}, gnorm {m['gnorm']}")
+        for rk in ranks:
+            st = rk["steps"][s]
+            if st["flagged"] or not st["launches_ok"] or st["opt_step"] != s + 1:
+                raise AssertionError(f"tp-train step {s} rank {rk['rank']}: flagged "
+                                     f"{st['flagged']}, launches {st['launches']} against the "
+                                     f"plans' {rk['want']}, AdamW step {st['opt_step']}")
+            if s < TP_TRAIN_STEPS:
+                for k, v in st["launches"].items():
+                    total[k] += v
+        # every replicated leaf and its moments, equal by bits on the ranks
+        # that hold the same block (the same coordinates on its spec's axes)
+        for leaf, axes in ranks[0]["replicated"].items():
+            groups = {}
+            for rk in ranks:
+                key = tuple(rk["coord"][ax] for ax in axes)
+                groups.setdefault(key, []).append(rk["steps"][s]["digests"][leaf])
+            if any(any(d != g[0] for d in g) for g in groups.values()):
+                raise AssertionError(f"tp-train step {s}: replicated leaf {leaf} differs")
+        log(f"tp-train step {s}: loss {m['loss']:.6f} gnorm {m['gnorm']:.4f} lr {m['lr']:.3e}, "
+            f"equal by bits on the {len(ranks)} processes; {len(ranks[0]['replicated'])} "
+            f"replicated leaves and their moments equal on the ranks that hold them; nothing "
+            f"flagged; walls " + ", ".join(
+                f"{rk['steps'][s]['wall_s'] * 1e3:.1f}" for rk in ranks) + " ms"
+            f"{' (cold)' if s == 0 else ''}")
+    # step 0's gathers equal by bits on the data peers (the same model
+    # coordinate), each already within its eb in its process
+    for j in range(TP_TRAIN_MESH[1]):
+        peers = [rk["step0"]["gather_digests"] for rk in ranks if rk["coord"]["model"] == j]
+        if any(d != peers[0] for d in peers[1:]):
+            raise AssertionError(f"tp-train step 0: the gathered weights of model rank {j} "
+                                 f"differ between its data ranks")
+    for rk in ranks:
+        c, rp = rk["step0"], rk["replay"]
+        log(f"tp-train rank {rk['rank']} step 0: {c['gathers']} gathered weights within eb "
+            f"{FSDP_EB} of the global weights' block (worst past one bf16 rounding "
+            f"{c['gather_worst']:.3e}), equal by bits on the data peers; reduce-scattered "
+            f"{'.'.join(FSDP_CHECK_LEAF)} {c['leaf_err']:.3e} (bound {c['leaf_bound']:.3e}); "
+            f"synced {'.'.join(TP_TRAIN_SYNC_LEAF)} {c['sync_err']:.3e} (bound "
+            f"{c['sync_bound']:.3e}); replay of the smoke step's {rp['calls']} gathers and "
+            f"reduce-scatters: {rp['mism']} elements differ card/host, launches "
+            f"{rp['launches']} (the plans' {rp['want']})")
+    gap = abs(ranks[0]["steps"][0]["metrics"]["loss"] - ref_loss) / abs(ref_loss)
+    if not gap <= TP_TRAIN_RTOL:
+        raise AssertionError(f"tp-train: step 0's loss {ranks[0]['steps'][0]['metrics']['loss']} "
+                             f"is {gap:.3e} from tp 1's {ref_loss} (bound {TP_TRAIN_RTOL})")
+    for rk in ranks:
+        warm = rk["steps"][-1]
+        log(f"tp-train rank {rk['rank']} {rk['coord']}: {rk['n_params']} parameters; warm "
+            f"step {warm['wall_s'] * 1e3:.1f} ms; gloo staging {warm['staged_s'] * 1e3:.1f} ms "
+            f"and {warm['staged_bytes'] / 1e9:.3f} GB a step; peak "
+            f"{rk['peak_bytes'] / 1e9:.2f} GB (torch.cuda.max_memory_allocated); loss gap to "
+            f"tp 1 {gap:.3e}; launches a step {warm['launches']} (the plans' {rk['want']})")
+    worst = 0.0
+    for r, (sm, (closs, cgrads)) in enumerate(zip(smokes, cpu)):
+        worst = max(worst, abs(float(sm["loss"]) - closs) / abs(closs))
+        for i, g in enumerate(cgrads):
+            g = g.numpy().astype(np.float64)
+            gap_i = np.abs(sm[f"g{i}"].astype(np.float64) - g).max() / max(np.abs(g).max(), 1e-30)
+            worst = max(worst, float(gap_i))
+    log(f"tp-train smoke ({scfg.arch_id}, f32, exact collectives) on the {len(ranks)} "
+        f"processes against a CPU ThreadMesh {TP_TRAIN_MESH}: loss and {len(cpu[0][1])} synced "
+        f"gradients a rank, worst gap {worst:.3e} of the largest value (bound "
+        f"{TP_TRAIN_SMOKE_RTOL})")
+    if not worst <= TP_TRAIN_SMOKE_RTOL:
+        raise AssertionError(f"tp-train smoke: card and CPU {worst:.3e} apart")
+    for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+        _record(records, name)["launches"] = total[name]
+    log(f"tp-train phase: {time.perf_counter() - t0:.1f} s ({wall:.1f} s in the processes); "
+        f"kernels over {TP_TRAIN_STEPS} steps and {len(ranks)} processes {_nonzero(total)}")
+
+
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
           "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp", "tp",
-          "tp-families")
+          "tp-families", "tp-train")
 
 
 def _record(records, name):
@@ -5734,6 +6351,11 @@ def _record(records, name):
 
 
 def main(argv=()) -> int:
+    if argv and argv[0] == "--tp-train-child":  # one rank of phase 32
+        sys.path.insert(0, str(SRC))
+        rank, port, out_dir, device, smoke = argv[1:6]
+        _tp_train_child(int(rank), int(port), out_dir, device, smoke == "1")
+        return 0
     phases = set(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv \
         else set(PHASES)
     if not phases <= set(PHASES):
@@ -5902,6 +6524,13 @@ def main(argv=()) -> int:
         # This slice's main path: tensor parallelism of the ssm, hybrid,
         # MLA, encdec and vlm families (kernel 11 on each rank's heads).
         run_tp_families(device, records)
+
+    if "tp-train" in phases:
+        # This slice's main path: the tensor-parallel train step, four
+        # processes of the card over gloo, with the FSDP gathers (kernels 1
+        # and 4), reduce-scatters (kernels 1 and 3) and the norms' sync; its
+        # kernels 1, 3 and 4 counts replace the fsdp phase's.
+        run_tp_train(device, records)
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

@@ -566,16 +566,39 @@ class _Bound:
         return False
 
 
+class _Recompute:
+    """Around one recompute, on whatever thread it runs: the forward
+    thread's transport bindings and, if the forward ran in one, its
+    ``FsdpStep`` in replay."""
+
+    def __init__(self, handles: dict, step):
+        self._handles, self._step, self._stacks = handles, step, []
+
+    def __enter__(self):
+        stack = contextlib.ExitStack()
+        stack.enter_context(transport.bound(self._handles))
+        if self._step is not None:
+            stack.enter_context(_Bound(self._step, replay=True))
+        self._stacks.append(stack)
+        return self
+
+    def __exit__(self, *exc):
+        self._stacks.pop().close()
+        return False
+
+
 def fsdp_recompute_context():
     """``torch.utils.checkpoint``'s ``context_fn`` for a layer that may
-    gather: its forward runs as it is; its recompute, on whatever thread
-    autograd runs it (CUDA's autograd thread), is bound to the step whose
-    forward this is, so its gathers take the forward's results and launch
-    no collective."""
+    gather or reach a collective: its forward runs as it is; its
+    recompute, on whatever thread autograd runs it (CUDA's autograd
+    thread), finds the rank handles the forward's thread had bound (a TP
+    collective in the layer reaches its ranks again; on a ``DistMesh``
+    they are this process's) and is bound to the step whose forward this
+    is, so its FSDP gathers take the forward's results and launch no
+    collective."""
     bound = getattr(_BOUND, "step", None)
-    if bound is None:
-        return contextlib.nullcontext(), contextlib.nullcontext()
-    return contextlib.nullcontext(), _Bound(bound[0], replay=True)
+    return contextlib.nullcontext(), _Recompute(transport.bindings(),
+                                                None if bound is None else bound[0])
 
 
 def _slice_key(x: torch.Tensor, dim: int) -> tuple:

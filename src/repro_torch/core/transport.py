@@ -39,10 +39,15 @@ Two groups provide handles:
   * :class:`DistGroup` — one rank per process over ``torch.distributed``:
     ``batch_isend_irecv`` for the exchange and the all-to-all,
     ``all_reduce(MAX)`` for the flags, ``all_gather`` for the sum, the
-    max and the gather.  NCCL on GPUs, gloo on the CPU.
+    max and the gather.  NCCL on GPUs, gloo on the CPU.  A gloo group
+    also carries the card's tensors, staged through host memory
+    (``DistGroup``), which is how several processes that share one card
+    meet: NCCL will not put two ranks of a group on one GPU.
 
 A group is bound to an axis name per thread (``bind``); a communicator
 built for that axis name finds its rank handle with ``current``.
+``bindings`` snapshots a thread's handles and ``bound`` binds them on
+another thread, as remat's recompute does on CUDA's autograd thread.
 
 ``ThreadGroup.run`` runs one op of torch's vectorized CPU math (a
 ``sqrt``) on the calling thread once per process before it starts the
@@ -64,7 +69,8 @@ reference's ``psum`` over that tuple runs.  ``ThreadGroup.run(...,
 axis_name=("node", "local"), shape=(n_nodes, L))`` binds them on the
 rank threads, each (sub-)group with its own mailbox and barrier;
 :class:`DistMesh` builds them over ``torch.distributed`` sub-groups
-(``DistGroup(group=..., ranks=...)``).
+(``DistGroup(group=..., ranks=...)``) and runs this process's one rank
+(``DistMesh.run``, as ``launch.mesh.ThreadMesh.run`` runs all of them).
 """
 from __future__ import annotations
 
@@ -72,13 +78,14 @@ import contextlib
 import itertools
 import math
 import threading
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 __all__ = ["resolve_device", "ThreadGroup", "DistGroup", "DistMesh", "mesh_groups",
-           "bind", "current"]
+           "bind", "current", "bindings", "bound"]
 
 _BOUND = threading.local()
 
@@ -123,6 +130,21 @@ def current(axis_name):
             "DistGroup.bind(...)"
         )
     return handle
+
+
+def bindings() -> dict:
+    """A copy of this thread's bindings, ``{axis name: handle}``."""
+    return dict(getattr(_BOUND, "axes", {}))
+
+
+@contextlib.contextmanager
+def bound(handles: dict):
+    """Bind every handle of ``handles`` (``bindings()`` taken on another
+    thread) on this thread, for the block."""
+    with contextlib.ExitStack() as stack:
+        for key, handle in handles.items():
+            stack.enter_context(bind(key, handle))
+        yield
 
 
 _CPU_MATH_READY = False
@@ -321,7 +343,19 @@ class DistGroup:
     group, or ``group`` (from ``dist.new_group``) with ``ranks`` the global
     rank of each of its ranks in this handle's rank order (default: the
     group's own, ascending).  Peers of every operation are handle ranks,
-    mapped to global ranks here."""
+    mapped to global ranks here.
+
+    Over gloo, every operation on a CUDA tensor stages it: a copy to the
+    host, the gloo operation, a copy of the result back to the tensor's
+    device.  That is the only way gloo can carry these tensors (it sends,
+    receives and gathers host memory only), not a fallback: the caller
+    chose the backend, the kernels still run on the card, and a gloo
+    error raises.  The copies are exact and the folds run in the
+    ``ThreadGroup``'s order, so the bits do not change.  ``staged_bytes``
+    counts the bytes copied each way and ``staged_seconds`` the wall time
+    of the operations that staged them (the copies and the transfers,
+    from after the device work queued before them).
+    NCCL groups and host tensors are not staged."""
 
     def __init__(self, group=None, ranks=None):
         if not dist.is_initialized():
@@ -335,6 +369,9 @@ class DistGroup:
         self.size = len(self._ranks)
         ascending = sorted(self._ranks)  # the group's own rank order
         self._order = [ascending.index(r) for r in self._ranks]
+        self._gloo = dist.get_backend(group) == "gloo"
+        self.staged_bytes = 0
+        self.staged_seconds = 0.0
         # The first NCCL operation must involve every rank; the redoub
         # fold round addresses only some of them.
         dist.barrier(group=group)
@@ -342,11 +379,52 @@ class DistGroup:
     def bind(self, axis_name="x"):
         return bind(axis_name, self)
 
+    def _stages(self, device) -> bool:
+        """Whether this group's backend cannot carry ``device``'s tensors
+        and must stage them through the host: gloo and a CUDA tensor."""
+        return self._gloo and device.type == "cuda"
+
+    @contextlib.contextmanager
+    def _staging(self, tensors):
+        """``(host, back, where)`` for an operation on ``tensors``:
+        ``host(t)`` is ``t`` where the backend can carry it (a host copy of
+        a CUDA tensor over gloo), ``back(t)`` returns a result to the
+        tensors' device, ``where`` is the device the transfer uses; the
+        operation's wall time is counted when it stages, from after the
+        device work already queued on the stream (so no kernel of the
+        caller's is counted as staging)."""
+        dev = tensors[0].device if tensors else None
+        if dev is None or not self._stages(dev):
+            yield (lambda t: t), (lambda t: t), dev
+            return
+
+        def host(t):
+            self.staged_bytes += t.numel() * t.element_size()
+            return t.cpu()
+
+        def back(t):
+            self.staged_bytes += t.numel() * t.element_size()
+            return t.to(dev)
+
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            yield host, back, torch.device("cpu")
+        finally:
+            self.staged_seconds += time.perf_counter() - t0
+
+    def _gather_stacked(self, t) -> torch.Tensor:
+        """Every rank's ``t``, stacked in this handle's rank order."""
+        with self._staging([t]) as (host, back, _):
+            h = host(t.contiguous())
+            parts = [torch.empty_like(h) for _ in range(self.size)]
+            dist.all_gather(parts, h, group=self._pg)
+            return back(torch.stack([parts[i] for i in self._order]))
+
     def _gather(self, t) -> list:
         """Every rank's ``t``, in this handle's rank order."""
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t.contiguous(), group=self._pg)
-        return [parts[i] for i in self._order]
+        return list(self._gather_stacked(t).unbind(0))
 
     def _p2p(self, op, t, peer):
         return dist.P2POp(op, t, self._ranks[peer], group=self._pg)
@@ -354,57 +432,66 @@ class DistGroup:
     def exchange(self, tensors, perm) -> tuple:
         dst = [r for s, r in perm if s == self.rank]
         src = _sender_of(self.rank, perm)
-        ops = []
-        if dst:
-            ops += [self._p2p(dist.isend, t.contiguous(), dst[0]) for t in tensors]
-        if src is not None:
-            out = tuple(torch.empty_like(t) for t in tensors)
-            ops += [self._p2p(dist.irecv, t, src) for t in out]
-        else:
-            out = _zeros_like_all(tensors)
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+        out = _zeros_like_all(tensors) if src is None else None
+        with self._staging(list(tensors)) as (host, back, where):
+            ops = []
+            if dst:
+                ops += [self._p2p(dist.isend, host(t.contiguous()), dst[0]) for t in tensors]
+            if src is not None:
+                recv = [torch.empty(t.shape, dtype=t.dtype, device=where) for t in tensors]
+                ops += [self._p2p(dist.irecv, t, src) for t in recv]
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            if src is not None:
+                out = tuple(back(t) for t in recv)
         return out
 
     def all_to_all(self, tensors) -> tuple:
-        outs = tuple(torch.empty_like(t) for t in tensors)
-        ops = []
-        for t, out in zip(tensors, outs):
-            out[self.rank] = t[self.rank]
-            for peer in range(self.size):
-                if peer != self.rank:
-                    ops.append(self._p2p(dist.isend, t[peer].contiguous(), peer))
-                    ops.append(self._p2p(dist.irecv, out[peer], peer))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-        return outs
+        with self._staging(list(tensors)) as (host, back, _):
+            ins = [host(t.contiguous()) for t in tensors]
+            outs = [torch.empty_like(t) for t in ins]
+            ops = []
+            for t, out in zip(ins, outs):
+                out[self.rank] = t[self.rank]
+                for peer in range(self.size):
+                    if peer != self.rank:
+                        ops.append(self._p2p(dist.isend, t[peer].contiguous(), peer))
+                        ops.append(self._p2p(dist.irecv, out[peer], peer))
+            if ops:
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            return tuple(back(out) for out in outs)
 
     def all_gather(self, tensors) -> tuple:
-        return tuple(torch.stack(self._gather(t)) for t in tensors)
+        return tuple(self._gather_stacked(t) for t in tensors)
 
     def flags_across(self, *flags) -> tuple:
         both = torch.stack([f.to(torch.int32) for f in flags])
-        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=self._pg)
+        with self._staging([both]) as (host, back, _):
+            h = host(both)
+            dist.all_reduce(h, op=dist.ReduceOp.MAX, group=self._pg)
+            both = back(h)
         return tuple((both > 0).unbind(0))
 
     def sum_across(self, x) -> torch.Tensor:
         return _fold(self._gather(x))
 
     def max_across(self, x) -> torch.Tensor:
-        return torch.stack(self._gather(x)).amax(dim=0)
+        return self._gather_stacked(x).amax(dim=0)
 
 
 class DistMesh:
-    """This process's ranks of a mesh over ``torch.distributed``: the
+    """This process's rank of a mesh over ``torch.distributed``: the
     world's ranks laid out over ``axis_names`` with extents ``shape``,
     first axis major, one ``DistGroup`` per handle of ``mesh_groups``.
     Every process creates every sub-group, in the same order (the
     library's rule), then its own handles in that order.  ``bind()``
-    binds all of them on this thread."""
+    binds all of them on this thread; ``run`` runs this process's rank
+    with them bound.  ``device`` is where the rank computes (None: the
+    mesh carries collectives only, and a train step refuses it)."""
 
-    def __init__(self, shape, axis_names):
+    def __init__(self, shape, axis_names, device=None):
         if not dist.is_initialized():
             raise RuntimeError("DistMesh needs torch.distributed.init_process_group first")
         self.shape, self.axis_names = tuple(int(s) for s in shape), tuple(axis_names)
@@ -412,6 +499,7 @@ class DistMesh:
         if self.size != dist.get_world_size():
             raise ValueError(f"mesh {self.shape} needs {self.size} processes, the world "
                              f"has {dist.get_world_size()}")
+        self.device = None if device is None else resolve_device(device)
         me = dist.get_rank()
         mine = []
         for key, members in mesh_groups(self.shape, self.axis_names).items():
@@ -421,10 +509,25 @@ class DistMesh:
                     mine.append((key, pg, ranks))
         self.handles = {key: DistGroup(pg, ranks) for key, pg, ranks in mine}
         self.rank = me
+        self.local_ranks = (me,)  # the mesh ranks this process runs
 
     @contextlib.contextmanager
     def bind(self):
-        with contextlib.ExitStack() as stack:
-            for key, handle in self.handles.items():
-                stack.enter_context(bind(key, handle))
+        with bound(self.handles):
             yield self
+
+    def run(self, fn, inputs) -> list:
+        """``[fn(inputs[0])]``: this process's rank, with every handle of
+        the mesh bound (``ThreadMesh.run``'s contract for the one rank in
+        ``local_ranks``)."""
+        if len(inputs) != 1:
+            raise ValueError(f"a DistMesh process runs one rank, got {len(inputs)} inputs")
+        _init_cpu_math()
+        with self.bind():
+            return [fn(inputs[0])]
+
+    def staged(self) -> tuple:
+        """(bytes, seconds) staged through the host by this process's
+        handles so far (``DistGroup``)."""
+        hs = self.handles.values()
+        return sum(h.staged_bytes for h in hs), sum(h.staged_seconds for h in hs)

@@ -6,8 +6,11 @@ node-major layout (consecutive ranks share a node: ``rank = node *
 gpus_per_node + local``).  A mesh is a ``transport.ThreadMesh`` of ranks
 as threads on one device, or, with ``distributed=True``, a
 ``transport.DistMesh`` over the processes of ``torch.distributed``; both
-carry ``axis_names`` and ``shape`` and bind one handle per axis and per
-composite of axes (``core/transport.py``).
+carry ``axis_names``, ``shape`` and ``device``, bind one handle per axis
+and per composite of axes (``core/transport.py``), say which mesh ranks
+this process runs (``local_ranks``: every rank of a ``ThreadMesh``, a
+``DistMesh`` process's own) and run them (``run(fn, inputs)``, one input
+per local rank).
 
 ``make_production_mesh`` (the reference's 256- and 512-chip meshes) waits
 with the dry-run tooling (ROADMAP A14).
@@ -31,6 +34,7 @@ class ThreadMesh:
         transport.mesh_groups(self.shape, self.axis_names)  # validates
         self.group = transport.ThreadGroup(math.prod(self.shape), device)
         self.size, self.device = self.group.size, self.group.device
+        self.local_ranks = tuple(range(self.size))  # every rank runs in this process
 
     def run(self, fn, inputs) -> list:
         """``fn(inputs[r])`` as rank r with every handle of the mesh bound
@@ -42,8 +46,9 @@ def make_hier_mesh(n_nodes: int | None = None, gpus_per_node: int | None = None,
                    axis_names: tuple = ("node", "local"), n_ranks: int | None = None,
                    device="cuda", distributed: bool = False):
     """Carve ``n_ranks`` ranks (with ``distributed``: the world's
-    processes) into a two-level ``node x local`` mesh, node-major.  A
-    missing extent is inferred from the rank count."""
+    processes) into a two-level ``node x local`` mesh, node-major, whose
+    ranks compute on ``device``.  A missing extent is inferred from the
+    rank count."""
     total = transport.dist.get_world_size() if distributed else n_ranks
     if n_nodes is None and gpus_per_node is None:
         raise ValueError("give n_nodes and/or gpus_per_node")
@@ -58,7 +63,7 @@ def make_hier_mesh(n_nodes: int | None = None, gpus_per_node: int | None = None,
     if n_nodes * gpus_per_node != total:
         raise ValueError(f"{n_nodes} nodes x {gpus_per_node} gpus != {total} ranks")
     if distributed:
-        return transport.DistMesh((n_nodes, gpus_per_node), axis_names)
+        return transport.DistMesh((n_nodes, gpus_per_node), axis_names, device=device)
     return ThreadMesh((n_nodes, gpus_per_node), axis_names, device)
 
 

@@ -30,39 +30,46 @@ a ``launch.mesh.ThreadMesh`` (``mesh.run``), eagerly:
 Every rank holds its own block of the parameters and of the optimizer
 state (``_local`` of the global tree by ``specs``: a shard of each
 sharded leaf, a replica of the others), as each process of a
-data-parallel job does, and the trees cross ``step`` as per-rank lists in
-rank order; ``_global`` puts the blocks back together.  The reductions
-give every rank the same bits, so the replicated leaves stay equal by
-bits; callers that care check it rather than assume it.
+data-parallel job does, and the trees cross ``step`` as lists, one per
+rank that this process runs (``mesh.local_ranks``: every rank of a
+``ThreadMesh``, in rank order; a ``transport.DistMesh`` process's own);
+``_global`` puts the blocks back together.  The reductions give every
+rank the same bits, so the replicated leaves stay equal by bits; callers
+that care check it rather than assume it.
 
-No collective runs on the autograd thread.  On CUDA, torch runs every
-backward of the process on the device's one autograd thread, where the
-ranks of a one-card mesh could never meet in a collective (ROADMAP C6).
-So the FSDP reduce-scatters do not run inside backward, as
+No FSDP collective runs on the autograd thread.  On CUDA, torch runs
+every backward of the process on the device's one autograd thread, where
+the ranks of a one-card ``ThreadMesh`` could never meet in a collective
+(ROADMAP C6).  So the FSDP reduce-scatters do not run inside backward, as
 ``fsdp_all_gather``'s would: the step runs its forward under a
 ``grad_sync.FsdpStep``, whose gathers run on the rank threads and are
 kept for remat's recompute (which the layer's checkpoint binds to the
-step on whatever thread it runs); the backward only records each gathered
-weight's cotangent; after ``torch.autograd.grad`` returns, each rank
-reduce-scatters its records and sums each leaf's blocks in autograd's
-order, which gives the in-backward route's bits.  The price is memory:
-the step holds every gathered weight and every such cotangent until
-backward ends (on one card all ranks share its memory anyway).  The
-step takes this route on every group, a ``DistGroup`` over several cards
-too, where the in-backward route would be safe and could free each
-gathered weight after its layer, as ZeRO-3 does; a train step over a
-``DistMesh`` (ROADMAP A11.8) must choose its route.  ``_sync_grads``
+step, and to the forward's rank handles, on whatever thread it runs);
+the backward only records each gathered weight's cotangent; after
+``torch.autograd.grad`` returns, each rank reduce-scatters its records
+and sums each leaf's blocks in autograd's order, which gives the
+in-backward route's bits.  The price is memory: the step holds every
+gathered weight and every such cotangent until backward ends (on one
+card all ranks share its memory anyway).  The step takes this route on
+every mesh, a ``DistMesh`` too, where the in-backward route would be safe
+and could free each gathered weight after its layer, as ZeRO-3 does; that
+choice, and a per-layer release, are ROADMAP A11.8's.  ``_sync_grads``
 runs after backward too.
 
 A mesh whose ``model`` axis is larger than 1 builds a tensor-parallel
-context (``ParallelCtx.tp_size``) for the forward and decode of every
-family (``Model``): each rank runs ``model.loss_fn`` or
-``make_serve_step``'s ``decode_fn`` on its ``_local`` block.
-``make_train_step`` raises there: TP's backward reduces activation
-gradients in the middle of backward, which cannot meet on the device's
-one autograd thread (ROADMAP C6), and the TP train step over gloo is
-ROADMAP A11.7b.  The reference's per-bucket overlap hooks
-(``overlap_sync``, A11.8) are not here yet.
+context (``ParallelCtx.tp_size``) for every family (``Model``): each rank
+runs ``model.loss_fn`` or ``make_serve_step``'s ``decode_fn`` on its
+``_local`` block, and ``make_train_step`` trains it.  TP's backward
+reduces activation gradients in the middle of backward, through the
+handles its forward captured, so the ranks must meet where backward
+runs: on a CPU ``ThreadMesh`` each rank's backward runs on its own
+thread; on a ``DistMesh`` each process is one rank, and its backward
+(CUDA's autograd thread included) reaches the other processes through
+its ``DistGroup``s (over gloo the card's tensors stage through the host,
+which is how four processes share one card).  A ``ThreadMesh`` of a CUDA
+device at tp > 1 is refused (``_ranks_share_autograd_thread``, C6).
+The reference's per-bucket overlap hooks (``overlap_sync``, A11.8) are
+not here yet.
 """
 from __future__ import annotations
 
@@ -132,14 +139,16 @@ def make_setup(
     fsdp: bool = True,
     skip_on_overflow: bool = False,
 ) -> TrainSetup:
-    """The reference's ``make_setup`` on a ``ThreadMesh`` over
-    ``("data", "model")`` (or with ``"pod"``): ``fsdp=True`` shards the
-    parameters over ``data`` (their specs keep ``"data"``), ``fsdp=False``
-    replicates them; ``fsdp_gz`` compresses the FSDP gathers and
-    reduce-scatters (absolute eb, NaN-marked when degraded under
-    ``skip_on_overflow``); ``grad_policy`` is the communicators' plan
-    policy when ``grad_gz`` leaves the algorithm open.  The model and its
-    communicators run on ``mesh.device``."""
+    """The reference's ``make_setup`` on a ``ThreadMesh`` or a
+    ``transport.DistMesh`` over ``("data", "model")`` (or with ``"pod"``):
+    ``fsdp=True`` shards the parameters over ``data`` (their specs keep
+    ``"data"``), ``fsdp=False`` replicates them; ``fsdp_gz`` compresses
+    the FSDP gathers and reduce-scatters (absolute eb, NaN-marked when
+    degraded under ``skip_on_overflow``); ``grad_policy`` is the
+    communicators' plan policy when ``grad_gz`` leaves the algorithm open.
+    The model and its communicators run on ``mesh.device``."""
+    if mesh.device is None:
+        raise ValueError("make_setup needs a mesh with a device (DistMesh(..., device=...))")
     sizes = mesh_axis_sizes(mesh)
     dp_axes = tuple(ax for ax in mesh.axis_names if ax in ("pod", "data"))
     grad_comms = ()
@@ -352,21 +361,33 @@ def _coords(mesh) -> list:
     return [dict(zip(mesh.axis_names, c)) for c in np.ndindex(*mesh.shape)]
 
 
+def _ranks_share_autograd_thread(mesh) -> bool:
+    """Whether several ranks of ``mesh`` run in this process on a CUDA
+    device, whose backward nodes all run on the device's one autograd
+    thread, where a collective inside backward cannot meet (ROADMAP C6):
+    a ``ThreadMesh`` of the card, not a ``DistMesh``."""
+    return mesh.device.type == "cuda" and len(mesh.local_ranks) > 1
+
+
 def make_train_step(setup: TrainSetup, batch_specs):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``params`` and ``opt_state`` are lists of per-rank trees
-    in rank order, each rank's ``_local`` block of the global trees by
-    ``setup.specs`` (each updated in place, as the reference donates them);
-    ``batch`` is the global batch (numpy or tensors), split by
-    ``batch_specs``.  ``metrics`` are rank 0's ``loss``, ``gnorm``, ``lr``,
-    ``skipped`` and ``overlap_modeled`` (0-d tensors); every rank computes
-    the same values (rank-order sums over the mesh)."""
+    metrics)``.  ``params`` and ``opt_state`` are lists of per-rank trees,
+    one for each of ``mesh.local_ranks`` in that order, each rank's
+    ``_local`` block of the global trees by ``setup.specs`` (each updated
+    in place, as the reference donates them); ``batch`` is the global
+    batch (numpy or tensors), split by ``batch_specs``.  ``metrics`` are
+    the first local rank's ``loss``, ``gnorm``, ``lr``, ``skipped`` and
+    ``overlap_modeled`` (0-d tensors); every rank computes the same bits
+    (rank-order sums over the mesh).  At tp > 1 a ``ThreadMesh`` of a
+    CUDA device raises (module docstring)."""
     ctx, model, mesh = setup.ctx, setup.model, setup.mesh
-    if ctx.tp_size > 1:
+    if ctx.tp_size > 1 and _ranks_share_autograd_thread(mesh):
         raise NotImplementedError(
-            f"the train step at tp_size {ctx.tp_size} is not ported yet: TP's backward "
-            "reduces activation gradients inside backward, where a one-card mesh's ranks "
-            "cannot meet (ROADMAP C6); ROADMAP A11.7b")
+            f"the train step at tp_size {ctx.tp_size} on a ThreadMesh of {mesh.device}: TP's "
+            "backward reduces activation gradients inside backward, which CUDA runs on the "
+            "device's one autograd thread, where the mesh's rank threads cannot meet "
+            "(ROADMAP C6); run one process per rank on a transport.DistMesh (over gloo the "
+            "card's tensors stage through the host)")
     sizes = mesh_axis_sizes(mesh)
     mesh_axes = tuple(mesh.axis_names)
     n_dp = math.prod(sizes[ax] for ax in ctx.dp_axes)
@@ -374,6 +395,7 @@ def make_train_step(setup: TrainSetup, batch_specs):
     specs = setup.specs
     grad_comms = dict(setup.grad_comms)
     coords = _coords(mesh)
+    local = list(mesh.local_ranks)
 
     def body(args):
         params, opt_state, batch = args
@@ -403,12 +425,12 @@ def make_train_step(setup: TrainSetup, batch_specs):
         return new_params, new_opt, metrics
 
     def step(params, opt_state, batch):
-        if len(params) != mesh.size or len(opt_state) != mesh.size:
-            raise ValueError(f"step takes one params and one opt_state tree per rank "
-                             f"({mesh.size}), got {len(params)} and {len(opt_state)}")
-        out = mesh.run(body, [(params[r], opt_state[r],
+        if len(params) != len(local) or len(opt_state) != len(local):
+            raise ValueError(f"step takes one params and one opt_state tree per local rank "
+                             f"({len(local)}), got {len(params)} and {len(opt_state)}")
+        out = mesh.run(body, [(params[i], opt_state[i],
                                _local(batch, batch_specs, coords[r], sizes))
-                              for r in range(mesh.size)])
+                              for i, r in enumerate(local)])
         return [o[0] for o in out], [o[1] for o in out], out[0][2]
 
     return step

@@ -215,7 +215,8 @@ class Model(nn.Module):
         for i in index:
             wl = _layer(stacked, i)
             if remat:
-                # a recompute's FSDP gathers take the forward's results
+                # a recompute, on any thread, finds the forward's rank
+                # handles, and its FSDP gathers take the forward's results
                 out = checkpoint.checkpoint(layer, h, wl, use_reentrant=False,
                                             context_fn=fsdp_recompute_context)
             else:

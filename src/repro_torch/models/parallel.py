@@ -22,11 +22,15 @@ thread (``core/transport.py``).
     ``tp_max`` (whose result carries no gradient, as the reference stops
     it) is an ``autograd.Function`` whose backward is the transposed
     collective: the psum of the cotangent, the same all-to-all, the
-    reduce-scatter.  That backward runs only on the rank's own thread; on
-    a one-card ``ThreadGroup`` the autograd engine runs CUDA backward
-    nodes on its device thread, where the ranks could never meet
-    (ROADMAP C6), so there it raises instead of hanging or taking a wrong
-    gradient.  The TP train step is ROADMAP A11.7b.
+    reduce-scatter, on the handle the forward captured (never the one
+    bound where backward runs).  A ``ThreadGroup`` rank's backward runs
+    only on the rank's own thread: on a one-card ``ThreadGroup`` the
+    autograd engine runs CUDA backward nodes on its device thread, where
+    the ranks could never meet (ROADMAP C6), so there it raises instead of
+    hanging or taking a wrong gradient.  A ``DistGroup`` rank's backward
+    runs on any thread of its process: ``transport.DistMesh`` (one process
+    per rank; over gloo the card's tensors stage through the host) is the
+    TP train step's route on the card (``launch/training.py``).
 
 ``ParamDef`` carries the GLOBAL shape, the reference's partition spec (a
 tuple of mesh axis names, ``None`` for a replicated dim) and an init.
@@ -155,8 +159,9 @@ class _TPCollective(torch.autograd.Function):
                 f"{ctx.what} backward of ThreadGroup rank {ctx.handle.rank} runs on thread "
                 f"{threading.current_thread().name!r}, not on the rank's own thread (the "
                 "autograd engine runs CUDA backward nodes on a device thread), so the "
-                "ranks' exchanges cannot meet; take tensor-parallel gradients through "
-                "DistGroup (one process per rank): the TP train step is ROADMAP A11.7b")
+                "ranks' exchanges cannot meet (ROADMAP C6); take tensor-parallel gradients "
+                "through a transport.DistMesh, one process per rank (DistGroup handles), "
+                "where launch.training.make_train_step runs at tp > 1")
         return ctx.bwd(ctx.handle, g), None, None, None, None
 
 

@@ -263,7 +263,7 @@ def _dist_child(rank: int, port: int, out_path: str) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=n,
                             rank=rank)
     try:
-        m = tmesh.make_hier_mesh(*DIST_TOPO, distributed=True)
+        m = tmesh.make_hier_mesh(*DIST_TOPO, distributed=True, device="cpu")
         with m.bind():
             out = _mesh_body(inputs(n, "smooth", "dist"), grad_tree(n))(rank)
         np.savez(out_path, **out)

@@ -56,9 +56,11 @@ Tolerances, relative to the largest value of the reference's result:
 A gloo ``DistMesh`` at tp = 2 (two processes, no JAX) runs the dense
 forward and decode, equal by bits to the ``ThreadMesh`` run, and a TP
 gradient (the backward's collectives on each process's own thread).  The
-refusals: ``cp_size > 1``, ``make_train_step`` at tp > 1, and
-``tp_reduce``'s backward off the rank's thread; each names ROADMAP A11.7b.
-The other families at tp > 1 are ``tests/test_torch_tp_families.py``'s.
+refusals: ``cp_size > 1`` (naming ROADMAP A11.7b) and ``tp_reduce``'s
+backward off the rank's thread (naming the ``DistMesh`` route); the train
+step at tp = 2 on a CPU ``ThreadMesh`` runs.  The other families at tp > 1
+are ``tests/test_torch_tp_families.py``'s, the train step at tp > 1
+``tests/test_torch_tp_train.py``'s.
 """
 import os
 import pathlib
@@ -84,10 +86,12 @@ from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.core import transport
 from repro_torch.core.comm import GZCommunicator
+from repro_torch.data.pipeline import SyntheticStream
 from repro_torch.launch import shapes, training
 from repro_torch.launch.mesh import ThreadMesh
 from repro_torch.models import attention, blocks, moe, parallel
 from repro_torch.models.model import Model
+from repro_torch.optim import adamw
 
 HERE = pathlib.Path(__file__).resolve().parent
 SRC = str(HERE.parent / "src")
@@ -497,12 +501,14 @@ def test_tp_backward_off_the_ranks_thread_raises(what):
     outs = transport.ThreadGroup(2, "cpu").run(body, [None, None], axis_name="model")
     x, loss = outs[0]
     # the main thread is not rank 0's: its exchange could never meet
-    with pytest.raises(RuntimeError, match="A11.7b") as err:
+    with pytest.raises(RuntimeError, match="DistMesh") as err:
         torch.autograd.grad(loss, x)
     assert "DistGroup" in str(err.value) and what in str(err.value)
 
 
 def test_cp_cache_and_tp_train_step_raise():
+    # the context-parallel cache still raises (A11.7b); the train step at
+    # tp 2 runs on the CPU ThreadMesh, each rank's backward on its thread
     with pytest.raises(NotImplementedError, match="A11.7b"):
         attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2)
     cfg = registry.get("minitron-8b", smoke=True)
@@ -510,9 +516,20 @@ def test_cp_cache_and_tp_train_step_raise():
     setup = training.make_setup(cfg, mesh)
     assert setup.ctx.tp_size == 2
     _, bspecs = shapes.train_specs(cfg, shapes.InputShape("t", 16, 2, "train"), mesh)
-    with pytest.raises(NotImplementedError, match="A11.7b") as err:
-        training.make_train_step(setup, bspecs)
-    assert "C6" in str(err.value)
+    step = training.make_train_step(setup, bspecs)
+    whole = parallel.init_params(setup.defs, torch.Generator().manual_seed(0), "cpu")
+    params = [convert.tree_map(torch.clone, p) for p in _blocks(setup, whole)]
+    opt = [adamw.adamw_init(p) for p in params]
+    batch = next(SyntheticStream(cfg, 2, 16, seed=0))
+    params, opt, m = step(params, opt, batch)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["gnorm"]))
+    assert not bool(m["skipped"]) and int(opt[0]["step"]) == int(opt[1]["step"]) == 1
+    # a leaf the model axis replicates (the norms) stays equal by bits on
+    # both ranks; a split one (wo's rows) moved on each
+    for r in range(2):
+        assert torch.equal(params[r]["final_norm"], params[0]["final_norm"])
+        assert not torch.equal(params[r]["blocks"]["mlp"]["wo"],
+                               _blocks(setup, whole)[r]["blocks"]["mlp"]["wo"])
 
 
 def test_serve_step_at_tp4_equals_tp1_decode():

@@ -66,8 +66,9 @@ gradients by bits; kernel 11's entry points raising under grad and
 working under ``no_grad``; the checkpoint round trip and the
 cross-package restore both ways; ``train_specs``, ``decode_plan`` and
 ``decode_specs`` against the reference's; the serve step; the CLI; the
-ROADMAP A11.7 settings raising with their names and ``fsdp=True``'s
-sharded specs equal to the reference's; the CLI on a host of two devices,
+A11.7 settings (``fsdp=True``'s sharded specs equal to the reference's,
+one train step at tp 2 with the replicated leaves equal on both ranks,
+the context-parallel cache raising with its name); the CLI on a host of two devices,
 sharding the weights, its checkpoint the global trees that the reference
 restores by bits.
 """
@@ -613,14 +614,24 @@ def test_a11_settings_raise_with_their_names():
     assert setup.specs == jax.tree.map(tuple, jsetup.specs, is_leaf=lambda x: isinstance(
         x, jax.sharding.PartitionSpec))
     assert setup.specs["blocks"]["mlp"]["wo"] == (None, "model", "data")
-    # model 2 (A11.7) builds the tensor-parallel context for the forward;
-    # its train step raises (A11.7b)
+    # model 2 (A11.7) builds the tensor-parallel context, and its train
+    # step (A11.7b) runs on the CPU mesh: one step, the same bits on both
+    # ranks where the spec replicates a leaf over model
     mesh = ThreadMesh((1, 2), AXES, "cpu")
     setup = training.make_setup(cfg, mesh, fsdp=False)
     assert setup.ctx.tp_size == 2
     _, bspecs = shapes.train_specs(cfg, shapes.InputShape("t", 16, 2, "train"), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
-        training.make_train_step(setup, bspecs)
+    step = training.make_train_step(setup, bspecs)
+    whole = parallel.init_params(setup.defs, torch.Generator().manual_seed(0), "cpu")
+    sizes = {"data": 1, "model": 2}
+    params = [convert.tree_map(torch.clone, training._local(whole, setup.specs, c, sizes))
+              for c in training._coords(mesh)]
+    opt = [adamw.adamw_init(p) for p in params]
+    params, opt, m = step(params, opt, next(SyntheticStream(cfg, 2, 16, seed=0)))
+    assert np.isfinite(float(m["loss"])) and not bool(m["skipped"])
+    assert _same_bits(params[0]["final_norm"], params[1]["final_norm"])
+    assert _same_bits(opt[0]["mu"]["final_norm"], opt[1]["mu"]["final_norm"])
+    # the context-parallel cache still raises (A11.7b)
     with pytest.raises(NotImplementedError, match="ROADMAP A11.7"):
         KVCacheSpec(s_total=64, cp_axis="data", cp_size=2)
     setup = training.make_setup(cfg, ThreadMesh((1, 1), AXES, "cpu"))  # one rank: fine
