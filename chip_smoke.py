@@ -360,7 +360,27 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     fails or outlives its timeout fails the phase: the others are killed
     and its log's tail printed.  Its kernels 1, 3 and 4 counts (the four
     processes' first 3 steps) go into the kernels line, replacing phase
-    29's.
+    29's;
+33. runs the context-parallel decode cache (phase ``cp-decode``):
+    minitron-8b (4 of 32 layers), zamba2-2.7b (12 of 54) and
+    seamless-m4t-medium (every layer) at every published width, bf16
+    weights from seed 0 and their f32 copies (``cfg.dtype`` with them),
+    each case a batch-1 decode whose plan ``launch.shapes.decode_plan``
+    makes: ``long_500k`` (the 8192-slot ring, positions 520,184 on, slots
+    4,088..4,103) and a 32,768-slot cache (positions 16,376 on); a global
+    cache of seeded random values (k and v in the run's dtype) as a
+    prefill would have left it, decoded 16 ``make_serve_step`` steps on a
+    ``ThreadMesh`` of ``(data 2, model 2)`` (the context split over data,
+    cp 2; minitron-8b also on ``(data 4, model 1)``, cp 4) and on the
+    unsplit ``(1, tp)`` from a copy of it.  Checks, in f32: every step's
+    logits within 1e-5 of the largest unsplit logit; every cache slot no
+    step wrote, and the first attention layer's written rows, equal by
+    bits, the rest of the cache within 1e-5 of its largest value; in bf16
+    (``long_500k`` on the first split mesh) the gaps logged.  Kernel 11
+    (seamless's cross attention, 12 launches a step and rank) counted
+    from 0 in every run against that plan and every launch held against
+    its plain version on its payload; its launches and the decode ms a
+    step (split, unsplit) go into the kernels line, replacing phase 31's.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -371,8 +391,8 @@ purpose and are held by bits to the lossless result instead).
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
 (24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28), ``fsdp``
-(29), ``tp`` (30), ``tp-families`` (31) and ``tp-train`` (32); a partial
-run prints no result lines.
+(29), ``tp`` (30), ``tp-families`` (31), ``tp-train`` (32) and
+``cp-decode`` (33); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -5406,7 +5426,10 @@ def _tp_losses(setup, params, batch):
 def _checked_flash(record):
     """Run every kernel 11 call's inputs through its plain version as well
     (no launch: the plain version is torch ops) and append (shape, dtype,
-    causal, max |err|, count outside ``FLASH_TOL``) to ``record``."""
+    causal, max |err|, count outside ``FLASH_TOL``) to ``record``, the last
+    two as 0-d device tensors: nothing waits for the card here, so the
+    checks do not serialize the rank threads (``_tp_flash_verdict`` reads
+    them)."""
     import torch
 
     from repro_torch.kernels import flash_attn
@@ -5419,11 +5442,10 @@ def _checked_flash(record):
         want = flash_attn.flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
         diff = (out.float() - want.float()).abs()
-        bad = int((diff > tol + tol * want.float().abs()).sum()) + \
-            int((~torch.isfinite(out)).sum())
+        bad = (diff > tol + tol * want.float().abs()).sum() + (~torch.isfinite(out)).sum()
         with lock:
             record.append((tuple(q.shape), tuple(k.shape), str(q.dtype), causal,
-                           float(diff.max()), bad))
+                           diff.max(), bad))
         return out
 
     flash_attn.flash_attention = wrapped
@@ -5446,7 +5468,7 @@ def _tp_flash_verdict(tag, record, want):
     by_shape = {}
     for q, k, dtype, causal, err, bad in record:
         n, worst, outside = by_shape.get((q, k, dtype, causal), (0, 0.0, 0))
-        by_shape[(q, k, dtype, causal)] = (n + 1, max(worst, err), outside + bad)
+        by_shape[(q, k, dtype, causal)] = (n + 1, max(worst, float(err)), outside + int(bad))
     for (q, k, dtype, causal), (n, worst, outside) in sorted(by_shape.items()):
         log(f"  {tag}: kernel 11 vs plain on the rank's payload q {q} k {k} {dtype} "
             f"causal={causal}: {n} launches, max |err| {worst:.3e}, {outside} outside "
@@ -6339,9 +6361,201 @@ def run_tp_train(device, records):
         f"kernels over {TP_TRAIN_STEPS} steps and {len(ranks)} processes {_nonzero(total)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the context-parallel decode cache
+# ---------------------------------------------------------------------------
+
+# (arch, tp, layers as TP_DENSE's) and the (data, model) meshes that split
+# the context of its batch-1 cache, each against the unsplit (1, tp)
+CP_MODELS = (
+    (("minitron-8b", 2, 4), ((2, 2), (4, 1))),  # of 32 layers; (4, 1) against (1, 1)
+    (("zamba2-2.7b", 2, 12), ((2, 2),)),  # of 54 layers, as tp-families
+    (("seamless-m4t-medium", 2, None), ((2, 2),)),  # 12 + 12
+)
+CP_STEPS = 16
+CP_RTOL = 1e-5  # the f32 split logits' gap over the largest unsplit logit
+# (decode shape, start position): long_500k's ring of 8192 slots from slot
+# 4,088, and a batch-1 cache of 32,768 slots from 16,376; at cp 2 and 4 both
+# runs write across a boundary between two data ranks' slices
+CP_CASES = (("long_500k", 524_288 - 8192 + 4088), ("decode-32k-batch-1", 16_376))
+
+
+def _cp_shape(name):
+    from repro_torch.launch import shapes
+
+    if name in shapes.INPUT_SHAPES:
+        return shapes.INPUT_SHAPES[name]
+    return shapes.InputShape(name, 32_768, 1, "decode")
+
+
+def _bits_equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
+def _cp_cache_gaps(split, whole, written, dtype):
+    """Hold the split run's global cache against the unsplit run's: every
+    k and v slot no step wrote equal by bits, on every rank (nothing
+    written off its owner), and the first attention layer's written rows
+    too (no combine lies on their way: the later layers' rows take its
+    rounding through their inputs); ``enc_out`` by bits.  Returns each
+    entry's largest gap over its largest unsplit value, gated at
+    ``CP_RTOL`` in f32."""
+    import torch
+
+    gaps = {}
+    for k in sorted(whole):
+        a, b = split[k], whole[k]
+        if k in ("k", "v"):
+            keep = torch.ones(a.shape[2], dtype=torch.bool, device=a.device)
+            keep[written] = False
+            if not _bits_equal(a[:, :, keep], b[:, :, keep]):
+                raise AssertionError(f"cp-decode {k}: a slot no step wrote differs")
+            if not _bits_equal(a[0], b[0]):
+                raise AssertionError(f"cp-decode {k}: the first attention layer's rows differ")
+        if k == "enc_out" and not _bits_equal(a, b):
+            raise AssertionError("cp-decode enc_out changed")
+        gaps[k] = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+        if dtype == "float32" and not gaps[k] <= CP_RTOL:
+            raise AssertionError(f"cp-decode {k}: {gaps[k]:.3e} from the unsplit cache")
+    return gaps
+
+
+def _cp_run(tag, cfg, mesh_shape, whole, cache, shape, toks, start, device):
+    """``CP_STEPS`` steps of ``make_serve_step`` for a batch-1 decode
+    ``shape`` on a ``ThreadMesh`` of the card, the weights replicated over
+    ``data``, from the global ``cache`` (written in place); kernel 11
+    counted from 0 and every launch held against its plain version.
+    Returns (each step's logits, seconds, the plan, kernel 11's
+    launches)."""
+    import torch
+
+    from repro_torch.launch import shapes, training
+    from repro_torch.launch.mesh import ThreadMesh
+
+    mesh = ThreadMesh(mesh_shape, ("data", "model"), device)
+    setup = training.make_setup(cfg, mesh, fsdp=False, remat="none")
+    sizes = training.mesh_axis_sizes(mesh)
+    params = [training._local(whole, setup.specs, c, sizes) for c in training._coords(mesh)]
+    _, cspecs, _, tspec, plan = shapes.decode_specs(cfg, shape, mesh, setup.model)
+    step = training.make_serve_step(setup, cspecs, tspec, plan)
+
+    def run():
+        return [step(params, cache, toks[:, i:i + 1], start + i)[0] for i in range(CP_STEPS)]
+
+    record = []
+    _reset_launches()
+    with _checked_flash(record), torch.no_grad():
+        logits, secs = _timed(run)
+    launches = _tp_flash_verdict(
+        tag, record, _tp_family_plan(cfg, mesh.size)[1] * CP_STEPS) if record else 0
+    return logits, secs, plan, launches
+
+
+def _cp_model(spec, meshes, device, stats):
+    """One ``CP_MODELS`` row: in f32 (weights and ``cfg.dtype``, gated) for
+    each ``CP_CASES`` case and split mesh, in bf16 (logged) for the first
+    (``long_500k`` on the row's first mesh), a global cache of seeded
+    random values (k and v in the run's dtype; the states and ``enc_out``
+    f32) as a prefill would have left it, decoded ``CP_STEPS`` steps on the
+    split mesh and on the unsplit ``(1, tp)`` from copies of it.  Returns
+    kernel 11's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.launch import shapes, training
+    from repro_torch.launch.mesh import ThreadMesh
+
+    arch, tp, _ = spec
+    base = _tp_cfg(spec)
+    model, bf16 = _family_model(base, None, device, f"; {base.n_layers} layers, tp {tp}, "
+                                f"kernel 11 {'on' if base.use_flash_kernel else 'off'}")
+    del model
+    launches = 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        whole = bf16 if dtype == "bfloat16" else convert.tree_map(lambda p: p.float(), bf16)
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (1, CP_STEPS)).astype(np.int32)).to(device)
+        for name, start in CP_CASES if dtype == "float32" else CP_CASES[:1]:
+            shape = _cp_shape(name)
+            for split in meshes if dtype == "float32" else meshes[:1]:
+                unsplit = (1, split[1])
+                umesh = ThreadMesh(unsplit, ("data", "model"), device)
+                cache, _, _, _, _ = shapes.decode_specs(
+                    cfg, shape, umesh, training.make_setup(cfg, umesh, fsdp=False).model,
+                    cache_dtype=whole["embed"].dtype)
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                whole_c = {k: torch.randn(v.shape, generator=gen, device=device).to(v.dtype)
+                           for k, v in sorted(cache.items())}
+                split_c = {k: v.clone() for k, v in whole_c.items()}
+                tag = f"cp-decode {arch} {dtype} {name}"
+                got, split_s, plan, n_split = _cp_run(f"{tag} {split}", cfg, split, whole,
+                                                      split_c, shape, toks, start, device)
+                want, whole_s, uplan, n_whole = _cp_run(f"{tag} {unsplit}", cfg, unsplit,
+                                                        whole, whole_c, shape, toks, start,
+                                                        device)
+                launches += n_split + n_whole
+                if (plan.cp_size, plan.s_local * plan.cp_size, uplan.cp_size) != \
+                        (split[0], uplan.s_local, 1):
+                    raise AssertionError(f"{tag}: plan {plan}, unsplit {uplan}")
+                gap = 0.0
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                        raise AssertionError(f"{tag} step {i}: logits {tuple(g.shape)} "
+                                             f"against {tuple(w.shape)}")
+                    gap = max(gap, float((g.float() - w.float()).abs().max()
+                                         / w.float().abs().max()))
+                if dtype == "float32" and not gap <= CP_RTOL:
+                    raise AssertionError(f"{tag} {split}: logits {gap:.3e} from the unsplit "
+                                         f"decode (bound {CP_RTOL})")
+                pos = start + np.arange(CP_STEPS)
+                written = torch.from_numpy(pos % plan.window if plan.window else pos)
+                gaps = _cp_cache_gaps(split_c, whole_c, written.to(device), dtype)
+                ms = (1e3 * split_s / CP_STEPS, 1e3 * whole_s / CP_STEPS)
+                stats.setdefault(arch, {})[f"{dtype} {name} {split}"] = [round(m, 3) for m in ms]
+                log(f"{tag} (window {plan.window}, positions {start}..{start + CP_STEPS - 1}, "
+                    f"slots {int(written[0])}..{int(written[-1])}): split {split}, cp "
+                    f"{plan.cp_size}, {plan.s_local} slots a rank, against unsplit {unsplit}: "
+                    f"logits max gap {gap:.3e} of the largest "
+                    f"({'bound %g' % CP_RTOL if dtype == 'float32' else 'logged'}); cache gaps "
+                    f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())}, the unwritten "
+                    f"slots and the first attention layer's rows equal by bits; "
+                    f"{ms[0]:.2f} ms/step split, {ms[1]:.2f} unsplit; kernel 11 launched "
+                    f"{n_split} + {n_whole} times")
+                del split_c, whole_c, got, want
+        del whole
+    del bf16
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_cp_decode(device, records):
+    """Phase 33 (module docstring).  Sets the kernels line's launches of
+    kernel 11 (seamless-m4t-medium's cross attention in this phase's decode
+    steps) and adds the phase's decode ms a step (split, unsplit)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    stats, launches = {}, 0
+    for spec, meshes in CP_MODELS:
+        launches += _cp_model(spec, meshes, device, stats)
+    rec = _record(records, "flash_attention")
+    rec["launches"] = launches
+    rec["cp_decode_ms_per_step"] = stats
+    log(f"cp-decode phase: {time.perf_counter() - t0:.1f} s; kernel 11 launched {launches} "
+        f"times, each within FLASH_TOL of its plain version")
+
+
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
           "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp", "tp",
-          "tp-families", "tp-train")
+          "tp-families", "tp-train", "cp-decode")
 
 
 def _record(records, name):
@@ -6531,6 +6745,12 @@ def main(argv=()) -> int:
         # and 4), reduce-scatters (kernels 1 and 3) and the norms' sync; its
         # kernels 1, 3 and 4 counts replace the fsdp phase's.
         run_tp_train(device, records)
+
+    if "cp-decode" in phases:
+        # This slice's main path: the context-parallel decode cache in every
+        # family's decode and serve step (kernel 11 in seamless's cross
+        # attention, on every rank at every step).
+        run_cp_decode(device, records)
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

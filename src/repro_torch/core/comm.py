@@ -870,16 +870,48 @@ class _AllToAll(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_out, _g_ovf):
-        thread = getattr(ctx.g, "thread", None)
-        if thread is not None and thread is not threading.current_thread():
-            raise RuntimeError(
-                f"all_to_all backward of ThreadGroup rank {ctx.g.rank} runs on "
-                f"thread {threading.current_thread().name!r}, not on the rank's "
-                "own thread (the autograd engine runs CUDA backward nodes on a "
-                "device thread), so the ranks' exchanges cannot meet; take "
-                "gradients through DistGroup (one process per rank)"
-            )
+        _refuse_foreign_thread(ctx.g, "all_to_all")
         return collectives._execute_all_to_all(g_out, ctx.g, ctx.cfg)[0], None, None
+
+
+class _LosslessAllToAll(torch.autograd.Function):
+    """A degraded all-to-all's fallback under grad: the exact exchange of
+    the sanitized input, whose gradient is the reference's through the
+    lossless branch of its ``lax.cond``: the same exact exchange of the
+    cotangent, zero where the input was not finite (``_sanitize``'s
+    ``where``).  Its backward runs only on a ``ThreadGroup`` rank's own
+    thread, as :class:`_AllToAll`'s."""
+
+    @staticmethod
+    def forward(ctx, x, g, cfg):
+        ctx.g = g
+        ctx.save_for_backward(torch.isfinite(x))
+        return collectives._execute_lossless("all_to_all", x, g, cfg)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        _refuse_foreign_thread(ctx.g, "all_to_all fallback")
+        # the exchange is its own transpose; the cotangent is not sanitized
+        (parts,) = ctx.g.all_to_all((g_out.reshape((ctx.g.size, -1)),))
+        g_in = parts.reshape(g_out.shape)
+        (finite,) = ctx.saved_tensors
+        zero = torch.zeros((), dtype=g_in.dtype, device=g_in.device)
+        return torch.where(finite, g_in, zero), None, None
+
+
+def _refuse_foreign_thread(g, what: str) -> None:
+    """Raise when a ``ThreadGroup`` rank's backward runs off the rank's own
+    thread (ROADMAP C6)."""
+    thread = getattr(g, "thread", None)
+    if thread is not None and thread is not threading.current_thread():
+        raise RuntimeError(
+            f"{what} backward of ThreadGroup rank {g.rank} runs on "
+            f"thread {threading.current_thread().name!r}, not on the rank's "
+            "own thread (the autograd engine runs CUDA backward nodes on a "
+            "device thread), so the ranks' exchanges cannot meet; take "
+            "gradients through DistGroup (one process per rank, a "
+            "transport.DistMesh)"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -944,7 +976,8 @@ def _degrade(op, g, axis, x, out, ovf, policy, cfg, *, root: int = 0):
     poisoned) input the compressed schedule consumed: under ``fallback``
     every rank re-runs the lossless schedule over it when the replicated
     flags say the call degraded, so the result is the exact collective of
-    the sanitized input."""
+    the sanitized input; a differentiated ``all_to_all`` takes it through
+    :class:`_LosslessAllToAll`, which carries the reference's gradient."""
     if op not in ("scatter", "broadcast") or g.rank == root:
         nf_loc = collectives._nonfinite_local(x)
     else:
@@ -954,7 +987,10 @@ def _degrade(op, g, axis, x, out, ovf, policy, cfg, *, root: int = 0):
         # the replicated flags: every rank takes the same branch
         ovf_now, nf_now = bool(overflow), bool(nonfinite)
         fell_back = policy == "fallback" and (ovf_now or nf_now)
-        if fell_back:
+        if fell_back and op == "all_to_all" and torch.is_grad_enabled() \
+                and x.requires_grad:
+            out = _LosslessAllToAll.apply(x, g, cfg)  # keeps the input's gradient
+        elif fell_back:
             out = collectives._execute_lossless(op, x, g, cfg, root=root)
         if _HEALTH_ENABLED and g.rank == 0:
             _count_health((op, repr(axis)), ovf_now, nf_now, fell_back)

@@ -45,6 +45,8 @@ def serve(argv=None):
     cfg = registry.get(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
     model = Model(cfg, ParallelCtx(), device=device, seed=args.seed)
+    # the CLI runs one rank, so it never splits the context (the split is
+    # launch.training.make_serve_step's, on a mesh with data > 1)
     plan = KVCacheSpec(s_total=args.cache_len, cp_axis=None, cp_size=1)
     shapes = model.cache_defs(args.batch, plan)
     rng = np.random.default_rng(args.seed)

@@ -10,15 +10,20 @@ dtype, no storage), a spec a tuple with one entry per dim (an axis name,
 a tuple of axis names, or None for a replicated dim).  A mesh is anything
 with ``axis_names`` and ``shape`` (``launch/mesh.py``).
 
-A decode batch that cannot fill the data axes makes the reference split
-the cache's context over ``data`` (``cp_size > 1``): here
-``KVCacheSpec`` raises for it (ROADMAP A11.7b).  The port's ``Model``
-defines the dense, vlm, audio and moe families' cache (k and v, their kv
-heads over model), MLA's (mla: the latent and rope-key rows, f32,
-replicated over model), the ssm family's (conv_x, its channels over
-model; conv_bc, replicated; the SSD state ssm, its heads over model; all
-f32), the hybrid's (both) and the encdec's (k, v and the encoder's output
-enc_out, f32, its batch on dim 0, replicated over model).
+A decode batch that fills the data axes is split over them (each cache
+entry's batch dim); one that cannot (the ``long_500k`` shape's batch of 1
+on any mesh with ``data > 1``) is whole on every rank, and the k and v
+caches' context dim is split over ``data`` instead (``KVCacheSpec.cp_size
+> 1``, the flash-decoding combine of ``models/attention.py``): the
+entries with no context dim (the MLA latent keeps ``s_total``, the conv
+and SSD states, ``enc_out``) are then replicated over ``data``, and the
+tokens too.  The port's ``Model`` defines the dense, vlm, audio and moe
+families' cache (k and v, their kv heads over model), MLA's (mla: the
+latent and rope-key rows, f32, replicated over model), the ssm family's
+(conv_x, its channels over model; conv_bc, replicated; the SSD state ssm,
+its heads over model; all f32), the hybrid's (both) and the encdec's (k,
+v and the encoder's output enc_out, f32, its batch on dim 0, replicated
+over model).
 """
 from __future__ import annotations
 
@@ -84,8 +89,8 @@ def train_specs(cfg: ModelConfig, shape: InputShape, mesh):
 
 
 def decode_plan(cfg: ModelConfig, shape: InputShape, mesh) -> KVCacheSpec:
-    """Batch-sharded cache, or the context split when the batch cannot fill
-    the data axes (which raises here: module docstring)."""
+    """Batch-sharded cache, or the context split over ``data`` when the
+    batch cannot fill the data axes (module docstring)."""
     sizes = mesh_axis_sizes(mesh)
     dp_total = sizes.get("data", 1) * sizes.get("pod", 1)
     window = 0
@@ -110,20 +115,27 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
         dp_total *= sizes[ax]
     plan = decode_plan(cfg, shape, mesh)
     tp = sizes.get("model", 1)
-    local = model.cache_defs(shape.global_batch // dp_total, plan)
+    batch_sharded = plan.cp_axis is None
+    local = model.cache_defs(shape.global_batch // dp_total if batch_sharded
+                             else shape.global_batch, plan)
     cache, specs = {}, {}
     for k, shp in local.items():
         if k not in ("k", "v", "mla", "conv_x", "conv_bc", "ssm", "enc_out"):
             raise ValueError(f"cache entry {k!r}: not one of the reference's")
-        # the batch (dim 1; enc_out's dim 0) over dp; k and v's kv heads
+        # the batch (dim 1; enc_out's dim 0) over dp, or under the context
+        # split k and v's context (dim 2) over data; k and v's kv heads
         # (dim 3), conv_x's channels (last) and the SSD state's heads (dim 2)
         # over model (the MLA latent has no model dim: it is replicated over
         # TP)
         shp = list(shp)
         spec = [None] * len(shp)
-        b_dim = 0 if k == "enc_out" else 1
-        shp[b_dim] *= dp_total
-        spec[b_dim] = _axes_entry(dp)
+        if batch_sharded:
+            b_dim = 0 if k == "enc_out" else 1
+            shp[b_dim] *= dp_total
+            spec[b_dim] = _axes_entry(dp)
+        elif k in ("k", "v"):
+            shp[2] *= plan.cp_size
+            spec[2] = "data"
         tp_dim = {"k": 3, "v": 3, "conv_x": len(shp) - 1, "ssm": 2}.get(k)
         if tp_dim is not None:
             shp[tp_dim] *= tp
@@ -131,4 +143,5 @@ def decode_specs(cfg: ModelConfig, shape: InputShape, mesh, model,
         cache[k] = _meta(tuple(shp), cache_dtype if k in ("k", "v") else torch.float32)
         specs[k] = tuple(spec)
     tokens = _meta((shape.global_batch, 1), torch.int32)
-    return cache, specs, tokens, (_axes_entry(dp), None), plan
+    tokens_spec = (_axes_entry(dp), None) if batch_sharded else (None, None)
+    return cache, specs, tokens, tokens_spec, plan

@@ -436,6 +436,14 @@ def make_train_step(setup: TrainSetup, batch_specs):
     return step
 
 
+def _apart(block, specs, axis: str):
+    """``block`` with a private clone of each leaf whose spec does not
+    split ``axis`` (a leaf the ranks along ``axis`` replicate)."""
+    leaves, rebuild = tree_flatten(block)
+    return rebuild([x if axis in _axes_in_spec(s) else x.clone()
+                    for x, s in zip(leaves, _leaf_specs(block, specs))])
+
+
 def make_serve_step(setup: TrainSetup, cache_specs, tokens_spec, plan: KVCacheSpec):
     """Returns ``step(params, cache, tokens, pos) -> (logits, cache)``:
     one ``decode_fn`` step on every rank, each on its block of the global
@@ -443,19 +451,36 @@ def make_serve_step(setup: TrainSetup, cache_specs, tokens_spec, plan: KVCacheSp
     cache), with ``params`` a list of per-rank trees.  The logits come back
     whole, the ranks' blocks of the batch in rank order (every rank of a
     ``model`` group holds its block's whole logits; the first one's are
-    taken)."""
+    taken; under the context split every rank holds the whole batch's, and
+    rank 0's are taken).
+
+    Under the context split (``plan.cp_size > 1``) the cache entries the
+    context axis replicates (the conv and SSD states, the MLA latent,
+    ``enc_out``) would be one view shared by that axis's ranks, which
+    ``decode_fn`` reads and rewrites in place with no collective between:
+    every rank off coordinate 0 of ``plan.cp_axis`` takes a private clone
+    of those blocks for the step, and the global cache keeps coordinate
+    0's writes (the replicas are equal, as the reference's ``out_specs``
+    take one of them)."""
     model, mesh = setup.model, setup.mesh
     sizes = mesh_axis_sizes(mesh)
     coords = _coords(mesh)
     firsts = [r for r, c in enumerate(coords) if c.get("model", 0) == 0]
+    cp_axis = plan.cp_axis if plan.cp_size > 1 else None
 
     def body(args):
         params, cache, tokens, pos = args
         logits, _ = model.decode_fn(params, cache, tokens, pos, plan)
         return logits
 
+    def block(cache, r):
+        out = _local(cache, cache_specs, coords[r], sizes)
+        if cp_axis is not None and coords[r][cp_axis] != 0:
+            out = _apart(out, cache_specs, cp_axis)
+        return out
+
     def step(params, cache, tokens, pos):
-        outs = mesh.run(body, [(params[r], _local(cache, cache_specs, coords[r], sizes),
+        outs = mesh.run(body, [(params[r], block(cache, r),
                                 _local(tokens, tokens_spec, coords[r], sizes), pos)
                                for r in range(mesh.size)])
         logits = torch.cat([outs[r] for r in firsts], dim=0) if tokens_spec[0] is not None \

@@ -11,9 +11,12 @@ reduced over TP (``ParallelCtx.tp_reduce``).  ``wk`` and ``wv`` are
 replicated, and each rank uses only the kv heads its q heads need
 (``_local_kv``): a contiguous slice when ``n_kv >= tp``, else one head
 shared by a replication group of ``tp / n_kv`` ranks.  So the decode
-cache is sharded over TP on its kv dim.  The full-sequence path runs
-either the chunked online softmax below (the default, the reference's
-``lax.scan`` as a loop over kv chunks) or, with
+cache is sharded over TP on its kv dim, and its context over ``data``
+when a decode batch cannot fill the data axes (``KVCacheSpec.cp_size >
+1``: each rank attends over its slice and the partial softmaxes are
+combined over the ``data`` handle, flash-decoding).  The full-sequence
+path runs either the chunked online softmax below (the default, the
+reference's ``lax.scan`` as a loop over kv chunks) or, with
 ``cfg.use_flash_kernel``, the flash-attention kernel
 (``kernels/flash_attn.py``: CUDA on the card, its plain version on the
 CPU).
@@ -25,6 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import transport
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, rope
 from repro_torch.models.parallel import ParallelCtx
@@ -166,21 +170,17 @@ def attention_train(h: torch.Tensor, w: dict, cfg: ModelConfig, ctx: ParallelCtx
 
 @dataclasses.dataclass(frozen=True)
 class KVCacheSpec:
-    """Decode cache layout: (B, S_local, kv_local, hd) per rank, the kv
-    heads sharded over TP.  ``window`` > 0 means ring-buffer semantics.
-    The context-parallel split of the sequence (``cp_size > 1``) is not
-    ported yet (ROADMAP A11.7b) and raises."""
+    """Decode cache layout: (B_local, S_local, kv_local, hd) per rank.
+
+    S (the cache context) is sharded over ``cp_axis`` (the "data" axis)
+    when the batch cannot occupy it (long-context, small batch); kv heads
+    are sharded over TP.  ``window`` > 0 means ring-buffer semantics.
+    """
 
     s_total: int
     cp_axis: str | None
     cp_size: int
     window: int = 0
-
-    def __post_init__(self):
-        if self.cp_size > 1:
-            raise NotImplementedError(
-                "a context-parallel KV cache (cp_size > 1) is not ported yet: "
-                "ROADMAP A11.7b")
 
     @property
     def s_local(self) -> int:
@@ -188,16 +188,31 @@ class KVCacheSpec:
         return s // max(self.cp_size, 1)
 
 
+def _cp_handle(spec: KVCacheSpec):
+    """This thread's rank of ``spec.cp_axis``, checked against
+    ``spec.cp_size``; None when the context is not split."""
+    if not (spec.cp_axis and spec.cp_size > 1):
+        return None
+    h = transport.current(spec.cp_axis)
+    if h.size != spec.cp_size:
+        raise ValueError(f"KVCacheSpec(cp_size={spec.cp_size}) but the group bound to "
+                         f"{spec.cp_axis!r} has {h.size} ranks")
+    return h
+
+
 def attention_decode(h: torch.Tensor, w: dict, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: int, cfg: ModelConfig,
                      ctx: ParallelCtx, spec: KVCacheSpec):
-    """One-token attention against the KV cache.
+    """One-token attention against a (possibly context-parallel) KV cache.
 
     h: (B, 1, d).  cache_k/v: (B, S_local, kv_local, hd).  pos: the absolute
     position of the incoming token (an int).  Returns (out, new_k, new_v).
     The new token's k and v are written into ``cache_k``/``cache_v`` in
-    place (the reference returns updated copies); ``new_k``/``new_v`` are
-    those same tensors.
+    place by the rank whose slice holds its slot (the reference returns
+    updated copies); ``new_k``/``new_v`` are those same tensors.  Across
+    the context-parallel axis the partial softmaxes combine as the
+    reference's flash-decoding ``pmax``/``psum``: the max of the ranks'
+    maxima, then the rank-order f32 sums of the rescaled sums and outputs.
     """
     b = h.shape[0]
     hd = cfg.head_dim
@@ -218,16 +233,17 @@ def attention_decode(h: torch.Tensor, w: dict, cache_k: torch.Tensor,
     v_new = _local_kv(v_new, cfg, ctx)
     kv_local = k_new.shape[-2]
 
-    # Which cache slot does this token land in (every slot is this rank's:
-    # the sequence is not split, cp_size is 1)?
+    # Which cache slot does this token land in, and is it mine?
     s_local = spec.s_local
-    slot = pos % spec.window if spec.window else pos
+    cp = _cp_handle(spec)
+    my_start = cp.rank * s_local if cp is not None else 0
+    slot = (pos % spec.window if spec.window else pos) - my_start
     if 0 <= slot < s_local:
         cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
         cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
 
-    # Validity of cache slots (positions covered so far, incl. the new one).
-    slot_ids = torch.arange(s_local, device=dev)
+    # Validity of cache slots (global positions covered so far, incl. the new one).
+    slot_ids = my_start + torch.arange(s_local, device=dev)
     if spec.window:
         # ring buffer: slot holds position p iff p = latest p' <= pos with
         # p' % window == slot; valid iff within the last `window` tokens.
@@ -247,6 +263,11 @@ def attention_decode(h: torch.Tensor, w: dict, cache_k: torch.Tensor,
     p = torch.exp(logits - m[..., None])
     s = torch.sum(p, dim=-1)
     o = torch.einsum("bhqk,bkhd->bhqd", p, vv.to(torch.float32))
+    if cp is not None:  # the flash-decoding combine over the context split
+        m_all = cp.max_across(m)
+        corr = torch.exp(m - m_all)
+        s = cp.sum_across(s * corr)
+        o = cp.sum_across(o * corr[..., None])
     out = (o / torch.clamp(s, min=1e-30)[..., None]).to(h.dtype)
     out = torch.movedim(out, 1, 2).reshape(b, 1, h_local * hd)
     proj = ctx.tp_reduce(torch.matmul(out, wo))

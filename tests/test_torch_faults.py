@@ -16,20 +16,26 @@ must be bitwise equal, rank by rank, for:
   * wire bitflips: silent without ``verify_streams``, detected and
     recovered with it, and aimed at schedule rounds (1,), (0, R - 1) and
     (R + 7,) of the redoub table (R rounds);
-  * the health counters, and the gradient sync's fallback buckets.
+  * the health counters, and the gradient sync's fallback buckets;
+  * the gradient through a degraded ``all_to_all`` under ``fallback``
+    (``comm._LosslessAllToAll``): the port's ``torch.autograd.grad``
+    against the reference's ``jax.grad`` through its ``lax.cond``, under a
+    forced overflow of finite data and with a NaN and an Inf in one rank's
+    input (their gradient 0), with the forward's value and flags.
 
 Also here: ``_tree_checksum`` bits, ``FaultSpec`` validation and
 ``poison_np`` against the reference's; that the wire hook never writes
 into the sender's tensor; the ``raise`` policy's message against the
 reference's ``_raise_degraded`` with every rank returning; the CPU math
 initialization that ``ThreadGroup.run`` does before its rank threads
-start; and one gloo ``DistGroup`` run at N = 3 equal to the
-``ThreadGroup`` run.
+start; one gloo ``DistGroup`` run at N = 3 equal to the ``ThreadGroup``
+run; and the degraded ``all_to_all``'s gradient on a gloo ``DistMesh`` of
+two processes equal to the ``ThreadGroup``'s.
 
 The JAX side runs in two subprocesses per N (this file under ``__main__``,
 ``jax`` mode), as in ``tests/test_torch_allreduce.py``; ``dist`` mode is
-one rank of the gloo run, ``first-math`` mode the fresh process of the
-CPU math check.
+one rank of the gloo run, ``dist-grad`` mode one rank of the gloo
+gradient run, ``first-math`` mode the fresh process of the CPU math check.
 """
 import contextlib
 import json
@@ -101,6 +107,11 @@ FLAGS = {
     "poison_inf": (False, True),
     "fault_kind_overflow_clean": (False, False),
 }
+# The degraded all_to_all under grad: case -> GZConfig kwargs.  Rough
+# data overflows the starved capacity; smooth data with a NaN and an Inf
+# on rank 1 degrades on its non-finite flag alone.
+GRAD_A2A = {"a2a_grad_overflow": OVF, "a2a_grad_nonfinite": OK}
+GRAD_A2A_BAD = {5: np.nan, 77: np.inf}  # rank 1's poisoned positions
 BITFLIP_SEEDS = 24
 GRAD_SHAPES = {"w": (64, 40), "b": [(3000,), (7,)]}  # 2 buckets of 4096
 GRAD_SYNC = dict(eb=1e-9, algo="redoub", capacity_factor=0.02, on_overflow="fallback")
@@ -133,6 +144,32 @@ def grad_tree(n):
     return {"w": leaf(GRAD_SHAPES["w"]), "b": [leaf(s) for s in GRAD_SHAPES["b"]]}
 
 
+def grad_a2a_inputs(n, case):
+    """(inputs, cotangents), each (n, n * 128) f32, the same in every
+    process."""
+    rng = _rng(n, case)
+    d = n * 128
+    if case == "a2a_grad_overflow":
+        xs = rng.normal(0, 100.0, (n, d)).astype(np.float32)
+    else:
+        xs = np.cumsum(rng.normal(0, 0.01, (n, d)), axis=1).astype(np.float32)
+        for i, v in GRAD_A2A_BAD.items():
+            xs[1, i] = v
+    return xs, rng.normal(0, 1.0, (n, d)).astype(np.float32)
+
+
+def port_grad_a2a(x, ct, n, case):
+    """This rank's (gradient, value, overflow, nonfinite) of ``sum(ct *
+    all_to_all(x).value)`` through the port's communicator, on the handle
+    bound to ``"x"``."""
+    c = GZCommunicator("x", config=GZConfig(**GRAD_A2A[case]), axis_size=n, device="cpu")
+    x = x.clone().requires_grad_(True)
+    with torch.enable_grad():
+        r = c.all_to_all(x)
+        (gx,) = torch.autograd.grad(torch.sum(r.value * ct), x)
+    return gx.numpy(), r.value.detach().numpy(), bool(r.overflow), bool(r.nonfinite)
+
+
 def redoub_rounds(n):
     return schedule.build("allreduce", "redoub", n).n_rounds
 
@@ -157,6 +194,7 @@ def _jax_child(n: int, part: int, out_path: str) -> None:
 
     pin_device_count(n)
     import jax
+    import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
     from repro.core import comm as jcomm
@@ -191,6 +229,20 @@ def _jax_child(n: int, part: int, out_path: str) -> None:
     if part == 0:
         for case, (op, cfg_kw, _, spec_kw) in CASES.items():
             save(case, run(op, cfg_kw, inputs(n, case), spec_kw))
+        for case, cfg_kw in GRAD_A2A.items():
+            c = jcomm.GZCommunicator("x", config=JGZConfig(**cfg_kw),
+                                     hw=cost_model.A100_SLINGSHOT, axis_size=n)
+
+            def gbody(x, ct, c=c):
+                gx = jax.grad(lambda v: jnp.sum(c.all_to_all(v).value * ct[0]))(x[0])
+                r = c.all_to_all(x[0])
+                return gx[None], r.value[None], r.overflow[None], r.nonfinite[None]
+
+            xs, cts = grad_a2a_inputs(n, case)
+            out = jax.jit(shard_map(gbody, mesh=mesh, in_specs=(P("x", None),) * 2,
+                                    out_specs=(P("x", None),) * 2 + (P("x"),) * 2))(xs, cts)
+            for key, a in zip(("grad", "value", "overflow", "nonfinite"), out):
+                res[f"{case}/{key}"] = np.asarray(a)
         np.savez(out_path, **res)
         return
 
@@ -260,6 +312,27 @@ def _dist_child(n: int, rank: int, port: int, out_path: str) -> None:
                 r = getattr(c, op)(x)
             res[f"{case}/value"] = r.value.numpy()
             res[f"{case}/flags"] = np.array([bool(r.overflow), bool(r.nonfinite)])
+        np.savez(out_path, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_grad_child(rank: int, port: int, out_path: str) -> None:
+    """One rank of a two-process gloo ``DistMesh``: the degraded
+    all_to_all's gradient of every ``GRAD_A2A`` case."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    try:
+        mesh = transport.DistMesh((2,), ("x",))
+        res = {}
+        for case in GRAD_A2A:
+            xs, cts = grad_a2a_inputs(2, case)
+            (out,) = mesh.run(lambda a, case=case: port_grad_a2a(*a, 2, case), [
+                (torch.from_numpy(xs[rank]), torch.from_numpy(cts[rank]))])
+            for key, a in zip(("grad", "value", "overflow", "nonfinite"), out):
+                res[f"{case}/{key}"] = np.asarray(a)
         np.savez(out_path, **res)
     finally:
         dist.destroy_process_group()
@@ -375,6 +448,59 @@ def test_policy_cases_bitwise_equal_jax(jax_results, n, case):
         _assert_bitwise(out[0], xs[0].reshape(n, -1), "exact root chunks")
     if case == "broadcast_fallback":
         _assert_bitwise(out[0], np.tile(xs[0], (n, 1)), "exact root payload")
+
+
+def _port_grad_a2a(n, case):
+    """Every rank's (gradient, value, overflow, nonfinite) on a CPU
+    ``ThreadGroup``, each rank's backward on its own thread, stacked."""
+    xs, cts = grad_a2a_inputs(n, case)
+    outs = transport.ThreadGroup(n, "cpu").run(
+        lambda a: port_grad_a2a(*a, n, case),
+        [(torch.from_numpy(x), torch.from_numpy(c)) for x, c in zip(xs, cts)])
+    return [np.stack([np.asarray(o[k]) for o in outs]) for k in range(4)]
+
+
+@pytest.mark.parametrize("case", list(GRAD_A2A))
+@pytest.mark.parametrize("n", NS)
+def test_degraded_all_to_all_gradient_bitwise_equal_jax(jax_results, n, case):
+    # the lossless fallback carries the gradient of the reference's
+    # lax.cond branch, exchanged exactly and zero where the input was not
+    # finite; the forward stays the lossless exchange of the sanitized input
+    ref = jax_results[n]
+    grad, value, ovf, nf = _port_grad_a2a(n, case)
+    _assert_bitwise(grad, ref[f"{case}/grad"], f"N={n} {case} gradient")
+    _assert_bitwise(value, ref[f"{case}/value"], f"N={n} {case} value")
+    np.testing.assert_array_equal(ovf, ref[f"{case}/overflow"])
+    np.testing.assert_array_equal(nf, ref[f"{case}/nonfinite"])
+    xs, cts = grad_a2a_inputs(n, case)
+    san = np.where(np.isfinite(xs), xs, 0.0).astype(np.float32)
+    exchanged = san.reshape(n, n, -1).transpose(1, 0, 2).reshape(n, -1)
+    _assert_bitwise(value, exchanged, f"N={n} {case} lossless exchange")
+    if case == "a2a_grad_overflow":
+        assert ovf.all() and not nf.any()
+        assert np.all(grad != 0.0)
+    else:
+        assert nf.all()
+        assert all(grad[1, i] == 0.0 for i in GRAD_A2A_BAD)
+        assert np.count_nonzero(grad == 0.0) == len(GRAD_A2A_BAD)
+
+
+def test_degraded_all_to_all_backward_off_the_ranks_thread_raises():
+    def body(a):
+        c = GZCommunicator("x", config=GZConfig(**OVF), axis_size=2, device="cpu")
+        x = a.clone().requires_grad_(True)
+        with torch.enable_grad():
+            r = c.all_to_all(x)
+        return x, torch.sum(r.value), bool(r.overflow)
+
+    xs, _ = grad_a2a_inputs(2, "a2a_grad_overflow")
+    outs = transport.ThreadGroup(2, "cpu").run(body, [torch.from_numpy(x) for x in xs])
+    x, loss, overflow = outs[0]
+    assert overflow
+    # the main thread is not rank 0's: the exchange could never meet
+    with pytest.raises(RuntimeError, match="DistMesh") as err:
+        torch.autograd.grad(loss, x)
+    assert "all_to_all fallback" in str(err.value) and "DistGroup" in str(err.value)
 
 
 @pytest.mark.parametrize("n", NS)
@@ -649,10 +775,34 @@ def test_gloo_distgroup_equals_threadgroup():
             assert list(ranks[r][f"{case}/flags"]) == [ovf[r], nf[r]]
 
 
+def test_gloo_distmesh_degraded_all_to_all_gradient_equals_threadgroup():
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, __file__, "dist-grad", str(r), str(port), outs[r]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=_child_env()) for r in range(2)]
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, f"gloo rank {r} failed:\n{logs[r]}"
+        ranks = [dict(np.load(o)) for o in outs]
+    for case in GRAD_A2A:
+        want = _port_grad_a2a(2, case)
+        assert want[2].any() or want[3].any(), case  # the call degraded
+        for r in range(2):
+            for k, key in enumerate(("grad", "value")):
+                _assert_bitwise(ranks[r][f"{case}/{key}"], want[k][r], f"{case} {key} {r}")
+            assert [bool(ranks[r][f"{case}/overflow"]), bool(ranks[r][f"{case}/nonfinite"])] \
+                == [want[2][r], want[3][r]]
+
+
 if __name__ == "__main__":
     mode = sys.argv[1]
     if mode == "jax":
         _jax_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif mode == "dist-grad":
+        _dist_grad_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     elif mode == "first-math":
         _first_math_child()
     else:

@@ -346,12 +346,12 @@ def test_unknown_family_raises():
 def test_model_parallel_contexts_raise():
     # tp_size > 1 (ROADMAP A11.7) is ported for every family
     # (tests/test_torch_tp.py, tests/test_torch_tp_families.py): a model
-    # of any family builds there; the context-parallel cache raises (A11.7b)
+    # of any family builds there; the context-parallel cache (A11.7b) is
+    # ported too (tests/test_torch_cp_decode.py): its spec splits the context
     model = Model(registry.get("mamba2-780m", smoke=True), parallel.ParallelCtx(tp_size=2),
                   params={}, device="cpu")
     assert model.param_defs()["blocks"]["ssm"]["w_x"].spec == (None, "data", "model")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2)
+    assert attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2).s_local == 32
     # fsdp_size > 1 (ROADMAP A11.6) is ported: each rank's shard of dim 1
     # gathers back into the whole weight (the exact gather: by bits)
     from repro_torch.core import transport

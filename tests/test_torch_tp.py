@@ -56,9 +56,10 @@ Tolerances, relative to the largest value of the reference's result:
 A gloo ``DistMesh`` at tp = 2 (two processes, no JAX) runs the dense
 forward and decode, equal by bits to the ``ThreadMesh`` run, and a TP
 gradient (the backward's collectives on each process's own thread).  The
-refusals: ``cp_size > 1`` (naming ROADMAP A11.7b) and ``tp_reduce``'s
-backward off the rank's thread (naming the ``DistMesh`` route); the train
-step at tp = 2 on a CPU ``ThreadMesh`` runs.  The other families at tp > 1
+refusal of ``tp_reduce``'s backward off the rank's thread (naming the
+``DistMesh`` route); a context-parallel cache's ``s_local``; the train
+step at tp = 2 on a CPU ``ThreadMesh`` runs (the context-parallel decode
+is ``tests/test_torch_cp_decode.py``'s).  The other families at tp > 1
 are ``tests/test_torch_tp_families.py``'s, the train step at tp > 1
 ``tests/test_torch_tp_train.py``'s.
 """
@@ -506,11 +507,13 @@ def test_tp_backward_off_the_ranks_thread_raises(what):
     assert "DistGroup" in str(err.value) and what in str(err.value)
 
 
-def test_cp_cache_and_tp_train_step_raise():
-    # the context-parallel cache still raises (A11.7b); the train step at
-    # tp 2 runs on the CPU ThreadMesh, each rank's backward on its thread
-    with pytest.raises(NotImplementedError, match="A11.7b"):
-        attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2)
+def test_cp_cache_splits_s_local_and_tp_train_step_runs():
+    # the context-parallel cache splits its context (or its window) over
+    # cp; the train step at tp 2 runs on the CPU ThreadMesh, each rank's
+    # backward on its thread
+    assert attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2).s_local == 32
+    assert attention.KVCacheSpec(s_total=64, cp_axis="data", cp_size=2,
+                                 window=16).s_local == 8
     cfg = registry.get("minitron-8b", smoke=True)
     mesh = ThreadMesh((1, 2), AXES, "cpu")
     setup = training.make_setup(cfg, mesh)
