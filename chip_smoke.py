@@ -316,7 +316,7 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     kernel 11's launches counted from 0 and held against the plan
     (seamless (12 + 12 + 12) x 4 = 144, internvl2 4 x 16 = 64) and every
     launch against its plain version on its own local-head payload; the
-    warm wall and busy share from one profiled call; 16
+    warm wall and busy share from one profiled call; 8
     ``make_serve_step`` steps at B=2 from an empty cache laid out by
     ``launch.shapes.decode_specs`` (seamless: 12 x 4 cross attention
     launches a step, each checked) against tp = 1's ``decode_fn``, the
@@ -333,16 +333,19 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     card) form a gloo ``transport.DistMesh`` on the one card, each its
     rank's ``_local`` block, and run 3 steps and a timed fourth of
     ``make_train_step`` (every collective on a card tensor staged through
-    the host; TP's backward collectives on each process's autograd
-    thread, remat's recompute re-bound to the forward's handles); then
+    the host; the FSDP gathers' reduce-scatters and TP's backward
+    collectives on each process's autograd thread, remat's recompute
+    re-bound to the forward's handles, gathering each layer's weights
+    again: the in-backward route a ``DistMesh`` takes); then
     the smoke config in f32 with ``fsdp_gz``: one step's gathers and
     reduce-scatters again alone on the card and on the host (the plain
     versions); then one exact step of it.  Checks: finite losses; step
     0's loss within 0.02 of tp 1's; the four processes' metrics equal by
     bits; every leaf a spec replicates and its AdamW moments equal by bits
     on the ranks that hold it, after every step; nothing flagged; kernels
-    1, 3 and 4 launched per process as the gathers', reduce-scatters' and
-    allreduces' plans say at the rank's shapes (kernel 2: none at data 2);
+    1, 3 and 4 launched per process as the gathers' (the recompute's
+    regathers counted), reduce-scatters' and allreduces' plans say at the
+    rank's shapes (kernel 2: none at data 2);
     at step 0, at the rank's own shapes, every gathered weight (kernels 1
     and 4) within the allgather's eb plus one bf16 rounding of its block
     of the global weights and equal by bits on the ``data`` peers, the
@@ -355,7 +358,8 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     every synced gradient within 1e-5 (of each leaf's largest value) of
     the CPU's.  Printed per process: the warm step's wall, its gloo
     staging (ms and bytes, timed from after the queued device work), the
-    peak memory of the steps after step 0 and the loss gap; no
+    peak memory of the steps after step 0 (beside the ``FsdpStep``
+    route's 10.74 GB, PR 35) and the loss gap; no
     device-busy share (the processes time-slice the card).  A child that
     fails or outlives its timeout fails the phase: the others are killed
     and its log's tail printed.  Its kernels 1, 3 and 4 counts (the four
@@ -366,10 +370,10 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     seamless-m4t-medium (every layer) at every published width, bf16
     weights from seed 0 and their f32 copies (``cfg.dtype`` with them),
     each case a batch-1 decode whose plan ``launch.shapes.decode_plan``
-    makes: ``long_500k`` (the 8192-slot ring, positions 520,184 on, slots
-    4,088..4,103) and a 32,768-slot cache (positions 16,376 on); a global
+    makes: ``long_500k`` (the 8192-slot ring, positions 520,188 on, slots
+    4,092..4,099) and a 32,768-slot cache (positions 16,380 on); a global
     cache of seeded random values (k and v in the run's dtype) as a
-    prefill would have left it, decoded 16 ``make_serve_step`` steps on a
+    prefill would have left it, decoded 8 ``make_serve_step`` steps on a
     ``ThreadMesh`` of ``(data 2, model 2)`` (the context split over data,
     cp 2; minitron-8b also on ``(data 4, model 1)``, cp 4) and on the
     unsplit ``(1, tp)`` from a copy of it.  Checks, in f32: every step's
@@ -380,7 +384,29 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     (seamless's cross attention, 12 launches a step and rank) counted
     from 0 in every run against that plan and every launch held against
     its plain version on its payload; its launches and the decode ms a
-    step (split, unsplit) go into the kernels line, replacing phase 31's.
+    step (split, unsplit) go into the kernels line, replacing phase 31's;
+34. runs the backward-overlapped bucketed sync (phase ``overlap``): phase
+    32's cell and four processes (the same children, ``--tp-train-child``
+    with its overlap flag) with ``overlap_sync=True`` and ``grad_gz`` ring
+    at eb 1e-4 on ``data``, buckets of the ``BucketPlan``'s size: each
+    leaf in its bucket's hook, whose backward, on the process's autograd
+    thread, sums the bucket's f32 vector over its sync signature (the
+    compressed ``data`` allreduce, kernels 1, 3 and 4, then the exact
+    ``model`` sum); 3 steps and a timed fourth.  Checks: step 0's loss
+    equal by bits to the hook-less forward's of the same weights and
+    batch; the four processes' metrics equal by bits; nothing flagged (the
+    communicators' flags and every bucket's health bit); phase 32's step-0
+    checks of the gathers and of the layer-0 ``blocks.mlp.wo``
+    reduce-scatter; at step 0 each bucket that ran a collective within
+    its allreduce's bound of the exact sum of the ranks' vectors (by bits
+    the f32 rank-order sum where no communicator sums it), then synced
+    again on the host (the plain versions, over the same ``DistMesh``),
+    equal by bits to the card's; kernels 1, 3 and 4 launched per process
+    as the buckets', gathers' (regathers counted) and reduce-scatters'
+    plans say.  Printed: the buckets, each process's warm step wall, gloo
+    staging, peak memory.  Its kernels 1, 3 and 4 counts (the four
+    processes' first 3 steps) go into the kernels line, replacing phase
+    32's.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -391,8 +417,8 @@ purpose and are held by bits to the lossless result instead).
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
 ``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
 (24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28), ``fsdp``
-(29), ``tp`` (30), ``tp-families`` (31), ``tp-train`` (32) and
-``cp-decode`` (33); a partial run prints no result lines.
+(29), ``tp`` (30), ``tp-families`` (31), ``tp-train`` (32), ``cp-decode``
+(33) and ``overlap`` (34); a partial run prints no result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -4813,6 +4839,7 @@ FSDP_CHECK_LEAF = ("blocks", "mlp", "wo")  # gathered along dim 1
 FSDP_SMOKE_N = 4  # ranks of the smoke check: the ring has N - 2 hops (kernel 2)
 FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ = 4, 64
 REPLICATED_PEAK_GB = 65.71  # phase 19's step with the weights replicated (PERF.md §5)
+FSDP_STEP_PEAK_GB = 10.74  # phase 32's process through FsdpStep, before A11.8 (PERF.md §5)
 
 
 def _leaf_paths(tree, prefix=()):
@@ -4852,14 +4879,41 @@ def _fsdp_comm(sync, n, device):
                                      auto_depth=True)
 
 
-def _fsdp_plan_launches(setup, sizes, device):
+def _local_shapes(setup, sizes):
+    """Each leaf's shape on one rank of a mesh of extents ``sizes``."""
+    from repro_torch.core.grad_sync import tree_flatten
+    from repro_torch.launch import training
+
+    return [tuple(x // math.prod(sizes[ax] for ax in training._axes_in_spec((e,)))
+                  for x, e in zip(d.shape, spec))
+            for d, spec in zip(tree_flatten(setup.defs)[0],
+                               training._leaf_specs(setup.defs, setup.specs))]
+
+
+def _rank_buckets(setup, sizes):
+    """The bucket hooks' plan on one rank (``training._bucket_plan`` of the
+    rank's local leaves): [(ops, [leaf number, ...])]."""
+    import torch
+
+    from repro_torch.launch import training
+
+    leaves = [torch.empty(s, device="meta") for s in _local_shapes(setup, sizes)]
+    return training._bucket_plan(leaves, training._leaf_specs(setup.defs, setup.specs),
+                                 tuple(setup.mesh.axis_names), dict(setup.grad_comms),
+                                 setup.bucket_bytes)
+
+
+def _fsdp_plan_launches(setup, sizes, device, regather=False):
     """Kernel launches of one FSDP train step on one rank, from the
-    schedules: every gather (``allgather`` of the rank's slice) and every
-    reduce-scatter (of the gathered slice's cotangent) of every leaf
-    sharded over ``data``, and the ``data`` allreduce of every leaf it
-    replicates, at the rank's local shapes (``sizes``: the mesh's axis
-    extents; a ``model`` extent above 1 splits them).  The ``data`` group's
-    ranks launch alike: ``_expected_launches`` counts over all of them."""
+    schedules: every gather (``allgather`` of the rank's slice; with
+    ``regather``, the in-backward route's, a layer's gathers once more in
+    remat's recompute) and every reduce-scatter (of the gathered slice's
+    cotangent) of every leaf sharded over ``data``, and the ``data``
+    allreduces of the gradient sync at the rank's local shapes (``sizes``:
+    the mesh's axis extents; a ``model`` extent above 1 splits them): one
+    a leaf it replicates, or under ``setup.overlap_sync`` one a bucket
+    (the f32 vector of its leaves).  The ``data`` group's ranks launch
+    alike: ``_expected_launches`` counts over all of them."""
     from repro_torch.core.grad_sync import tree_flatten
     from repro_torch.launch import training
     from repro_torch.models.parallel import torch_dtype
@@ -4877,14 +4931,22 @@ def _fsdp_plan_launches(setup, sizes, device):
         for k, v in _expected_launches(plan, n).items():
             total[k] += times * v
 
+    paths = _leaf_paths(setup.defs)
     for leaf, _, uses, shape in _fsdp_uses(setup):
         gathered = math.prod(shape) * n // split(specs[leaf])  # the rank's gathered slice
-        add(comm.plan("allgather", gathered // n), uses)
+        recomputed = regather and setup.ctx.remat != "none" and \
+            paths[leaf][0] in ("blocks", "enc_blocks")
+        add(comm.plan("allgather", gathered // n), uses * (2 if recomputed else 1))
         add(comm.plan("reduce_scatter", gathered), uses)
-    for d, spec in zip(tree_flatten(setup.defs)[0], specs):
-        if gcomm is not None and training._data_dim(spec, "data") is None:
-            local = tuple(x // split((e,)) for x, e in zip(d.shape, spec))
-            add(gcomm.plan("allreduce", local, torch_dtype(d.dtype)))
+    local = _local_shapes(setup, sizes)
+    if gcomm is not None and setup.overlap_sync:
+        for ops, idx in _rank_buckets(setup, sizes):
+            if ("data", gcomm) in ops:
+                add(gcomm.plan("allreduce", sum(math.prod(local[i]) for i in idx)))
+    elif gcomm is not None:
+        for d, spec, shape in zip(tree_flatten(setup.defs)[0], specs, local):
+            if training._data_dim(spec, "data") is None:
+                add(gcomm.plan("allreduce", shape, torch_dtype(d.dtype)))
     if any(v % n for v in total.values()):
         raise AssertionError(f"the plans' launches {_nonzero(total)} do not split over {n} "
                              f"ranks")
@@ -4939,6 +5001,101 @@ def _watched_fsdp(record):
     finally:
         GZCommunicator._run, FsdpStep._gather = run, gather
         FsdpStep.reduce_scatter = scatter
+
+
+@contextlib.contextmanager
+def _watched_in_backward(record, setup, params):
+    """``_watched_fsdp`` for the in-backward route, in one process of a
+    ``DistMesh`` whose rank holds ``params``: every communicator call's
+    degraded flag into ``record["flags"]``; every gather
+    (``fsdp_all_gather``'s forward, remat's regathers included) counted in
+    ``record["n_gathers"]``; while ``record["keep_gathers"]``, the first
+    gathered weight of each (leaf, slice) held at once against its slice
+    of ``record["block"]`` (the leaves before their split over ``data``:
+    the largest error past one bf16 rounding, the allgather's eb, a
+    digest) into ``record["gathers"]``, and then dropped; for
+    ``record["leaf"]``
+    the cotangent of its slice 0 (f32) and its reduce-scattered gradient,
+    in the leaf's layout, from the gather's backward."""
+    from repro_torch.core import error_budget, grad_sync
+    from repro_torch.core.comm import GZCommunicator
+    from repro_torch.core.grad_sync import tree_flatten
+
+    leaves = tree_flatten(params)[0]
+    dims = {leaf: dim for leaf, dim, _, _ in _fsdp_uses(setup)}
+    comm = _fsdp_comm(setup.ctx.fsdp_sync, setup.ctx.fsdp_size, leaves[0].device)
+    by_storage = {leaves[i].untyped_storage().data_ptr(): i for i in dims}
+    run, fn = GZCommunicator._run, grad_sync._FsdpAllGather
+    forward, backward = fn.forward, fn.backward
+
+    def slot(x):
+        """(leaf, slice index or None) of a gathered shard, by its storage."""
+        i = by_storage.get(x.untyped_storage().data_ptr())
+        if i is None:
+            return None
+        leaf = leaves[i]
+        if x.numel() == leaf.numel():
+            return i, None
+        return i, (x.storage_offset() - leaf.storage_offset()) // leaf.stride(0)
+
+    def watched_run(self, op, *a, **kw):
+        res = run(self, op, *a, **kw)
+        record["flags"].append((op, res.overflow | res.nonfinite))
+        return res
+
+    def watched_forward(ctx, x, axis_name, sync):
+        out = forward(ctx, x, axis_name, sync)
+        ctx.slot = slot(x)
+        record["n_gathers"] += 1
+        if record.get("keep_gathers") and ctx.slot and ctx.slot not in record["gathers"]:
+            leaf, index = ctx.slot
+            w = record["block"][leaf] if index is None else record["block"][leaf][index]
+            w = (w.movedim(dims[leaf], 0) if dims[leaf] else w).float()
+            eb = error_budget.lossy_hops("allgather_ring", ctx.g.size) * \
+                comm.plan("allgather", w.numel() // ctx.g.size).eb_stage
+            over = ((out.float() - w).abs() - 2.0 ** -8 * w.abs()).max().item()
+            record["gathers"][ctx.slot] = {"over": over, "eb": eb, "digest": _digest(out)}
+        return out
+
+    def watched_backward(ctx, ct):
+        out = backward(ctx, ct)
+        if ctx.slot == (record.get("leaf"), 0):
+            record["leaf_cts"][ctx.g.rank] = [ct.float()]
+            record["leaf_out"][ctx.g.rank] = out[0].movedim(0, dims[ctx.slot[0]]).float()
+        return out
+
+    GZCommunicator._run = watched_run
+    fn.forward, fn.backward = staticmethod(watched_forward), staticmethod(watched_backward)
+    try:
+        yield record
+    finally:
+        GZCommunicator._run = run
+        fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
+
+
+@contextlib.contextmanager
+def _watched_buckets(record):
+    """Wrap the bucket hooks' sync (``training._sync_bucket``): each call's
+    health bit into ``record["bucket_flags"]``, and while
+    ``record["keep_buckets"]`` each call with a collective as (ops, its f32
+    vector, the synced vector) into ``record["buckets"]``.
+    ``record["real"]`` is the unwrapped function."""
+    from repro_torch.launch import training
+
+    real = record["real"] = training._sync_bucket
+
+    def wrapped(vec, ops, handles):
+        out, flag = real(vec, ops, handles)
+        record["bucket_flags"].append(flag)
+        if ops and record.get("keep_buckets"):
+            record["buckets"].append((ops, vec.clone(), out.clone()))
+        return out, flag
+
+    training._sync_bucket = wrapped
+    try:
+        yield record
+    finally:
+        training._sync_bucket = real
 
 
 def _check_fsdp_gathers(setup, whole, record, n, device):
@@ -5352,6 +5509,7 @@ TP_DENSE = ("minitron-8b", 4, 4)  # of 32 layers; 32 heads over 8 kv: 2 kv heads
 TP_MOE = ("phi3.5-moe-42b-a6.6b", 16, 2)  # of 32 layers; 16 experts: one a rank
 TP_SMOKE = False
 TP_DECODE_STEPS = 16  # the gate reads the last step's logits
+TP_FAMILIES_DECODE_STEPS = 8  # the tp-families phase's (room for the overlap phase)
 TP_TIMED_STEPS = 8  # a decode through kernel 11 is timed again without the checks
 TP_MOE_DECODE_B = 4  # < tp: the token-padding path of the expert dispatch
 TP_DISPATCH_EB = 1e-4  # benchmarks/moe_a2a_ablation.py's eb
@@ -5553,14 +5711,14 @@ def _tp_family_plan(cfg, tp):
     return cfg.n_layers * tp, 0
 
 
-def _tp_family(spec, device, phase):
+def _tp_family(spec, device, phase, steps=TP_DECODE_STEPS):
     """One config (``TP_DENSE`` or a row of ``TP_FAMILIES``) at tp on a
     ``ThreadMesh((1, tp))`` of the card (``_tp_setup``): the loss forward
     against tp = 1 on the same bf16 weights from seed 0 within
     ``TP_RTOL["dense"]``, every rank's loss equal by bits, kernel 11's
     launches counted from 0 and held against ``_tp_family_plan`` and each
     against its plain version; the warm wall and busy share from one
-    profiled call; then ``TP_DECODE_STEPS`` steps of ``make_serve_step`` at
+    profiled call; then ``steps`` steps of ``make_serve_step`` at
     B = 2 from an empty cache (encdec: ``enc_out`` the tp = 1 encoder's
     output of one batch), kernel 11 counted and checked the same way, the
     last step's logits against tp = 1's ``decode_fn`` within
@@ -5608,7 +5766,6 @@ def _tp_family(spec, device, phase):
                 lambda: _tp_losses(setup, params, batch))
 
     # decode through make_serve_step, from an empty cache
-    steps = TP_DECODE_STEPS
     toks = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, cfg.vocab, (2, steps)).astype(np.int32)).to(device)
     enc_out = None
@@ -5832,7 +5989,7 @@ def run_tp_families(device, records):
     torch.cuda.empty_cache()
     flash = 0
     for spec in TP_FAMILIES:
-        flash += _tp_family(spec, device, "tp-families")
+        flash += _tp_family(spec, device, "tp-families", TP_FAMILIES_DECODE_STEPS)
     _record(records, "flash_attention")["launches"] = flash
     log(f"tp-families phase: {time.perf_counter() - t0:.1f} s; kernel 11 launched {flash} "
         f"times")
@@ -5868,18 +6025,19 @@ def _tp_train_cfg(smoke):
     return dataclasses.replace(registry.get(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
 
 
-def _tp_train_setup(cfg, mesh, gz, shape):
+def _tp_train_setup(cfg, mesh, gz, shape, overlap=False):
     """The phase's setup on ``mesh`` and its batch specs at ``shape``
     (batch, seq): weights sharded over ``data``, remat full; with ``gz``
     the FSDP gathers and reduce-scatters and the norms' sync through the
-    ring at ``FSDP_EB`` / ``TRAIN_EB``, else exact."""
+    ring at ``FSDP_EB`` / ``TRAIN_EB``, else exact; with ``overlap`` the
+    sync in the bucket hooks, buckets of the ``BucketPlan``'s size."""
     from repro_torch.core.collectives import GZConfig
     from repro_torch.launch import shapes, training
 
     setup = training.make_setup(
         cfg, mesh, remat="full",
         fsdp_gz=GZConfig(eb=FSDP_EB, algo="ring") if gz else None,
-        grad_gz=GZConfig(eb=TRAIN_EB, algo="ring") if gz else None)
+        grad_gz=GZConfig(eb=TRAIN_EB, algo="ring") if gz else None, overlap_sync=overlap)
     _, bspecs = shapes.train_specs(cfg, shapes.InputShape("train", shape[1], shape[0], "train"),
                                    mesh)
     return setup, bspecs
@@ -5898,31 +6056,42 @@ def _tp_train_step0(setup, mesh, coord, sizes, record, sync_record, device):
     """Step 0's checks of the kernels at the rank's own shapes, in one
     process of the phase: every gathered weight within the allgather's eb
     (plus one bf16 rounding) of the rank's tensor-parallel block of the
-    global weights (drawn again from ``SEED``); ``FSDP_CHECK_LEAF``'s
+    global weights (checked as it was gathered, ``_watched_in_backward``),
+    one check a gathered leaf or layer slice; ``FSDP_CHECK_LEAF``'s
     layer-0 reduce-scatter within its bound of the exact sum of both
-    ``data`` ranks' cotangents; ``TP_TRAIN_SYNC_LEAF``'s sync (the ``data``
-    ring, then the exact ``model`` sum) within its bound of the exact sum
-    of the four ranks' gradients.  Returns the numbers and a digest of
-    each gathered weight, for the parent to hold equal on the ``data``
-    peers."""
+    ``data`` ranks' cotangents; where ``_sync_grads`` ran (not under the
+    bucket hooks), ``TP_TRAIN_SYNC_LEAF``'s sync (the ``data`` ring, then
+    the exact ``model`` sum) within its bound of the exact sum of the four
+    ranks' gradients.  Returns the numbers and a digest of each gathered
+    weight, for the parent to hold equal on the ``data`` peers."""
     import torch
 
     from repro_torch.core import error_budget
     from repro_torch.core.grad_sync import tree_flatten
-    from repro_torch.launch import training
-    from repro_torch.models.parallel import init_params, torch_dtype
+    from repro_torch.models.parallel import torch_dtype
 
     n, rank = sizes["data"], mesh.rank
-    whole = init_params(setup.defs, torch.Generator(device=device).manual_seed(SEED), device)
-    block = training._local(whole, setup.specs, {**coord, "data": 0}, {**sizes, "data": 1})
-    worst, count = _check_fsdp_gathers(setup, block, record, n, device)
-    del whole, block
-    digests = {f"{leaf}/{index}": _digest(t) for (_, leaf, index), t in record["gathers"].items()}
+    defs = tree_flatten(setup.defs)[0]
+    want = {(leaf, index) for leaf, _, uses, shape in _fsdp_uses(setup)
+            for index in (range(uses) if len(defs[leaf].shape) > len(shape) else [None])}
+    checks = record["gathers"]
+    if set(checks) != want:
+        raise AssertionError(f"tp-train rank {rank}: gathered {sorted(checks)}, the uses "
+                             f"{sorted(want)}")
+    bad = {k: c for k, c in checks.items() if not c["over"] <= c["eb"]}
+    if bad:
+        raise AssertionError(f"tp-train rank {rank}: gathered weights past their eb: {bad}")
+    worst, count = max(c["over"] for c in checks.values()), len(checks)
+    digests = {f"{leaf}/{index}": c["digest"] for (leaf, index), c in checks.items()}
 
     ((_, (ct,)),) = record["leaf_cts"].items()
     record["leaf_cts"] = {r: [c] for r, c in enumerate(_across(mesh, "data", ct))}
     leaf_err, leaf_bound = _check_fsdp_leaf(setup, record, n, device,
                                             label=f"tp-train rank {rank}")
+    out = {"gathers": count, "gather_worst": worst, "gather_digests": digests,
+           "leaf_err": leaf_err, "leaf_bound": leaf_bound}
+    if not sync_record["leaf"]:
+        return out
 
     ((g, synced),) = sync_record["leaf"].values()
     sums = _across(mesh, "model", sum(x.double() for x in _across(mesh, "data", g)))
@@ -5944,9 +6113,65 @@ def _tp_train_step0(setup, mesh, coord, sizes, record, sync_record, device):
     if not sync_err <= sync_bound:
         raise AssertionError(f"synced {TP_TRAIN_SYNC_LEAF}: error {sync_err} > bound "
                              f"{sync_bound}")
-    return {"gathers": count, "gather_worst": worst, "gather_digests": digests,
-            "leaf_err": leaf_err, "leaf_bound": leaf_bound, "sync_err": sync_err,
-            "sync_bound": sync_bound}
+    return {**out, "sync_err": sync_err, "sync_bound": sync_bound}
+
+
+def _cpu_comm(comm):
+    """``comm`` on the CPU: the same knobs, so the same plans."""
+    from repro_torch.core.comm import GZCommunicator
+
+    return GZCommunicator(comm.axis_name, config=comm.config, policy=comm.policy, hw=comm.hw,
+                          ratio=comm.ratio, axis_size=comm._axis_size, device="cpu",
+                          auto_depth=comm._auto_depth)
+
+
+def _overlap_step0(mesh, record):
+    """Step 0's checks of the bucket hooks in one process of the overlap
+    phase, for each bucket whose sync ran a collective
+    (``_watched_buckets``): its synced vector against the exact sum of the
+    ranks' vectors over its ops' axes, within the bound of the
+    allreduces on the way (their lossy hops' ``eb_stage`` and an f32
+    rounding of each partial sum), by bits against the f32 rank-order sum
+    where no communicator sums it; then its sync again on the host (the
+    plain versions: CPU communicators of the same plans, over the same
+    ``DistMesh``), equal by bits to the card's.  Returns, by bucket, its
+    size, error, bound and the elements that differ card/host."""
+    import torch
+
+    from repro_torch.core import error_budget, transport
+
+    real = record["real"]
+    out = []
+    for ops, vec, synced in record["buckets"]:
+        exact, bound, f32 = vec.double(), 0.0, vec
+        for ax, comm in ops:
+            exact = sum(_across(mesh, ax, exact))
+            parts = _across(mesh, ax, torch.tensor(bound, dtype=torch.float64,
+                                                   device=vec.device))
+            bound = sum(float(b) for b in parts) + 2.0 ** -23 * exact.abs().max().item()
+            if comm is None:
+                f32 = None if f32 is None else _fold(_across(mesh, ax, f32))
+            else:
+                plan = comm.plan("allreduce", vec.numel())
+                bound += error_budget.lossy_hops(f"allreduce_{plan.algo}",
+                                                 comm.axis_size()) * plan.eb_stage
+                f32 = None
+        err = (synced.double() - exact).abs().max().item()
+        if f32 is not None and not torch.equal(f32.view(torch.int32), synced.view(torch.int32)):
+            raise AssertionError(f"overlap bucket {ops}: the exact sum differs from the "
+                                 f"rank-order f32 sum by bits")
+        if not err <= bound:
+            raise AssertionError(f"overlap bucket of {vec.numel()} elements: error {err} > "
+                                 f"bound {bound}")
+        cpu_ops = tuple((ax, None if c is None else _cpu_comm(c)) for ax, c in ops)
+        ((host, _),) = mesh.run(lambda v: real(v, cpu_ops, transport.bindings()), [vec.cpu()])
+        mism = int((host.view(torch.int32) != synced.cpu().view(torch.int32)).sum())
+        if mism:
+            raise AssertionError(f"overlap bucket of {vec.numel()} elements: {mism} elements "
+                                 f"differ between the card's sync and the host's")
+        out.append({"ops": [[ax, c is not None] for ax, c in ops], "numel": vec.numel(),
+                    "err": err, "bound": bound, "mism": mism})
+    return out
 
 
 def _tp_train_replay(mesh, coord, sizes, device):
@@ -5966,9 +6191,9 @@ def _tp_train_replay(mesh, coord, sizes, device):
                       training._local(whole, setup.specs, coord, sizes))
     scale = 1.0 / (setup.ctx.tp_size * setup.ctx.fsdp_size)
     kept, gathered = {}, {}
-    with _kept_fsdp_calls(kept, gathered):
+    with _kept_fsdp_calls(kept, gathered):  # FsdpStep's records: every call, in order
         mesh.run(lambda a: training._loss_and_grads(setup.model, setup.ctx, a[0], setup.specs,
-                                                   a[1], scale),
+                                                   a[1], scale, deferred=True),
                  [(params, training._local(batch, bspecs, coord, sizes))])
     ((_, calls),) = kept.items()
     sync = setup.ctx.fsdp_sync
@@ -6005,16 +6230,44 @@ def _digest(t) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def _tp_train_child(rank, port, out_dir, device_name, smoke):
-    """One rank of the phase: its process's share of the card, the gloo
-    ``DistMesh``, ``TP_TRAIN_STEPS`` steps and a timed fourth of the
-    phase's cell, step 0's checks of the kernels at the rank's shapes
-    (``_tp_train_step0``), then the smoke config's replay
-    (``_tp_train_replay``) and one exact step of it in f32.  Writes
-    ``rank<r>.json`` (each step's metrics by their bits, wall, gloo
-    staging, launches against the plans, collectives flagged, digests of
-    the leaves a spec replicates and of their AdamW moments; step 0's and
-    the replay's checks; the peak memory of the steps after step 0) and
+def _hookless_loss(setup, mesh, params, batch, sizes):
+    """The loss metric the train step reports, from a forward of the same
+    weights and batch under ``no_grad``, no hook installed (the loss is
+    computed before any gradient sync)."""
+    import torch
+
+    from repro_torch.core import transport
+
+    scale = 1.0 / (setup.ctx.tp_size * math.prod(sizes[ax] for ax in setup.ctx.dp_axes))
+
+    def body(args):
+        p, b = args
+        with torch.no_grad():
+            loss = setup.model.loss_fn(p, b) * scale
+        loss = loss / scale
+        for ax in setup.ctx.dp_axes:
+            loss = transport.current(ax).sum_across(loss) / sizes[ax]
+        return loss
+
+    (loss,) = mesh.run(body, [(params, batch)])
+    return float(loss)
+
+
+def _tp_train_child(rank, port, out_dir, device_name, smoke, overlap=False):
+    """One rank of the tp-train phase, or with ``overlap`` of the overlap
+    phase (the same cell with the bucket hooks): its process's share of
+    the card, the gloo ``DistMesh``, ``TP_TRAIN_STEPS`` steps and a timed
+    fourth of the cell, step 0's checks of the kernels at the rank's
+    shapes (``_tp_train_step0``; under ``overlap`` also
+    ``_overlap_step0``); then, in the tp-train phase, the smoke config's
+    replay (``_tp_train_replay``) and one exact step of it in f32.
+    Writes ``rank<r>.json`` (each step's metrics by their bits, wall, gloo
+    staging, launches against the plans, gathers, collectives flagged,
+    digests of the leaves a spec replicates and of their AdamW moments,
+    the step's peak memory and its peak through backward and the sync;
+    step 0's checks and, in the tp-train phase, the replay's; the peak
+    memory of the steps after step 0; under ``overlap`` the hook-less
+    loss's bits and the buckets) and, in the tp-train phase,
     ``smoke<r>.npz`` (the exact step's loss and synced gradients)."""
     import numpy as np
     import torch
@@ -6046,11 +6299,15 @@ def _tp_train_child(rank, port, out_dir, device_name, smoke):
         sizes = training.mesh_axis_sizes(mesh)
         coord = training._coords(mesh)[rank]
         cfg = _tp_train_cfg(smoke)
-        setup, bspecs = _tp_train_setup(cfg, mesh, True, (TRAIN_BATCH, TRAIN_SEQ))
+        setup, bspecs = _tp_train_setup(cfg, mesh, True, (TRAIN_BATCH, TRAIN_SEQ), overlap)
         step = training.make_train_step(setup, bspecs)
         whole = init_params(setup.defs, torch.Generator(device=device).manual_seed(SEED),
                             device)
         params = tree_map(torch.clone, training._local(whole, setup.specs, coord, sizes))
+        # the leaves before their split over data, for step 0's gathers
+        block = tree_flatten(training._local(whole, setup.specs, {**coord, "data": 0},
+                                             {**sizes, "data": 1}))[0]
+        block = [t.clone() for t in block]
         del whole
         if cuda:
             torch.cuda.empty_cache()
@@ -6059,21 +6316,44 @@ def _tp_train_child(rank, port, out_dir, device_name, smoke):
         specs = training._leaf_specs(setup.defs, setup.specs)
         replicated = [i for i, s in enumerate(specs)
                       if set(mesh.axis_names) - training._axes_in_spec(s)]
-        want = _fsdp_plan_launches(setup, sizes, device)
+        want = _fsdp_plan_launches(setup, sizes, device, regather=True)
         stream = SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
         leaf_no = _leaf_paths(setup.defs).index(FSDP_CHECK_LEAF)
-        record = {"flags": [], "gathers": {}, "keep_gathers": True, "leaf": leaf_no,
-                  "leaf_cts": {}, "leaf_out": {}, "records": {}}
+        record = {"flags": [], "gathers": {}, "keep_gathers": True, "block": block,
+                  "leaf": leaf_no, "leaf_cts": {}, "leaf_out": {}, "n_gathers": 0,
+                  "bucket_flags": [], "buckets": [], "keep_buckets": True}
+        del block
         sync_record = {"degraded": [], "check_leaf": TP_TRAIN_SYNC_LEAF, "keep_leaf": True,
                        "leaf": {}}
         out = {"rank": rank, "coord": coord, "steps": [],
                "n_params": sum(p.numel() for p in tree_flatten(params)[0]),
                "replicated": {str(i): sorted(training._axes_in_spec(specs[i]))
                               for i in replicated}}
-        with _watched_fsdp(record), _watched_sync(sync_record):
+        if overlap:
+            first = next(SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED))
+            loss = _hookless_loss(setup, mesh, params, training._local(first, bspecs, coord,
+                                                                       sizes), sizes)
+            out["hookless_bits"] = int(np.float32(loss).view(np.int32))
+            out["buckets"] = [[[[ax, c is not None] for ax, c in ops], len(idx)]
+                              for ops, idx in _rank_buckets(setup, sizes)]
+            out["bucket_bytes"] = setup.bucket_bytes
+        # the peak through forward, backward and the sync: read where the
+        # gradient norm starts, before AdamW
+        real_norm, peaks = training._global_grad_norm, []
+
+        def norm(grads, *a):
+            peaks.append(int(torch.cuda.max_memory_allocated(device)) if cuda else 0)
+            return real_norm(grads, *a)
+
+        training._global_grad_norm = norm
+        with _watched_in_backward(record, setup, params), _watched_sync(sync_record), \
+                _watched_buckets(record):
             for s in range(TP_TRAIN_STEPS + 1):
                 batch = next(stream)
+                if cuda and s:
+                    torch.cuda.reset_peak_memory_stats()
                 _reset_launches()
+                record["n_gathers"] = 0
                 staged0 = mesh.staged()
                 sync()
                 t0 = time.perf_counter()
@@ -6084,7 +6364,9 @@ def _tp_train_child(rank, port, out_dir, device_name, smoke):
                 launches = _launches()
                 flagged = [op for op, f in record["flags"] if bool(f)]
                 flagged += ["sync"] * sum(bool(d) for d in sync_record["degraded"])
+                flagged += ["bucket"] * sum(bool(f) for f in record["bucket_flags"])
                 record["flags"].clear()
+                record["bucket_flags"].clear()
                 sync_record["degraded"].clear()
                 p_leaves, mu, nu = (tree_flatten(t)[0] for t in (params, opt["mu"], opt["nu"]))
                 out["steps"].append({
@@ -6093,38 +6375,46 @@ def _tp_train_child(rank, port, out_dir, device_name, smoke):
                     "wall_s": wall, "staged_bytes": int(staged[0]),
                     "staged_s": float(staged[1]), "launches": _nonzero(launches),
                     "launches_ok": launches == want or not cuda, "flagged": flagged,
+                    "gathers": record["n_gathers"], "peak_backward_bytes": peaks[-1],
+                    "peak_bytes": int(torch.cuda.max_memory_allocated(device)) if cuda else 0,
                     "digests": {str(i): [_digest(p_leaves[i]), _digest(mu[i]), _digest(nu[i])]
                                 for i in replicated},
                     "opt_step": int(opt["step"])})
                 if s == 0:
                     out["step0"] = _tp_train_step0(setup, mesh, coord, sizes, record,
                                                    sync_record, device)
-                    record["keep_gathers"] = False
+                    if overlap:
+                        out["buckets0"] = _overlap_step0(mesh, record)
+                    record["keep_gathers"] = record["keep_buckets"] = False
                     record.pop("leaf")
+                    record.pop("block")
                     sync_record["keep_leaf"] = False
                     for k in ("gathers", "leaf_cts", "leaf_out"):
                         record[k].clear()
+                    record["buckets"].clear()
                     sync_record["leaf"].clear()
                     if cuda:
                         torch.cuda.empty_cache()
-                        torch.cuda.reset_peak_memory_stats()
+        training._global_grad_norm = real_norm
         out["want"] = _nonzero(want)
-        out["peak_bytes"] = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
+        out["peak_bytes"] = max(st["peak_bytes"] for st in out["steps"][1:])
         del params, opt, step, setup, m
         if cuda:
             torch.cuda.empty_cache()
 
-        out["replay"] = _tp_train_replay(mesh, coord, sizes, device)
-        # the smoke config in f32, exact collectives, one step's loss and
-        # synced gradients, for the parent to hold against the CPU's
-        scfg, whole, batch = _tp_train_smoke_inputs()
-        ssetup, sbspecs = _tp_train_setup(scfg, mesh, False, (FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ))
-        p = tree_map(lambda t: t.clone().to(device),
-                     training._local(whole, ssetup.specs, coord, sizes))
-        (loss, grads), = mesh.run(lambda a: _tp_train_smoke_step(ssetup, a), [
-            (p, training._local(batch, sbspecs, coord, sizes))])
-        np.savez(os.path.join(out_dir, f"smoke{rank}.npz"), loss=np.float32(loss),
-                 **{f"g{i}": g.cpu().numpy() for i, g in enumerate(grads)})
+        if not overlap:
+            out["replay"] = _tp_train_replay(mesh, coord, sizes, device)
+            # the smoke config in f32, exact collectives, one step's loss and
+            # synced gradients, for the parent to hold against the CPU's
+            scfg, whole, batch = _tp_train_smoke_inputs()
+            ssetup, sbspecs = _tp_train_setup(scfg, mesh, False,
+                                              (FSDP_SMOKE_BATCH, FSDP_SMOKE_SEQ))
+            p = tree_map(lambda t: t.clone().to(device),
+                         training._local(whole, ssetup.specs, coord, sizes))
+            (loss, grads), = mesh.run(lambda a: _tp_train_smoke_step(ssetup, a), [
+                (p, training._local(batch, sbspecs, coord, sizes))])
+            np.savez(os.path.join(out_dir, f"smoke{rank}.npz"), loss=np.float32(loss),
+                     **{f"g{i}": g.cpu().numpy() for i, g in enumerate(grads)})
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -6153,14 +6443,15 @@ def _tp_train_smoke_inputs():
 
 def _tp_train_smoke_step(setup, args):
     """One rank's loss (unscaled) and synced gradients (flatten order) of
-    one train step, before AdamW."""
+    one train step, before AdamW (the in-backward FSDP route, as the step
+    takes on a ``DistMesh`` and a CPU ``ThreadMesh``)."""
     from repro_torch.core.grad_sync import tree_flatten
     from repro_torch.launch import training
 
     params, batch = args
     scale = 1.0 / (setup.ctx.tp_size * setup.ctx.fsdp_size)
     loss, grads = training._loss_and_grads(setup.model, setup.ctx, params, setup.specs, batch,
-                                           scale)
+                                           scale, deferred=False)
     grads, degraded = training._sync_grads(tree_flatten(params)[1](grads), setup.specs,
                                            tuple(setup.mesh.axis_names), {})
     if bool(degraded):
@@ -6198,7 +6489,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _tp_train_processes(device, out_dir, smoke):
+def _tp_train_processes(device, out_dir, smoke, overlap=False):
     """Start one child a rank (``sys.executable`` on this script, never a
     fork) and wait for all of them; a child that fails or outlives
     ``TP_TRAIN_TIMEOUT`` fails the phase, the others are killed and its
@@ -6207,7 +6498,8 @@ def _tp_train_processes(device, out_dir, smoke):
     port = _free_port()
     logs = [open(os.path.join(out_dir, f"log{r}.txt"), "w") for r in range(n)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-train-child",
-                               str(r), str(port), out_dir, str(device), str(int(smoke))],
+                               str(r), str(port), out_dir, str(device), str(int(smoke)),
+                               str(int(overlap))],
                               stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(n)]
     t0 = time.perf_counter()
@@ -6236,12 +6528,106 @@ def _tp_train_processes(device, out_dir, smoke):
     return time.perf_counter() - t0
 
 
-def run_tp_train(device, records):
-    """Phase 32 (module docstring).  Sets the kernels line's launches of
-    kernels 1, 3 and 4 (the four processes' steps)."""
+def _run_processes(device, smoke, overlap=False):
+    """The phase's four children (``_tp_train_processes``), started once
+    this process has handed back the card memory it no longer uses (the
+    children share the card with it): the wall seconds, each rank's JSON
+    and, in the tp-train phase, its smoke npz."""
+    import gc
     import shutil
     import tempfile
 
+    import numpy as np
+    import torch
+
+    if device.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(device)
+        log(f"{'overlap' if overlap else 'tp-train'}: {free / 2 ** 30:.2f} of "
+            f"{total / 2 ** 30:.2f} GiB of the card free before the children start "
+            f"({torch.cuda.memory_reserved(device) / 2 ** 30:.2f} GiB held here)")
+    n = math.prod(TP_TRAIN_MESH)
+    out_dir = tempfile.mkdtemp(prefix="overlap_" if overlap else "tp_train_")
+    try:
+        wall = _tp_train_processes(device, out_dir, smoke, overlap)
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        smokes = None if overlap else [dict(np.load(os.path.join(out_dir, f"smoke{r}.npz")))
+                                       for r in range(n)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return wall, ranks, smokes
+
+
+def _check_process_steps(ranks, tag):
+    """The checks of every step of the four processes: metrics equal by
+    bits and finite, nothing flagged, launches as the plans say, AdamW's
+    step count, every replicated leaf and its moments equal by bits on
+    the ranks that hold it; then step 0's gathers equal by bits on the
+    ``data`` peers.  Returns the kernels' launches over the first
+    ``TP_TRAIN_STEPS`` steps of the four processes."""
+    total = dict.fromkeys(_launches(), 0)
+    for s in range(TP_TRAIN_STEPS + 1):
+        bits = [rk["steps"][s]["bits"] for rk in ranks]
+        if any(b != bits[0] for b in bits):
+            raise AssertionError(f"{tag} step {s}: the processes' metrics differ: {bits}")
+        m = ranks[0]["steps"][s]["metrics"]
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])):
+            raise AssertionError(f"{tag} step {s}: loss {m['loss']}, gnorm {m['gnorm']}")
+        for rk in ranks:
+            st = rk["steps"][s]
+            if st["flagged"] or not st["launches_ok"] or st["opt_step"] != s + 1:
+                raise AssertionError(f"{tag} step {s} rank {rk['rank']}: flagged "
+                                     f"{st['flagged']}, launches {st['launches']} against the "
+                                     f"plans' {rk['want']}, AdamW step {st['opt_step']}")
+            if s < TP_TRAIN_STEPS:
+                for k, v in st["launches"].items():
+                    total[k] += v
+        # every replicated leaf and its moments, equal by bits on the ranks
+        # that hold the same block (the same coordinates on its spec's axes)
+        for leaf, axes in ranks[0]["replicated"].items():
+            groups = {}
+            for rk in ranks:
+                key = tuple(rk["coord"][ax] for ax in axes)
+                groups.setdefault(key, []).append(rk["steps"][s]["digests"][leaf])
+            if any(any(d != g[0] for d in g) for g in groups.values()):
+                raise AssertionError(f"{tag} step {s}: replicated leaf {leaf} differs")
+        log(f"{tag} step {s}: loss {m['loss']:.6f} gnorm {m['gnorm']:.4f} lr {m['lr']:.3e} "
+            f"overlap_modeled {m['overlap_modeled']:.6f}, equal by bits on the {len(ranks)} "
+            f"processes; {len(ranks[0]['replicated'])} replicated leaves and their moments "
+            f"equal on the ranks that hold them; nothing flagged; "
+            f"{ranks[0]['steps'][s]['gathers']} gathers a process (remat's regathers "
+            f"included); walls " + ", ".join(
+                f"{rk['steps'][s]['wall_s'] * 1e3:.1f}" for rk in ranks) + " ms"
+            f"{' (cold)' if s == 0 else ''}")
+    # step 0's gathers equal by bits on the data peers (the same model
+    # coordinate), each already within its eb in its process
+    for j in range(TP_TRAIN_MESH[1]):
+        peers = [rk["step0"]["gather_digests"] for rk in ranks if rk["coord"]["model"] == j]
+        if any(d != peers[0] for d in peers[1:]):
+            raise AssertionError(f"{tag} step 0: the gathered weights of model rank {j} "
+                                 f"differ between its data ranks")
+    return total
+
+
+def _log_warm(ranks, tag, extra=lambda rk: ""):
+    for rk in ranks:
+        warm = rk["steps"][-1]
+        log(f"{tag} rank {rk['rank']} {rk['coord']}: {rk['n_params']} parameters; warm "
+            f"step {warm['wall_s'] * 1e3:.1f} ms; gloo staging {warm['staged_s'] * 1e3:.1f} ms "
+            f"and {warm['staged_bytes'] / 1e9:.3f} GB a step; peak "
+            f"{rk['peak_bytes'] / 1e9:.2f} GB (torch.cuda.max_memory_allocated; the FsdpStep "
+            f"route's {FSDP_STEP_PEAK_GB} GB), {warm['peak_backward_bytes'] / 1e9:.2f} GB of it "
+            f"through backward and the sync, before AdamW; launches a step "
+            f"{warm['launches']} (the plans' {rk['want']}){extra(rk)}")
+
+
+def run_tp_train(device, records):
+    """Phase 32 (module docstring).  Sets the kernels line's launches of
+    kernels 1, 3 and 4 (the four processes' steps)."""
     import numpy as np
     import torch
 
@@ -6257,9 +6643,9 @@ def run_tp_train(device, records):
     log(f"tp-train {_widths(cfg)} as published; n_layers cut 48 -> {cfg.n_layers}; mesh "
         f"(data, model) {TP_TRAIN_MESH}: {math.prod(TP_TRAIN_MESH)} processes on one card over "
         f"a gloo DistMesh, each capped at {TP_TRAIN_MEMORY_FRACTION} of the card; fsdp_gz ring "
-        f"eb {FSDP_EB}, norms' sync ring eb {TRAIN_EB}, remat full, chunked attention, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; tp 1's loss of the same weights and batch "
-        f"{ref_loss:.6f} ({time.perf_counter() - t0:.1f} s)")
+        f"eb {FSDP_EB} (the in-backward route), norms' sync ring eb {TRAIN_EB}, remat full, "
+        f"chunked attention, {TRAIN_BATCH} x {TRAIN_SEQ} tokens; tp 1's loss of the same "
+        f"weights and batch {ref_loss:.6f} ({time.perf_counter() - t0:.1f} s)")
     # the smoke step's reference: the same step on a CPU ThreadMesh
     scfg, whole, batch = _tp_train_smoke_inputs()
     cmesh = ThreadMesh(TP_TRAIN_MESH, ("data", "model"), "cpu")
@@ -6269,58 +6655,8 @@ def run_tp_train(device, records):
         (training._local(whole, csetup.specs, c, sizes), training._local(batch, cbspecs, c,
                                                                           sizes))
         for c in coords])
-    out_dir = tempfile.mkdtemp(prefix="tp_train_")
-    try:
-        wall = _tp_train_processes(device, out_dir, smoke)
-        ranks = []
-        for r in range(len(coords)):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        smokes = [dict(np.load(os.path.join(out_dir, f"smoke{r}.npz")))
-                  for r in range(len(coords))]
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
-
-    steps = TP_TRAIN_STEPS + 1
-    total = dict.fromkeys(_launches(), 0)
-    for s in range(steps):
-        bits = [rk["steps"][s]["bits"] for rk in ranks]
-        if any(b != bits[0] for b in bits):
-            raise AssertionError(f"tp-train step {s}: the processes' metrics differ: {bits}")
-        m = ranks[0]["steps"][s]["metrics"]
-        if not (math.isfinite(m["loss"]) and math.isfinite(m["gnorm"])):
-            raise AssertionError(f"tp-train step {s}: loss {m['loss']}, gnorm {m['gnorm']}")
-        for rk in ranks:
-            st = rk["steps"][s]
-            if st["flagged"] or not st["launches_ok"] or st["opt_step"] != s + 1:
-                raise AssertionError(f"tp-train step {s} rank {rk['rank']}: flagged "
-                                     f"{st['flagged']}, launches {st['launches']} against the "
-                                     f"plans' {rk['want']}, AdamW step {st['opt_step']}")
-            if s < TP_TRAIN_STEPS:
-                for k, v in st["launches"].items():
-                    total[k] += v
-        # every replicated leaf and its moments, equal by bits on the ranks
-        # that hold the same block (the same coordinates on its spec's axes)
-        for leaf, axes in ranks[0]["replicated"].items():
-            groups = {}
-            for rk in ranks:
-                key = tuple(rk["coord"][ax] for ax in axes)
-                groups.setdefault(key, []).append(rk["steps"][s]["digests"][leaf])
-            if any(any(d != g[0] for d in g) for g in groups.values()):
-                raise AssertionError(f"tp-train step {s}: replicated leaf {leaf} differs")
-        log(f"tp-train step {s}: loss {m['loss']:.6f} gnorm {m['gnorm']:.4f} lr {m['lr']:.3e}, "
-            f"equal by bits on the {len(ranks)} processes; {len(ranks[0]['replicated'])} "
-            f"replicated leaves and their moments equal on the ranks that hold them; nothing "
-            f"flagged; walls " + ", ".join(
-                f"{rk['steps'][s]['wall_s'] * 1e3:.1f}" for rk in ranks) + " ms"
-            f"{' (cold)' if s == 0 else ''}")
-    # step 0's gathers equal by bits on the data peers (the same model
-    # coordinate), each already within its eb in its process
-    for j in range(TP_TRAIN_MESH[1]):
-        peers = [rk["step0"]["gather_digests"] for rk in ranks if rk["coord"]["model"] == j]
-        if any(d != peers[0] for d in peers[1:]):
-            raise AssertionError(f"tp-train step 0: the gathered weights of model rank {j} "
-                                 f"differ between its data ranks")
+    wall, ranks, smokes = _run_processes(device, smoke)
+    total = _check_process_steps(ranks, "tp-train")
     for rk in ranks:
         c, rp = rk["step0"], rk["replay"]
         log(f"tp-train rank {rk['rank']} step 0: {c['gathers']} gathered weights within eb "
@@ -6335,13 +6671,7 @@ def run_tp_train(device, records):
     if not gap <= TP_TRAIN_RTOL:
         raise AssertionError(f"tp-train: step 0's loss {ranks[0]['steps'][0]['metrics']['loss']} "
                              f"is {gap:.3e} from tp 1's {ref_loss} (bound {TP_TRAIN_RTOL})")
-    for rk in ranks:
-        warm = rk["steps"][-1]
-        log(f"tp-train rank {rk['rank']} {rk['coord']}: {rk['n_params']} parameters; warm "
-            f"step {warm['wall_s'] * 1e3:.1f} ms; gloo staging {warm['staged_s'] * 1e3:.1f} ms "
-            f"and {warm['staged_bytes'] / 1e9:.3f} GB a step; peak "
-            f"{rk['peak_bytes'] / 1e9:.2f} GB (torch.cuda.max_memory_allocated); loss gap to "
-            f"tp 1 {gap:.3e}; launches a step {warm['launches']} (the plans' {rk['want']})")
+    _log_warm(ranks, "tp-train", lambda rk: f"; loss gap to tp 1 {gap:.3e}")
     worst = 0.0
     for r, (sm, (closs, cgrads)) in enumerate(zip(smokes, cpu)):
         worst = max(worst, abs(float(sm["loss"]) - closs) / abs(closs))
@@ -6362,6 +6692,49 @@ def run_tp_train(device, records):
 
 
 # ---------------------------------------------------------------------------
+# Phase 34: the backward-overlapped bucketed sync
+# ---------------------------------------------------------------------------
+
+
+def run_overlap(device, records):
+    """Phase 34 (module docstring).  Sets the kernels line's launches of
+    kernels 1, 3 and 4 (the four processes' steps)."""
+    import torch
+
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = _tp_train_cfg(TP_TRAIN_SMOKE)
+    wall, ranks, _ = _run_processes(device, TP_TRAIN_SMOKE, overlap=True)
+    first = ranks[0]
+    log(f"overlap: the tp-train cell ({cfg.arch_id}, {cfg.n_layers} layers, (data, model) "
+        f"{TP_TRAIN_MESH}, four gloo processes) with overlap_sync: {len(first['buckets'])} "
+        f"buckets a rank of {first['bucket_bytes']} bytes (the BucketPlan's), "
+        f"{sum(1 for ops, _ in first['buckets'] if ops)} with a collective: "
+        + "; ".join(f"{'+'.join(ax + ('(gz)' if gz else '') for ax, gz in ops) or 'none'} "
+                    f"x {k} leaves" for ops, k in first["buckets"]))
+    total = _check_process_steps(ranks, "overlap")
+    for rk in ranks:
+        loss0 = rk["steps"][0]["bits"]["loss"]
+        if loss0 != rk["hookless_bits"]:
+            raise AssertionError(f"overlap rank {rk['rank']}: step 0's loss bits {loss0} are "
+                                 f"not the hook-less forward's {rk['hookless_bits']}")
+        c = rk["step0"]
+        log(f"overlap rank {rk['rank']} step 0: loss equal by bits to the hook-less forward's; "
+            f"{c['gathers']} gathered weights within eb {FSDP_EB} (worst past one bf16 "
+            f"rounding {c['gather_worst']:.3e}); reduce-scattered "
+            f"{'.'.join(FSDP_CHECK_LEAF)} {c['leaf_err']:.3e} (bound {c['leaf_bound']:.3e}); "
+            + "; ".join(f"bucket {b['ops']} of {b['numel']} elements {b['err']:.3e} from the "
+                        f"exact sum (bound {b['bound']:.3e}), {b['mism']} elements differ "
+                        f"card/host" for b in rk["buckets0"]))
+    _log_warm(ranks, "overlap")
+    for name in ("quantize_pack", "unpack_dequantize_reduce", "unpack_dequantize"):
+        _record(records, name)["launches"] = total[name]
+    log(f"overlap phase: {time.perf_counter() - t0:.1f} s ({wall:.1f} s in the processes); "
+        f"kernels over {TP_TRAIN_STEPS} steps and {len(ranks)} processes {_nonzero(total)}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 33: the context-parallel decode cache
 # ---------------------------------------------------------------------------
 
@@ -6372,12 +6745,12 @@ CP_MODELS = (
     (("zamba2-2.7b", 2, 12), ((2, 2),)),  # of 54 layers, as tp-families
     (("seamless-m4t-medium", 2, None), ((2, 2),)),  # 12 + 12
 )
-CP_STEPS = 16
+CP_STEPS = 8
 CP_RTOL = 1e-5  # the f32 split logits' gap over the largest unsplit logit
 # (decode shape, start position): long_500k's ring of 8192 slots from slot
-# 4,088, and a batch-1 cache of 32,768 slots from 16,376; at cp 2 and 4 both
+# 4,092, and a batch-1 cache of 32,768 slots from 16,380; at cp 2 and 4 both
 # runs write across a boundary between two data ranks' slices
-CP_CASES = (("long_500k", 524_288 - 8192 + 4088), ("decode-32k-batch-1", 16_376))
+CP_CASES = (("long_500k", 524_288 - 8192 + 4092), ("decode-32k-batch-1", 16_380))
 
 
 def _cp_shape(name):
@@ -6555,7 +6928,7 @@ def run_cp_decode(device, records):
 
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
           "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp", "tp",
-          "tp-families", "tp-train", "cp-decode")
+          "tp-families", "tp-train", "cp-decode", "overlap")
 
 
 def _record(records, name):
@@ -6565,10 +6938,10 @@ def _record(records, name):
 
 
 def main(argv=()) -> int:
-    if argv and argv[0] == "--tp-train-child":  # one rank of phase 32
+    if argv and argv[0] == "--tp-train-child":  # one rank of phase 32 or 34
         sys.path.insert(0, str(SRC))
-        rank, port, out_dir, device, smoke = argv[1:6]
-        _tp_train_child(int(rank), int(port), out_dir, device, smoke == "1")
+        rank, port, out_dir, device, smoke, overlap = argv[1:7]
+        _tp_train_child(int(rank), int(port), out_dir, device, smoke == "1", overlap == "1")
         return 0
     phases = set(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv \
         else set(PHASES)
@@ -6751,6 +7124,13 @@ def main(argv=()) -> int:
         # family's decode and serve step (kernel 11 in seamless's cross
         # attention, on every rank at every step).
         run_cp_decode(device, records)
+
+    if "overlap" in phases:
+        # This slice's main path: the tp-train cell's step with the bucket
+        # hooks syncing inside backward (kernels 1, 3 and 4 in the buckets'
+        # allreduces, the FSDP gathers and reduce-scatters); its counts
+        # replace the tp-train phase's.
+        run_overlap(device, records)
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

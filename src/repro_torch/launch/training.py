@@ -14,7 +14,8 @@ a ``launch.mesh.ThreadMesh`` (``mesh.run``), eagerly:
     under ``fsdp_gz``), and its gradient is the reduce-scatter of the
     gathered weight's cotangent (kernels 1, 2 and 3 under ``fsdp_gz``),
     NaN-marked when degraded under ``skip_on_overflow``;
-  * ``_sync_grads``: every gradient leaf summed over each mesh axis absent
+  * ``_sync_grads`` after backward (or the bucket hooks inside it, under
+    ``overlap_sync``): every gradient leaf summed over each mesh axis absent
     from its spec (a sharded leaf's gradient is already summed over
     ``data``), through the axis's ``GZCommunicator`` (the compressed
     allreduce: TPU kernels 1-4, or 8-10 under ``codec="lorenzo+entropy"``)
@@ -37,24 +38,41 @@ rank that this process runs (``mesh.local_ranks``: every rank of a
 rank the same bits, so the replicated leaves stay equal by bits; callers
 that care check it rather than assume it.
 
-No FSDP collective runs on the autograd thread.  On CUDA, torch runs
-every backward of the process on the device's one autograd thread, where
-the ranks of a one-card ``ThreadMesh`` could never meet in a collective
-(ROADMAP C6).  So the FSDP reduce-scatters do not run inside backward, as
-``fsdp_all_gather``'s would: the step runs its forward under a
-``grad_sync.FsdpStep``, whose gathers run on the rank threads and are
-kept for remat's recompute (which the layer's checkpoint binds to the
-step, and to the forward's rank handles, on whatever thread it runs);
-the backward only records each gathered weight's cotangent; after
-``torch.autograd.grad`` returns, each rank reduce-scatters its records
-and sums each leaf's blocks in autograd's order, which gives the
-in-backward route's bits.  The price is memory: the step holds every
-gathered weight and every such cotangent until backward ends (on one
-card all ranks share its memory anyway).  The step takes this route on
-every mesh, a ``DistMesh`` too, where the in-backward route would be safe
-and could free each gathered weight after its layer, as ZeRO-3 does; that
-choice, and a per-layer release, are ROADMAP A11.8's.  ``_sync_grads``
-runs after backward too.
+The FSDP route goes by mesh.  Where each rank's backward runs where its
+peers can meet it (a CPU ``ThreadMesh``, whose ranks run backward on their
+own threads; a ``transport.DistMesh``, one process a rank, CUDA's
+autograd thread included; any mesh of one local rank), the step takes the
+reference's in-backward route: ``ParallelCtx.gather`` is
+``fsdp_all_gather``, whose backward reduce-scatters the cotangent inside
+backward, and remat's recompute gathers again through
+``fsdp_recompute_context`` (the reference's ``jax.checkpoint`` does the
+same), so each gathered weight is freed after its layer, as ZeRO-3 does.
+On a CUDA ``ThreadMesh`` of several ranks every backward of the process
+runs on the device's one autograd thread, where the ranks could never
+meet in a collective (ROADMAP C6).  There the step runs its forward under
+a ``grad_sync.FsdpStep``, whose gathers run on the rank threads and are
+kept for remat's recompute; the backward only records each gathered
+weight's cotangent; after ``torch.autograd.grad`` returns, each rank
+reduce-scatters its records and sums each leaf's blocks in autograd's
+order, which gives the in-backward route's bits.  That route holds every
+gathered weight and every such cotangent until backward ends.
+
+With ``overlap_sync`` (the reference's backward-overlapped bucketed sync)
+``_sync_grads`` does not run after backward: the leaves are grouped by
+their sync signature (the mesh axes absent from their specs, each with
+its communicator or None), packed last-layer-first into buckets of about
+``bucket_bytes`` f32 bytes, and each bucket is wrapped in an identity
+``autograd.Function`` (``_BucketHook``) whose backward sums the bucket's
+cotangents, flattened to one f32 vector, over those axes (the
+communicator's compressed ``allreduce`` or the exact rank-order
+``sum_across``) on the rank handles its forward captured.  Each hook's
+health bit (a NaN/Inf probe and the allreduces' flags) leaves its
+backward as the cotangent of a chained 0-d token, which also runs the
+hooks' backwards in reverse order of installation on every rank, so all
+ranks issue the same collectives in the same order.  The hooks are
+collectives inside backward, so a CUDA ``ThreadMesh`` of several ranks
+refuses them (C6); ``metrics["overlap_modeled"]`` is the cost model's
+``BucketPlan.overlap_efficiency`` for the bucket size.
 
 A mesh whose ``model`` axis is larger than 1 builds a tensor-parallel
 context (``ParallelCtx.tp_size``) for every family (``Model``): each rank
@@ -68,20 +86,20 @@ thread; on a ``DistMesh`` each process is one rank, and its backward
 its ``DistGroup``s (over gloo the card's tensors stage through the host,
 which is how four processes share one card).  A ``ThreadMesh`` of a CUDA
 device at tp > 1 is refused (``_ranks_share_autograd_thread``, C6).
-The reference's per-bucket overlap hooks (``overlap_sync``, A11.8) are
-not here yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.convert import tree_map
-from repro_torch.core import transport
+from repro_torch.core import cost_model, transport
 from repro_torch.core.collectives import GZConfig
 from repro_torch.core.comm import GZCommunicator
 from repro_torch.core.grad_sync import FsdpStep, SyncConfig, tree_flatten
@@ -89,7 +107,7 @@ from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.models.attention import KVCacheSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
-from repro_torch.models.parallel import ParallelCtx, param_specs
+from repro_torch.models.parallel import ParallelCtx, param_shapes, param_specs
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 __all__ = ["TrainSetup", "make_setup", "make_train_step", "make_serve_step"]
@@ -113,6 +131,15 @@ class TrainSetup:
     # state and says so in metrics["skipped"].  Mostly useful with
     # on_overflow="flag"; with "fallback" the values are already exact.
     skip_on_overflow: bool = False
+    # the bucketed overlap: sync each gradient bucket from a hook inside
+    # backward (instead of one pass after it)...
+    overlap_sync: bool = False
+    # ...packing whole leaves last-layer-first into buckets of about this
+    # many f32 bytes (make_setup resolves 0 to the BucketPlan's choice)...
+    bucket_bytes: int = 16 * 1024 * 1024
+    # ...with the modeled schedule for metrics["overlap_modeled"]; None
+    # when the gradient sync is exact or there is one data-parallel rank
+    overlap_plan: Optional[cost_model.BucketPlan] = None
 
 
 def _strip_axis(spec: tuple, ax: str) -> tuple:
@@ -127,6 +154,11 @@ def _strip_axis(spec: tuple, ax: str) -> tuple:
     return tuple(strip(e) for e in spec)
 
 
+def _tree_param_count(defs) -> int:
+    """The parameters of ``defs``, counted from their shapes."""
+    return sum(t.numel() for t in tree_flatten(param_shapes(defs))[0])
+
+
 def make_setup(
     cfg: ModelConfig,
     mesh,
@@ -138,6 +170,10 @@ def make_setup(
     remat: str = "full",
     fsdp: bool = True,
     skip_on_overflow: bool = False,
+    overlap_sync: bool = False,
+    bucket_bytes: int = 0,
+    overlap_tokens: int = 4096,
+    overlap_hw: Optional[cost_model.Hardware] = None,
 ) -> TrainSetup:
     """The reference's ``make_setup`` on a ``ThreadMesh`` or a
     ``transport.DistMesh`` over ``("data", "model")`` (or with ``"pod"``):
@@ -146,7 +182,11 @@ def make_setup(
     the FSDP gathers and reduce-scatters (absolute eb, NaN-marked when
     degraded under ``skip_on_overflow``); ``grad_policy`` is the
     communicators' plan policy when ``grad_gz`` leaves the algorithm open.
-    The model and its communicators run on ``mesh.device``."""
+    ``overlap_sync`` turns on the per-bucket backward hooks; ``bucket_bytes``
+    0 asks ``cost_model.best_bucket_plan`` for the bucket size at
+    ``overlap_hw`` (default ``A100_SLINGSHOT``) for a step of
+    ``overlap_tokens`` tokens, > 0 forces it.  The model and its
+    communicators run on ``mesh.device``."""
     if mesh.device is None:
         raise ValueError("make_setup needs a mesh with a device (DistMesh(..., device=...))")
     sizes = mesh_axis_sizes(mesh)
@@ -180,10 +220,20 @@ def make_setup(
     if not fsdp:
         defs = tree_map(lambda d: dataclasses.replace(d, spec=_strip_axis(d.spec, "data")),
                         defs)
+    n_dp = math.prod(sizes.get(ax, 1) for ax in dp_axes)
+    overlap_plan = None
+    if grad_gz is not None and n_dp > 1:
+        n_params = _tree_param_count(defs)
+        overlap_plan = cost_model.best_bucket_plan(
+            overlap_hw or cost_model.A100_SLINGSHOT, tree_bytes=4.0 * n_params,
+            backward_flops=4.0 * n_params * overlap_tokens, n=n_dp)
+    if bucket_bytes <= 0:
+        bucket_bytes = overlap_plan.bucket_bytes if overlap_plan else SyncConfig().bucket_bytes
     return TrainSetup(
         cfg=cfg, ctx=ctx, model=model, mesh=mesh, defs=defs, specs=param_specs(defs),
         opt=opt, grad_gz=grad_gz, grad_comms=grad_comms,
-        skip_on_overflow=skip_on_overflow,
+        skip_on_overflow=skip_on_overflow, overlap_sync=overlap_sync,
+        bucket_bytes=bucket_bytes, overlap_plan=overlap_plan,
     )
 
 
@@ -246,6 +296,130 @@ def _sync_grads(grads, specs, mesh_axes, grad_comms: dict):
     return rebuild(out), flag
 
 
+# ---------------------------------------------------------------------------
+# The backward-overlapped bucketed sync
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _BucketMeta:
+    """One bucket hook: ``ops``, the leaves' shared sync signature
+    ((axis, communicator or None), ...) over the mesh axes absent from
+    their specs, in mesh order (the reduction ``_sync_grads`` would apply
+    after backward), and each leaf's shape and dtype."""
+
+    ops: tuple
+    shapes: tuple
+    dtypes: tuple
+
+
+def _check_own_thread(handle, what: str) -> None:
+    """Raise if ``handle`` is a rank of a ``ThreadGroup`` of several ranks
+    and this is not its thread: its peers could never meet it here."""
+    thread = getattr(handle, "thread", None)
+    if handle.size > 1 and thread is not None and thread is not threading.current_thread():
+        raise RuntimeError(
+            f"{what} of ThreadGroup rank {handle.rank} runs on thread "
+            f"{threading.current_thread().name!r}, not on the rank's own thread (the "
+            "autograd engine runs CUDA backward nodes on a device thread), so the ranks' "
+            "collectives cannot meet (ROADMAP C6); run one process per rank on a "
+            "transport.DistMesh (DistGroup handles)")
+
+
+def _sync_bucket(vec: torch.Tensor, ops, handles: dict):
+    """A bucket's f32 vector summed over each ``(axis, communicator or
+    None)`` of ``ops`` on ``handles`` (the compressed ``allreduce``, or the
+    exact rank-order ``sum_across``), and its health bit: the NaN/Inf probe
+    of ``vec`` (a NaN-marked FSDP reduce-scatter shows here even when the
+    bucket needs no collective of its own) ORed with every allreduce's
+    flags."""
+    flag = ~torch.isfinite(vec).all()
+    with transport.bound(handles):
+        for ax, comm in ops:
+            if comm is None:
+                vec = handles[ax].sum_across(vec)
+            else:
+                res = comm.allreduce(vec, group=handles[ax])
+                vec = res.value
+                flag = flag | res.overflow | res.nonfinite
+    return vec, flag
+
+
+class _BucketHook(torch.autograd.Function):
+    """The identity on ``(token, *leaves)``; its backward syncs the bucket's
+    cotangents on the rank handles the forward captured (on whatever
+    thread autograd runs it) and adds the bucket's health bit to the
+    token's cotangent, the one way out of a backward."""
+
+    @staticmethod
+    def forward(ctx, meta, handles, token, *leaves):
+        ctx.meta, ctx.handles = meta, handles
+        return (token.view_as(token),) + tuple(x.view_as(x) for x in leaves)
+
+    @staticmethod
+    def backward(ctx, g_token, *gs):
+        meta, handles = ctx.meta, ctx.handles
+        for ax, _ in meta.ops:
+            _check_own_thread(handles[ax], "a bucket hook's backward")
+        flat = [g.to(torch.float32).reshape(-1) for g in gs]
+        vec, flag = _sync_bucket(flat[0] if len(flat) == 1 else torch.cat(flat), meta.ops,
+                                 handles)
+        outs, off = [], 0
+        for shape, dt in zip(meta.shapes, meta.dtypes):
+            size = math.prod(shape)
+            # a tensor of its own, as the reference's: a view into ``vec``
+            # would start off the allocator's alignment, and torch's CPU
+            # sums (the gradient norm's) split an unaligned tensor otherwise
+            outs.append(vec[off:off + size].reshape(shape).to(dt, copy=True))
+            off += size
+        return (None, None, g_token + flag.to(g_token.dtype), *outs)
+
+
+def _bucket_plan(leaves, leaf_specs, mesh_axes, grad_comms: dict, bucket_bytes: int) -> list:
+    """The buckets of ``_install_bucket_hooks``, in order of installation:
+    [(ops, [leaf number, ...])].  Leaves are grouped by sync signature
+    (groups in order of first appearance: one bucket must mean one
+    collective), then packed greedily, whole, walking each group's flatten
+    order backward (the tree's tail first, as backward completes it), up
+    to ``bucket_bytes`` of f32 (``numel * 4``, whatever the dtype)."""
+    groups: dict = {}
+    for i, spec in enumerate(leaf_specs):
+        present = _axes_in_spec(spec)
+        ops = tuple((ax, grad_comms.get(ax)) for ax in mesh_axes if ax not in present)
+        groups.setdefault(ops, []).append(i)
+    out = []
+    for ops, idxs in groups.items():
+        bucket, pending = [], 0
+        for i in reversed(idxs):
+            bucket.append(i)
+            pending += leaves[i].numel() * 4
+            if pending < bucket_bytes and i != idxs[0]:
+                continue
+            out.append((ops, bucket))
+            bucket, pending = [], 0
+    return out
+
+
+def _install_bucket_hooks(params, specs, mesh_axes, grad_comms: dict, bucket_bytes: int,
+                          token):
+    """Wrap every leaf of ``params`` in its bucket's sync hook
+    (``_bucket_plan``), the 0-d f32 ``token`` chained through every hook.
+    The hooks capture this thread's rank handles.  Returns
+    ``(hooked_params, token_out, n_buckets)``."""
+    leaves, rebuild = tree_flatten(params)
+    handles = transport.bindings()
+    new = list(leaves)
+    plan = _bucket_plan(leaves, _leaf_specs(params, specs), mesh_axes, grad_comms,
+                        bucket_bytes)
+    for ops, bucket in plan:
+        meta = _BucketMeta(ops=ops, shapes=tuple(tuple(leaves[j].shape) for j in bucket),
+                           dtypes=tuple(leaves[j].dtype for j in bucket))
+        token, *outs = _BucketHook.apply(meta, handles, token, *(new[j] for j in bucket))
+        for j, o in zip(bucket, outs):
+            new[j] = o
+    return rebuild(new), token, len(plan)
+
+
 def _skip_merge(degraded, new_tree, old_tree):
     """Keep ``old_tree`` where this step degraded (a 0-d bool tensor, the
     same on every rank), else take ``new_tree``: the GradScaler-style skip,
@@ -265,7 +439,10 @@ def _global_grad_norm(grads, specs, sizes: dict) -> torch.Tensor:
     for g, s in zip(leaves, _leaf_specs(grads, specs)):
         present = _axes_in_spec(s)
         rep = math.prod(sizes[ax] for ax in mesh_axes if ax not in present)
-        total = total + torch.sum(torch.square(g.to(torch.float32))) / rep
+        # summed in the leaf's logical order, whatever layout autograd gave
+        # it (a transposed gradient would sum in another order): the
+        # post-hoc sync keeps that layout, the bucket hooks do not
+        total = total + torch.sum(torch.square(g.to(torch.float32).contiguous())) / rep
     for ax in mesh_axes:
         total = transport.current(ax).sum_across(total)
     return torch.sqrt(total)
@@ -328,32 +505,49 @@ def _data_dim(spec, axis: str):
     return None
 
 
-def _loss_and_grads(model, ctx: ParallelCtx, params, specs, batch, scale: float):
+def _loss_and_grads(model, ctx: ParallelCtx, params, specs, batch, scale: float,
+                    deferred: bool = True):
     """One rank's ``loss * scale`` and the gradient of each leaf of its
-    ``params`` (flatten order), with no collective inside backward: under
-    FSDP the forward runs in a ``FsdpStep``, whose reduce-scatters run
-    here, on the rank thread, once backward has returned.  That holds
-    every gathered weight and cotangent until then, on any group: the
-    one-card rule, not yet a choice per group (module docstring)."""
+    ``params`` (flatten order; zeros where autograd gives none, as JAX
+    does).  Under FSDP with ``deferred`` the forward runs in a
+    ``FsdpStep``, whose reduce-scatters run here, on the rank thread, once
+    backward has returned (the route of a mesh whose ranks share CUDA's
+    autograd thread); else every gather is ``fsdp_all_gather``, whose
+    reduce-scatter runs inside backward (module docstring)."""
     leaves, rebuild = tree_flatten(params)
     # Views of this rank's weights that autograd tracks; the update writes
-    # the weights themselves once backward has returned.  On CUDA, torch
-    # runs every backward of the process on the device's one autograd
-    # thread, so the ranks' backwards take turns there; nothing inside
-    # them waits on another rank, so they cannot deadlock.
+    # the weights themselves once backward has returned.
     req = [p.detach().requires_grad_(True) for p in leaves]
-    if ctx.fsdp_size == 1:
-        with torch.enable_grad():
-            loss = model.loss_fn(rebuild(req), batch) * scale
-            grads = torch.autograd.grad(loss, req)
-        return loss.detach(), list(grads)
-    dims = [_data_dim(s, ctx.fsdp_axis) for s in _leaf_specs(params, specs)]
-    fs = FsdpStep(ctx.fsdp_axis, ctx.fsdp_sync, req, dims)
+    fs = None
+    if deferred and ctx.fsdp_size > 1:
+        dims = [_data_dim(s, ctx.fsdp_axis) for s in _leaf_specs(params, specs)]
+        fs = FsdpStep(ctx.fsdp_axis, ctx.fsdp_sync, req, dims)
     with torch.enable_grad():
-        with fs.forward():
+        with fs.forward() if fs is not None else contextlib.nullcontext():
             loss = model.loss_fn(rebuild(req), batch) * scale
         grads = torch.autograd.grad(loss, req, allow_unused=True)
-    return loss.detach(), fs.reduce_scatter(grads)
+    if fs is not None:
+        return loss.detach(), fs.reduce_scatter(grads)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g for g, p in zip(grads, req)]
+
+
+def _overlapped_loss_and_grads(model, params, specs, batch, scale: float, mesh_axes,
+                               grad_comms: dict, bucket_bytes: int):
+    """The reference's overlapped branch on one rank: ``loss * scale``, the
+    synced gradient of each leaf (flatten order) and ``degraded``, from
+    ``torch.autograd.grad`` over the leaves and a 0-d f32 token chained
+    through every bucket hook (``0.0 * token`` gives the chain its edge to
+    the loss without changing it; each hook adds its health bit to the
+    token's gradient).  FSDP takes the in-backward route."""
+    leaves, rebuild = tree_flatten(params)
+    req = [p.detach().requires_grad_(True) for p in leaves]
+    token = torch.zeros((), dtype=torch.float32, device=req[0].device, requires_grad=True)
+    with torch.enable_grad():
+        hooked, tok_out, _ = _install_bucket_hooks(rebuild(req), specs, mesh_axes, grad_comms,
+                                                   bucket_bytes, token)
+        loss = model.loss_fn(hooked, batch) * scale + 0.0 * tok_out
+        *grads, g_token = torch.autograd.grad(loss, req + [token])
+    return loss.detach(), grads, g_token > 0
 
 
 def _coords(mesh) -> list:
@@ -378,16 +572,25 @@ def make_train_step(setup: TrainSetup, batch_specs):
     batch (numpy or tensors), split by ``batch_specs``.  ``metrics`` are
     the first local rank's ``loss``, ``gnorm``, ``lr``, ``skipped`` and
     ``overlap_modeled`` (0-d tensors); every rank computes the same bits
-    (rank-order sums over the mesh).  At tp > 1 a ``ThreadMesh`` of a
-    CUDA device raises (module docstring)."""
+    (rank-order sums over the mesh).
+
+    FSDP takes the in-backward route, except on a ``ThreadMesh`` of
+    several ranks of a CUDA device, where it takes ``FsdpStep``; with
+    ``setup.overlap_sync`` the bucket hooks sync the gradients inside
+    backward in place of ``_sync_grads`` (module docstring).  At tp > 1,
+    or with ``overlap_sync``, a ``ThreadMesh`` of several ranks of a CUDA
+    device raises: both are collectives inside backward (C6)."""
     ctx, model, mesh = setup.ctx, setup.model, setup.mesh
-    if ctx.tp_size > 1 and _ranks_share_autograd_thread(mesh):
+    shared = _ranks_share_autograd_thread(mesh)
+    if shared and (ctx.tp_size > 1 or setup.overlap_sync):
+        what = (f"the train step at tp_size {ctx.tp_size}" if ctx.tp_size > 1
+                else "the overlapped gradient sync (overlap_sync)")
         raise NotImplementedError(
-            f"the train step at tp_size {ctx.tp_size} on a ThreadMesh of {mesh.device}: TP's "
-            "backward reduces activation gradients inside backward, which CUDA runs on the "
-            "device's one autograd thread, where the mesh's rank threads cannot meet "
-            "(ROADMAP C6); run one process per rank on a transport.DistMesh (over gloo the "
-            "card's tensors stage through the host)")
+            f"{what} on a ThreadMesh of {mesh.device}: its collectives run inside backward, "
+            "which CUDA runs on the device's one autograd thread, where the mesh's rank "
+            "threads cannot meet (ROADMAP C6); run one process per rank on a "
+            "transport.DistMesh (over gloo the card's tensors stage through the host)")
+    deferred = shared and ctx.fsdp_size > 1
     sizes = mesh_axis_sizes(mesh)
     mesh_axes = tuple(mesh.axis_names)
     n_dp = math.prod(sizes[ax] for ax in ctx.dp_axes)
@@ -396,12 +599,20 @@ def make_train_step(setup: TrainSetup, batch_specs):
     grad_comms = dict(setup.grad_comms)
     coords = _coords(mesh)
     local = list(mesh.local_ranks)
+    overlap_modeled = float(setup.overlap_plan.overlap_efficiency
+                            if setup.overlap_sync and setup.overlap_plan is not None else 0.0)
 
     def body(args):
         params, opt_state, batch = args
-        loss, grads = _loss_and_grads(model, ctx, params, specs, batch, scale)
-        grads, degraded = _sync_grads(tree_flatten(params)[1](grads), specs, mesh_axes,
-                                      grad_comms)
+        rebuild = tree_flatten(params)[1]
+        if setup.overlap_sync:
+            loss, grads, degraded = _overlapped_loss_and_grads(
+                model, params, specs, batch, scale, mesh_axes, grad_comms, setup.bucket_bytes)
+            grads = rebuild(grads)
+        else:
+            loss, grads = _loss_and_grads(model, ctx, params, specs, batch, scale,
+                                          deferred=deferred)
+            grads, degraded = _sync_grads(rebuild(grads), specs, mesh_axes, grad_comms)
         loss = loss / scale
         for ax in ctx.dp_axes:
             loss = transport.current(ax).sum_across(loss) / sizes[ax]
@@ -418,10 +629,9 @@ def make_train_step(setup: TrainSetup, batch_specs):
             new_params = _skip_merge(degraded, new_params, old_params)
             new_opt = _skip_merge(degraded, new_opt, old_opt)
             skipped = degraded
-        # no overlap hooks yet (ROADMAP A11.8): the reference's value without them
         metrics = {"loss": loss, "gnorm": om["gnorm"], "lr": om["lr"], "skipped": skipped,
-                   "overlap_modeled": torch.zeros((), dtype=torch.float32,
-                                                  device=loss.device)}
+                   "overlap_modeled": torch.full((), overlap_modeled, dtype=torch.float32,
+                                                 device=loss.device)}
         return new_params, new_opt, metrics
 
     def step(params, opt_state, batch):

@@ -368,7 +368,7 @@ def test_deferred_route_equals_in_backward_route_by_bits(monkeypatch, arch, dtyp
     sharded = [training._data_dim(s, "data") is not None
                for s in training._leaf_specs(setup.defs, setup.specs)]
     assert any(sharded) and not all(sharded)
-    real_sync = training._sync_grads
+    real_sync, real_grads = training._sync_grads, training._loss_and_grads
     runs = {}
     for name in ("deferred", "in_backward"):
         first = {}  # each rank's step-0 gradients, as _sync_grads gets them
@@ -380,8 +380,14 @@ def test_deferred_route_equals_in_backward_route_by_bits(monkeypatch, arch, dtyp
             return real_sync(grads, *a)
 
         monkeypatch.setattr(training, "_sync_grads", sync)
+        # each route forced: a CPU ThreadMesh's step takes the in-backward
+        # one by itself, FsdpStep only where CUDA's ranks share a thread
         if name == "in_backward":
-            monkeypatch.setattr(training, "_loss_and_grads", _in_backward_grads)
+            monkeypatch.setattr(training, "_loss_and_grads",
+                                lambda *a, deferred: _in_backward_grads(*a))
+        else:
+            monkeypatch.setattr(training, "_loss_and_grads",
+                                lambda *a, **kw: real_grads(*a, **{**kw, "deferred": True}))
         step = training.make_train_step(setup, bspecs)
         p = [convert.tree_map(torch.clone, t) for t in params]
         o = [adamw.adamw_init(t) for t in p]
