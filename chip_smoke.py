@@ -171,8 +171,8 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
 21. forces an overflow (``core/faults.py``) under ``skip_on_overflow`` at
     smoke size: the step is skipped with params and opt state equal by
     bits to its inputs, and the next clean step applies;
-22. runs the train CLI (``launch.train.train``, smoke config, 12 steps,
-    ring) on the card: its final loss below its first;
+22. (the train CLI's smoke run, with its check that the final loss is
+    below the first, is part of phase 35);
 23. checks that kernel 11's entry points raise under grad on the card
     (training takes the chunked path) and run under ``no_grad``;
 24. runs the ssm and hybrid families (phase ``ssm``): mamba2-780m (48
@@ -193,7 +193,7 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     full width and depth from seed 0 in bf16: ``Model.loss_fn`` at B=2,
     S=2048 (finite, walls, one profiled call with its bf16 and f32 GEMM
     time, one layer's attention and MLP timed apart), the full-sequence
-    logits against 128 ``decode_fn`` steps in bf16 and with f32 weights
+    logits against 64 ``decode_fn`` steps in bf16 and with f32 weights
     (rel <= 0.05 in both), ``serve --arch minicpm3-4b``; the smoke config
     with f32 weights on the card and on the CPU through the chunked and
     the dense route (losses within rel 1e-5: no TF32); then phase 19's
@@ -406,7 +406,40 @@ It drives ``repro_torch`` only (no JAX, nothing of the ``repro`` package):
     plans say.  Printed: the buckets, each process's warm step wall, gloo
     staging, peak memory.  Its kernels 1, 3 and 4 counts (the four
     processes' first 3 steps) go into the kernels line, replacing phase
-    32's.
+    32's;
+35. runs the train CLI on a ``DistMesh`` (phase ``train-cli``):
+    ``launch.train.train`` in children of this script (``--train-cli-child``,
+    started with ``sys.executable``) given torchrun's variables (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``MASTER_ADDR``,
+    ``MASTER_PORT``), each capped at 0.23 of the card.  First phase 19's
+    cell through the CLI (internlm2-20b at every published width, 48 -> 2
+    layers by ``registry.get`` cut in the child, seed 0, ``--batch 4 --seq
+    512 --grad-gz ring --eb 1e-4 --steps 3 --dist-backend gloo``): four
+    processes, a gloo ``DistMesh((4, 1))`` on the one card, the weights
+    sharded over ``data`` (exact FSDP gathers and reduce-scatters on the
+    in-backward route), the replicated leaves' ring sync through kernels
+    1-4 (at 4 ranks the ring hops).  Checks: every process's losses,
+    gnorms and lrs equal by bits at every step and finite, its printed
+    lines equal but for the wall field; step 0's loss within rel 1e-6 of
+    the one-rank loss of the same weights and first batch (forward only,
+    in this process); no sync flagged; kernels 1-4 launched per process
+    over the steps as the replicated leaves' allreduce plans say; at step
+    0 the synced ``final_norm`` (replicated under FSDP) equal by bits on
+    every process, within the ring allreduce's bound of the exact
+    rank-order sum of the four processes' gradients, and equal by bits to
+    the same sync again on the host (the plain versions, over the same
+    ``DistMesh``).  Printed per
+    process: each step's wall, gloo staging (ms and bytes) and peak
+    memory, the staged share of the warm steps.  Then the smoke CLI
+    (phase 22's argv, 12 steps, ``--ckpt-every 6``): four gloo processes
+    against the ``ThreadMesh`` route in this process with the device count
+    taken as 4 (data 4, ``FsdpStep``), and one NCCL process at world size 1
+    against the one-rank ``ThreadMesh`` route: losses equal by bits,
+    checkpoints equal file by file, every final loss below its first.  A
+    child that fails or outlives its timeout fails the phase and the
+    others are killed.  Its kernels 1-4 counts (the full-width run's four
+    processes over its 3 steps) go into the kernels line, replacing phase
+    34's.
 
 Every collective run starts with the launch counts at 0 and must launch
 each kernel exactly as often as its schedule says, stay within its error
@@ -415,10 +448,11 @@ purpose and are held by bits to the lossless result instead).
 
 ``--phases`` takes a comma list of ``kernels`` (2-3, 8), ``allreduce`` (4),
 ``movers`` (5-7), ``codecs`` (9), ``grad-sync`` (10-11), ``faults`` (12),
-``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-23), ``ssm``
+``hier`` (13), ``c6`` (14), ``model`` (15-18), ``train`` (19-21, 23), ``ssm``
 (24), ``mla`` (25), ``moe`` (26), ``encdec`` (27), ``vlm`` (28), ``fsdp``
 (29), ``tp`` (30), ``tp-families`` (31), ``tp-train`` (32), ``cp-decode``
-(33) and ``overlap`` (34); a partial run prints no result lines.
+(33), ``overlap`` (34) and ``train-cli`` (35); a partial run prints no
+result lines.
 
 The third-to-last line is the card's ``nvidia-smi`` name and power
 limit, the second-to-last one JSON object with a record per kernel, the
@@ -3461,7 +3495,7 @@ def run_model(device):
 
 
 # ---------------------------------------------------------------------------
-# Phases 19-23: the training path
+# Phases 19-21 and 23: the training path
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "internlm2-20b"  # src/repro/configs/internlm2_20b.py, every width as published
@@ -3827,23 +3861,6 @@ def check_train_skip(device):
         f"{float(m2['loss']):.6f}, step count {int(opt[0]['step'])})")
 
 
-def check_train_cli(device):
-    """Phase 22: ``repro_torch.launch.train.train`` on the card (smoke
-    config, 12 steps, ring): its final loss below its first."""
-    import io
-
-    from repro_torch.launch.train import train
-
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        losses, wall = _timed(lambda: train(TRAIN_CLI_ARGV + ["--device", str(device)]))
-    for line in out.getvalue().splitlines():
-        log(f"train cli: {line}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train cli: final loss {losses[-1]} not below {losses[0]}")
-    log(f"train cli: {len(losses)} steps in {wall:.2f} s")
-
-
 def check_flash_under_grad(device):
     """Phase 23: kernel 11's entry points raise under grad on the card,
     naming the chunked path; under ``no_grad`` the same call runs."""
@@ -3875,13 +3892,12 @@ def check_flash_under_grad(device):
 
 
 def run_train(device):
-    """Phases 19-23 (module docstring).  Returns the kernels' launches of
-    phase 19's steps."""
+    """Phases 19-21 and 23 (module docstring).  Returns the kernels'
+    launches of phase 19's steps."""
     t0 = time.perf_counter()
     launches = run_train_full_width(device)
     check_train_sync_vs_cpu(device)
     check_train_skip(device)
-    check_train_cli(device)
     check_flash_under_grad(device)
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -4078,7 +4094,7 @@ MLA_ARCH = "minicpm3-4b"
 MLA_PARAMS = 4_263_272_960
 MLA_SMOKE = False
 MLA_BATCH, MLA_SEQ = 2, 2048  # two latent chunks of mla_chunk 1024
-MLA_PREFILL_SEQ = 128  # one chunk: the whole cache
+MLA_PREFILL_SEQ = 64  # one chunk: the whole cache (128 until PR 38: room for train-cli)
 MLA_F32_SEQ = 320
 MLA_F32_CHUNKS = (128, 0)  # three chunks, the last padded; the dense route
 MLA_F32_TOL = 1e-5
@@ -4919,7 +4935,9 @@ def _fsdp_plan_launches(setup, sizes, device, regather=False):
     from repro_torch.models.parallel import torch_dtype
 
     n = sizes["data"]
-    comm = _fsdp_comm(setup.ctx.fsdp_sync, n, device)
+    # no fsdp_sync: exact gathers and reduce-scatters, which launch no kernel
+    sync = setup.ctx.fsdp_sync
+    comm = None if sync is None else _fsdp_comm(sync, n, device)
     gcomm = dict(setup.grad_comms).get("data")
     specs = training._leaf_specs(setup.defs, setup.specs)
     total = dict.fromkeys(_launches(), 0)
@@ -4932,7 +4950,7 @@ def _fsdp_plan_launches(setup, sizes, device, regather=False):
             total[k] += times * v
 
     paths = _leaf_paths(setup.defs)
-    for leaf, _, uses, shape in _fsdp_uses(setup):
+    for leaf, _, uses, shape in _fsdp_uses(setup) if comm is not None else ():
         gathered = math.prod(shape) * n // split(specs[leaf])  # the rank's gathered slice
         recomputed = regather and setup.ctx.remat != "none" and \
             paths[leaf][0] in ("blocks", "enc_blocks")
@@ -6459,22 +6477,22 @@ def _tp_train_smoke_step(setup, args):
     return float(loss) / scale, [g.detach() for g in tree_flatten(grads)[0]]
 
 
-def _tp_train_reference_loss(device, smoke):
-    """tp 1's loss of the phase's global weights and first batch, forward
-    only (the chunked attention the train step takes), then freed."""
+def _tp_train_reference_loss(device, cfg, batch=TRAIN_BATCH):
+    """tp 1's loss of ``cfg``'s global weights from ``SEED`` and first
+    batch of ``batch`` x ``TRAIN_SEQ`` tokens, forward only (the chunked
+    attention the train step takes), then freed."""
     import torch
 
     from repro_torch.data.pipeline import SyntheticStream
     from repro_torch.models.model import Model
     from repro_torch.models.parallel import init_params
 
-    cfg = _tp_train_cfg(smoke)
     model = Model(cfg, params={}, device=device)
     whole = init_params(model.param_defs(), torch.Generator(device=device).manual_seed(SEED),
                         device)
-    batch = next(SyntheticStream(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED))
+    tokens = next(SyntheticStream(cfg, batch, TRAIN_SEQ, seed=SEED))
     with torch.no_grad():
-        loss = float(Model(cfg, params=whole, device=device).loss_fn(whole, batch))
+        loss = float(Model(cfg, params=whole, device=device).loss_fn(whole, tokens))
     del whole, model
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -6489,24 +6507,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _tp_train_processes(device, out_dir, smoke, overlap=False):
-    """Start one child a rank (``sys.executable`` on this script, never a
-    fork) and wait for all of them; a child that fails or outlives
-    ``TP_TRAIN_TIMEOUT`` fails the phase, the others are killed and its
-    log's tail printed.  Returns the wall seconds."""
-    n = math.prod(TP_TRAIN_MESH)
-    port = _free_port()
+def _run_children(argvs, out_dir, timeout, tag, envs=None):
+    """Start one child per argument list (``sys.executable`` on this
+    script, never a fork; ``envs`` their environments) and wait for all
+    of them; a child that fails or outlives ``timeout`` fails the phase,
+    the others are killed (none is left waiting in a gloo call for a peer
+    that died) and a failed child's log's tail printed.  Returns the wall
+    seconds."""
+    n = len(argvs)
+    envs = envs or [None] * n
     logs = [open(os.path.join(out_dir, f"log{r}.txt"), "w") for r in range(n)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-train-child",
-                               str(r), str(port), out_dir, str(device), str(int(smoke)),
-                               str(int(overlap))],
-                              stdout=logs[r], stderr=subprocess.STDOUT)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *argvs[r]],
+                              stdout=logs[r], stderr=subprocess.STDOUT, env=envs[r])
              for r in range(n)]
     t0 = time.perf_counter()
     failed = None
     try:
         while failed is None and any(p.poll() is None for p in procs):
-            if time.perf_counter() - t0 > TP_TRAIN_TIMEOUT:
+            if time.perf_counter() - t0 > timeout:
                 failed = next(r for r, p in enumerate(procs) if p.poll() is None)
                 break
             failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
@@ -6523,34 +6541,45 @@ def _tp_train_processes(device, out_dir, smoke, overlap=False):
     if failed is not None:
         with open(os.path.join(out_dir, f"log{failed}.txt")) as f:
             tail = f.read()[-6000:]
-        raise AssertionError(f"tp-train: rank {failed} failed (exit {procs[failed].returncode}, "
+        raise AssertionError(f"{tag}: child {failed} failed (exit {procs[failed].returncode}, "
                              f"{time.perf_counter() - t0:.1f} s); its log's tail:\n{tail}")
     return time.perf_counter() - t0
 
 
-def _run_processes(device, smoke, overlap=False):
-    """The phase's four children (``_tp_train_processes``), started once
-    this process has handed back the card memory it no longer uses (the
-    children share the card with it): the wall seconds, each rank's JSON
-    and, in the tp-train phase, its smoke npz."""
+def _hand_back_card(device, tag):
+    """Return this process's cached card memory before children that share
+    the card start; log what is free."""
     import gc
-    import shutil
-    import tempfile
 
-    import numpy as np
     import torch
 
     if device.type == "cuda":
         gc.collect()
         torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info(device)
-        log(f"{'overlap' if overlap else 'tp-train'}: {free / 2 ** 30:.2f} of "
-            f"{total / 2 ** 30:.2f} GiB of the card free before the children start "
-            f"({torch.cuda.memory_reserved(device) / 2 ** 30:.2f} GiB held here)")
+        log(f"{tag}: {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB of the card free before "
+            f"the children start ({torch.cuda.memory_reserved(device) / 2 ** 30:.2f} GiB held "
+            f"here)")
+
+
+def _run_processes(device, smoke, overlap=False):
+    """The phase's four children (``_run_children``, one a rank), started once
+    this process has handed back the card memory it no longer uses (the
+    children share the card with it): the wall seconds, each rank's JSON
+    and, in the tp-train phase, its smoke npz."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    _hand_back_card(device, "overlap" if overlap else "tp-train")
     n = math.prod(TP_TRAIN_MESH)
     out_dir = tempfile.mkdtemp(prefix="overlap_" if overlap else "tp_train_")
     try:
-        wall = _tp_train_processes(device, out_dir, smoke, overlap)
+        port = _free_port()
+        wall = _run_children([["--tp-train-child", str(r), str(port), out_dir, str(device),
+                               str(int(smoke)), str(int(overlap))] for r in range(n)],
+                             out_dir, TP_TRAIN_TIMEOUT, "overlap" if overlap else "tp-train")
         ranks = []
         for r in range(n):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -6638,7 +6667,7 @@ def run_tp_train(device, records):
     smoke = TP_TRAIN_SMOKE
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    ref_loss = _tp_train_reference_loss(device, smoke)
+    ref_loss = _tp_train_reference_loss(device, _tp_train_cfg(smoke))
     cfg = _tp_train_cfg(smoke)
     log(f"tp-train {_widths(cfg)} as published; n_layers cut 48 -> {cfg.n_layers}; mesh "
         f"(data, model) {TP_TRAIN_MESH}: {math.prod(TP_TRAIN_MESH)} processes on one card over "
@@ -6926,9 +6955,396 @@ def run_cp_decode(device, records):
         f"times, each within FLASH_TOL of its plain version")
 
 
+# ---------------------------------------------------------------------------
+# Phase 35: the training CLI on a DistMesh
+# ---------------------------------------------------------------------------
+
+# the train cell (internlm2-20b, every published width, depth 48 -> 2, the
+# replicated leaves' sync ring at eb 1e-4) through the CLI: one process a
+# rank of (data 4, model 1) under torchrun's variables, the card shared
+# over gloo (NCCL puts no two ranks on one card, C24), each process capped
+# at TP_TRAIN_MEMORY_FRACTION of it
+TRAIN_CLI_RANKS = 4
+TRAIN_CLI_FULL_ARGV = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+                       str(TRAIN_CLI_RANKS), "--seq", str(TRAIN_SEQ), "--grad-gz", "ring",
+                       "--eb", str(TRAIN_EB), "--dist-backend", "gloo"]
+TRAIN_CLI_SYNC_LEAF = ("final_norm",)  # replicated under FSDP: the data ring syncs it
+TRAIN_CLI_LOSS_RTOL = 1e-6  # step 0's loss against the one-rank loss (measured 0.0 on the H100)
+TRAIN_CLI_CKPT_EVERY = 6  # of TRAIN_CLI_ARGV's 12 steps: two checkpoints
+TRAIN_CLI_TIMEOUT = 480  # seconds, a run's children together
+TRAIN_CLI_SMOKE = False  # internlm2-20b's smoke config in the full-width run (a CPU rehearsal)
+
+
+def _rank_env(rank, world, port):
+    """torchrun's variables for ``rank`` of a one-host world of ``world``."""
+    return {**os.environ, "RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def _train_cli_child(out_path, cut, argv):
+    """One process of the train-cli phase, under torchrun's variables:
+    its share of the card, then ``launch.train.train(argv)`` (with ``cut``,
+    ``registry.get`` cut to ``TRAIN_LAYERS``), the kernels' launches
+    counted from 0 around it.  Writes ``out_path`` (JSON): the losses,
+    each step's metrics by their bits, wall, gloo staging and peak memory,
+    the printed lines, the launches against the plans', the syncs
+    flagged, and ``TRAIN_CLI_SYNC_LEAF``'s step-0 sync (``_cli_sync_leaf``),
+    its input and output gradient beside it (``.npz``)."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train as cli
+    from repro_torch.launch import training
+
+    cuda = torch.device(argv[argv.index("--device") + 1]).type == "cuda"
+    if cuda:
+        torch.cuda.set_per_process_memory_fraction(
+            TP_TRAIN_MEMORY_FRACTION, int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+    steps, kept = [], {}
+    real = cli.make_train_step
+
+    def keeping(setup, bspecs):
+        step = real(setup, bspecs)
+        kept["setup"] = setup
+
+        def run(params, opt, batch):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            staged0, t0 = setup.mesh.staged(), time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            staged = [a - b for a, b in zip(setup.mesh.staged(), staged0)]
+            steps.append({
+                "metrics": {k: float(m[k]) for k in ("loss", "gnorm", "lr")},
+                "bits": {k: int(np.float32(float(m[k])).view(np.int32))
+                         for k in ("loss", "gnorm", "lr")},
+                "wall_s": time.perf_counter() - t0, "staged_bytes": int(staged[0]),
+                "staged_s": float(staged[1]),
+                "peak_bytes": int(torch.cuda.max_memory_allocated()) if cuda else 0})
+            if record.pop("keep_leaf", False):
+                record["keep_args"] = False
+                kept["leaf"] = _cli_sync_leaf(setup, record)
+            return params, opt, m
+
+        return run
+
+    cli.make_train_step = keeping
+    record = {"degraded": [], "check_leaf": TRAIN_CLI_SYNC_LEAF, "keep_leaf": True,
+              "keep_args": True, "leaf": {}, "args": {}}
+    out = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if cut:
+            stack.enter_context(_registry_cut(TRAIN_ARCH, TRAIN_LAYERS))
+        stack.enter_context(_watched_sync(record))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        losses = cli.train(argv)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    setup = kept["setup"]
+    sizes = training.mesh_axis_sizes(setup.mesh)
+    want = {k: v * len(steps) for k, v in
+            _fsdp_plan_launches(setup, sizes, setup.mesh.device, regather=True).items()}
+    print(out.getvalue(), end="")
+    leaf, grads = kept["leaf"]
+    np.savez(out_path[:-len(".json")] + ".npz", **grads)
+    with open(out_path, "w") as f:
+        json.dump({"rank": int(os.environ["RANK"]), "mesh": sizes, "losses": losses,
+                   "steps": steps, "lines": out.getvalue().splitlines(), "wall_s": wall,
+                   "launches": launches, "want": want,
+                   "launches_ok": launches == want or not cuda,
+                   "flagged": sum(bool(d) for d in record["degraded"]), "sync_leaf": leaf}, f)
+
+
+def _cli_sync_leaf(setup, record):
+    """Step 0's sync of ``TRAIN_CLI_SYNC_LEAF`` in one process of the
+    train-cli phase (``_watched_sync``'s record): the same sync again on
+    the host (the plain versions: CPU communicators of the same plans,
+    over the same ``DistMesh``), its output's elements that differ by bits
+    from the card's, the allreduce plan's error terms and flag; and the
+    rank's input and output gradient in f32 (``in``, ``out``) for the
+    parent to hold against the exact rank-order sum.  (None, {}) over
+    NCCL, which carries no host tensor to replay."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import error_budget
+    from repro_torch.launch import training
+
+    rank = setup.mesh.rank
+    g, synced = record["leaf"].pop(rank)
+    grads, specs, mesh_axes, grad_comms = record["args"].pop(rank)
+    if dist.get_backend() != "gloo":
+        return None, {}
+    leaf = grads
+    for k in TRAIN_CLI_SYNC_LEAF:
+        leaf, specs = leaf[k], specs[k]
+    dtype = leaf.dtype
+    del grads, leaf
+    cpu_comms = {ax: _cpu_comm(c) for ax, c in grad_comms.items() if c is not None}
+    ((host, degraded),) = setup.mesh.run(
+        lambda x: record["real"]({"x": x}, {"x": specs}, mesh_axes, cpu_comms),
+        [g.to(dtype).cpu()])
+    host = host["x"].float()
+    mism = int((host.view(torch.int32) != synced.cpu().view(torch.int32)).sum())
+    plan = grad_comms["data"].plan("allreduce", tuple(g.shape), dtype)
+    return ({"shape": list(g.shape), "dtype": str(dtype), "host_mism": mism,
+             "host_flagged": bool(degraded), "algo": plan.algo, "chunks": plan.pipeline_chunks,
+             "eb_stage": plan.eb_stage,
+             "hops": error_budget.lossy_hops(f"allreduce_{plan.algo}",
+                                             training.mesh_axis_sizes(setup.mesh)["data"])},
+            {"in": g.cpu().numpy(), "out": synced.cpu().numpy()})
+
+
+def _train_cli_runs(jobs, tag):
+    """Run ``jobs`` ([(cut, argv, env)]) as children of this script
+    together; each child's JSON in job order, its synced leaf's input and
+    output gradient under ``grads``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    out_dir = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        argvs = [["--train-cli-child", os.path.join(out_dir, f"cli{j}.json"), str(int(cut)),
+                  *argv] for j, (cut, argv, _) in enumerate(jobs)]
+        wall = _run_children(argvs, out_dir, TRAIN_CLI_TIMEOUT, tag,
+                             [env for _, _, env in jobs])
+        ranks = []
+        for j in range(len(jobs)):
+            with open(os.path.join(out_dir, f"cli{j}.json")) as f:
+                ranks.append(json.load(f))
+            with np.load(os.path.join(out_dir, f"cli{j}.npz")) as z:
+                ranks[-1]["grads"] = {k: z[k] for k in z.files}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return wall, ranks
+
+
+def _no_wall(line):
+    return re.sub(r"\(\d+\.\ds\)$", "(wall)", line)
+
+
+def _check_cli_processes(ranks, tag, flags=True):
+    """Every process's metrics equal by bits at every step and finite,
+    its printed lines equal but for the wall field, launches as the plans
+    say and, with ``flags``, no sync flagged (the smoke config's norms
+    overflow the ring's capacity at 4 ranks: a chunk of 32 elements
+    padded to its 256-element block; their fallback is exact)."""
+    for rk in ranks:
+        if [st["bits"] for st in rk["steps"]] != [st["bits"] for st in ranks[0]["steps"]]:
+            raise AssertionError(f"{tag}: process {rk['rank']}'s metrics differ from process "
+                                 f"0's")
+        if [_no_wall(x) for x in rk["lines"]] != [_no_wall(x) for x in ranks[0]["lines"]]:
+            raise AssertionError(f"{tag}: process {rk['rank']} printed other lines:\n"
+                                 + "\n".join(rk["lines"]))
+        finite = all(math.isfinite(x) for x in rk["losses"])
+        if not finite or (flags and rk["flagged"]) or not rk["launches_ok"]:
+            raise AssertionError(f"{tag} process {rk['rank']}: losses {rk['losses']}, "
+                                 f"{rk['flagged']} syncs flagged, launches "
+                                 f"{_nonzero(rk['launches'])} against the plans' "
+                                 f"{_nonzero(rk['want'])}")
+    for line in ranks[0]["lines"]:
+        log(f"{tag}: {line}")
+
+
+def _check_cli_sync_leaf(ranks, tag, flagged=False):
+    """``TRAIN_CLI_SYNC_LEAF``'s step-0 sync in every process
+    (``_cli_sync_leaf``): the synced leaf equal by bits on every process
+    and to its replay on the host, the same flag on the host as on the
+    card, and within the allreduce's bound of the exact rank-order sum of
+    the processes' inputs (its lossy hops' ``eb_stage``, then the cast of
+    the f32 result to the leaf's dtype).  With ``flagged`` (the smoke
+    config's norms overflow the ring at 4 ranks) the fallback's exact sum
+    instead of the ring's."""
+    import numpy as np
+
+    leaf = ranks[0]["sync_leaf"]
+    exact = sum(rk["grads"]["in"].astype(np.float64) for rk in ranks)
+    rounding = 2.0 ** -8 if leaf["dtype"] == "torch.bfloat16" else 2.0 ** -23
+    bound = leaf["hops"] * leaf["eb_stage"] + rounding * float(np.abs(exact).max())
+    out0 = ranks[0]["grads"]["out"]
+    for rk in ranks:
+        out = rk["grads"]["out"]
+        err = float(np.abs(out.astype(np.float64) - exact).max())
+        if (rk["sync_leaf"]["host_mism"] or rk["sync_leaf"]["host_flagged"] != flagged
+                or out.tobytes() != out0.tobytes() or not err <= bound):
+            raise AssertionError(f"{tag} process {rk['rank']}: synced "
+                                 f"{'.'.join(TRAIN_CLI_SYNC_LEAF)} error {err} (bound {bound}), "
+                                 f"{rk['sync_leaf']['host_mism']} elements differ from the "
+                                 f"host's replay, flagged {rk['sync_leaf']['host_flagged']} "
+                                 f"(want {flagged}), or it differs from process 0's")
+    log(f"{tag}: synced {'.'.join(TRAIN_CLI_SYNC_LEAF)} {tuple(leaf['shape'])} "
+        f"{leaf['dtype']} at step 0: max error {err:.3e} vs the exact rank-order sum of the "
+        f"{len(ranks)} processes' gradients, bound {bound:.3e} (plan {leaf['algo']}/"
+        f"{leaf['chunks']}, {leaf['hops']} lossy hops, eb_stage {leaf['eb_stage']:.3e}"
+        f"{', flagged: the exact fallback' if flagged else ''}); equal by bits on every "
+        f"process and to its replay on the host (the plain versions)")
+
+
+def _threadmesh_cli(argv, device_count):
+    """The CLI's ``ThreadMesh`` route in this process, the host's device
+    count taken as ``device_count`` (as ``tests/test_torch_train.py``
+    takes it): its losses."""
+    import io
+
+    from repro_torch.launch import train as cli
+
+    real = cli._device_count
+    cli._device_count = lambda device: device_count
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            return cli.train(argv)
+    finally:
+        cli._device_count = real
+
+
+def _same_files(a, b):
+    """The number of files under ``a``, each equal by bytes to its
+    namesake under ``b``, and none of ``b``'s missing."""
+    def names(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    if names(a) != names(b):
+        raise AssertionError(f"checkpoints {a} and {b} hold other files")
+    for n in names(a):
+        with open(os.path.join(a, n), "rb") as x, open(os.path.join(b, n), "rb") as y:
+            if x.read() != y.read():
+                raise AssertionError(f"checkpoint file {n} differs between {a} and {b}")
+    return len(names(a))
+
+
+def _loss_bits(losses):
+    import numpy as np
+
+    return [int(np.float32(x).view(np.int32)) for x in losses]
+
+
+def run_train_cli(device, records):
+    """Phase 35 (module docstring).  Sets the kernels line's launches of
+    kernels 1-4 (the full-width run's four processes over its steps)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+
+    t0 = time.perf_counter()
+    dev = ["--device", str(device)]
+    smoke = TRAIN_CLI_SMOKE
+    cfg = registry.get(TRAIN_ARCH, smoke=smoke)
+    if not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ref_loss = _tp_train_reference_loss(device, cfg, batch=TRAIN_CLI_RANKS)
+    _hand_back_card(device, "train-cli")
+    log(f"train-cli {_widths(cfg)}; n_layers cut 48 -> {cfg.n_layers}; `launch.train.train` "
+        f"in {TRAIN_CLI_RANKS} processes under torchrun's variables, a gloo DistMesh "
+        f"({TRAIN_CLI_RANKS}, 1) on the one card, each capped at {TP_TRAIN_MEMORY_FRACTION} "
+        f"of it; argv {' '.join(TRAIN_CLI_FULL_ARGV)}; tp 1's loss of the same weights and "
+        f"first batch {ref_loss:.6f} ({time.perf_counter() - t0:.1f} s)")
+    port = _free_port()
+    argv = TRAIN_CLI_FULL_ARGV + dev + (["--smoke"] if smoke else [])
+    wall, ranks = _train_cli_runs([(not smoke, argv, _rank_env(r, TRAIN_CLI_RANKS, port))
+                                   for r in range(TRAIN_CLI_RANKS)], "train-cli")
+    _check_cli_processes(ranks, "train-cli", flags=not smoke)
+    if ranks[0]["mesh"] != {"data": TRAIN_CLI_RANKS, "model": 1}:
+        raise AssertionError(f"train-cli: mesh {ranks[0]['mesh']}")
+    loss0 = ranks[0]["losses"][0]
+    gap = abs(loss0 - ref_loss) / abs(ref_loss)
+    if not gap <= TRAIN_CLI_LOSS_RTOL:
+        raise AssertionError(f"train-cli: step 0's loss {loss0} is {gap:.3e} from the one-rank "
+                             f"loss {ref_loss} (bound {TRAIN_CLI_LOSS_RTOL})")
+    _check_cli_sync_leaf(ranks, "train-cli", flagged=smoke)
+    total = dict.fromkeys(_launches(), 0)
+    for rk in ranks:
+        for k, v in rk["launches"].items():
+            total[k] += v
+        warm = rk["steps"][1:]
+        log(f"train-cli process {rk['rank']}: steps "
+            + ", ".join(f"{st['wall_s'] * 1e3:.1f}" for st in rk["steps"])
+            + " ms (step 0 cold); gloo staging "
+            + ", ".join(f"{st['staged_s'] * 1e3:.1f} ms / {st['staged_bytes'] / 1e9:.3f} GB"
+                        for st in rk["steps"])
+            + f"; staged share of the warm steps "
+            f"{sum(st['staged_s'] for st in warm) / sum(st['wall_s'] for st in warm):.3f}; "
+            f"peak {max(st['peak_bytes'] for st in rk['steps']) / 1e9:.2f} GB "
+            f"(torch.cuda.max_memory_allocated, a step); launches {_nonzero(rk['launches'])} "
+            f"(the plans' {_nonzero(rk['want'])}); the CLI {rk['wall_s']:.1f} s")
+    log(f"train-cli: step 0's loss {loss0:.6f} is {gap:.3e} from the one-rank loss (bound "
+        f"{TRAIN_CLI_LOSS_RTOL}); the {len(ranks)} processes' losses, gnorms and lrs equal by bits "
+        f"at every step, their lines equal but for the wall; {wall:.1f} s in the processes")
+
+    # the smoke CLI: four gloo processes against the ThreadMesh route with
+    # data 4, one NCCL process (world 1) against the one-rank ThreadMesh
+    # route; losses and checkpoints by bits
+    tmp = tempfile.mkdtemp(prefix="train_cli_ckpt_")
+    try:
+        dirs = {k: os.path.join(tmp, k) for k in ("thread4", "thread1", "dist4", "dist1")}
+
+        def smoke_argv(key):
+            return TRAIN_CLI_ARGV + dev + ["--ckpt-every", str(TRAIN_CLI_CKPT_EVERY),
+                                           "--ckpt-dir", dirs[key]]
+
+        port4, port1 = _free_port(), _free_port()
+        # NCCL on the card; the CPU rehearsal has none
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        jobs = [(False, smoke_argv("dist4") + ["--dist-backend", "gloo"],
+                 _rank_env(r, TRAIN_CLI_RANKS, port4)) for r in range(TRAIN_CLI_RANKS)]
+        jobs.append((False, smoke_argv("dist1") + ["--dist-backend", backend],
+                     _rank_env(0, 1, port1)))
+        wall_smoke, smokes = _train_cli_runs(jobs, "train-cli smoke")
+        t1 = time.perf_counter()
+        thread4 = _threadmesh_cli(smoke_argv("thread4"), TRAIN_CLI_RANKS)
+        thread1 = _threadmesh_cli(smoke_argv("thread1"), 1)
+        t_thread = time.perf_counter() - t1
+        _check_cli_processes(smokes[:TRAIN_CLI_RANKS], "train-cli smoke", flags=False)
+        for rk, want, what in [(rk, thread4, "the ThreadMesh route at data 4")
+                               for rk in smokes[:TRAIN_CLI_RANKS]] + \
+                [(smokes[-1], thread1, "the one-rank ThreadMesh route")]:
+            if _loss_bits(rk["losses"]) != _loss_bits(want):
+                raise AssertionError(f"train-cli smoke: process {rk['rank']} of mesh "
+                                     f"{rk['mesh']}: losses {rk['losses']} differ from "
+                                     f"{what}'s {want}")
+        for losses in (thread4, thread1, smokes[0]["losses"], smokes[-1]["losses"]):
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"train-cli smoke: final loss {losses[-1]} not below "
+                                     f"{losses[0]}")
+        files4 = _same_files(dirs["dist4"], dirs["thread4"])
+        files1 = _same_files(dirs["dist1"], dirs["thread1"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"train-cli smoke ({' '.join(TRAIN_CLI_ARGV)}, --ckpt-every {TRAIN_CLI_CKPT_EVERY}): "
+        f"{TRAIN_CLI_RANKS} gloo processes, mesh {smokes[0]['mesh']}, losses equal by bits to "
+        f"the ThreadMesh route's at data 4 (on the card through FsdpStep, C6), {files4} "
+        f"checkpoint files equal by bytes; final loss {thread4[-1]:.6f} below the first "
+        f"{thread4[0]:.6f}")
+    log(f"train-cli smoke: one {backend} process at world size 1 (the first NCCL process group "
+        f"on a card, C10; one rank, no multi-rank figure), mesh {smokes[-1]['mesh']}, losses "
+        f"equal by bits to the one-rank ThreadMesh route's, {files1} checkpoint files equal by "
+        f"bytes; final loss {thread1[-1]:.6f} below the first {thread1[0]:.6f}; the "
+        f"processes {wall_smoke:.1f} s, then the ThreadMesh runs {t_thread:.1f} s")
+    for name in ("quantize_pack", "unpack_reduce_repack", "unpack_dequantize_reduce",
+                 "unpack_dequantize"):
+        _record(records, name)["launches"] = total[name]
+    log(f"train-cli phase: {time.perf_counter() - t0:.1f} s; kernels over {TRAIN_STEPS} steps "
+        f"and {len(ranks)} processes {_nonzero(total)}")
+
+
 PHASES = ("kernels", "allreduce", "movers", "codecs", "grad-sync", "faults", "hier", "c6",
           "model", "train", "ssm", "mla", "moe", "encdec", "vlm", "fsdp", "tp",
-          "tp-families", "tp-train", "cp-decode", "overlap")
+          "tp-families", "tp-train", "cp-decode", "overlap", "train-cli")
 
 
 def _record(records, name):
@@ -6942,6 +7358,10 @@ def main(argv=()) -> int:
         sys.path.insert(0, str(SRC))
         rank, port, out_dir, device, smoke, overlap = argv[1:7]
         _tp_train_child(int(rank), int(port), out_dir, device, smoke == "1", overlap == "1")
+        return 0
+    if argv and argv[0] == "--train-cli-child":  # one process of phase 35
+        sys.path.insert(0, str(SRC))
+        _train_cli_child(argv[1], argv[2] == "1", list(argv[3:]))
         return 0
     phases = set(argv[argv.index("--phases") + 1].split(",")) if "--phases" in argv \
         else set(PHASES)
@@ -7131,6 +7551,13 @@ def main(argv=()) -> int:
         # allreduces, the FSDP gathers and reduce-scatters); its counts
         # replace the tp-train phase's.
         run_overlap(device, records)
+
+    if "train-cli" in phases:
+        # This slice's main path: the train CLI under torchrun's variables,
+        # one process a rank of a gloo DistMesh on the card, the replicated
+        # leaves' ring sync (kernels 1-4: at data 4 the ring hops); its
+        # counts replace the overlap phase's.
+        run_train_cli(device, records)
 
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t0:.1f} s "
         f"(the kernel build included)")

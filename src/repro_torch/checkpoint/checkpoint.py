@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.transport import resolve_device
 
-__all__ = ["save", "restore", "latest_step"]
+__all__ = ["save", "restore", "latest_step", "step_dir"]
 
 
 def _paths(tree, prefix=()):
@@ -53,10 +53,15 @@ def _rebuild(tree, leaves: dict, prefix=()):
     return leaves[prefix]
 
 
+def step_dir(ckpt_dir: str, step: int) -> str:
+    """The directory of checkpoint ``step`` under ``ckpt_dir``."""
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
 def save(ckpt_dir: str, step: int, tree) -> str:
     """Write ``tree`` (tensors, or anything ``np.asarray`` takes) as
     checkpoint ``step``; returns its directory."""
-    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    d = step_dir(ckpt_dir, step)
     os.makedirs(d, exist_ok=True)
     manifest = {}
     for path, leaf in _paths(tree):
@@ -93,7 +98,7 @@ def restore(ckpt_dir: str, step: int, like, device="cuda"):
     tensors on ``device`` (CUDA without a card raises).  A leaf whose
     shape differs from ``like``'s raises."""
     device = resolve_device(device)
-    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    d = step_dir(ckpt_dir, step)
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)["leaves"]
     out = {}
